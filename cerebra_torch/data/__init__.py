@@ -9,4 +9,4 @@ from cerebra_torch.data.schema import (  # noqa: F401
 )
 from cerebra_torch.data.corpus import EEGCorpus  # noqa: F401
 from cerebra_torch.data.synthetic import make_synthetic_corpus  # noqa: F401
-from cerebra_torch.data.sampling import random_split_indices  # noqa: F401
+from cerebra_torch.data.sampling import epoch_batches, random_split_indices  # noqa: F401

@@ -29,18 +29,21 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exported)
+    LAUNCHES,
+    check_rc,
+    load_lib,
+    on_cuda,
+    reset_launches,
+)
+
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
-LAUNCHES = {"fwd_train": 0, "bwd": 0, "fwd_infer_last": 0, "bwd_reduce": 0}
+LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, bwd_reduce=0)
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _TILES = (16, 8, 4, 2, 1)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ------------------------------------------------------------------ checks
@@ -73,17 +76,6 @@ def _dims(x: torch.Tensor, layers: Layers) -> Tuple[int, int, int, int, int]:
                     f"got {w.dtype} on {w.device}"
                 )
     return T, B, C, H, L
-
-
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on anything else."""
-    dev = tensors[0].device
-    if dev.type not in ("cuda", "cpu"):
-        raise RuntimeError(f"no LSTM stack implementation for device {dev}")
-    for t in tensors:
-        if t.device != dev:
-            raise RuntimeError(f"tensors on {dev} and {t.device}")
-    return dev.type == "cuda"
 
 
 # ---------------------------------------------------------- plain versions
@@ -184,28 +176,18 @@ def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf) -> List[Tuple[torch.Tensor
 
 
 # ------------------------------------------------------------ CUDA kernels
+def _typed(lib) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.cerebra_lstm_fwd.argtypes = [i, i, i] + [vp] * 9 + [i] * 5 + [vp]
+    lib.cerebra_lstm_fwd.restype = i
+    lib.cerebra_lstm_bwd.argtypes = [i, i] + [vp] * 8 + [i] * 5 + [vp]
+    lib.cerebra_lstm_bwd.restype = i
+    lib.cerebra_reduce_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
+    lib.cerebra_reduce_partials.restype = i
+
+
 def _lib():
-    from cerebra_torch.kernels import _build
-
-    lib = _build.load("lstm_stack")
-    if not getattr(lib, "_cerebra_typed", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.cerebra_lstm_fwd.argtypes = [i, i, i] + [vp] * 9 + [i] * 5 + [vp]
-        lib.cerebra_lstm_fwd.restype = i
-        lib.cerebra_lstm_bwd.argtypes = [i, i] + [vp] * 8 + [i] * 5 + [vp]
-        lib.cerebra_lstm_bwd.restype = i
-        lib.cerebra_reduce_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
-        lib.cerebra_reduce_partials.restype = i
-        lib.cerebra_cuda_error_string.argtypes = [i]
-        lib.cerebra_cuda_error_string.restype = ctypes.c_char_p
-        lib._cerebra_typed = True
-    return lib
-
-
-def _check_rc(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.cerebra_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+    return load_lib("lstm_stack", _typed)
 
 
 def _smem_bytes(bwd: bool, bt: int, C: int, H: int, L: int) -> int:
@@ -268,7 +250,7 @@ def _fwd_cuda(x, layers, train: bool, tile=None):
         b.data_ptr(), *outs, T, B, C, H, L,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _check_rc(lib, rc, "fwd_train" if train else "fwd_infer_last")
+    check_rc(lib, rc, "fwd_train" if train else "fwd_infer_last")
     LAUNCHES["fwd_train" if train else "fwd_infer_last"] += 1
     return (h_all, prefac, qf) if train else h_last
 
@@ -293,7 +275,7 @@ def _bwd_cuda(g, x, layers, h_all, prefac, qf, tile=None):
         prefac.data_ptr(), qf.data_ptr(), w_ihT_r.data_ptr() or None, w_hhT.data_ptr(),
         part.data_ptr(), T, B, C, H, L, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _check_rc(lib, rc, "bwd")
+    check_rc(lib, rc, "bwd")
     LAUNCHES["bwd"] += 1
     return _unpack_grads(reduce_partials(part), C, H, L)
 
@@ -303,7 +285,7 @@ def reduce_partials(part: torch.Tensor) -> torch.Tensor:
     deterministic reduction kernel on CUDA, `part.sum(0)` on the CPU."""
     if part.dim() != 2 or part.dtype != torch.float32 or not part.is_contiguous():
         raise ValueError("partials must be a contiguous f32 (n_blk, n) tensor")
-    if not _on_cuda(part):
+    if not on_cuda(part):
         return part.sum(0)
     out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
     lib = _lib()
@@ -311,7 +293,7 @@ def reduce_partials(part: torch.Tensor) -> torch.Tensor:
         part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1],
         torch.cuda.current_stream(part.device).cuda_stream,
     )
-    _check_rc(lib, rc, "bwd_reduce")
+    check_rc(lib, rc, "bwd_reduce")
     LAUNCHES["bwd_reduce"] += 1
     return out
 
@@ -330,14 +312,14 @@ def _unpack_grads(flat: torch.Tensor, C: int, H: int, L: int):
 # ---------------------------------------------------------------- wrappers
 def fwd_train(x: torch.Tensor, layers: Layers, tile=None):
     """K1 on CUDA, its plain version on the CPU → (h_all, prefac, qf)."""
-    if _on_cuda(x, *[w for l in layers for w in l]):
+    if on_cuda(x, *[w for l in layers for w in l]):
         return _fwd_cuda(x, layers, True, tile)
     return _fwd_train_ref(x, layers)
 
 
 def fwd_infer_last(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
     """K3 on CUDA, its plain version on the CPU → h[T−1] of the top layer."""
-    if _on_cuda(x, *[w for l in layers for w in l]):
+    if on_cuda(x, *[w for l in layers for w in l]):
         return _fwd_cuda(x, layers, False, tile)
     return _fwd_infer_last_ref(x, layers)
 
@@ -345,7 +327,7 @@ def fwd_infer_last(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
 def bwd(g, x, layers: Layers, h_all, prefac, qf, tile=None):
     """K2 plus its deterministic reduction on CUDA, the plain version on the
     CPU → f32 (dW_ih, dW_hh, db) per layer."""
-    if _on_cuda(g, x, h_all, prefac, qf, *[w for l in layers for w in l]):
+    if on_cuda(g, x, h_all, prefac, qf, *[w for l in layers for w in l]):
         return _bwd_cuda(g, x, layers, h_all, prefac, qf, tile)
     return _bwd_ref(g, x, layers, h_all, prefac, qf)
 

@@ -1,0 +1,264 @@
+"""Fused ViT attention half-block: the CUDA kernels K5, K6 and their plain
+PyTorch versions (port of cerebra/models/pallas_vit_attn.py).
+
+    out = x + s·proj(MHA(LN(x)·γ + β))   per sequence of x (B, N, D)
+
+- K5 `vit_attn_fwd` (`_fwd_kernel`): the forward. It also leaves, for the
+  backward, LN(x)·γ+β, q/k/v, the attention output and each query row's
+  softmax max and sum (the TPU forward saves nothing; an 80 GB card can keep
+  them).
+- K6 `vit_attn_bwd` (`_bwd_kernel`): dx = dout + the LN backward, and f32
+  dγ, dβ, dWqkv, dbqkv, dWp, dbp.
+
+The q scale dh^-0.5 is folded into Wq and bq before the kernel, and dWq, dbq
+are rescaled after it (`_split_params`, `_bwd`). The qkv feature order is
+i·D + h·dh + c. Parameters are cast to the compute dtype cdt; products take
+cdt operands with f32 accumulation; softmax is f32; the residual stream
+keeps x's dtype. s is an optional per-sequence branch scale (stochastic
+depth), a constant with no gradient.
+
+Dispatch: a tensor on the CPU takes the plain version (`_attn_fwd_ref`,
+`_attn_bwd_ref`); a CUDA tensor launches the kernel, built at first use from
+`csrc/vit_attn.cu`, or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+
+from cerebra_torch.kernels import LAUNCHES, check_rc, load_lib, on_cuda, ptr, stream_of
+from cerebra_torch.models.vit_mlp import check_cuda, layernorm_f32, ln_backward, mm
+
+LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0)
+
+MAX_HEAD_DIM = 64  # the CUDA kernels' tile width
+Params = Sequence[torch.Tensor]
+
+
+def _prep(g, b, wqkv, bqkv, wproj, bproj, num_heads, cdt) -> Tuple[torch.Tensor, ...]:
+    """The attention scale folded into the q columns (in f32, before the
+    cast) and every parameter cast to the compute dtype, in the caller's
+    (D, 3D) layout (the Pallas `_split_params` without the head split)."""
+    D = wqkv.shape[0]
+    scale = (D // num_heads) ** -0.5
+    wqkv = torch.cat([wqkv[:, :D] * scale, wqkv[:, D:]], 1)
+    bqkv = torch.cat([bqkv[:D] * scale, bqkv[D:]])
+    return tuple(t.to(cdt).contiguous() for t in (g, b, wqkv, bqkv, wproj, bproj))
+
+
+# ---------------------------------------------------------- plain versions
+def _heads(t, B, N, H):
+    """(B, N, D) → (B, H, N, dh)"""
+    return t.reshape(B, N, H, -1).transpose(1, 2)
+
+
+def _forward_parts(x, p: Params, H: int):
+    """LN, qkv, softmax and the attention output of the Pallas bodies."""
+    g, b, wqkv, bqkv, _, _ = p
+    B, N, D = x.shape
+    cdt = wqkv.dtype
+    xn, rstd = layernorm_f32(x.float())
+    y = (xn * g.float() + b.float()).to(cdt)
+    qkv = (mm(y, wqkv) + bqkv.float()).to(cdt)
+    q, k, v = (_heads(qkv[..., i * D:(i + 1) * D], B, N, H) for i in range(3))
+    p_att = torch.softmax(mm(q, k.transpose(-1, -2)), dim=-1)
+    o = mm(p_att.to(cdt), v).to(cdt)
+    return xn, rstd, y, q, k, v, p_att, o.transpose(1, 2).reshape(B, N, D)
+
+
+def _attn_fwd_ref(x, s, p: Params, num_heads: int):
+    """Plain K5 → (out, saved); the backward recomputes, so nothing is saved."""
+    *_, o = _forward_parts(x, p, num_heads)
+    out = mm(o, p[4]) + p[5].float()
+    if s is not None:
+        out = out * s[:, None, None]
+    return (x.float() + out).to(x.dtype), ()
+
+
+def _attn_bwd_ref(dout, x, s, p: Params, num_heads: int, saved=()):
+    """Plain K6, the Pallas `_bwd_kernel`'s formulas → (dx, dγ, dβ, dWqkv,
+    dbqkv, dWp, dbp), f32, with dWq and dbq in the scale-folded space."""
+    g, _, wqkv, _, wp, _ = p
+    B, N, D = x.shape
+    cdt = wqkv.dtype
+    xn, rstd, y, q, k, v, p_att, o = _forward_parts(x, p, num_heads)
+    dout_raw = dout.float()
+    d = dout_raw * s[:, None, None] if s is not None else dout_raw
+    dn = d.to(cdt)
+    dbp = d.reshape(-1, D).sum(0)
+    dwp = mm(o.reshape(-1, D).t(), dn.reshape(-1, D))
+    do = _heads(mm(dn, wp.t()).to(cdt), B, N, num_heads)
+    dp = mm(do, v.transpose(-1, -2))
+    dv = mm(p_att.to(cdt).transpose(-1, -2), do)
+    ds = (p_att * (dp - (dp * p_att).sum(-1, keepdim=True))).to(cdt)
+    dq = mm(ds, k)
+    dk = mm(ds.transpose(-1, -2), q)
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B * N, D) for t in (dq, dk, dv)], 1)
+    dqkvn = dqkv.to(cdt)
+    dwqkv = mm(y.reshape(-1, D).t(), dqkvn)
+    dbqkv = dqkv.sum(0)
+    dy = mm(dqkvn, wqkv.t()).reshape(B, N, D)
+    dx, dg, db = ln_backward(dy, xn, rstd, g, dout_raw, x.dtype)
+    return dx, dg, db, dwqkv, dbqkv, dwp, dbp
+
+
+# ------------------------------------------------------------ CUDA kernels
+def _typed(lib) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.cerebra_vit_attn_fwd.argtypes = [i, i] + [vp] * 15 + [i] * 4 + [vp]
+    lib.cerebra_vit_attn_fwd.restype = i
+    lib.cerebra_vit_attn_bwd.argtypes = [i, i] + [vp] * 26 + [i] * 4 + [vp]
+    lib.cerebra_vit_attn_bwd.restype = i
+    lib.cerebra_vit_attn_scratch.argtypes = [i]
+    lib.cerebra_vit_attn_scratch.restype = ctypes.c_longlong
+
+
+def _dims(x, p: Params, num_heads: int):
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, D), got shape {tuple(x.shape)}")
+    B, N, D = x.shape
+    if D % num_heads or D // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"D={D} with {num_heads} heads: the CUDA kernels take a head "
+                         f"dim dividing D and at most {MAX_HEAD_DIM}")
+    if tuple(p[2].shape) != (D, 3 * D) or tuple(p[4].shape) != (D, D):
+        raise ValueError("wqkv must be (D, 3D) and wproj (D, D)")
+    return B, N, D
+
+
+def _flags(x, cdt):
+    return int(x.dtype == torch.bfloat16), int(cdt == torch.bfloat16)
+
+
+def _attn_fwd_cuda(x, s, p: Params, num_heads: int):
+    B, N, D = _dims(x, p, num_heads)
+    check_cuda(x, s, p, B)
+    M, cdt, dev, f32 = B * N, p[2].dtype, x.device, torch.float32
+    y = torch.empty(M, D, dtype=cdt, device=dev)
+    mu = torch.empty(M, dtype=f32, device=dev)
+    rstd = torch.empty_like(mu)
+    qkv = torch.empty(M, 3 * D, dtype=cdt, device=dev)
+    o = torch.empty(M, D, dtype=cdt, device=dev)
+    stats = torch.empty(B, num_heads, N, 2, dtype=f32, device=dev)
+    out = torch.empty_like(x)
+    lib = load_lib("vit_attn", _typed)
+    rc = lib.cerebra_vit_attn_fwd(
+        *_flags(x, cdt), ptr(x), ptr(s), *[ptr(t) for t in p], ptr(y), ptr(mu), ptr(rstd),
+        ptr(qkv), ptr(o), ptr(stats), ptr(out), B, N, D, num_heads, stream_of(x),
+    )
+    check_rc(lib, rc, "vit_attn_fwd")
+    LAUNCHES["vit_attn_fwd"] += 1
+    return out, (y, mu, rstd, qkv, o, stats)
+
+
+def _attn_bwd_cuda(dout, x, s, p: Params, num_heads: int, saved):
+    B, N, D = _dims(x, p, num_heads)
+    if len(saved) != 6:
+        raise ValueError("the CUDA backward needs the CUDA forward's residuals")
+    check_cuda(x, s, p, B, (dout, *saved))
+    if dout.shape != x.shape or dout.dtype != x.dtype:
+        raise ValueError("dout must match x in shape and dtype")
+    y, mu, rstd, qkv, o, stats = saved
+    g, _, wqkv, _, wp, _ = p
+    M, cdt, dev, f32 = B * N, wqkv.dtype, x.device, torch.float32
+    dn = torch.empty(M, D, dtype=cdt, device=dev)
+    dob = torch.empty(M, D, dtype=cdt, device=dev)
+    delta = torch.empty(B, num_heads, N, dtype=f32, device=dev)
+    dqkv32 = torch.empty(M, 3 * D, dtype=f32, device=dev)
+    dqkvn = torch.empty(M, 3 * D, dtype=cdt, device=dev)
+    dy = torch.empty(M, D, dtype=f32, device=dev)
+    dx = torch.empty_like(x)
+    dg, db, dbp = (torch.empty(D, dtype=f32, device=dev) for _ in range(3))
+    dwqkv = torch.empty(D, 3 * D, dtype=f32, device=dev)
+    dbqkv = torch.empty(3 * D, dtype=f32, device=dev)
+    dwp = torch.empty(D, D, dtype=f32, device=dev)
+    lib = load_lib("vit_attn", _typed)
+    scratch = torch.empty(lib.cerebra_vit_attn_scratch(D), dtype=f32, device=dev)
+    rc = lib.cerebra_vit_attn_bwd(
+        *_flags(x, cdt), ptr(x), ptr(dout), ptr(s), ptr(g), ptr(wqkv), ptr(wp), ptr(y),
+        ptr(mu), ptr(rstd), ptr(qkv), ptr(o), ptr(stats), ptr(dn), ptr(dob), ptr(delta),
+        ptr(dqkv32), ptr(dqkvn), ptr(dy), ptr(scratch), ptr(dx), ptr(dg), ptr(db), ptr(dwqkv),
+        ptr(dbqkv),
+        ptr(dwp), ptr(dbp), B, N, D, num_heads, stream_of(x),
+    )
+    check_rc(lib, rc, "vit_attn_bwd")
+    LAUNCHES["vit_attn_bwd"] += 1
+    return dx, dg, db, dwqkv, dbqkv, dwp, dbp
+
+
+# ---------------------------------------------------------------- wrappers
+def attn_fwd(x, s, p: Params, num_heads: int):
+    """K5 on CUDA, its plain version on the CPU → (out, saved)."""
+    if on_cuda(x, s, *p):
+        return _attn_fwd_cuda(x, s, p, num_heads)
+    return _attn_fwd_ref(x, s, p, num_heads)
+
+
+def attn_bwd(dout, x, s, p: Params, num_heads: int, saved):
+    """K6 on CUDA, its plain version on the CPU → (dx, dγ, dβ, dWqkv, dbqkv,
+    dWp, dbp) with dWq, dbq in the scale-folded space."""
+    if on_cuda(dout, x, s, *p):
+        return _attn_bwd_cuda(dout, x, s, p, num_heads, saved)
+    return _attn_bwd_ref(dout, x, s, p, num_heads, saved)
+
+
+class _FusedAttn(torch.autograd.Function):
+    """`impl` is (forward, backward): the dispatching wrappers, or the plain
+    versions for timing them on the card."""
+
+    @staticmethod
+    def forward(ctx, impl, num_heads, x, s, cdt, *params):
+        p = _prep(*params, num_heads, cdt)
+        out, saved = impl[0](x, s, p, num_heads)
+        ctx.impl, ctx.num_heads = impl, num_heads
+        ctx.dtypes = [t.dtype for t in params]
+        ctx.save_for_backward(x, s, *p, *saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, s, *rest = ctx.saved_tensors
+        H = ctx.num_heads
+        dx, dg, db, dwqkv, dbqkv, dwp, dbp = ctx.impl[1](
+            dout.to(x.dtype).contiguous(), x, s, rest[:6], H, rest[6:])
+        # the q slices were scale-folded: chain rule through wq·scale
+        D = x.shape[-1]
+        scale = (D // H) ** -0.5
+        dwqkv[:, :D] *= scale
+        dbqkv[:D] *= scale
+        dparams = (dg, db, dwqkv, dbqkv, dwp, dbp)
+        return (None, None, dx, None, None, *[d.to(t) for d, t in zip(dparams, ctx.dtypes)])
+
+
+def _residual(impl, x, g, b, wqkv, bqkv, wproj, bproj, num_heads, compute_dtype, scale):
+    cdt = compute_dtype or x.dtype
+    s = None
+    if scale is not None:
+        s = scale.detach().reshape(x.shape[0]).to(torch.float32).contiguous()
+    params = (g, b, wqkv, bqkv, wproj, bproj)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        return _FusedAttn.apply(impl, num_heads, x, s, cdt, *params)
+    return impl[0](x, s, _prep(*params, num_heads, cdt), num_heads)[0]
+
+
+def fused_attn_residual(x, g, b, wqkv, bqkv, wproj, bproj, num_heads: int, pad: int = 16,
+                        compute_dtype=None, scale=None):
+    """x + proj(MHA(layernorm(x)·g + b)) over (B, N, D) sequences, with the JAX
+    function's arguments: wqkv (D, 3D), wproj (D, D); matmuls in
+    `compute_dtype` (default x.dtype); `scale` (B,) multiplies the branch
+    and gets no gradient. `pad` is accepted and does not change the result:
+    the CUDA kernels mask keys at or beyond N and need no padding."""
+    del pad
+    return _residual((attn_fwd, attn_bwd), x, g, b, wqkv, bqkv, wproj, bproj, num_heads,
+                     compute_dtype, scale)
+
+
+def fused_attn_residual_ref(x, g, b, wqkv, bqkv, wproj, bproj, num_heads: int, pad: int = 16,
+                            compute_dtype=None, scale=None):
+    """`fused_attn_residual` through the plain versions on any device (for
+    timing the kernels against them on the card)."""
+    del pad
+    return _residual((_attn_fwd_ref, _attn_bwd_ref), x, g, b, wqkv, bqkv, wproj, bproj,
+                     num_heads, compute_dtype, scale)

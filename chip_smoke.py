@@ -1,20 +1,35 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: build the LSTM-stack
-kernels, hold each against its plain PyTorch version, train the
-LSTM→DINOv2 CLI for 6 epochs at full width, and time the training step.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build every kernel, hold
+each against its plain PyTorch version, drive the two ported trainers at
+full width through the kernels, and time kernels and training steps.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
-  1. device   nvidia-smi name and power limit, torch.version.cuda
-  2. build    nvcc of cerebra_torch/csrc/lstm_stack.cu, seconds
-  3. parity   K3, K1, K2 and the dW reduction against their plain versions,
-              f32 and bf16, at B = 1024, 16 and 13 (T = 460, C = H = 96, L = 2)
-  4. main     `cerebra_torch.cli.lstm_distill_from_dinov2_train.main` on the
-              synthetic corpus (40 classes x 30 trials of (96, 512)), bf16,
-              batch 16, 6 epochs; launch counts cover every train step
-  5. timing   each kernel against its plain version at the main path's
-              shapes, and bench.py's step (filter, crop, LSTM fwd/bwd,
-              RMSprop) at B = 1024 through the kernels and the plain versions
+  1. device      nvidia-smi name and power limit, torch.version.cuda
+  2. build       nvcc of cerebra_torch/csrc/{lstm_stack,vit_attn,vit_mlp}.cu,
+                 all started together, seconds each
+  3. parity      K3, K1, K2 and the dW reduction against their plain
+                 versions, f32 and bf16, at B = 1024, 16 and 13 (T = 460,
+                 C = H = 96, L = 2)
+  4. main        `cerebra_torch.cli.lstm_distill_from_dinov2_train.main` on
+                 the synthetic corpus (40 classes x 30 trials of (96, 512)),
+                 bf16, batch 16, 6 epochs; launch counts cover every step
+  5. timing      each LSTM kernel against its plain version at the main
+                 path's shapes, and bench.py's step (filter, crop, LSTM
+                 fwd/bwd, RMSprop) at B = 1024, kernels and plain versions
+  6. vit parity  K5/K6 (attention) and K7/K8 (MLP) against their plain
+                 versions at the main_dino shapes (B = 16, N = 785; B = 32,
+                 N = 145) and a ragged N = 37, f32 and f32-stream/bf16-compute,
+                 with and without the drop-path scale (one sample dropped);
+                 the value and every gradient
+  7. main_dino   `cerebra_torch.cli.main_dino.main` at the full-width
+                 defaults (ViT-S/8, out_dim 65536, 2 x 224 + 4 x 96 views,
+                 batch 8, drop path 0.1, bf16) on 40 classes x 2 trials for
+                 2 epochs (10 steps each); finite losses, log.txt, and every
+                 step through K5-K8 in all 12 blocks
+  8. vit timing  each ViT kernel against its plain version at the globals'
+                 and the locals' shapes, and ms/step and views/s of the
+                 main_dino step through the kernels and the plain versions
 The line before the last is a JSON object of per-kernel results; the last
 is {"ok": true, "device": {...}}.
 """
@@ -53,6 +68,27 @@ TOL_F32_ABS = 1e-5
 TOL_F32_GRAD_REL = 1e-5
 TOL_BF16_REL = 5e-3
 
+VIT_SOURCES = {"vit_attn_fwd": "cerebra_torch/csrc/vit_attn.cu",
+               "vit_attn_bwd": "cerebra_torch/csrc/vit_attn.cu",
+               "vit_mlp_fwd": "cerebra_torch/csrc/vit_mlp.cu",
+               "vit_mlp_bwd": "cerebra_torch/csrc/vit_mlp.cu"}
+REPLACES.update({
+    "vit_attn_fwd": "cerebra/models/pallas_vit_attn.py:80",
+    "vit_attn_bwd": "cerebra/models/pallas_vit_attn.py:106",
+    "vit_mlp_fwd": "cerebra/models/pallas_vit_mlp.py:118",
+    "vit_mlp_bwd": "cerebra/models/pallas_vit_mlp.py:135",
+})
+D_VIT, H_VIT, F_VIT = 384, 6, 1536  # ViT-S
+VIT_SHAPES = ((16, 785), (32, 145), (3, 37))  # (sequences, tokens): globals, locals, ragged
+# Tolerances of the ViT kernels, for the reasons of the LSTM limits above: the
+# same formulas and rounding points on both sides, sums in another order (dW
+# sums over up to 12,560 rows; the bf16 products on the tensor cores), and a
+# bf16 rounding that can land on the other side for one element. First set
+# at 1e-4 / 1e-4 / 2e-2; an H100 showed at most 1.5e-5 (f32 values, K7,
+# whose outputs reach ~10), 1.1e-6 (f32 gradients) and 6.3e-4 (bf16, K6
+# dWqkv). f32 values keep 1e-4 (6.8x); the others were tightened to ~20x.
+TOL_VIT = (1e-4, 2e-5, 1.5e-2)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -70,10 +106,17 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from cerebra_torch.kernels import _build
 
-    so, seconds = _build.build("lstm_stack")
-    log(f"[build] {os.path.relpath(so, ROOT)} in {seconds:.2f} s")
+    names = ("lstm_stack", "vit_attn", "vit_mlp")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
+        built = list(pool.map(_build.build, names))
+    for so, seconds in built:
+        log(f"[build] {os.path.relpath(so, ROOT)} in {seconds:.2f} s")
+    log(f"[build] all in {time.perf_counter() - t0:.2f} s")
 
 
 def make_stack(B: int, dtype: torch.dtype, seed: int):
@@ -89,18 +132,22 @@ def make_stack(B: int, dtype: torch.dtype, seed: int):
     return x, layers, g
 
 
-def compare(what: str, got: torch.Tensor, want: torch.Tensor, dtype, grad: bool) -> float:
+def compare(what: str, got: torch.Tensor, want: torch.Tensor, dtype, grad: bool,
+            tols=(TOL_F32_ABS, TOL_F32_GRAD_REL, TOL_BF16_REL)) -> float:
     got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite kernel output")
     max_abs = (got - want).abs().max().item()
     rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    f32_abs, f32_grad_rel, bf16_rel = tols
     if dtype == torch.float32 and not grad:
-        ok, limit = max_abs <= TOL_F32_ABS, f"max_abs <= {TOL_F32_ABS}"
+        ok, limit = max_abs <= f32_abs, f"max_abs <= {f32_abs}"
     elif dtype == torch.float32:
-        ok, limit = rel <= TOL_F32_GRAD_REL, f"rel_frob <= {TOL_F32_GRAD_REL}"
+        ok, limit = rel <= f32_grad_rel, f"rel_frob <= {f32_grad_rel}"
     else:
-        ok, limit = rel <= TOL_BF16_REL, f"rel_frob <= {TOL_BF16_REL}"
+        ok, limit = rel <= bf16_rel, f"rel_frob <= {bf16_rel}"
     log(f"[parity] {what}: max_abs {max_abs:.3e} rel_frob {rel:.3e} ({limit}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -271,6 +318,173 @@ def phase_step_timing(gpu: str) -> None:
             f"(filter + crop + LSTM fwd/bwd + RMSprop, bf16) on {gpu}")
 
 
+def vit_inputs(B: int, N: int, cdt, scaled: bool, seed: int):
+    """f32-stream inputs of one ViT-S half-block: x and dout (B, N, D), the
+    attention and MLP parameters prepared in `cdt`, and the drop-path scale
+    per sequence and per row (sample 0 dropped) or None."""
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+
+    gen = torch.Generator().manual_seed(seed)
+    D, F = D_VIT, F_VIT
+
+    def r(*shape, sc=0.05, base=0.0):
+        return (torch.randn(*shape, generator=gen) * sc + base).to("cuda")
+
+    x, dout = r(B, N, D, sc=1.0), r(B, N, D, sc=1.0)
+    pa = va._prep(r(D, base=1.0), r(D), r(D, 3 * D), r(3 * D), r(D, D), r(D), H_VIT, cdt)
+    pm = vm._prep(r(D, base=1.0), r(D), r(D, F), r(F), r(F, D), r(D), cdt)
+    s_seq = s_rows = None
+    if scaled:
+        s_seq = torch.full((B,), 1 / 0.9, device="cuda")
+        s_seq[0] = 0.0
+        s_rows = s_seq.repeat_interleave(N).contiguous()
+    return x, dout, pa, pm, s_seq, s_rows
+
+
+def phase_vit_parity() -> dict:
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+
+    errs = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        for B, N in VIT_SHAPES:
+            for scaled in (False, True):
+                tag = f"f32/{str(cdt).split('.')[-1]} B={B} N={N}{' s' if scaled else ''}"
+                x, dout, pa, pm, s_seq, s_rows = vit_inputs(B, N, cdt, scaled, seed=N)
+                out, saved = va.attn_fwd(x, s_seq, pa, H_VIT)
+                e5 = compare(f"K5 out {tag}", out, va._attn_fwd_ref(x, s_seq, pa, H_VIT)[0],
+                             cdt, False, TOL_VIT)
+                got = va.attn_bwd(dout, x, s_seq, pa, H_VIT, saved)
+                want = va._attn_bwd_ref(dout, x, s_seq, pa, H_VIT)
+                e6 = max(compare(f"K6 {name} {tag}", a, b, cdt, True, TOL_VIT) for name, a, b in
+                         zip(("dx", "dg", "db", "dWqkv", "dbqkv", "dWp", "dbp"), got, want))
+                xm, dm = x.reshape(B * N, D_VIT), dout.reshape(B * N, D_VIT)
+                out, saved = vm.mlp_fwd(xm, s_rows, pm)
+                e7 = compare(f"K7 out {tag}", out, vm._mlp_fwd_ref(xm, s_rows, pm)[0], cdt,
+                             False, TOL_VIT)
+                got = vm.mlp_bwd(dm, xm, s_rows, pm, saved)
+                want = vm._mlp_bwd_ref(dm, xm, s_rows, pm)
+                e8 = max(compare(f"K8 {name} {tag}", a, b, cdt, True, TOL_VIT) for name, a, b in
+                         zip(("dx", "dg", "db", "dW1", "db1", "dW2", "db2"), got, want))
+                if cdt == torch.bfloat16 and (B, N) == VIT_SHAPES[0] and scaled:
+                    errs = {"vit_attn_fwd": e5, "vit_attn_bwd": e6, "vit_mlp_fwd": e7,
+                            "vit_mlp_bwd": e8}
+                del x, dout, pa, pm, out, saved, got, want
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_main_dino() -> dict:
+    from cerebra_torch.cli.main_dino import main
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+
+    log_dir = os.path.join(ROOT, "build", "chip_smoke", "main_dino")
+    log_txt = os.path.join(log_dir, "log.txt")
+    if os.path.exists(log_txt):
+        os.remove(log_txt)
+    epochs, steps_per_epoch = 2, 10  # 40 classes x 2 trials at batch 8
+    argv = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "2",
+            "--epochs", str(epochs), "--warmup_epochs", "1", "--device", "cuda",
+            "--log_dir", log_dir]
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    steps = epochs * steps_per_epoch
+    log(f"[main_dino] {seconds:.1f} s, {steps} steps, launches {launches}")
+    losses = hist["loss"]
+    if len(losses) != epochs or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"main_dino losses not all finite: {losses}")
+    with open(log_txt) as f:
+        lines = [json.loads(line) for line in f]
+    if [row["epoch"] for row in lines] != list(range(epochs)):
+        raise AssertionError(f"log.txt holds {lines}")
+    if state.step != steps or tuple(state.center.shape) != (1, 65536):
+        raise AssertionError(f"state after {state.step} steps, center {tuple(state.center.shape)}")
+    if not torch.isfinite(state.center).all() or not all(
+            torch.isfinite(p).all() for p in state.student.parameters()):
+        raise AssertionError("non-finite center or student parameters")
+    log(f"[main_dino] losses {[round(v, 4) for v in losses]}; windows/s per epoch "
+        f"{[round(w, 2) for w in hist['windows_per_s']]}")
+    # 12 blocks x (2 student view groups + 1 teacher group) forwards, 12 x 2 backwards
+    for name, per_step in (("vit_attn_fwd", 36), ("vit_mlp_fwd", 36),
+                           ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24)):
+        if launches[name] < per_step * steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps, "
+                                 f"fewer than {per_step} per step")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vit_timing() -> dict:
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+
+    out = {}
+    for B, N in VIT_SHAPES[:2]:
+        x, dout, pa, pm, s_seq, s_rows = vit_inputs(B, N, torch.bfloat16, True, seed=1)
+        xm, dm = x.reshape(B * N, D_VIT), dout.reshape(B * N, D_VIT)
+        _, sa = va.attn_fwd(x, s_seq, pa, H_VIT)
+        _, sm = vm.mlp_fwd(xm, s_rows, pm)
+        rows = {
+            "vit_attn_fwd": (lambda: va.attn_fwd(x, s_seq, pa, H_VIT),
+                             lambda: va._attn_fwd_ref(x, s_seq, pa, H_VIT)),
+            "vit_attn_bwd": (lambda: va.attn_bwd(dout, x, s_seq, pa, H_VIT, sa),
+                             lambda: va._attn_bwd_ref(dout, x, s_seq, pa, H_VIT)),
+            "vit_mlp_fwd": (lambda: vm.mlp_fwd(xm, s_rows, pm),
+                            lambda: vm._mlp_fwd_ref(xm, s_rows, pm)),
+            "vit_mlp_bwd": (lambda: vm.mlp_bwd(dm, xm, s_rows, pm, sm),
+                            lambda: vm._mlp_bwd_ref(dm, xm, s_rows, pm)),
+        }
+        for name, (kern, plain) in rows.items():
+            ms, plain_ms = time_ms(kern, 5), time_ms(plain, 5)
+            log(f"[vit timing] {name} B={B} N={N} f32 stream/bf16: kernel {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms")
+            if (B, N) == VIT_SHAPES[0]:
+                out[name] = (ms, plain_ms)
+        del x, dout, pa, pm, sa, sm, xm, dm
+    return out
+
+
+def phase_dino_step_timing(gpu: str) -> None:
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from cerebra_torch.models import vit, vit_attn, vit_mlp
+    from cerebra_torch.train.dino_vit import DinoVitConfig, make_dino_vit
+
+    cfg = DinoVitConfig(dtype=torch.bfloat16, epochs=2, warmup_epochs=1)
+    B, views = cfg.batch_size_per_device, 2 + cfg.local_crops_number
+    rng = np.random.default_rng(0)
+    eeg = torch.from_numpy(rng.normal(size=(B, T, C)).astype(np.float32)).to("cuda")
+    for kind in ("kernels", "plain", "kernels"):
+        state, step, gen, _ = make_dino_vit(cfg, 80, torch.device("cuda"))
+        with ExitStack() as stack:
+            if kind == "plain":  # the blocks' fused calls through the plain versions
+                stack.enter_context(mock.patch.object(
+                    vit, "fused_attn_residual", vit_attn.fused_attn_residual_ref))
+                stack.enter_context(mock.patch.object(
+                    vit, "fused_mlp_residual", vit_mlp.fused_mlp_residual_ref))
+            state, metrics = step(state, eeg, gen)
+            torch.cuda.synchronize()
+            n = 4
+            t0 = time.perf_counter()
+            for _ in range(n):
+                state, metrics = step(state, eeg, gen)
+            loss = metrics["loss"].item()
+            dt = (time.perf_counter() - t0) / n
+        if not math.isfinite(loss):
+            raise AssertionError(f"{kind} main_dino step loss is {loss}")
+        log(f"[dino step] {kind}: {dt * 1e3:.2f} ms/step, {B / dt:.2f} samples/s, "
+            f"{B * views / dt:.2f} views/s (ViT-S/8, 2x224 + 4x96, batch {B}, bf16) on {gpu}")
+        del state, step
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -284,12 +498,17 @@ def main() -> None:
     launches = phase_main()
     times = phase_kernel_timing()
     phase_step_timing(gpu)
+    errs.update(phase_vit_parity())
+    launches.update({k: v for k, v in phase_main_dino().items() if k in VIT_SOURCES})
+    times.update(phase_vit_timing())
+    phase_dino_step_timing(gpu)
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": errs[name],
+        {"name": name, "route": "cuda", "source": VIT_SOURCES.get(name, SOURCE),
+         "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce")
+        for name in ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce", *VIT_SOURCES)
     ]
+    log(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -87,7 +87,8 @@ def test_autograd_wrapper_launches_the_kernels(cuda):
     ls.lstm_stack_last(x, ws).sum().backward()
     with torch.no_grad():
         ls.lstm_stack_last(x, ws)
-    assert ls.LAUNCHES == {"fwd_train": 1, "bwd": 1, "fwd_infer_last": 1, "bwd_reduce": 1}
+    names = ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce")
+    assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
 
 
 def test_weight_gradients_are_deterministic(cuda):
@@ -107,3 +108,115 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ls.fwd_infer_last(x.cpu(), layers)
     with pytest.raises(ValueError):
         ls.fwd_train(x, layers, tile=3)
+
+
+# ------------------------------------------------ fused ViT half-blocks K5–K8
+# (B, N, D, H): dh 8 with a ragged tile, dh 64 over two key tiles, the
+# locals' width at a small batch. Tolerances as chip_smoke.py's ViT phase:
+# f32 values max-abs 1e-4, f32 gradients relative Frobenius 2e-5, every bf16
+# output relative Frobenius 1.5e-2.
+VIT_SHAPES = [(2, 13, 32, 4), (3, 70, 64, 1), (2, 145, 384, 6)]
+VIT_DTYPES = {"f32": (torch.float32, torch.float32), "f32_bf16": (torch.float32, torch.bfloat16),
+              "bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def vit_close(got, want, cdt, grad):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    if cdt == torch.float32 and not grad:
+        assert (got - want).abs().max().item() <= 1e-4
+    else:
+        rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        assert rel <= (2e-5 if cdt == torch.float32 else 1.5e-2), rel
+
+
+def vit_inputs(B, rows, D, F, sd, cuda, seed, scaled, attn):
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*s, sc=0.1, base=0.0):
+        return (torch.randn(*s, generator=gen) * sc + base).to(cuda)
+
+    shape = (B, rows, D) if attn else (B * rows, D)
+    x = r(*shape, sc=1.0).to(sd)
+    if attn:
+        params = [r(D, base=1.0), r(D), r(D, 3 * D), r(3 * D, sc=0.05), r(D, D), r(D, sc=0.05)]
+    else:
+        params = [r(D, base=1.0), r(D), r(D, F), r(F, sc=0.05), r(F, D), r(D, sc=0.05)]
+    dout = r(*shape, sc=1.0).to(sd)
+    s = None
+    if scaled:
+        s = torch.full((B,), 1 / 0.9, device=cuda)
+        s[0] = 0.0
+        if not attn:
+            s = s.repeat_interleave(rows)
+    return x, params, dout, s
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["no_s", "s"])
+@pytest.mark.parametrize("dt", list(VIT_DTYPES))
+@pytest.mark.parametrize("shape", VIT_SHAPES, ids=str)
+def test_vit_attn_kernels_match_plain(cuda, shape, dt, scaled):
+    from cerebra_torch.models import vit_attn as va
+
+    B, N, D, H = shape
+    sd, cdt = VIT_DTYPES[dt]
+    x, params, dout, s = vit_inputs(B, N, D, 0, sd, cuda, 3, scaled, attn=True)
+    p = va._prep(*params, H, cdt)
+    out, saved = va.attn_fwd(x, s, p, H)
+    vit_close(out, va._attn_fwd_ref(x, s, p, H)[0], cdt, grad=False)
+    got = va.attn_bwd(dout, x, s, p, H, saved)
+    want = va._attn_bwd_ref(dout, x, s, p, H)
+    for a, b in zip(got, want):
+        vit_close(a, b, cdt, grad=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["no_s", "s"])
+@pytest.mark.parametrize("dt", list(VIT_DTYPES))
+@pytest.mark.parametrize("shape", [(1, 37, 32, 96), (2, 145, 384, 1536)], ids=str)
+def test_vit_mlp_kernels_match_plain(cuda, shape, dt, scaled):
+    from cerebra_torch.models import vit_mlp as vm
+
+    B, N, D, F = shape
+    sd, cdt = VIT_DTYPES[dt]
+    x, params, dout, s = vit_inputs(B, N, D, F, sd, cuda, 4, scaled, attn=False)
+    p = vm._prep(*params, cdt)
+    out, saved = vm.mlp_fwd(x, s, p)
+    vit_close(out, vm._mlp_fwd_ref(x, s, p)[0], cdt, grad=False)
+    got = vm.mlp_bwd(dout, x, s, p, saved)
+    want = vm._mlp_bwd_ref(dout, x, s, p)
+    for a, b in zip(got, want):
+        vit_close(a, b, cdt, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_vit_wrappers_launch_the_kernels_and_are_deterministic(cuda):
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+
+    gen = torch.Generator().manual_seed(5)
+    D, H, F = 64, 2, 128
+    x = torch.randn(2, 20, D, generator=gen).to(cuda).requires_grad_(True)
+    pa = [torch.randn(*s, generator=gen).mul(0.1).to(cuda).requires_grad_(True)
+          for s in ((D,), (D,), (D, 3 * D), (3 * D,), (D, D), (D,))]
+    pm = [torch.randn(*s, generator=gen).mul(0.1).to(cuda).requires_grad_(True)
+          for s in ((D,), (D,), (D, F), (F,), (F, D), (D,))]
+    grads = []
+    reset_launches()
+    for _ in range(2):
+        for t in (x, *pa, *pm):
+            t.grad = None
+        y = va.fused_attn_residual(x, *pa, H)
+        y = vm.fused_mlp_residual(y.reshape(-1, D), *pm).reshape(2, 20, D)
+        y.square().sum().backward()
+        grads.append([t.grad.clone() for t in (x, *pa, *pm)])
+    assert {k: LAUNCHES[k] for k in ("vit_attn_fwd", "vit_attn_bwd", "vit_mlp_fwd",
+                                     "vit_mlp_bwd")} == dict.fromkeys(
+        ("vit_attn_fwd", "vit_attn_bwd", "vit_mlp_fwd", "vit_mlp_bwd"), 2)
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError):
+        va.fused_attn_residual(x.detach().cpu(), *pa, H)
+    with pytest.raises(ValueError):  # not contiguous
+        va.fused_attn_residual(x.detach()[:, ::2], *[t.detach() for t in pa], H)
