@@ -1,20 +1,23 @@
 // Whole-stack LSTM kernels for Hopper (sm_90a): the CUDA counterparts of the
-// three Pallas kernels in cerebra/models/pallas_lstm_stack.py that the
-// LSTM->DINOv2 trainer runs.
+// Pallas kernels in cerebra/models/pallas_lstm_stack.py that the
+// LSTM->DINOv2 trainer and the recurrent autoencoder run.
 //
-//   lstm_fwd_kernel<T, BT, TRAIN=true>   replaces _fwd_train_kernel      (K1)
-//   lstm_fwd_kernel<T, BT, TRAIN=false>  replaces _fwd_infer_last_kernel (K3)
-//   lstm_bwd_kernel<T, BT>               replaces _bwd_kernel            (K2,
-//                                        need_dx=False, g_last_only=True)
-//   reduce_partials                      replaces K2's accumulation of dW
-//                                        across the sequential TPU grid
+//   lstm_fwd_kernel<T, BT, TRAIN>      replaces _fwd_train_kernel      (K1)
+//   lstm_fwd_kernel<T, BT, INFER_LAST> replaces _fwd_infer_last_kernel (K3)
+//   lstm_fwd_kernel<T, BT, INFER_SEQ>  replaces _fwd_infer_kernel      (K4)
+//   lstm_bwd_kernel<T, BT>             replaces _bwd_kernel: K2 (need_dx=False,
+//                                      g_last_only=True) and K2g (need_dx=True
+//                                      and/or a full (Tn, B, H) cotangent)
+//   reduce_partials                    replaces the backward's accumulation
+//                                      of dW across the sequential TPU grid
 //
 // Layouts (all row-major, T = stream dtype, float or __nv_bfloat16):
 //   x (Tn, B, C); w_ih0 (C, 4H); w_ihr (L-1, H, 4H); w_hh (L, H, 4H);
 //   bias (L, 4H); h_all (L, Tn, B, H); prefac (L, Tn, B, 4H);
-//   qf (L, Tn, B, 2H); h_last (B, H); g (B, H);
-//   w_ihT_r (L-1, 4H, H) and w_hhT (L, 4H, H) are the transposes the
-//   backward's chain products read; gate order [i, f, g, o].
+//   qf (L, Tn, B, 2H); h_out (B, H) for K3, (Tn, B, H) for K4;
+//   g (B, H), or (Tn, B, H) when g_full; dx (Tn, B, C);
+//   w_ihT0 (4H, C), w_ihT_r (L-1, 4H, H) and w_hhT (L, 4H, H) are the
+//   transposes the backward's chain products read; gate order [i, f, g, o].
 //
 // What bounds them on an H100: the recurrence is serial over Tn = 460 steps.
 // Per step and layer a batch tile of BT rows needs (in + H) * 4H * BT
@@ -57,6 +60,11 @@ template <> __device__ __forceinline__ float from_f<float>(float v) { return v; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+// Threads per block: one per gate column up to this cap, above which each
+// thread takes several columns. 1024 threads would leave 64 registers a
+// thread, and the kernels use up to ~100 (ptxas -v on an H100 toolchain).
+constexpr int MAX_THREADS = 512;
 
 // the value a float takes after a round trip through the stream dtype
 template <typename T> __device__ __forceinline__ float rnd(float v) {
@@ -102,22 +110,29 @@ __device__ __forceinline__ void col_dot(float (&acc)[BT], const T* __restrict__ 
 }
 
 // ---------------------------------------------------------------- forward
-// Replaces cerebra/models/pallas_lstm_stack.py:_fwd_train_kernel (TRAIN)
-// and :_fwd_infer_last_kernel. Bound by latency: each of the Tn serial steps
-// reads every layer's weights from L2 for (in + H) * 4H * BT multiply-adds
-// per layer, with two barriers per layer-step; the carries never leave
-// shared memory, and BT = 8 rows share each weight read.
+// The C entry point's `mode` argument takes these values.
+enum FwdMode { INFER_LAST = 0, TRAIN = 1, INFER_SEQ = 2 };
+
+// Replaces cerebra/models/pallas_lstm_stack.py:_fwd_train_kernel (TRAIN),
+// :_fwd_infer_last_kernel (INFER_LAST) and :_fwd_infer_kernel (INFER_SEQ).
+// Bound by latency: each of the Tn serial steps reads every layer's weights
+// from L2 for (in + H) * 4H * BT multiply-adds per layer, with two barriers
+// per layer-step; the carries never leave shared memory, and BT = 8 rows
+// share each weight read. When 4H exceeds MAX_THREADS (H = 384) each
+// thread takes several gate columns.
 // K1 (TRAIN) streams h_all, prefac and qf for every layer and step; K3 only
-// writes the top layer's h at Tn-1. Shared memory (floats):
+// writes the top layer's h at Tn-1, K4 the top layer's h at every step.
+// Shared memory (floats):
 //   c_s (L, BT, H) f32 cell | hr_s (L, H, BT) h in the stream dtype, which
 //   is both the layer's recurrent operand and the next layer's input |
 //   x_s (C, BT) | gates_s (BT, 4H)
-template <typename T, int BT, bool TRAIN>
-__global__ void lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih0,
-                                const T* __restrict__ w_ihr, const T* __restrict__ w_hh,
-                                const T* __restrict__ bias, T* __restrict__ h_all,
-                                T* __restrict__ prefac, T* __restrict__ qf,
-                                T* __restrict__ h_last, int Tn, int B, int C, int H, int L) {
+template <typename T, int BT, int MODE>
+__global__ void __launch_bounds__(MAX_THREADS)
+    lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih0,
+                    const T* __restrict__ w_ihr, const T* __restrict__ w_hh,
+                    const T* __restrict__ bias, T* __restrict__ h_all, T* __restrict__ prefac,
+                    T* __restrict__ qf, T* __restrict__ h_out, int Tn, int B, int C, int H,
+                    int L) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   float* c_s = smem;
@@ -174,7 +189,7 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w
         cl[i] = c_new;
         hr[u * BT + r] = rnd<T>(h_new);
         if (b < B) {
-          if (TRAIN) {
+          if (MODE == TRAIN) {
             const size_t row = ((size_t)l * Tn + t) * B + b;
             h_all[row * H + u] = from_f<T>(h_new);
             T* pf = prefac + row * G;
@@ -185,8 +200,9 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w
             T* q = qf + row * 2 * H;
             q[u] = from_f<T>(og - og * tc * tc);
             q[H + u] = from_f<T>(fg);
-          } else if (l == L - 1 && t == Tn - 1) {
-            h_last[(size_t)b * H + u] = from_f<T>(h_new);
+          } else if (l == L - 1 && (MODE == INFER_SEQ || t == Tn - 1)) {
+            const size_t row = MODE == INFER_SEQ ? (size_t)t * B + b : (size_t)b;
+            h_out[row * H + u] = from_f<T>(h_new);
           }
         }
       }
@@ -195,13 +211,15 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w
 }
 
 // --------------------------------------------------------------- backward
-// Replaces cerebra/models/pallas_lstm_stack.py:_bwd_kernel with need_dx=False
-// and g_last_only=True. Bound by latency: per serial step and layer a tile
-// reads both transposed weights from L2 for the chain products (which only
-// H of the 4H threads compute) and read-modify-writes its (in + H) * 4H f32
-// partial in device memory. dh and dc stay in shared memory; the wrapper
-// picks BT near B / 16, which balances a block's time against the number
-// of partials.
+// Replaces cerebra/models/pallas_lstm_stack.py:_bwd_kernel in all its forms:
+// the cotangent hits the top layer at Tn-1 only (g (B, H), g_last_only) or
+// at every step (g (Tn, B, H), g_full != 0), and need_dx != 0 adds the
+// input gradient dx = dgates_0 @ w_ih0^T (Tn, B, C), rounded to the stream
+// dtype and written straight from registers. Bound by latency: per serial
+// step and layer a tile reads both transposed weights from L2 for the chain
+// products and read-modify-writes its (in + H) * 4H f32 partial in device
+// memory. dh and dc stay in shared memory; the wrapper picks BT near B / 16,
+// which balances a block's time against the number of partials.
 // Reverse time, top layer first. Each block owns one f32 partial of every
 // dW/db (n_part floats at part + blockIdx.x * n_part, laid out as
 // [dW_ih0 (C, 4H) | dW_ihr (L-1, H, 4H) | dW_hh (L, H, 4H) | db (L, 4H)]),
@@ -210,11 +228,13 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w
 //   dh_s, dc_s (L, BT, H) | dg_s (4H, BT) | gup_s (BT, H) |
 //   inp_s (max(C, H), BT) | hp_s (H, BT)
 template <typename T, int BT>
-__global__ void lstm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                                const T* __restrict__ h_all, const T* __restrict__ prefac,
-                                const T* __restrict__ qf, const T* __restrict__ w_ihT_r,
-                                const T* __restrict__ w_hhT, float* __restrict__ part,
-                                int Tn, int B, int C, int H, int L) {
+__global__ void __launch_bounds__(MAX_THREADS)
+    lstm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                    const T* __restrict__ h_all, const T* __restrict__ prefac,
+                    const T* __restrict__ qf, const T* __restrict__ w_ihT0,
+                    const T* __restrict__ w_ihT_r, const T* __restrict__ w_hhT,
+                    T* __restrict__ dx, float* __restrict__ part, int g_full, int need_dx,
+                    int Tn, int B, int C, int H, int L) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   const int IN = C > H ? C : H;
@@ -263,9 +283,15 @@ __global__ void lstm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x
         }
         hp_s[u * BT + r] =
             t > 0 ? to_f<T>(h_all[(((size_t)l * Tn + t - 1) * B + b) * H + u]) : 0.0f;
-        // the head's cotangent reaches the top layer at Tn-1 only
-        const float g_up =
-            l == L - 1 ? (t == Tn - 1 ? to_f<T>(g[(size_t)b * H + u]) : 0.0f) : gup_s[i];
+        // the cotangent reaches the top layer at every step (g_full) or at
+        // Tn-1 only; a lower layer takes the chain from the layer above
+        float g_up = gup_s[i];
+        if (l == L - 1) {
+          if (g_full)
+            g_up = to_f<T>(g[((size_t)t * B + b) * H + u]);
+          else
+            g_up = t == Tn - 1 ? to_f<T>(g[(size_t)b * H + u]) : 0.0f;
+        }
         const size_t row = ((size_t)l * Tn + t) * B + b;
         const T* q = qf + row * 2 * H;
         const T* pf = prefac + row * G;
@@ -310,21 +336,31 @@ __global__ void lstm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x
         p_b[(size_t)l * G + j] += sb;
       }
 
-      // recurrent carry dh = dgates @ w_hh^T, and the chain to the layer
-      // below g_up = dgates @ w_ih^T (none for layer 0: the input is data);
-      // one thread per output unit k and all BT rows
+      // recurrent carry dh = dgates @ w_hh^T over the H units k < H, then
+      // the chain g_up = dgates @ w_ih^T over the layer's n_up input units
+      // (H for a layer above 0, into gup_s; C for layer 0 when dx is wanted,
+      // into dx; none otherwise): one thread per output unit and all BT rows
       const T* whT = w_hhT + (size_t)l * G * H;
-      const T* wiT = l > 0 ? w_ihT_r + (size_t)(l - 1) * G * H : nullptr;
-      for (int k = tid; k < H; k += nthr) {
-        float sh[BT], su[BT];
+      const T* wiT = l > 0 ? w_ihT_r + (size_t)(l - 1) * G * H : w_ihT0;
+      const int n_up = l > 0 ? H : (need_dx ? C : 0);
+      for (int k = tid; k < H + n_up; k += nthr) {
+        float s[BT];
 #pragma unroll
-        for (int r = 0; r < BT; ++r) sh[r] = su[r] = 0.0f;
-        col_dot<T, BT>(sh, whT, dg_s, G, H, k);
-        if (wiT) col_dot<T, BT>(su, wiT, dg_s, G, H, k);
+        for (int r = 0; r < BT; ++r) s[r] = 0.0f;
+        if (k < H) {
+          col_dot<T, BT>(s, whT, dg_s, G, H, k);
+#pragma unroll
+          for (int r = 0; r < BT; ++r) dhl[r * H + k] = s[r];
+          continue;
+        }
+        const int u = k - H;
+        col_dot<T, BT>(s, wiT, dg_s, G, n_up, u);
 #pragma unroll
         for (int r = 0; r < BT; ++r) {
-          dhl[r * H + k] = sh[r];
-          if (wiT) gup_s[r * H + k] = su[r];
+          if (l > 0)
+            gup_s[r * H + u] = s[r];
+          else if (b0 + r < B)
+            dx[((size_t)t * B + b0 + r) * C + u] = from_f<T>(s[r]);
         }
       }
     }
@@ -346,29 +382,30 @@ __global__ void reduce_partials(const float* __restrict__ part, float* __restric
 
 int threads_for(int H) {
   const int t = (4 * H + 31) / 32 * 32;
-  return t < 1024 ? t : 1024;
+  return t < MAX_THREADS ? t : MAX_THREADS;
 }
 
-template <typename T, int BT, bool TRAIN>
+template <typename T, int BT, int MODE>
 int launch_fwd(const void* x, const void* w_ih0, const void* w_ihr, const void* w_hh,
-               const void* bias, void* h_all, void* prefac, void* qf, void* h_last, int Tn,
+               const void* bias, void* h_all, void* prefac, void* qf, void* h_out, int Tn,
                int B, int C, int H, int L, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)2 * L * BT * H + C * BT + BT * 4 * H);
-  auto kern = lstm_fwd_kernel<T, BT, TRAIN>;
+  auto kern = lstm_fwd_kernel<T, BT, MODE>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_blk = (B + BT - 1) / BT;
   kern<<<n_blk, threads_for(H), smem, stream>>>(
       (const T*)x, (const T*)w_ih0, (const T*)w_ihr, (const T*)w_hh, (const T*)bias,
-      (T*)h_all, (T*)prefac, (T*)qf, (T*)h_last, Tn, B, C, H, L);
+      (T*)h_all, (T*)prefac, (T*)qf, (T*)h_out, Tn, B, C, H, L);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int BT>
-int launch_bwd(const void* g, const void* x, const void* h_all, const void* prefac,
-               const void* qf, const void* w_ihT_r, const void* w_hhT, void* part, int Tn,
-               int B, int C, int H, int L, cudaStream_t stream) {
+int launch_bwd(int g_full, int need_dx, const void* g, const void* x, const void* h_all,
+               const void* prefac, const void* qf, const void* w_ihT0, const void* w_ihT_r,
+               const void* w_hhT, void* dx, void* part, int Tn, int B, int C, int H, int L,
+               cudaStream_t stream) {
   const int IN = C > H ? C : H;
   const size_t smem =
       sizeof(float) * ((size_t)2 * L * BT * H + 4 * H * BT + BT * H + IN * BT + H * BT);
@@ -379,20 +416,37 @@ int launch_bwd(const void* g, const void* x, const void* h_all, const void* pref
   const int n_blk = (B + BT - 1) / BT;
   kern<<<n_blk, threads_for(H), smem, stream>>>(
       (const T*)g, (const T*)x, (const T*)h_all, (const T*)prefac, (const T*)qf,
-      (const T*)w_ihT_r, (const T*)w_hhT, (float*)part, Tn, B, C, H, L);
+      (const T*)w_ihT0, (const T*)w_ihT_r, (const T*)w_hhT, (T*)dx, (float*)part, g_full,
+      need_dx, Tn, B, C, H, L);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int BT>
+int launch_fwd_mode(int mode, const void* x, const void* w_ih0, const void* w_ihr,
+                    const void* w_hh, const void* bias, void* h_all, void* prefac, void* qf,
+                    void* h_out, int Tn, int B, int C, int H, int L, cudaStream_t s) {
+  switch (mode) {
+    case INFER_LAST:
+      return launch_fwd<T, BT, INFER_LAST>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf,
+                                           h_out, Tn, B, C, H, L, s);
+    case TRAIN:
+      return launch_fwd<T, BT, TRAIN>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, h_out,
+                                      Tn, B, C, H, L, s);
+    case INFER_SEQ:
+      return launch_fwd<T, BT, INFER_SEQ>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf,
+                                          h_out, Tn, B, C, H, L, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
-int dispatch_fwd(int train, int bt, const void* x, const void* w_ih0, const void* w_ihr,
+int dispatch_fwd(int mode, int bt, const void* x, const void* w_ih0, const void* w_ihr,
                  const void* w_hh, const void* bias, void* h_all, void* prefac, void* qf,
-                 void* h_last, int Tn, int B, int C, int H, int L, cudaStream_t s) {
-#define CEREBRA_FWD(BT)                                                                  \
-  if (bt == BT)                                                                          \
-    return train ? launch_fwd<T, BT, true>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, \
-                                           h_last, Tn, B, C, H, L, s)                    \
-                 : launch_fwd<T, BT, false>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac,  \
-                                            qf, h_last, Tn, B, C, H, L, s);
+                 void* h_out, int Tn, int B, int C, int H, int L, cudaStream_t s) {
+#define CEREBRA_FWD(BT)                                                                     \
+  if (bt == BT)                                                                             \
+    return launch_fwd_mode<T, BT>(mode, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, h_out, \
+                                  Tn, B, C, H, L, s);
   CEREBRA_FWD(1)
   CEREBRA_FWD(2)
   CEREBRA_FWD(4)
@@ -403,12 +457,14 @@ int dispatch_fwd(int train, int bt, const void* x, const void* w_ih0, const void
 }
 
 template <typename T>
-int dispatch_bwd(int bt, const void* g, const void* x, const void* h_all, const void* prefac,
-                 const void* qf, const void* w_ihT_r, const void* w_hhT, void* part, int Tn,
-                 int B, int C, int H, int L, cudaStream_t s) {
-#define CEREBRA_BWD(BT) \
-  if (bt == BT)         \
-    return launch_bwd<T, BT>(g, x, h_all, prefac, qf, w_ihT_r, w_hhT, part, Tn, B, C, H, L, s);
+int dispatch_bwd(int bt, int g_full, int need_dx, const void* g, const void* x,
+                 const void* h_all, const void* prefac, const void* qf, const void* w_ihT0,
+                 const void* w_ihT_r, const void* w_hhT, void* dx, void* part, int Tn, int B,
+                 int C, int H, int L, cudaStream_t s) {
+#define CEREBRA_BWD(BT)                                                                     \
+  if (bt == BT)                                                                             \
+    return launch_bwd<T, BT>(g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0, w_ihT_r, w_hhT, \
+                             dx, part, Tn, B, C, H, L, s);
   CEREBRA_BWD(1)
   CEREBRA_BWD(2)
   CEREBRA_BWD(4)
@@ -422,30 +478,33 @@ int dispatch_bwd(int bt, const void* g, const void* x, const void* h_all, const 
 
 extern "C" {
 
-// train != 0: K1 (h_all, prefac, qf); train == 0: K3 (h_last).
-// bf16 != 0: __nv_bfloat16 streams, else float. bt in {1, 2, 4, 8, 16}.
-int cerebra_lstm_fwd(int train, int bf16, int bt, const void* x, const void* w_ih0,
+// mode (FwdMode): 1 = K1 (h_all, prefac, qf); 0 = K3 (h_out (B, H));
+// 2 = K4 (h_out (Tn, B, H)). bf16 != 0: __nv_bfloat16 streams, else float.
+// bt in {1, 2, 4, 8, 16}.
+int cerebra_lstm_fwd(int mode, int bf16, int bt, const void* x, const void* w_ih0,
                      const void* w_ihr, const void* w_hh, const void* bias, void* h_all,
-                     void* prefac, void* qf, void* h_last, int Tn, int B, int C, int H, int L,
+                     void* prefac, void* qf, void* h_out, int Tn, int B, int C, int H, int L,
                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return dispatch_fwd<__nv_bfloat16>(train, bt, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac,
-                                       qf, h_last, Tn, B, C, H, L, s);
-  return dispatch_fwd<float>(train, bt, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, h_last,
+    return dispatch_fwd<__nv_bfloat16>(mode, bt, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac,
+                                       qf, h_out, Tn, B, C, H, L, s);
+  return dispatch_fwd<float>(mode, bt, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, h_out,
                              Tn, B, C, H, L, s);
 }
 
-int cerebra_lstm_bwd(int bf16, int bt, const void* g, const void* x, const void* h_all,
-                     const void* prefac, const void* qf, const void* w_ihT_r,
-                     const void* w_hhT, void* part, int Tn, int B, int C, int H, int L,
-                     void* stream) {
+// g_full != 0: g is (Tn, B, H), else (B, H) at Tn-1. need_dx != 0: dx
+// (Tn, B, C) from w_ihT0 (4H, C); both may be null otherwise.
+int cerebra_lstm_bwd(int bf16, int bt, int g_full, int need_dx, const void* g, const void* x,
+                     const void* h_all, const void* prefac, const void* qf,
+                     const void* w_ihT0, const void* w_ihT_r, const void* w_hhT, void* dx,
+                     void* part, int Tn, int B, int C, int H, int L, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return dispatch_bwd<__nv_bfloat16>(bt, g, x, h_all, prefac, qf, w_ihT_r, w_hhT, part, Tn,
-                                       B, C, H, L, s);
-  return dispatch_bwd<float>(bt, g, x, h_all, prefac, qf, w_ihT_r, w_hhT, part, Tn, B, C, H,
-                             L, s);
+    return dispatch_bwd<__nv_bfloat16>(bt, g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0,
+                                       w_ihT_r, w_hhT, dx, part, Tn, B, C, H, L, s);
+  return dispatch_bwd<float>(bt, g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0, w_ihT_r,
+                             w_hhT, dx, part, Tn, B, C, H, L, s);
 }
 
 int cerebra_reduce_partials(const void* part, void* out, int n_blk, long long n,

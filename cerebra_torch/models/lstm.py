@@ -1,6 +1,6 @@
-"""`Model` — the LSTM encoder of the LSTM→DINOv2 trainer (port of
-cerebra/models/lstm.py: LSTMStack, Model, export/import of the `.pth`
-layout).
+"""`Model` — the LSTM encoder of the LSTM→DINOv2 trainer — and `InlineLSTM`
+(port of cerebra/models/lstm.py: LSTMStack, Model, InlineLSTM, import of
+the `.pth` layout).
 
 Parameters are held under the reference `.pth` names — `lstm.weight_ih_l{k}`
 (4H, in), `lstm.weight_hh_l{k}` (4H, H), `lstm.bias_ih_l{k}`,
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cerebra_torch.models.lstm_stack import lstm_stack_last
+from cerebra_torch.models.lstm_stack import lstm_stack, lstm_stack_last
 
 
 def _uniform(shape, bound, generator, device):
@@ -30,18 +30,22 @@ def _uniform(shape, bound, generator, device):
 
 
 class LSTMStack(nn.Module):
-    """Multi-layer LSTM over (B, T, C) returning the top layer's h[T−1]
-    (B, H). Runs time-major inside; the bias is b_ih + b_hh; weights and
-    input are cast to `dtype` (the stream dtype; None = the input's) while
-    the cell state stays f32 inside the kernels."""
+    """Multi-layer LSTM over (B, T, C) returning the top layer's hidden
+    states (B, T, H), or only h[T−1] (B, H) with `last_state_only`. Runs
+    time-major inside; the bias is b_ih + b_hh; weights and input are cast
+    to `dtype` (the stream dtype; None = the input's) while the cell state
+    stays f32 inside the kernels. The input gets a gradient when it
+    requires one; the backward skips dx when it does not (`lstm_stack`)."""
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  dtype: Optional[torch.dtype] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, *,
+                 last_state_only: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dtype = dtype
+        self.last_state_only = last_state_only
         H = hidden_size
         bound = 1.0 / math.sqrt(H)  # torch nn.LSTM's default init range
         for l in range(num_layers):
@@ -65,7 +69,10 @@ class LSTMStack(nn.Module):
         return x_t, layers
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return lstm_stack_last(*self.prepare(x))
+        x_t, layers = self.prepare(x)
+        if self.last_state_only:
+            return lstm_stack_last(x_t, layers)
+        return lstm_stack(x_t, layers).transpose(0, 1)
 
 
 def _linear(in_f, out_f, generator, device):
@@ -75,6 +82,12 @@ def _linear(in_f, out_f, generator, device):
         lin.weight.copy_(_uniform((out_f, in_f), bound, generator, device))
         lin.bias.copy_(_uniform((out_f,), bound, generator, device))
     return lin
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """flax Dense with `dtype`: input and parameters cast to it (None = x's)."""
+    cd = dtype or x.dtype
+    return F.linear(x.to(cd), lin.weight.to(cd), lin.bias.to(cd))
 
 
 class Model(nn.Module):
@@ -93,21 +106,18 @@ class Model(nn.Module):
         super().__init__()
         self.include_top = include_top
         self.dtype = dtype
-        self.lstm = LSTMStack(input_size, lstm_size, lstm_layers, dtype, device, generator)
+        self.lstm = LSTMStack(input_size, lstm_size, lstm_layers, dtype, device, generator,
+                              last_state_only=True)
         self.fc = _linear(lstm_size, output_size, generator, device)
         if include_top:
             self.head = _linear(output_size, n_classes, generator, device)
 
-    def _dense(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        cd = self.dtype or x.dtype
-        return F.linear(x.to(cd), lin.weight.to(cd), lin.bias.to(cd))
-
     def top(self, h_last: torch.Tensor):
         """Everything after the LSTM: features, and the class logits."""
-        feats = torch.relu(self._dense(self.fc, h_last))
+        feats = torch.relu(_dense(self.fc, h_last, self.dtype))
         if not self.include_top:
             return feats
-        return feats, self._dense(self.head, feats)
+        return feats, _dense(self.head, feats, self.dtype)
 
     def forward(self, x: torch.Tensor, features_only: bool = False):
         h_last = self.lstm(x)
@@ -116,20 +126,64 @@ class Model(nn.Module):
         return self.top(h_last)
 
 
+class InlineLSTM(nn.Module):
+    """The inline LSTMModel of LSTMDistill.py / LSTMDistillRetreival.py:
+    LSTM → h[T−1] → fc → class head, forward(x) → (features, logits).
+
+    An input whose last axis is not `input_size` but whose second-to-last
+    is, (B, C, T), is turned to (B, T, C): by a transpose, or with
+    `compat_view_bug` by the reference's `.view(B, T, C)`, a row-major
+    reinterpretation of the memory that scrambles channels and time."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, output_size: int,
+                 n_classes: int = 40, compat_view_bug: bool = False,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size = input_size
+        self.compat_view_bug = compat_view_bug
+        self.dtype = dtype
+        self.lstm = LSTMStack(input_size, hidden_size, num_layers, dtype, device, generator,
+                              last_state_only=True)
+        self.fc = _linear(hidden_size, output_size, generator, device)
+        self.head = _linear(output_size, n_classes, generator, device)
+
+    def forward(self, x: torch.Tensor):
+        if x.shape[-1] != self.input_size and x.shape[-2] == self.input_size:
+            if self.compat_view_bug:
+                x = x.reshape(x.shape[0], x.shape[2], x.shape[1])
+            else:
+                x = x.transpose(-1, -2)
+        feats = _dense(self.fc, self.lstm(x), self.dtype)
+        return feats, _dense(self.head, feats, self.dtype)
+
+
 _JAX_TO_TORCH = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_hh": "bias_hh"}
 
 
 def params_from_jax(params) -> dict:
-    """A flax param tree of numpy arrays (`lstm/w_ih_l0` (in, 4H),
-    `fc/kernel` (in, out), ...) → this Model's state dict of f32 tensors."""
+    """A flax param tree of numpy arrays → the state dict of the port's
+    module of the same structure, as f32 tensors: an LSTM stack's
+    `w_ih_l0` (in, 4H) ... under the nn.LSTM names (`weight_ih_l0` (4H, in),
+    ...), a Dense kernel (in, out) as `weight` (out, in), a Conv or
+    ConvTranspose kernel (K, in, out) as `weight` (out, in, K), biases as
+    they are. Submodule names are kept, less flax's leading underscores.
+    Covers `Model` and `InlineLSTM` (`lstm/fc/head`) and the autoencoders."""
     p = params["params"] if "params" in params else params
     out = {}
-    for name, val in p["lstm"].items():
-        kind, layer = name.rsplit("_l", 1)
-        arr = np.asarray(val, dtype=np.float32)
-        out[f"lstm.{_JAX_TO_TORCH[kind]}_l{layer}"] = arr.T if arr.ndim == 2 else arr
-    for mod in ("fc", "head"):
-        if mod in p:
-            out[f"{mod}.weight"] = np.asarray(p[mod]["kernel"], dtype=np.float32).T
-            out[f"{mod}.bias"] = np.asarray(p[mod]["bias"], dtype=np.float32)
+
+    def walk(prefix, tree):
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                walk(f"{prefix}{name.lstrip('_')}.", val)
+                continue
+            arr = np.asarray(val, dtype=np.float32)
+            if name in ("kernel", "bias"):
+                key = "weight" if name == "kernel" else "bias"
+                out[prefix + key] = arr.transpose(tuple(reversed(range(arr.ndim))))
+            else:
+                kind, layer = name.rsplit("_l", 1)
+                out[f"{prefix}{_JAX_TO_TORCH[kind]}_l{layer}"] = arr.T
+
+    walk("", p)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}

@@ -1,15 +1,19 @@
-"""Fused multi-layer LSTM stack: the CUDA kernels K1, K2, K3 and their plain
-PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
+"""Fused multi-layer LSTM stack: the CUDA kernels K1, K2/K2g, K3, K4 and their
+plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
 
 - K1 `fwd_train`: whole-stack forward that streams, per layer, h_all
   (T, B, H), prefac (T, B, 4H) = [g·i(1−i), c_prev·f(1−f), i(1−g²),
   tanh c·o(1−o)] and qf (T, B, 2H) = [o(1−tanh²c), f] for the backward.
 - K2 `bwd`: reverse-time backward on those residuals with no
-  transcendentals, for a (B, H) cotangent at t = T−1 and no input gradient;
-  each CUDA block sums its own f32 partial of dW_ih, dW_hh and db, and a
-  second kernel adds the partials in block order (deterministic).
+  transcendentals. The cotangent g is (B, H) at t = T−1 or (T, B, H) at
+  every t; `need_dx` adds the input gradient dx (T, B, C). The form with a
+  (B, H) g and no dx is K2, every other form K2g (the general one). Each
+  CUDA block sums its own f32 partial of dW_ih, dW_hh and db, and a second
+  kernel adds the partials in block order (deterministic).
 - K3 `fwd_infer_last`: forward with no residuals, returning the top layer's
   h[T−1] (B, H).
+- K4 `fwd_infer`: forward with no residuals, returning the top layer's h at
+  every t (T, B, H).
 
 Layout is time-major: x (T, B, C); layers are (w_ih (in, 4H), w_hh (H, 4H),
 b (4H,)) in the stream dtype (float32 or bfloat16), in = C for layer 0 and H
@@ -17,15 +21,20 @@ after; gate order [i, f, g, o]. Residuals are stacked over layers:
 h_all (L, T, B, H), prefac (L, T, B, 4H), qf (L, T, B, 2H).
 
 Dispatch: a tensor on the CPU takes the plain version (`_fwd_train_ref`,
-`_bwd_ref`, `_fwd_infer_last_ref`); a CUDA tensor launches the kernel, built
-at first use, or raises. `LAUNCHES` counts kernel launches so a run can show
-that it went through the kernels.
+`_bwd_ref`, `_fwd_infer_last_ref`, `_fwd_infer_ref`); a CUDA tensor launches
+the kernel, built at first use, or raises. `LAUNCHES` counts kernel launches
+so a run can show that it went through the kernels (`bwd` for K2,
+`bwd_general` for K2g).
+
+The 128-lane padding and 8-row batch alignment of the Pallas wrappers
+(`_pad_for_kernel`) are a TPU layout choice and are not ported: the CUDA
+kernels mask a ragged batch tile themselves.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -34,16 +43,21 @@ from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exporte
     check_rc,
     load_lib,
     on_cuda,
+    ptr,
     reset_launches,
+    stream_of,
 )
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
-LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, bwd_reduce=0)
+LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, bwd_reduce=0, fwd_infer=0,
+                bwd_general=0)
+_FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2}  # csrc FwdMode
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _TILES = (16, 8, 4, 2, 1)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
+_PART_BUDGET = 12 << 20  # bytes of the backward's dW partials: a quarter of the 50 MB L2
 
 
 # ------------------------------------------------------------------ checks
@@ -116,13 +130,14 @@ def _fwd_train_ref(x: torch.Tensor, layers: Layers):
     return h_all, prefac, qf
 
 
-def _fwd_infer_last_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
-    """Plain K3: the forward without residuals; the top layer's h[T−1]."""
+def _fwd_infer_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """Plain K4: the forward without residuals; the top layer's h at every
+    t (T, B, H)."""
     T, B, C, H, L = _dims(x, layers)
     sd = x.dtype
     h = [torch.zeros(B, H, device=x.device) for _ in range(L)]
     c = [torch.zeros(B, H, device=x.device) for _ in range(L)]
-    inp = None
+    out = torch.empty(T, B, H, dtype=sd, device=x.device)
     for t in range(T):
         inp = x[t]
         for l, (w_ih, w_hh, b) in enumerate(layers):
@@ -132,13 +147,20 @@ def _fwd_infer_last_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
             c[l] = f * c[l] + i * g
             h[l] = o * torch.tanh(c[l])
             inp = h[l].to(sd)
-    return inp
+        out[t] = inp
+    return out
 
 
-def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf) -> List[Tuple[torch.Tensor, ...]]:
-    """Plain K2: consumes K1's residuals (not autograd through the loop).
-    g (B, H) in the stream dtype hits the top layer at T−1 only; returns
-    f32 (dW_ih, dW_hh, db) per layer."""
+def _fwd_infer_last_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """Plain K3: the forward without residuals; the top layer's h[T−1]."""
+    return _fwd_infer_ref(x, layers)[-1]
+
+
+def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
+    """Plain K2/K2g: consumes K1's residuals (not autograd through the loop).
+    g in the stream dtype is (B, H), hitting the top layer at T−1 only, or
+    (T, B, H), hitting it at every t. Returns (dx (T, B, C) in the stream
+    dtype when `need_dx`, else None; f32 (dW_ih, dW_hh, db) per layer)."""
     T, B, C, H, L = _dims(x, layers)
     sd = x.dtype
     dev = x.device
@@ -149,9 +171,13 @@ def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf) -> List[Tuple[torch.Tensor
          torch.zeros(b.shape, device=dev)]
         for (w_ih, w_hh, b) in layers
     ]
+    dx = torch.empty(T, B, C, dtype=sd, device=dev) if need_dx else None
     zero = torch.zeros(B, H, device=dev)
     for t in reversed(range(T)):
-        g_up = g.float() if t == T - 1 else zero
+        if g.dim() == 3:
+            g_up = g[t].float()
+        else:
+            g_up = g.float() if t == T - 1 else zero
         for l in reversed(range(L)):
             w_ih, w_hh, _ = layers[l]
             q = qf[l, t].float()
@@ -170,9 +196,11 @@ def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf) -> List[Tuple[torch.Tensor
             grads[l][0] += inp.t() @ dgates
             grads[l][1] += h_prev.t() @ dgates
             grads[l][2] += dgates.sum(0)
-            if l > 0:
+            if l > 0 or need_dx:
                 g_up = dgates @ w_ih.float().t()
-    return [tuple(gr) for gr in grads]
+        if need_dx:
+            dx[t] = g_up.to(sd)
+    return dx, [tuple(gr) for gr in grads]
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -180,7 +208,7 @@ def _typed(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.cerebra_lstm_fwd.argtypes = [i, i, i] + [vp] * 9 + [i] * 5 + [vp]
     lib.cerebra_lstm_fwd.restype = i
-    lib.cerebra_lstm_bwd.argtypes = [i, i] + [vp] * 8 + [i] * 5 + [vp]
+    lib.cerebra_lstm_bwd.argtypes = [i, i, i, i] + [vp] * 10 + [i] * 5 + [vp]
     lib.cerebra_lstm_bwd.restype = i
     lib.cerebra_reduce_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
     lib.cerebra_reduce_partials.restype = i
@@ -198,14 +226,18 @@ def _smem_bytes(bwd: bool, bt: int, C: int, H: int, L: int) -> int:
 
 
 def pick_tile(B: int, C: int, H: int, L: int, bwd: bool) -> int:
-    """Batch rows per CUDA block, from timings on an H100 at T = 460,
-    C = H = 96, L = 2 (PERF.md). The forward's block time hardly grows from
-    1 to 8 rows (the per-step weight reads dominate), and 8 rows keep
-    B = 1024 to one wave, so it takes 8. The backward's block time grows with
-    its rows while its partial-dW traffic grows with the number of blocks;
-    about B/16 rows balances the two. Raises if even one row's carries
-    overflow shared memory."""
-    want = 8 if not bwd else max(1, B // 16)
+    """Batch rows per CUDA block, from timings on an H100 at T = 460
+    (PERF.md). The forward's block time hardly grows from 1 to 8 rows (the
+    per-step weight reads dominate; C = H = 96, L = 2, and the autoencoder's
+    C = 96, H = 384 and C = 384, H = 96), and 8 rows keep B = 1024 to one
+    wave, so it takes 8. The backward's block time grows with its rows while
+    its partial-dW traffic grows with the number of blocks; about B/16 rows
+    balances the two, and enough rows to keep all blocks' partials within
+    `_PART_BUDGET` (at C = 96, H = 384, B = 16, one row per block took 278 ms
+    and four 129 ms). Raises if even one row's carries overflow shared
+    memory."""
+    part_bytes = 16 * H * (C + (2 * L - 1) * H + L)  # one block's f32 partial
+    want = 8 if not bwd else max(1, B // 16, -(-B * part_bytes // _PART_BUDGET))
     for bt in _TILES:
         if bt <= want and _smem_bytes(bwd, bt, C, H, L) <= _MAX_SMEM:
             return bt
@@ -230,54 +262,59 @@ def _packed(layers: Layers, H: int):
     return w_ih0, w_ihr, w_hh, b
 
 
-def _fwd_cuda(x, layers, train: bool, tile=None):
+def _fwd_cuda(x, layers, kind: str, tile=None):
+    """K1 (`kind` fwd_train), K3 (fwd_infer_last) or K4 (fwd_infer)."""
     T, B, C, H, L = _dims(x, layers)
     tile = tile or pick_tile(B, C, H, L, bwd=False)
     w_ih0, w_ihr, w_hh, b = _packed(layers, H)
     _cuda_checks(tile, x, w_ih0, w_ihr, w_hh, b)
     lib = _lib()
-    if train:
-        h_all = torch.empty(L, T, B, H, dtype=x.dtype, device=x.device)
-        prefac = torch.empty(L, T, B, 4 * H, dtype=x.dtype, device=x.device)
-        qf = torch.empty(L, T, B, 2 * H, dtype=x.dtype, device=x.device)
-        outs = (h_all.data_ptr(), prefac.data_ptr(), qf.data_ptr(), None)
+    res = out = None
+    if kind == "fwd_train":
+        res = tuple(torch.empty(L, T, B, n, dtype=x.dtype, device=x.device)
+                    for n in (H, 4 * H, 2 * H))  # h_all, prefac, qf
     else:
-        h_last = torch.empty(B, H, dtype=x.dtype, device=x.device)
-        outs = (None, None, None, h_last.data_ptr())
+        out = torch.empty((B, H) if kind == "fwd_infer_last" else (T, B, H),
+                          dtype=x.dtype, device=x.device)
     rc = lib.cerebra_lstm_fwd(
-        int(train), int(x.dtype == torch.bfloat16), tile,
+        _FWD_MODES[kind], int(x.dtype == torch.bfloat16), tile,
         x.data_ptr(), w_ih0.data_ptr(), w_ihr.data_ptr() or None, w_hh.data_ptr(),
-        b.data_ptr(), *outs, T, B, C, H, L,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        b.data_ptr(), *(ptr(r) for r in (res or (None,) * 3)), ptr(out), T, B, C, H, L,
+        stream_of(x),
     )
-    check_rc(lib, rc, "fwd_train" if train else "fwd_infer_last")
-    LAUNCHES["fwd_train" if train else "fwd_infer_last"] += 1
-    return (h_all, prefac, qf) if train else h_last
+    check_rc(lib, rc, kind)
+    LAUNCHES[kind] += 1
+    return res if kind == "fwd_train" else out
 
 
-def _bwd_cuda(g, x, layers, h_all, prefac, qf, tile=None):
+def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
     T, B, C, H, L = _dims(x, layers)
     tile = tile or pick_tile(B, C, H, L, bwd=True)
-    if (tuple(g.shape) != (B, H) or g.dtype != x.dtype
+    g_full = g.dim() == 3
+    if (tuple(g.shape) != ((T, B, H) if g_full else (B, H)) or g.dtype != x.dtype
             or tuple(h_all.shape) != (L, T, B, H) or tuple(prefac.shape) != (L, T, B, 4 * H)
             or tuple(qf.shape) != (L, T, B, 2 * H)):
         raise ValueError("cotangent or residuals do not match the stack")
+    w_ihT0 = layers[0][0].t().contiguous() if need_dx else None
     w_ihT_r = (torch.stack([l[0].t() for l in layers[1:]]) if L > 1
                else x.new_empty((0, 4 * H, H)))
     w_hhT = torch.stack([l[1].t() for l in layers])
-    _cuda_checks(tile, g, x, h_all, prefac, qf, w_ihT_r, w_hhT)
+    _cuda_checks(tile, g, x, h_all, prefac, qf, w_ihT0, w_ihT_r, w_hhT)
+    dx = torch.empty(T, B, C, dtype=x.dtype, device=x.device) if need_dx else None
     n_blk = -(-B // tile)
     n_part = 4 * H * (C + (L - 1) * H + L * H + L)
     part = torch.empty(n_blk, n_part, dtype=torch.float32, device=x.device)
     lib = _lib()
     rc = lib.cerebra_lstm_bwd(
-        int(x.dtype == torch.bfloat16), tile, g.data_ptr(), x.data_ptr(), h_all.data_ptr(),
-        prefac.data_ptr(), qf.data_ptr(), w_ihT_r.data_ptr() or None, w_hhT.data_ptr(),
-        part.data_ptr(), T, B, C, H, L, torch.cuda.current_stream(x.device).cuda_stream,
+        int(x.dtype == torch.bfloat16), tile, int(g_full), int(need_dx), g.data_ptr(),
+        x.data_ptr(), h_all.data_ptr(), prefac.data_ptr(), qf.data_ptr(), ptr(w_ihT0),
+        w_ihT_r.data_ptr() or None, w_hhT.data_ptr(), ptr(dx), part.data_ptr(),
+        T, B, C, H, L, stream_of(x),
     )
-    check_rc(lib, rc, "bwd")
-    LAUNCHES["bwd"] += 1
-    return _unpack_grads(reduce_partials(part), C, H, L)
+    kind = "bwd_general" if g_full or need_dx else "bwd"
+    check_rc(lib, rc, kind)
+    LAUNCHES[kind] += 1
+    return dx, _unpack_grads(reduce_partials(part), C, H, L)
 
 
 def reduce_partials(part: torch.Tensor) -> torch.Tensor:
@@ -290,8 +327,7 @@ def reduce_partials(part: torch.Tensor) -> torch.Tensor:
     out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
     lib = _lib()
     rc = lib.cerebra_reduce_partials(
-        part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1],
-        torch.cuda.current_stream(part.device).cuda_stream,
+        part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1], stream_of(part),
     )
     check_rc(lib, rc, "bwd_reduce")
     LAUNCHES["bwd_reduce"] += 1
@@ -310,73 +346,100 @@ def _unpack_grads(flat: torch.Tensor, C: int, H: int, L: int):
 
 
 # ---------------------------------------------------------------- wrappers
+def _weights(layers: Layers):
+    return [w for layer in layers for w in layer]
+
+
 def fwd_train(x: torch.Tensor, layers: Layers, tile=None):
     """K1 on CUDA, its plain version on the CPU → (h_all, prefac, qf)."""
-    if on_cuda(x, *[w for l in layers for w in l]):
-        return _fwd_cuda(x, layers, True, tile)
+    if on_cuda(x, *_weights(layers)):
+        return _fwd_cuda(x, layers, "fwd_train", tile)
     return _fwd_train_ref(x, layers)
 
 
 def fwd_infer_last(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
     """K3 on CUDA, its plain version on the CPU → h[T−1] of the top layer."""
-    if on_cuda(x, *[w for l in layers for w in l]):
-        return _fwd_cuda(x, layers, False, tile)
+    if on_cuda(x, *_weights(layers)):
+        return _fwd_cuda(x, layers, "fwd_infer_last", tile)
     return _fwd_infer_last_ref(x, layers)
 
 
-def bwd(g, x, layers: Layers, h_all, prefac, qf, tile=None):
-    """K2 plus its deterministic reduction on CUDA, the plain version on the
-    CPU → f32 (dW_ih, dW_hh, db) per layer."""
-    if on_cuda(g, x, h_all, prefac, qf, *[w for l in layers for w in l]):
-        return _bwd_cuda(g, x, layers, h_all, prefac, qf, tile)
-    return _bwd_ref(g, x, layers, h_all, prefac, qf)
+def fwd_infer(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
+    """K4 on CUDA, its plain version on the CPU → the top layer's h (T, B, H)."""
+    if on_cuda(x, *_weights(layers)):
+        return _fwd_cuda(x, layers, "fwd_infer", tile)
+    return _fwd_infer_ref(x, layers)
 
 
-class _StackLast(torch.autograd.Function):
-    """h[T−1] of the stack, with weight gradients only (the input is data).
+def bwd(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False, tile=None):
+    """K2/K2g plus the deterministic reduction on CUDA, the plain version on
+    the CPU → (dx or None, f32 (dW_ih, dW_hh, db) per layer); g is (B, H)
+    at T−1 or (T, B, H)."""
+    if on_cuda(g, x, h_all, prefac, qf, *_weights(layers)):
+        return _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx, tile)
+    return _bwd_ref(g, x, layers, h_all, prefac, qf, need_dx)
+
+
+class _Stack(torch.autograd.Function):
+    """The stack's top-layer h at every t (T, B, H), or at T−1 only (B, H)
+    when `last`, with gradients for the weights and, when it requires grad,
+    for x: the backward takes `need_dx` from whether x needs a gradient (the
+    weight gradients are the same either way).
     `impl` is (forward-train, backward) — the dispatching wrappers, or the
     plain versions for timing them on the card."""
 
     @staticmethod
-    def forward(ctx, impl, x, *flat):
+    def forward(ctx, impl, last, x, *flat):
         layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
         h_all, prefac, qf = impl[0](x, layers)
         ctx.impl = impl
         ctx.save_for_backward(x, h_all, prefac, qf, *flat)
-        return h_all[-1, -1].clone()
+        # a copy: a view would hand out the saved residual
+        return (h_all[-1, -1] if last else h_all[-1]).clone()
 
     @staticmethod
     def backward(ctx, g):
         x, h_all, prefac, qf, *flat = ctx.saved_tensors
         layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
-        grads = ctx.impl[1](g.to(x.dtype).contiguous(), x, layers, h_all, prefac, qf)
-        out = []
-        for w, dw in zip(flat, [d for layer in grads for d in layer]):
-            out.append(dw.to(w.dtype))  # as _vjp_bwd casts dW to the weight dtype
-        return (None, None, *out)
+        dx, grads = ctx.impl[1](g.to(x.dtype).contiguous(), x, layers, h_all, prefac, qf,
+                                ctx.needs_input_grad[2])
+        # as _vjp_bwd casts dW to the weight dtype
+        dws = [dw.to(w.dtype) for w, dw in zip(flat, [d for layer in grads for d in layer])]
+        return (None, None, dx, *dws)
 
 
-def _stack_last(impl, infer, x: torch.Tensor, layers: Layers) -> torch.Tensor:
-    if x.requires_grad:
-        raise NotImplementedError(
-            "input gradients need the backward with a dx stream (K2 general), "
-            "which is not ported yet"
-        )
-    flat = [w for layer in layers for w in layer]
-    if torch.is_grad_enabled() and any(w.requires_grad for w in flat):
-        return _StackLast.apply(impl, x, *flat)
+def _stack(impl, infer, last: bool, x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(w.requires_grad for w in _weights(layers))):
+        return _Stack.apply(impl, last, x, *_weights(layers))
     return infer(x, layers)
+
+
+def lstm_stack(x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """The top layer's hidden states (T, B, H) of a time-major stack, in x's
+    dtype (the contract of the Pallas `lstm_stack`).
+
+    K1 forward and K2g backward when grad is enabled and x or a weight
+    requires grad, K4 otherwise. An x that needs no gradient (data, or
+    detached) drops dx from the backward, as the Pallas
+    `lstm_stack_pallas_ndx` does."""
+    return _stack((fwd_train, bwd), fwd_infer, False, x, layers)
 
 
 def lstm_stack_last(x: torch.Tensor, layers: Layers) -> torch.Tensor:
     """The top layer's final hidden state (B, H) of a time-major stack.
 
-    K1 forward and K2 backward when grad is enabled and a weight requires
-    grad, K3 otherwise. The input gets no gradient: x.requires_grad raises."""
-    return _stack_last((fwd_train, bwd), fwd_infer_last, x, layers)
+    K1 forward and K2 backward (K2g when x requires grad) when grad is
+    enabled and x or a weight requires grad, K3 otherwise."""
+    return _stack((fwd_train, bwd), fwd_infer_last, True, x, layers)
+
+
+def lstm_stack_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """`lstm_stack` through the plain versions on any device (for timing
+    the kernels against them on the card)."""
+    return _stack((_fwd_train_ref, _bwd_ref), _fwd_infer_ref, False, x, layers)
 
 
 def lstm_stack_last_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
-    """`lstm_stack_last` through the plain versions on any device (for
-    timing the kernels against them on the card)."""
-    return _stack_last((_fwd_train_ref, _bwd_ref), _fwd_infer_last_ref, x, layers)
+    """`lstm_stack_last` through the plain versions on any device."""
+    return _stack((_fwd_train_ref, _bwd_ref), _fwd_infer_last_ref, True, x, layers)

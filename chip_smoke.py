@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build every kernel, hold
-each against its plain PyTorch version, drive the two ported trainers at
-full width through the kernels, and time kernels and training steps.
+each against its plain PyTorch version, drive the ported trainers at full
+width through the kernels, and time kernels and training steps.
 
     python3 chip_smoke.py
 
@@ -30,8 +30,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   8. vit timing  each ViT kernel against its plain version at the globals'
                  and the locals' shapes, and ms/step and views/s of the
                  main_dino step through the kernels and the plain versions
-The line before the last is a JSON object of per-kernel results; the last
-is {"ok": true, "device": {...}}.
+  9. ae parity   K4 and K2g (cotangent at T-1 or at every t, with and
+                 without dx) against their plain versions at the recurrent
+                 autoencoder's encoder (C 96, H 384) and decoder (C 384,
+                 H 96) widths, B = 16 and 13, f32 and bf16; and every
+                 gradient of RecurrentAutoencoder(460, 96, 384) for a loss on
+                 both outputs, through the kernels and the plain versions
+ 10. ae train    10 RMSprop steps of `feature_distill_step` on that model
+                 with `feature_matching_loss`, bf16, batch 16, on synthetic
+                 (96, 512) trials cropped to [20, 480) against 384-d teacher
+                 features, then one no-grad forward: finite losses, K1 twice
+                 a step and K2g once (the loss reads only the encoded latent,
+                 so only the encoder's backward runs: a cotangent at every
+                 t, no dx), K4 twice in the forward; ms/step, and K4/K2g
+                 against their plain versions at both widths
+A `[phases]` line after each phase gives its seconds. The line before the
+last is a JSON object of per-kernel results; the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -56,14 +71,16 @@ REPLACES = {
     "fwd_infer_last": "cerebra/models/pallas_lstm_stack.py:755",
     "bwd_reduce": "cerebra/models/pallas_lstm_stack.py:305",
 }
-# Tolerances. f32 values by max-abs: both sides run the same f32 algebra and
-# differ only in the order of the dot products (at most 2.4e-7 seen on an
-# H100). f32 weight gradients by relative Frobenius: sums of T*B terms in
-# another order (at most 4.3e-7 seen). Every bf16 output by relative
-# Frobenius: a sum that lands the other side of a bf16 rounding moves that
-# element by an ulp (2^-8 relative) and the recurrence carries it on (at
-# most 1.5e-4 seen). Each limit keeps a margin of 20x or more over what was
-# seen; they were first set at 1e-4, 1e-4 and 2e-2.
+# Tolerances of the LSTM kernels. f32 values by max-abs: both sides run the
+# same f32 algebra and differ only in the order of the dot products. f32
+# weight gradients and dx by relative Frobenius: sums of T*B terms in another
+# order. Every bf16 output by relative Frobenius: a sum that lands the other
+# side of a bf16 rounding moves that element by an ulp (2^-8 relative) and
+# the recurrence carries it on. First set at 1e-4, 1e-4 and 2e-2, then
+# tightened to 20x over what K1-K3 showed on an H100 (C = H = 96, L = 2: at
+# most 2.4e-7, 4.3e-7, 1.5e-4). K4 and K2g at the autoencoder's widths show
+# more (at most 1.2e-6, K4 at C 384 / H 96; 6.8e-7 and 1.3e-3, K2g's dx at
+# C 96 / H 384): margins of 8x, 15x and 3.9x.
 TOL_F32_ABS = 1e-5
 TOL_F32_GRAD_REL = 1e-5
 TOL_BF16_REL = 5e-3
@@ -88,6 +105,27 @@ VIT_SHAPES = ((16, 785), (32, 145), (3, 37))  # (sequences, tokens): globals, lo
 # whose outputs reach ~10), 1.1e-6 (f32 gradients) and 6.3e-4 (bf16, K6
 # dWqkv). f32 values keep 1e-4 (6.8x); the others were tightened to ~20x.
 TOL_VIT = (1e-4, 2e-5, 1.5e-2)
+
+# The recurrent autoencoder: 1-layer LSTMs at its encoder and decoder widths
+# (C, H), L = 1, over T = 460; the LSTM tolerances hold for K4 and K2g.
+AE_SHAPES = {"encoder": (96, 384), "decoder": (384, 96)}
+E_AE, B_AE = 384, 16
+# Tolerances of the full-width RecurrentAutoencoder(460, 96, 384), every
+# gradient of a loss on both outputs, kernels against plain. Its bf16 chain
+# (the decoder's dx over 460 repeated latents, summed, then 460 encoder
+# steps) carries flipped roundings further than one kernel. On an H100 over
+# five seeds the sound run read at most 6.7e-7 (f32) and 3.4e-3 (bf16);
+# planted faults read, in bf16: one step of the decoder's dx dropped
+# 2.7e-2, one batch row's dx dropped 0.23, the cotangent's first step
+# dropped 2.3e-2; a half-ulp low bias on dx 7.2e-3, on dW_ih 5.2e-3;
+# against the f32 plain versions (a precision control) 6.7e-3. In f32 every
+# fault read 3.9e-3 or more. 5e-3 lies between the sound bf16 drift and the
+# faults; the f32 check is the sharp one.
+TOL_AE = (TOL_F32_ABS, 1e-5, 5e-3)
+REPLACES.update({
+    "fwd_infer": "cerebra/models/pallas_lstm_stack.py:196",
+    "bwd_general": "cerebra/models/pallas_lstm_stack.py:239",
+})
 
 
 def log(msg: str) -> None:
@@ -119,7 +157,7 @@ def phase_build() -> None:
     log(f"[build] all in {time.perf_counter() - t0:.2f} s")
 
 
-def make_stack(B: int, dtype: torch.dtype, seed: int):
+def make_stack(B: int, dtype: torch.dtype, seed: int, C: int = C, H: int = H, L: int = L):
     gen = torch.Generator().manual_seed(seed)
     bound = 1.0 / math.sqrt(H)
 
@@ -175,8 +213,8 @@ def phase_parity() -> dict:
             e1 = max(compare(f"K1 {name} {tag}", a, b, dtype, False)
                      for name, a, b in zip(("h_all", "prefac", "qf"), got, want))
             # K2 on the plain forward's residuals, so it is checked alone
-            got_g = ls.bwd(g, x, layers, *want)
-            want_g = ls._bwd_ref(g, x, layers, *want)
+            _, got_g = ls.bwd(g, x, layers, *want)
+            _, want_g = ls._bwd_ref(g, x, layers, *want)
             e2 = max(compare(f"K2 {name}[{l}] {tag}", a, b, dtype, True)
                      for l in range(L)
                      for name, a, b in zip(("dW_ih", "dW_hh", "db"), got_g[l], want_g[l]))
@@ -485,6 +523,155 @@ def phase_dino_step_timing(gpu: str) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_ae_parity() -> dict:
+    from unittest import mock
+
+    from cerebra_torch.models import RecurrentAutoencoder
+    from cerebra_torch.models import lstm as lstm_mod
+    from cerebra_torch.models import lstm_stack as ls
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (c, h) in AE_SHAPES.items():
+            for B in (16, 13):
+                tag = f"{str(dtype).split('.')[-1]} {name} B={B}"
+                x, layers, g_last = make_stack(B, dtype, seed=B, C=c, H=h, L=1)
+                g_full = torch.randn(T, B, h, generator=torch.Generator().manual_seed(B))
+                e4 = compare(f"K4 h {tag}", ls.fwd_infer(x, layers), ls._fwd_infer_ref(x, layers),
+                             dtype, False)
+                res = ls._fwd_train_ref(x, layers)
+                e2 = 0.0  # over the K2g forms; K2's (g at T-1, no dx) is checked, not counted
+                for g, g_name in ((g_last, "g T-1"), (g_full.to("cuda", dtype), "g all t")):
+                    for need_dx in (False, True):
+                        form = f"{g_name}{' dx' if need_dx else ''}"
+                        dx, got = ls.bwd(g, x, layers, *res, need_dx=need_dx)
+                        want_dx, want = ls._bwd_ref(g, x, layers, *res, need_dx=need_dx)
+                        pairs = list(zip(("dW_ih", "dW_hh", "db"), got[0], want[0]))
+                        if need_dx:
+                            pairs.append(("dx", dx, want_dx))
+                        e = max(compare(f"K2 {form} {n} {tag}", a, b, dtype, True)
+                                for n, a, b in pairs)
+                        if g is not g_last or need_dx:
+                            e2 = max(e2, e)
+                if dtype == torch.bfloat16 and name == "encoder" and B == B_AE:
+                    errs = {"fwd_infer": e4, "bwd_general": e2}
+                del x, layers, g_last, g_full, res
+        # the full-width model: every gradient of a loss on both outputs
+        tag = f"{str(dtype).split('.')[-1]} RecurrentAutoencoder(460, 96, 384) B={B_AE}"
+        gen = torch.Generator().manual_seed(3)
+        eeg = torch.randn(B_AE, T, C, generator=gen).cuda()
+        w_enc = torch.randn(B_AE, E_AE, generator=gen).cuda()
+        w_dec = torch.randn(B_AE, T, C, generator=gen).cuda()
+        outs = []
+        for stack_fn in (ls.lstm_stack, ls.lstm_stack_ref):
+            model = RecurrentAutoencoder(T, C, E_AE, dtype=dtype, device="cuda",
+                                         generator=torch.Generator().manual_seed(0))
+            with mock.patch.object(lstm_mod, "lstm_stack", stack_fn):
+                enc, dec = model(eeg)
+                ((enc.float() * w_enc).sum() + (dec.float() * w_dec).sum()).backward()
+            outs.append([enc, dec] + [p.grad for p in model.parameters()])
+        names = ["encoded", "decoded"] + [n for n, _ in model.named_parameters()]
+        for n, a, b in zip(names, *outs):
+            compare(f"AE {n} {tag}", a, b, dtype, n not in ("encoded", "decoded"), TOL_AE)
+        del model, outs, eeg
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_ae_train(gpu: str) -> tuple:
+    from unittest import mock
+
+    from cerebra_torch.data import make_synthetic_corpus
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.models import RecurrentAutoencoder, feature_matching_loss
+    from cerebra_torch.models import lstm as lstm_mod
+    from cerebra_torch.models import lstm_stack as ls
+    from cerebra_torch.train.optim import make_optimizer
+    from cerebra_torch.train.steps import feature_distill_step
+
+    steps = 10
+    corpus = make_synthetic_corpus(seed=0, n_per_class=4, n_classes=N_CLASSES, n_channels=C,
+                                   n_samples=T_RAW, feature_dim=E_AE).window(T_LO, T_HI)
+    dev = torch.device("cuda")
+    eeg = torch.from_numpy(corpus.eeg).to(dev)  # (N, T, C)
+    feats = torch.from_numpy(corpus.image_features).to(dev)
+    labels = torch.from_numpy(corpus.labels).to(dev)
+    order = np.random.default_rng(0).permutation(len(labels))
+
+    def loss_fn(f, c, t, y, e):
+        return feature_matching_loss(f.float(), t)
+
+    def make():
+        model = RecurrentAutoencoder(T, C, E_AE, dtype=torch.bfloat16, device=dev,
+                                     generator=torch.Generator().manual_seed(0))
+        return model, make_optimizer("rmsprop", model.parameters(), 1e-3)
+
+    model, opt = make()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        idx = torch.from_numpy(order[i * B_AE:(i + 1) * B_AE]).to(dev)
+        losses.append(feature_distill_step(model, opt, loss_fn, eeg[idx], feats[idx],
+                                           labels[idx], 0))
+    with torch.no_grad():
+        enc, dec = model(eeg[:B_AE])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    losses = [v.item() for v in losses]
+    log(f"[ae train] {steps} steps + 1 forward in {seconds:.2f} s, losses "
+        f"{[round(v, 5) for v in losses]}, launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or not torch.isfinite(dec.float()).all():
+        raise AssertionError(f"non-finite losses or reconstruction: {losses}")
+    if tuple(enc.shape) != (B_AE, E_AE) or tuple(dec.shape) != (B_AE, T, C):
+        raise AssertionError(f"encoded {tuple(enc.shape)}, decoded {tuple(dec.shape)}")
+    want = {"fwd_train": 2 * steps, "bwd_general": steps, "bwd_reduce": steps,
+            "fwd_infer": 2, "bwd": 0, "fwd_infer_last": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+
+    batch = (eeg[:B_AE], feats[:B_AE], labels[:B_AE], 0)
+    for kind in ("kernels", "plain", "kernels"):
+        model, opt = make()
+        with mock.patch.object(lstm_mod, "lstm_stack",
+                               ls.lstm_stack if kind == "kernels" else ls.lstm_stack_ref):
+            loss = feature_distill_step(model, opt, loss_fn, *batch)
+            torch.cuda.synchronize()
+            n = 5 if kind == "kernels" else 2
+            t0 = time.perf_counter()
+            for _ in range(n):
+                loss = feature_distill_step(model, opt, loss_fn, *batch)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / n
+        if not math.isfinite(loss.item()):
+            raise AssertionError(f"{kind} ae step loss is {loss.item()}")
+        log(f"[ae step] {kind}: {dt * 1e3:.2f} ms/step, {B_AE / dt:.1f} trials/s "
+            f"(RecurrentAutoencoder(460, 96, 384) fwd/bwd + RMSprop, bf16, batch {B_AE}) on {gpu}")
+
+    times = {}
+    for name, (c, h) in AE_SHAPES.items():
+        x, layers, _ = make_stack(B_AE, torch.bfloat16, seed=5, C=c, H=h, L=1)
+        res = ls.fwd_train(x, layers)
+        g = torch.randn(T, B_AE, h, device=dev).to(torch.bfloat16)
+        dx = name == "decoder"  # the decoder's input (the repeated latent) needs dx
+        rows = {
+            "fwd_infer": (lambda: ls.fwd_infer(x, layers), lambda: ls._fwd_infer_ref(x, layers)),
+            "bwd_general": (lambda: ls.bwd(g, x, layers, *res, need_dx=dx),
+                            lambda: ls._bwd_ref(g, x, layers, *res, need_dx=dx)),
+        }
+        for kname, (kern, plain) in rows.items():
+            ms, plain_ms = time_ms(kern, 5), time_ms(plain, 2)
+            log(f"[ae timing] {kname} {name} C={c} H={h} B={B_AE} T={T} bf16"
+                f"{' (g all t, dx)' if kname == 'bwd_general' and dx else ''}"
+                f"{' (g all t)' if kname == 'bwd_general' and not dx else ''}: "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            if name == "encoder":
+                times[kname] = (ms, plain_ms)
+        del x, layers, res, g
+    return launches, times
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -492,21 +679,35 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     import cerebra_torch  # noqa: F401  (fails before any output outside a checkout)
 
-    gpu = phase_device()
-    phase_build()
-    errs = phase_parity()
-    launches = phase_main()
-    times = phase_kernel_timing()
-    phase_step_timing(gpu)
-    errs.update(phase_vit_parity())
-    launches.update({k: v for k, v in phase_main_dino().items() if k in VIT_SOURCES})
-    times.update(phase_vit_timing())
-    phase_dino_step_timing(gpu)
+    start = time.perf_counter()
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"[phases] {phase.__name__} {time.perf_counter() - t0:.1f} s")
+        return out
+
+    gpu = run(phase_device)
+    run(phase_build)
+    errs = run(phase_parity)
+    launches = run(phase_main)
+    times = run(phase_kernel_timing)
+    run(phase_step_timing, gpu)
+    errs.update(run(phase_vit_parity))
+    launches.update({k: v for k, v in run(phase_main_dino).items() if k in VIT_SOURCES})
+    times.update(run(phase_vit_timing))
+    run(phase_dino_step_timing, gpu)
+    errs.update(run(phase_ae_parity))
+    ae_launches, ae_times = run(phase_ae_train, gpu)
+    launches.update({k: ae_launches[k] for k in ("fwd_infer", "bwd_general")})
+    times.update(ae_times)
+    log(f"[phases] all {time.perf_counter() - start:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": VIT_SOURCES.get(name, SOURCE),
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce", *VIT_SOURCES)
+        for name in ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce", *VIT_SOURCES,
+                     "fwd_infer", "bwd_general")
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

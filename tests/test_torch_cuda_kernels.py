@@ -1,8 +1,10 @@
-"""The port's CUDA LSTM-stack kernels (K1, K2 with its dW reduction, K3)
-against their plain PyTorch versions on the card, over shapes and tiles the
-main path does not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, and
-4H below one warp's multiple. They need an NVIDIA GPU and nvcc, and skip
-without them. On a GPU machine:
+"""The port's CUDA LSTM-stack kernels (K1, K2/K2g with the dW reduction, K3,
+K4) against their plain PyTorch versions on the card, over shapes and tiles
+the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
+below one warp's multiple, and the recurrent autoencoder's widths (encoder
+C = 96, H = 384, with 4H above the block's 512 threads; decoder C = 384,
+H = 96). They need an NVIDIA GPU and nvcc, and skip without them. On a GPU
+machine:
 
     python -m pytest tests/test_torch_cuda_kernels.py
 
@@ -21,7 +23,8 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 # (T, B, C, H, L)
-SHAPES = [(1, 1, 96, 96, 2), (7, 13, 24, 10, 1), (9, 40, 96, 96, 3), (5, 3, 300, 64, 2)]
+SHAPES = [(1, 1, 96, 96, 2), (7, 13, 24, 10, 1), (9, 40, 96, 96, 3), (5, 3, 300, 64, 2),
+          (12, 16, 96, 384, 1), (12, 13, 384, 96, 1)]
 
 
 @pytest.fixture
@@ -65,8 +68,33 @@ def test_kernels_match_plain(cuda, dtype, shape, tile):
     want = ls._fwd_train_ref(x, layers)
     for a, b in zip(ls.fwd_train(x, layers, tile), want):
         assert_close(a, b, dtype)
-    got_g = ls.bwd(g, x, layers, *want, tile=tile)
-    for got_l, want_l in zip(got_g, ls._bwd_ref(g, x, layers, *want)):
+    _, got_g = ls.bwd(g, x, layers, *want, tile=tile)
+    for got_l, want_l in zip(got_g, ls._bwd_ref(g, x, layers, *want)[1]):
+        for a, b in zip(got_l, want_l):
+            assert_close(a, b, dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("form", ["g_last_dx", "g_full", "g_full_dx"])
+@pytest.mark.parametrize("tile", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sequence_kernels_match_plain(cuda, dtype, shape, tile, form):
+    """K4, and K2g in its three forms beyond K2's: a (B, H) cotangent with
+    dx, a full (T, B, H) cotangent without and with dx."""
+    x, layers, g = make_stack(shape, dtype, cuda)
+    assert_close(ls.fwd_infer(x, layers, tile), ls._fwd_infer_ref(x, layers), dtype)
+    if form != "g_last_dx":
+        g = torch.randn(x.shape[0], *g.shape, generator=torch.Generator().manual_seed(1)).to(
+            cuda, dtype)
+    need_dx = form.endswith("dx")
+    res = ls._fwd_train_ref(x, layers)
+    dx, got_g = ls.bwd(g, x, layers, *res, need_dx=need_dx, tile=tile)
+    want_dx, want_g = ls._bwd_ref(g, x, layers, *res, need_dx=need_dx)
+    assert (dx is None) == (not need_dx)
+    if need_dx:
+        assert_close(dx, want_dx, dtype, grad=True)
+    for got_l, want_l in zip(got_g, want_g):
         for a, b in zip(got_l, want_l):
             assert_close(a, b, dtype, grad=True)
     torch.cuda.synchronize()
@@ -89,12 +117,46 @@ def test_autograd_wrapper_launches_the_kernels(cuda):
         ls.lstm_stack_last(x, ws)
     names = ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce")
     assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
+    assert ls.LAUNCHES["fwd_infer"] == ls.LAUNCHES["bwd_general"] == 0
 
 
-def test_weight_gradients_are_deterministic(cuda):
+def test_sequence_wrapper_gives_the_plain_gradients_and_launches(cuda):
+    """lstm_stack with x requiring grad: K1 + K2g (full cotangent, dx), and K4
+    without grad; x's and the weights' gradients as through the plain
+    versions."""
+    x, layers, _ = make_stack((11, 6, 96, 384, 1), torch.float32, cuda, seed=3)
+    w_out = torch.randn(11, 6, 384, device=cuda)
+    grads = []
+    for fn in (ls.lstm_stack, ls.lstm_stack_ref):
+        xs = x.clone().requires_grad_(True)
+        ws = [tuple(w.clone().requires_grad_(True) for w in l) for l in layers]
+        (fn(xs, ws) * w_out).sum().backward()
+        grads.append([xs.grad] + [w.grad for l in ws for w in l])
+    for a, b in zip(*grads):
+        assert_close(a, b, torch.float32, grad=True)
+    ls.reset_launches()
+    xs = x.clone().requires_grad_(True)
+    ls.lstm_stack(xs, layers).sum().backward()
+    with torch.no_grad():
+        ls.lstm_stack(x, layers)
+    names = ("fwd_train", "bwd_general", "fwd_infer", "bwd_reduce")
+    assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
+    assert ls.LAUNCHES["bwd"] == ls.LAUNCHES["fwd_infer_last"] == 0
+
+
+@pytest.mark.parametrize("g_full", [False, True], ids=["g_last", "g_full"])
+@pytest.mark.parametrize("need_dx", [False, True], ids=["no_dx", "dx"])
+def test_weight_gradients_are_deterministic(cuda, need_dx, g_full):
+    """Every backward form, K2's (g at T-1, no dx) and K2g's, gives
+    bitwise-repeatable weight gradients and dx."""
     x, layers, g = make_stack((20, 37, 96, 96, 2), torch.bfloat16, cuda, seed=2)
+    if g_full:
+        g = torch.randn(x.shape[0], *g.shape, generator=torch.Generator().manual_seed(1)).to(
+            cuda, torch.bfloat16)
     res = ls.fwd_train(x, layers)
-    first, second = ls.bwd(g, x, layers, *res), ls.bwd(g, x, layers, *res)
+    (dx1, first), (dx2, second) = (ls.bwd(g, x, layers, *res, need_dx=need_dx)
+                                   for _ in range(2))
+    assert (dx1 is None and dx2 is None) if not need_dx else torch.equal(dx1, dx2)
     for a, b in zip(first, second):
         for u, v in zip(a, b):
             assert torch.equal(u, v)

@@ -9,7 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from cerebra.models.pallas_lstm_stack import _fwd_train_impl, lstm_stack_pallas_last_ndx
+from cerebra.models.pallas_lstm_stack import (
+    _fwd_train_impl,
+    lstm_stack_pallas_last,
+    lstm_stack_pallas_last_ndx,
+)
 from cerebra_torch.models import lstm_stack as ls
 
 torch.set_num_threads(1)
@@ -115,11 +119,17 @@ def test_cpu_wrapper_takes_plain_path():
     assert all(v == 0 for v in ls.LAUNCHES.values()), ls.LAUNCHES
 
 
-def test_wrapper_raises_on_input_grad():
-    x, layers = make_case()
-    xt, lt = to_torch(x, layers, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ls.lstm_stack_last(xt.requires_grad_(True), lt)
+def test_wrapper_gives_input_grad_like_pallas():
+    """x's gradient through lstm_stack_last (K2g's dx, the plain version)
+    against jax.grad through lstm_stack_pallas_last."""
+    x, layers = make_case(T=5, L=2, seed=6)
+    w_out = np.random.default_rng(8).normal(size=(5, 4)).astype(np.float32)
+    want = jax.grad(lambda x, l: jnp.sum(lstm_stack_pallas_last(x, l) * w_out))(
+        *to_jax(x, layers))
+    xt, lt = to_torch(x, layers)
+    xt.requires_grad_(True)
+    (ls.lstm_stack_last(xt, lt) * torch.from_numpy(w_out)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=2e-5, rtol=2e-4)
 
 
 def test_wrapper_rejects_bad_stacks():

@@ -18,6 +18,7 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert "cerebra_torch.cli.lstm_distill_from_dinov2_train" in names
 assert "cerebra_torch.cli.main_dino" in names
+assert "cerebra_torch.models.autoencoders" in names
 print(len(names))
 """
 
