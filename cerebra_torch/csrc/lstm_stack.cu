@@ -1,23 +1,25 @@
 // Whole-stack LSTM kernels for Hopper (sm_90a): the CUDA counterparts of the
-// Pallas kernels in cerebra/models/pallas_lstm_stack.py that the
-// LSTM->DINOv2 trainer and the recurrent autoencoder run.
+// Pallas kernels in cerebra/models/pallas_lstm_stack.py.
 //
 //   lstm_fwd_kernel<T, BT, TRAIN>      replaces _fwd_train_kernel      (K1)
 //   lstm_fwd_kernel<T, BT, INFER_LAST> replaces _fwd_infer_last_kernel (K3)
 //   lstm_fwd_kernel<T, BT, INFER_SEQ>  replaces _fwd_infer_kernel      (K4)
+//   lstm_fwd_kernel<T, BT, TRAIN_RC>   replaces _fwd_train_rc_kernel   (K10)
 //   lstm_bwd_kernel<T, BT>             replaces _bwd_kernel: K2 (need_dx=False,
 //                                      g_last_only=True) and K2g (need_dx=True
 //                                      and/or a full (Tn, B, H) cotangent)
-//   reduce_partials                    replaces the backward's accumulation
+//   lstm_bwd_rc_kernel<T, BT>          replaces _bwd_rc_kernel         (K11)
+//   reduce_partials                    replaces the backwards' accumulation
 //                                      of dW across the sequential TPU grid
 //
 // Layouts (all row-major, T = stream dtype, float or __nv_bfloat16):
 //   x (Tn, B, C); w_ih0 (C, 4H); w_ihr (L-1, H, 4H); w_hh (L, H, 4H);
 //   bias (L, 4H); h_all (L, Tn, B, H); prefac (L, Tn, B, 4H);
-//   qf (L, Tn, B, 2H); h_out (B, H) for K3, (Tn, B, H) for K4;
-//   g (B, H), or (Tn, B, H) when g_full; dx (Tn, B, C);
-//   w_ihT0 (4H, C), w_ihT_r (L-1, 4H, H) and w_hhT (L, 4H, H) are the
-//   transposes the backward's chain products read; gate order [i, f, g, o].
+//   qf (L, Tn, B, 2H); c_all (L, Tn, B, H); h_out (B, H) for K3, (Tn, B, H)
+//   for K4; g (B, H), or (Tn, B, H) when g_full (always for K11);
+//   dx (Tn, B, C); w_ihT0 (4H, C), w_ihT_r (L-1, 4H, H) and w_hhT (L, 4H, H)
+//   are the transposes the backwards' chain products read; gate order
+//   [i, f, g, o].
 //
 // What bounds them on an H100: the recurrence is serial over Tn = 460 steps.
 // Per step and layer a batch tile of BT rows needs (in + H) * 4H * BT
@@ -43,85 +45,49 @@
 // The kernels allocate nothing and do not synchronise; the C entry points
 // launch on the caller's stream and return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lstm_common.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Threads per block: one per gate column up to this cap, above which each
-// thread takes several columns. 1024 threads would leave 64 registers a
-// thread, and the kernels use up to ~100 (ptxas -v on an H100 toolchain).
-constexpr int MAX_THREADS = 512;
-
-// the value a float takes after a round trip through the stream dtype
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f<T>(from_f<T>(v));
-}
-
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// v[r] = p[r] for the BT rows of one transposed shared-memory entry
-template <int BT>
-__device__ __forceinline__ void rows(const float* p, float (&v)[BT]) {
-  if constexpr (BT % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < BT / 4; ++q) {
-      const float4 t = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = t.x;
-      v[4 * q + 1] = t.y;
-      v[4 * q + 2] = t.z;
-      v[4 * q + 3] = t.w;
-    }
-  } else if constexpr (BT == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int r = 0; r < BT; ++r) v[r] = p[r];
-  }
-}
-
-// acc[r] += sum_k m[k * stride + j] * rows(s + k * BT)[r], k = 0 .. n-1
+// gates[r * rs + j * js] = (inp @ wi)[r][j] + (hr @ wh)[r][j] + bias[j] for the
+// BT rows of a batch tile and every gate column j < 4H, one thread per column;
+// inp (in, BT) and hr (H, BT) are transposed rows in shared memory. The
+// forwards compute their gates here and K11 recomputes them here, so K11's
+// gates equal K10's bit for bit (the same operands in the same order).
 template <typename T, int BT>
-__device__ __forceinline__ void col_dot(float (&acc)[BT], const T* __restrict__ m,
-                                        const float* s, int n, int stride, int j) {
-#pragma unroll 16
-  for (int k = 0; k < n; ++k) {
-    const float w = to_f<T>(m[(size_t)k * stride + j]);
-    float v[BT];
-    rows<BT>(s + k * BT, v);
+__device__ __forceinline__ void gate_product(float* gates, int rs, int js,
+                                             const T* __restrict__ wi, const float* inp, int in,
+                                             const T* __restrict__ wh, const float* hr,
+                                             const T* __restrict__ bias, int H) {
+  const int G = 4 * H;
+  for (int j = threadIdx.x; j < G; j += blockDim.x) {
+    float ax[BT], ah[BT];
 #pragma unroll
-    for (int r = 0; r < BT; ++r) acc[r] = fmaf(v[r], w, acc[r]);
+    for (int r = 0; r < BT; ++r) ax[r] = ah[r] = 0.0f;
+    col_dot<T, BT>(ax, wi, inp, in, G, j);
+    col_dot<T, BT>(ah, wh, hr, H, G, j);
+    const float bj = to_f<T>(bias[j]);
+#pragma unroll
+    for (int r = 0; r < BT; ++r) gates[r * rs + j * js] = (ax[r] + ah[r]) + bj;
   }
 }
 
 // ---------------------------------------------------------------- forward
 // The C entry point's `mode` argument takes these values.
-enum FwdMode { INFER_LAST = 0, TRAIN = 1, INFER_SEQ = 2 };
+enum FwdMode { INFER_LAST = 0, TRAIN = 1, INFER_SEQ = 2, TRAIN_RC = 3 };
 
 // Replaces cerebra/models/pallas_lstm_stack.py:_fwd_train_kernel (TRAIN),
-// :_fwd_infer_last_kernel (INFER_LAST) and :_fwd_infer_kernel (INFER_SEQ).
+// :_fwd_infer_last_kernel (INFER_LAST), :_fwd_infer_kernel (INFER_SEQ) and
+// :_fwd_train_rc_kernel (TRAIN_RC).
 // Bound by latency: each of the Tn serial steps reads every layer's weights
 // from L2 for (in + H) * 4H * BT multiply-adds per layer, with two barriers
 // per layer-step; the carries never leave shared memory, and BT = 8 rows
 // share each weight read. When 4H exceeds MAX_THREADS (H = 384) each
 // thread takes several gate columns.
-// K1 (TRAIN) streams h_all, prefac and qf for every layer and step; K3 only
-// writes the top layer's h at Tn-1, K4 the top layer's h at every step.
+// K1 (TRAIN) streams h_all, prefac and qf for every layer and step; K10
+// (TRAIN_RC) only h_all and c_all, the f32 cell rounded to the stream dtype
+// (its f32 carry stays unrounded); K3 only writes the top layer's h at Tn-1,
+// K4 the top layer's h at every step.
 // Shared memory (floats):
 //   c_s (L, BT, H) f32 cell | hr_s (L, H, BT) h in the stream dtype, which
 //   is both the layer's recurrent operand and the next layer's input |
@@ -131,8 +97,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
     lstm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_ih0,
                     const T* __restrict__ w_ihr, const T* __restrict__ w_hh,
                     const T* __restrict__ bias, T* __restrict__ h_all, T* __restrict__ prefac,
-                    T* __restrict__ qf, T* __restrict__ h_out, int Tn, int B, int C, int H,
-                    int L) {
+                    T* __restrict__ qf, T* __restrict__ c_all, T* __restrict__ h_out, int Tn,
+                    int B, int C, int H, int L) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   float* c_s = smem;
@@ -152,58 +118,31 @@ __global__ void __launch_bounds__(MAX_THREADS)
       x_s[k * BT + r] = b < B ? to_f<T>(x[((size_t)t * B + b) * C + k]) : 0.0f;
     }
     for (int l = 0; l < L; ++l) {
-      const int in = l == 0 ? C : H;
       const T* wi = l == 0 ? w_ih0 : w_ihr + (size_t)(l - 1) * H * G;
-      const T* wh = w_hh + (size_t)l * H * G;
       const float* inp = l == 0 ? x_s : hr_s + (l - 1) * H * BT;
       float* hr = hr_s + l * H * BT;
       float* cl = c_s + l * BT * H;
       __syncthreads();  // this layer's input rows are in place
 
-      // gates = inp @ w_ih + h @ w_hh + b: one thread per gate column
-      for (int j = tid; j < G; j += nthr) {
-        float ax[BT], ah[BT];
-#pragma unroll
-        for (int r = 0; r < BT; ++r) ax[r] = ah[r] = 0.0f;
-        col_dot<T, BT>(ax, wi, inp, in, G, j);
-        col_dot<T, BT>(ah, wh, hr, H, G, j);
-        const float bj = to_f<T>(bias[(size_t)l * G + j]);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) gates_s[r * G + j] = (ax[r] + ah[r]) + bj;
-      }
+      gate_product<T, BT>(gates_s, G, 1, wi, inp, l == 0 ? C : H, w_hh + (size_t)l * H * G, hr,
+                          bias + (size_t)l * G, H);
       __syncthreads();  // gates complete; hr may be overwritten
 
-      // f32 cell math and the backward's derivative prefactors
+      // f32 cell math, and K1's residuals
       for (int i = tid; i < BT * H; i += nthr) {
         const int r = i / H, u = i - r * H, b = b0 + r;
-        const float* gr = gates_s + r * G;
-        const float ig = sigmoid_f(gr[u]);
-        const float fg = sigmoid_f(gr[H + u]);
-        const float gg = tanhf(gr[2 * H + u]);
-        const float og = sigmoid_f(gr[3 * H + u]);
-        const float c_prev = cl[i];
-        const float igg = ig * gg;
-        const float c_new = fg * c_prev + igg;
-        const float tc = tanhf(c_new);
-        const float h_new = og * tc;
-        cl[i] = c_new;
+        const size_t row = ((size_t)l * Tn + t) * B + b;
+        const bool res = MODE == TRAIN && b < B;
+        const float h_new = cell_step<T>(gates_s + r * G + u, H, cl[i],
+                                         res ? prefac + row * G + u : nullptr,
+                                         res ? qf + row * 2 * H + u : nullptr);
         hr[u * BT + r] = rnd<T>(h_new);
-        if (b < B) {
-          if (MODE == TRAIN) {
-            const size_t row = ((size_t)l * Tn + t) * B + b;
-            h_all[row * H + u] = from_f<T>(h_new);
-            T* pf = prefac + row * G;
-            pf[u] = from_f<T>(gg * (ig - ig * ig));
-            pf[H + u] = from_f<T>(c_prev * (fg - fg * fg));
-            pf[2 * H + u] = from_f<T>(ig - gg * igg);
-            pf[3 * H + u] = from_f<T>(tc * (og - og * og));
-            T* q = qf + row * 2 * H;
-            q[u] = from_f<T>(og - og * tc * tc);
-            q[H + u] = from_f<T>(fg);
-          } else if (l == L - 1 && (MODE == INFER_SEQ || t == Tn - 1)) {
-            const size_t row = MODE == INFER_SEQ ? (size_t)t * B + b : (size_t)b;
-            h_out[row * H + u] = from_f<T>(h_new);
-          }
+        if (b >= B) continue;
+        if (MODE == TRAIN || MODE == TRAIN_RC) h_all[row * H + u] = from_f<T>(h_new);
+        if (MODE == TRAIN_RC) c_all[row * H + u] = from_f<T>(cl[i]);
+        if ((MODE == INFER_SEQ || (MODE == INFER_LAST && t == Tn - 1)) && l == L - 1) {
+          const size_t out = MODE == INFER_SEQ ? (size_t)t * B + b : (size_t)b;
+          h_out[out * H + u] = from_f<T>(h_new);
         }
       }
     }
@@ -211,6 +150,82 @@ __global__ void __launch_bounds__(MAX_THREADS)
 }
 
 // --------------------------------------------------------------- backward
+// The two backwards share their shared-memory layout (floats):
+//   dh_s, dc_s (L, BT, H) | dg_s (4H, BT) | gup_s (BT, H) |
+//   inp_s (max(C, H), BT) | hp_s (H, BT)
+// and, per layer-step, the two device functions below. Each block owns one
+// f32 partial of every dW/db (n_part floats at part + blockIdx.x * n_part,
+// laid out as [dW_ih0 (C, 4H) | dW_ihr (L-1, H, 4H) | dW_hh (L, H, 4H) |
+// db (L, 4H)]), read-modified-written only by the thread of that gate
+// column: no atomics.
+
+// this block's partial dW_ih (in, 4H), dW_hh (H, 4H) and db (4H) of one layer
+// += inp_sᵀ dg, hp_sᵀ dg, Σ_r dg: one thread per gate column
+template <int BT>
+__device__ __forceinline__ void accumulate_dw(float* p_ih, float* p_hh, float* p_b,
+                                              const float* dg_s, const float* inp_s, int in,
+                                              const float* hp_s, int H) {
+  const int G = 4 * H;
+  for (int j = threadIdx.x; j < G; j += blockDim.x) {
+    float d[BT];
+    rows<BT>(dg_s + j * BT, d);
+    float sb = 0.0f;
+#pragma unroll
+    for (int r = 0; r < BT; ++r) sb += d[r];
+#pragma unroll 4
+    for (int k = 0; k < in; ++k) {
+      float v[BT];
+      rows<BT>(inp_s + k * BT, v);
+      float s = 0.0f;
+#pragma unroll
+      for (int r = 0; r < BT; ++r) s = fmaf(v[r], d[r], s);
+      p_ih[(size_t)k * G + j] += s;
+    }
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      float v[BT];
+      rows<BT>(hp_s + k * BT, v);
+      float s = 0.0f;
+#pragma unroll
+      for (int r = 0; r < BT; ++r) s = fmaf(v[r], d[r], s);
+      p_hh[(size_t)k * G + j] += s;
+    }
+    p_b[j] += sb;
+  }
+}
+
+// the recurrent carry dh = dg @ w_hh^T (BT, H) into dhl, then the chain
+// g_up = dg @ w_ih^T over the layer's n_up input units: H for a layer above
+// 0, into gup_s; C for layer 0 when dx is wanted, into dx at step t; none
+// otherwise. One thread per output unit and all BT rows.
+template <typename T, int BT>
+__device__ __forceinline__ void chain(float* dhl, float* gup_s, T* __restrict__ dx,
+                                      const float* dg_s, const T* __restrict__ whT,
+                                      const T* __restrict__ wiT, int l, int n_up, int t, int b0,
+                                      int B, int C, int H) {
+  const int G = 4 * H;
+  for (int k = threadIdx.x; k < H + n_up; k += blockDim.x) {
+    float s[BT];
+#pragma unroll
+    for (int r = 0; r < BT; ++r) s[r] = 0.0f;
+    if (k < H) {
+      col_dot<T, BT>(s, whT, dg_s, G, H, k);
+#pragma unroll
+      for (int r = 0; r < BT; ++r) dhl[r * H + k] = s[r];
+      continue;
+    }
+    const int u = k - H;
+    col_dot<T, BT>(s, wiT, dg_s, G, n_up, u);
+#pragma unroll
+    for (int r = 0; r < BT; ++r) {
+      if (l > 0)
+        gup_s[r * H + u] = s[r];
+      else if (b0 + r < B)
+        dx[((size_t)t * B + b0 + r) * C + u] = from_f<T>(s[r]);
+    }
+  }
+}
+
 // Replaces cerebra/models/pallas_lstm_stack.py:_bwd_kernel in all its forms:
 // the cotangent hits the top layer at Tn-1 only (g (B, H), g_last_only) or
 // at every step (g (Tn, B, H), g_full != 0), and need_dx != 0 adds the
@@ -220,13 +235,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 // products and read-modify-writes its (in + H) * 4H f32 partial in device
 // memory. dh and dc stay in shared memory; the wrapper picks BT near B / 16,
 // which balances a block's time against the number of partials.
-// Reverse time, top layer first. Each block owns one f32 partial of every
-// dW/db (n_part floats at part + blockIdx.x * n_part, laid out as
-// [dW_ih0 (C, 4H) | dW_ihr (L-1, H, 4H) | dW_hh (L, H, 4H) | db (L, 4H)]),
-// read-modified-written only by the thread of that gate column: no atomics.
-// Shared memory (floats):
-//   dh_s, dc_s (L, BT, H) | dg_s (4H, BT) | gup_s (BT, H) |
-//   inp_s (max(C, H), BT) | hp_s (H, BT)
+// Reverse time, top layer first.
 template <typename T, int BT>
 __global__ void __launch_bounds__(MAX_THREADS)
     lstm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
@@ -292,6 +301,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
           else
             g_up = t == Tn - 1 ? to_f<T>(g[(size_t)b * H + u]) : 0.0f;
         }
+        // gate_grads' algebra, written out: through gate_grads this kernel
+        // took 13 % longer at H = 384 (K2g at the autoencoder encoder's
+        // width in chip_smoke.py on an H100: 147.5-148.4 against 130.6 ms),
+        // whatever the order of its loads
         const size_t row = ((size_t)l * Tn + t) * B + b;
         const T* q = qf + row * 2 * H;
         const T* pf = prefac + row * G;
@@ -306,70 +319,123 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
       __syncthreads();  // dg_s, inp_s, hp_s complete
 
-      // this block's partial dW_ih, dW_hh, db: one thread per gate column
-      float* p_ih = l == 0 ? mine : mine + (size_t)G * (C + (l - 1) * H);
-      float* p_hhl = p_hh + (size_t)l * H * G;
-      for (int j = tid; j < G; j += nthr) {
-        float d[BT];
-        rows<BT>(dg_s + j * BT, d);
-        float sb = 0.0f;
-#pragma unroll
-        for (int r = 0; r < BT; ++r) sb += d[r];
-#pragma unroll 4
-        for (int k = 0; k < in; ++k) {
-          float v[BT];
-          rows<BT>(inp_s + k * BT, v);
-          float s = 0.0f;
-#pragma unroll
-          for (int r = 0; r < BT; ++r) s = fmaf(v[r], d[r], s);
-          p_ih[(size_t)k * G + j] += s;
-        }
-#pragma unroll 4
-        for (int k = 0; k < H; ++k) {
-          float v[BT];
-          rows<BT>(hp_s + k * BT, v);
-          float s = 0.0f;
-#pragma unroll
-          for (int r = 0; r < BT; ++r) s = fmaf(v[r], d[r], s);
-          p_hhl[(size_t)k * G + j] += s;
-        }
-        p_b[(size_t)l * G + j] += sb;
-      }
+      accumulate_dw<BT>(l == 0 ? mine : mine + (size_t)G * (C + (l - 1) * H),
+                        p_hh + (size_t)l * H * G, p_b + (size_t)l * G, dg_s, inp_s, in, hp_s, H);
+      chain<T, BT>(dhl, gup_s, dx, dg_s, w_hhT + (size_t)l * G * H,
+                   l > 0 ? w_ihT_r + (size_t)(l - 1) * G * H : w_ihT0, l,
+                   l > 0 ? H : (need_dx ? C : 0), t, b0, B, C, H);
+    }
+  }
+}
 
-      // recurrent carry dh = dgates @ w_hh^T over the H units k < H, then
-      // the chain g_up = dgates @ w_ih^T over the layer's n_up input units
-      // (H for a layer above 0, into gup_s; C for layer 0 when dx is wanted,
-      // into dx; none otherwise): one thread per output unit and all BT rows
-      const T* whT = w_hhT + (size_t)l * G * H;
-      const T* wiT = l > 0 ? w_ihT_r + (size_t)(l - 1) * G * H : w_ihT0;
-      const int n_up = l > 0 ? H : (need_dx ? C : 0);
-      for (int k = tid; k < H + n_up; k += nthr) {
-        float s[BT];
+// Replaces cerebra/models/pallas_lstm_stack.py:_bwd_rc_kernel: the backward
+// that streams only h_all and c_all (K10's) and recomputes each layer-step's
+// gates with gate_product, bit for bit K10's, before K2's chain, dx (always)
+// and dW. Its rounding points are not K2's (pallas_lstm_stack.py:372-399):
+// q = o - o tanh^2 c and f stay f32; only the four prefactors and dc, dh are
+// rounded to the stream dtype before their products, which are rounded too;
+// tanh c and c_prev come from the rounded c_all; c_prev and h_prev are zero
+// at t = 0. The gates are recomputed in place in dg_s (4H, BT): each thread
+// reads its four gates and writes its four gate gradients at the same
+// places, so K11 takes K2's shared memory. Bound by latency, as K2, with one
+// more product of the layer's weights per layer-step (K10's).
+template <typename T, int BT>
+__global__ void __launch_bounds__(MAX_THREADS)
+    lstm_bwd_rc_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                       const T* __restrict__ h_all, const T* __restrict__ c_all,
+                       const T* __restrict__ w_ih0, const T* __restrict__ w_ihr,
+                       const T* __restrict__ w_hh, const T* __restrict__ bias,
+                       const T* __restrict__ w_ihT0, const T* __restrict__ w_ihT_r,
+                       const T* __restrict__ w_hhT, T* __restrict__ dx, float* __restrict__ part,
+                       int Tn, int B, int C, int H, int L) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = 4 * H;
+  const int IN = C > H ? C : H;
+  float* dh_s = smem;
+  float* dc_s = dh_s + L * BT * H;
+  float* dg_s = dc_s + L * BT * H;
+  float* gup_s = dg_s + G * BT;
+  float* inp_s = gup_s + BT * H;
+  float* hp_s = inp_s + IN * BT;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int b0 = blockIdx.x * BT;
+  const size_t n_part = (size_t)G * (C + (L - 1) * H + L * H + L);
+  float* mine = part + blockIdx.x * n_part;
+  float* p_hh = mine + (size_t)G * (C + (L - 1) * H);
+  float* p_b = p_hh + (size_t)L * H * G;
+  const size_t HB = (size_t)H * BT;  // stride between two gates of a unit in dg_s
+
+  for (size_t i = tid; i < n_part; i += nthr) mine[i] = 0.0f;
+  for (int i = tid; i < 2 * L * BT * H; i += nthr) dh_s[i] = 0.0f;  // dh_s and dc_s
+  for (int i = tid; i < BT * H; i += nthr) gup_s[i] = 0.0f;
+
+  for (int t = Tn - 1; t >= 0; --t) {
+    for (int l = L - 1; l >= 0; --l) {
+      const int in = l == 0 ? C : H;
+      float* dhl = dh_s + l * BT * H;
+      float* dcl = dc_s + l * BT * H;
+      __syncthreads();  // the layer above has written gup_s and is done with the rest
+
+      // input rows of this layer at t and h at t-1: the recompute's operands
+      // (exactly K10's) and dW's
+      for (int i = tid; i < BT * in; i += nthr) {
+        const int r = i / in, k = i - r * in, b = b0 + r;
+        float v = 0.0f;
+        if (b < B)
+          v = l == 0 ? to_f<T>(x[((size_t)t * B + b) * C + k])
+                     : to_f<T>(h_all[(((size_t)(l - 1) * Tn + t) * B + b) * H + k]);
+        inp_s[k * BT + r] = v;
+      }
+      for (int i = tid; i < BT * H; i += nthr) {
+        const int r = i / H, u = i - r * H, b = b0 + r;
+        hp_s[u * BT + r] = b < B && t > 0
+                               ? to_f<T>(h_all[(((size_t)l * Tn + t - 1) * B + b) * H + u])
+                               : 0.0f;
+      }
+      __syncthreads();  // operands in place
+
+      gate_product<T, BT>(dg_s, 1, BT, l == 0 ? w_ih0 : w_ihr + (size_t)(l - 1) * H * G,
+                          inp_s, in, w_hh + (size_t)l * H * G, hp_s, bias + (size_t)l * G, H);
+      __syncthreads();  // gates complete
+
+      for (int i = tid; i < BT * H; i += nthr) {
+        const int r = i / H, u = i - r * H, b = b0 + r;
+        float* gd = dg_s + u * BT + r;  // gate q of this row and unit at gd[q * HB]
+        if (b >= B) {
 #pragma unroll
-        for (int r = 0; r < BT; ++r) s[r] = 0.0f;
-        if (k < H) {
-          col_dot<T, BT>(s, whT, dg_s, G, H, k);
-#pragma unroll
-          for (int r = 0; r < BT; ++r) dhl[r * H + k] = s[r];
+          for (int q = 0; q < 4; ++q) gd[q * HB] = 0.0f;
           continue;
         }
-        const int u = k - H;
-        col_dot<T, BT>(s, wiT, dg_s, G, n_up, u);
+        float a[4], p[4], d[4];
+        activations(gd, HB, a);
+        const size_t row = ((size_t)l * Tn + t) * B + b;
+        const float c_prev = t > 0 ? to_f<T>(c_all[(row - B) * H + u]) : 0.0f;
+        const float q = prefactors(a, c_prev, tanhf(to_f<T>(c_all[row * H + u])), p);
 #pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          if (l > 0)
-            gup_s[r * H + u] = s[r];
-          else if (b0 + r < B)
-            dx[((size_t)t * B + b0 + r) * C + u] = from_f<T>(s[r]);
-        }
+        for (int k = 0; k < 4; ++k) p[k] = rnd<T>(p[k]);
+        // the cotangent reaches the top layer at every step; a lower layer
+        // takes the chain from the layer above
+        const float g_up = l == L - 1 ? to_f<T>(g[((size_t)t * B + b) * H + u]) : gup_s[i];
+        dcl[i] = gate_grads<T>(dhl[i] + g_up, dcl[i], q, a[1], p, d);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) gd[k * HB] = d[k];
       }
+      __syncthreads();  // dg_s complete
+
+      accumulate_dw<BT>(l == 0 ? mine : mine + (size_t)G * (C + (l - 1) * H),
+                        p_hh + (size_t)l * H * G, p_b + (size_t)l * G, dg_s, inp_s, in, hp_s, H);
+      chain<T, BT>(dhl, gup_s, dx, dg_s, w_hhT + (size_t)l * G * H,
+                   l > 0 ? w_ihT_r + (size_t)(l - 1) * G * H : w_ihT0, l, l > 0 ? H : C, t,
+                   b0, B, C, H);
     }
   }
 }
 
 // Replaces the accumulation of dW across the TPU's sequential grid
-// (pallas_lstm_stack.py:_bwd_kernel, dwih_ref/dwhh_ref/db_ref +=). Bound by
-// reading the partials once (n_blk * n floats), coalesced over i.
+// (pallas_lstm_stack.py:_bwd_kernel and _bwd_rc_kernel, dwih_ref/dwhh_ref/
+// db_ref +=). Bound by reading the partials once (n_blk * n floats),
+// coalesced over i.
 // out[i] = sum over blocks of part[blk, i], in block order: deterministic
 __global__ void reduce_partials(const float* __restrict__ part, float* __restrict__ out,
                                 int n_blk, long long n) {
@@ -380,15 +446,15 @@ __global__ void reduce_partials(const float* __restrict__ part, float* __restric
   out[i] = s;
 }
 
-int threads_for(int H) {
-  const int t = (4 * H + 31) / 32 * 32;
-  return t < MAX_THREADS ? t : MAX_THREADS;
+size_t bwd_smem(int BT, int C, int H, int L) {
+  const int IN = C > H ? C : H;
+  return sizeof(float) * ((size_t)2 * L * BT * H + 4 * H * BT + BT * H + IN * BT + H * BT);
 }
 
 template <typename T, int BT, int MODE>
 int launch_fwd(const void* x, const void* w_ih0, const void* w_ihr, const void* w_hh,
-               const void* bias, void* h_all, void* prefac, void* qf, void* h_out, int Tn,
-               int B, int C, int H, int L, cudaStream_t stream) {
+               const void* bias, void* h_all, void* prefac, void* qf, void* c_all, void* h_out,
+               int Tn, int B, int C, int H, int L, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)2 * L * BT * H + C * BT + BT * 4 * H);
   auto kern = lstm_fwd_kernel<T, BT, MODE>;
   cudaError_t e =
@@ -397,7 +463,7 @@ int launch_fwd(const void* x, const void* w_ih0, const void* w_ihr, const void* 
   const int n_blk = (B + BT - 1) / BT;
   kern<<<n_blk, threads_for(H), smem, stream>>>(
       (const T*)x, (const T*)w_ih0, (const T*)w_ihr, (const T*)w_hh, (const T*)bias,
-      (T*)h_all, (T*)prefac, (T*)qf, (T*)h_out, Tn, B, C, H, L);
+      (T*)h_all, (T*)prefac, (T*)qf, (T*)c_all, (T*)h_out, Tn, B, C, H, L);
   return (int)cudaGetLastError();
 }
 
@@ -406,9 +472,7 @@ int launch_bwd(int g_full, int need_dx, const void* g, const void* x, const void
                const void* prefac, const void* qf, const void* w_ihT0, const void* w_ihT_r,
                const void* w_hhT, void* dx, void* part, int Tn, int B, int C, int H, int L,
                cudaStream_t stream) {
-  const int IN = C > H ? C : H;
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * L * BT * H + 4 * H * BT + BT * H + IN * BT + H * BT);
+  const size_t smem = bwd_smem(BT, C, H, L);
   auto kern = lstm_bwd_kernel<T, BT>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -422,55 +486,39 @@ int launch_bwd(int g_full, int need_dx, const void* g, const void* x, const void
 }
 
 template <typename T, int BT>
+int launch_bwd_rc(const void* g, const void* x, const void* h_all, const void* c_all,
+                  const void* w_ih0, const void* w_ihr, const void* w_hh, const void* bias,
+                  const void* w_ihT0, const void* w_ihT_r, const void* w_hhT, void* dx,
+                  void* part, int Tn, int B, int C, int H, int L, cudaStream_t stream) {
+  const size_t smem = bwd_smem(BT, C, H, L);
+  auto kern = lstm_bwd_rc_kernel<T, BT>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_blk = (B + BT - 1) / BT;
+  kern<<<n_blk, threads_for(H), smem, stream>>>(
+      (const T*)g, (const T*)x, (const T*)h_all, (const T*)c_all, (const T*)w_ih0,
+      (const T*)w_ihr, (const T*)w_hh, (const T*)bias, (const T*)w_ihT0, (const T*)w_ihT_r,
+      (const T*)w_hhT, (T*)dx, (float*)part, Tn, B, C, H, L);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BT>
 int launch_fwd_mode(int mode, const void* x, const void* w_ih0, const void* w_ihr,
                     const void* w_hh, const void* bias, void* h_all, void* prefac, void* qf,
-                    void* h_out, int Tn, int B, int C, int H, int L, cudaStream_t s) {
+                    void* c_all, void* h_out, int Tn, int B, int C, int H, int L,
+                    cudaStream_t s) {
+#define CEREBRA_MODE(M)                                                                    \
+  case M:                                                                                  \
+    return launch_fwd<T, BT, M>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, c_all, h_out, \
+                                Tn, B, C, H, L, s);
   switch (mode) {
-    case INFER_LAST:
-      return launch_fwd<T, BT, INFER_LAST>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf,
-                                           h_out, Tn, B, C, H, L, s);
-    case TRAIN:
-      return launch_fwd<T, BT, TRAIN>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, h_out,
-                                      Tn, B, C, H, L, s);
-    case INFER_SEQ:
-      return launch_fwd<T, BT, INFER_SEQ>(x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf,
-                                          h_out, Tn, B, C, H, L, s);
+    CEREBRA_MODE(INFER_LAST)
+    CEREBRA_MODE(TRAIN)
+    CEREBRA_MODE(INFER_SEQ)
+    CEREBRA_MODE(TRAIN_RC)
   }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int dispatch_fwd(int mode, int bt, const void* x, const void* w_ih0, const void* w_ihr,
-                 const void* w_hh, const void* bias, void* h_all, void* prefac, void* qf,
-                 void* h_out, int Tn, int B, int C, int H, int L, cudaStream_t s) {
-#define CEREBRA_FWD(BT)                                                                     \
-  if (bt == BT)                                                                             \
-    return launch_fwd_mode<T, BT>(mode, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, h_out, \
-                                  Tn, B, C, H, L, s);
-  CEREBRA_FWD(1)
-  CEREBRA_FWD(2)
-  CEREBRA_FWD(4)
-  CEREBRA_FWD(8)
-  CEREBRA_FWD(16)
-#undef CEREBRA_FWD
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int dispatch_bwd(int bt, int g_full, int need_dx, const void* g, const void* x,
-                 const void* h_all, const void* prefac, const void* qf, const void* w_ihT0,
-                 const void* w_ihT_r, const void* w_hhT, void* dx, void* part, int Tn, int B,
-                 int C, int H, int L, cudaStream_t s) {
-#define CEREBRA_BWD(BT)                                                                     \
-  if (bt == BT)                                                                             \
-    return launch_bwd<T, BT>(g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0, w_ihT_r, w_hhT, \
-                             dx, part, Tn, B, C, H, L, s);
-  CEREBRA_BWD(1)
-  CEREBRA_BWD(2)
-  CEREBRA_BWD(4)
-  CEREBRA_BWD(8)
-  CEREBRA_BWD(16)
-#undef CEREBRA_BWD
+#undef CEREBRA_MODE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -479,18 +527,20 @@ int dispatch_bwd(int bt, int g_full, int need_dx, const void* g, const void* x,
 extern "C" {
 
 // mode (FwdMode): 1 = K1 (h_all, prefac, qf); 0 = K3 (h_out (B, H));
-// 2 = K4 (h_out (Tn, B, H)). bf16 != 0: __nv_bfloat16 streams, else float.
-// bt in {1, 2, 4, 8, 16}.
+// 2 = K4 (h_out (Tn, B, H)); 3 = K10 (h_all, c_all). bf16 != 0:
+// __nv_bfloat16 streams, else float. bt in {1, 2, 4, 8, 16}.
 int cerebra_lstm_fwd(int mode, int bf16, int bt, const void* x, const void* w_ih0,
                      const void* w_ihr, const void* w_hh, const void* bias, void* h_all,
-                     void* prefac, void* qf, void* h_out, int Tn, int B, int C, int H, int L,
-                     void* stream) {
+                     void* prefac, void* qf, void* c_all, void* h_out, int Tn, int B, int C,
+                     int H, int L, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch_fwd<__nv_bfloat16>(mode, bt, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac,
-                                       qf, h_out, Tn, B, C, H, L, s);
-  return dispatch_fwd<float>(mode, bt, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, h_out,
-                             Tn, B, C, H, L, s);
+  return with_tile(bt, [&](auto tile) {
+    constexpr int BT = decltype(tile)::value;
+    return bf16 ? launch_fwd_mode<__nv_bfloat16, BT>(mode, x, w_ih0, w_ihr, w_hh, bias, h_all,
+                                                     prefac, qf, c_all, h_out, Tn, B, C, H, L, s)
+                : launch_fwd_mode<float, BT>(mode, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac,
+                                             qf, c_all, h_out, Tn, B, C, H, L, s);
+  });
 }
 
 // g_full != 0: g is (Tn, B, H), else (B, H) at Tn-1. need_dx != 0: dx
@@ -500,11 +550,32 @@ int cerebra_lstm_bwd(int bf16, int bt, int g_full, int need_dx, const void* g, c
                      const void* w_ihT0, const void* w_ihT_r, const void* w_hhT, void* dx,
                      void* part, int Tn, int B, int C, int H, int L, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch_bwd<__nv_bfloat16>(bt, g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0,
-                                       w_ihT_r, w_hhT, dx, part, Tn, B, C, H, L, s);
-  return dispatch_bwd<float>(bt, g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0, w_ihT_r,
-                             w_hhT, dx, part, Tn, B, C, H, L, s);
+  return with_tile(bt, [&](auto tile) {
+    constexpr int BT = decltype(tile)::value;
+    return bf16 ? launch_bwd<__nv_bfloat16, BT>(g_full, need_dx, g, x, h_all, prefac, qf,
+                                                w_ihT0, w_ihT_r, w_hhT, dx, part, Tn, B, C, H,
+                                                L, s)
+                : launch_bwd<float, BT>(g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0,
+                                        w_ihT_r, w_hhT, dx, part, Tn, B, C, H, L, s);
+  });
+}
+
+// K11: g (Tn, B, H); h_all, c_all from K10; the weights as the forward takes
+// them (recompute) and transposed as K2 takes them (chain, dx always).
+int cerebra_lstm_bwd_rc(int bf16, int bt, const void* g, const void* x, const void* h_all,
+                        const void* c_all, const void* w_ih0, const void* w_ihr,
+                        const void* w_hh, const void* bias, const void* w_ihT0,
+                        const void* w_ihT_r, const void* w_hhT, void* dx, void* part, int Tn,
+                        int B, int C, int H, int L, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return with_tile(bt, [&](auto tile) {
+    constexpr int BT = decltype(tile)::value;
+    return bf16 ? launch_bwd_rc<__nv_bfloat16, BT>(g, x, h_all, c_all, w_ih0, w_ihr, w_hh, bias,
+                                                   w_ihT0, w_ihT_r, w_hhT, dx, part, Tn, B, C,
+                                                   H, L, s)
+                : launch_bwd_rc<float, BT>(g, x, h_all, c_all, w_ih0, w_ihr, w_hh, bias, w_ihT0,
+                                           w_ihT_r, w_hhT, dx, part, Tn, B, C, H, L, s);
+  });
 }
 
 int cerebra_reduce_partials(const void* part, void* out, int n_blk, long long n,

@@ -1,5 +1,5 @@
-"""Fused multi-layer LSTM stack: the CUDA kernels K1, K2/K2g, K3, K4 and their
-plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
+"""Fused multi-layer LSTM stack: the CUDA kernels K1, K2/K2g, K3, K4, K10, K11
+and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
 
 - K1 `fwd_train`: whole-stack forward that streams, per layer, h_all
   (T, B, H), prefac (T, B, 4H) = [g·i(1−i), c_prev·f(1−f), i(1−g²),
@@ -14,17 +14,24 @@ plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
   h[T−1] (B, H).
 - K4 `fwd_infer`: forward with no residuals, returning the top layer's h at
   every t (T, B, H).
+- K10 `fwd_train_rc`: the recompute variant's forward, which streams only
+  h_all and c_all (T, B, H) per layer, c rounded to the stream dtype (2H a
+  row and layer instead of K1's 7H).
+- K11 `bwd_rc`: its backward, which recomputes each layer-step's gates from
+  h, c and the input at t and t−1 (bit for bit K10's on the card), then runs
+  K2's chain with its own rounding points, always emits dx, and sums dW as K2
+  does. `lstm_stack_rc` runs K10/K11 under grad and K4 without.
 
 Layout is time-major: x (T, B, C); layers are (w_ih (in, 4H), w_hh (H, 4H),
 b (4H,)) in the stream dtype (float32 or bfloat16), in = C for layer 0 and H
 after; gate order [i, f, g, o]. Residuals are stacked over layers:
-h_all (L, T, B, H), prefac (L, T, B, 4H), qf (L, T, B, 2H).
+h_all (L, T, B, H), prefac (L, T, B, 4H), qf (L, T, B, 2H), c_all (L, T, B, H).
 
 Dispatch: a tensor on the CPU takes the plain version (`_fwd_train_ref`,
-`_bwd_ref`, `_fwd_infer_last_ref`, `_fwd_infer_ref`); a CUDA tensor launches
-the kernel, built at first use, or raises. `LAUNCHES` counts kernel launches
-so a run can show that it went through the kernels (`bwd` for K2,
-`bwd_general` for K2g).
+`_bwd_ref`, `_fwd_infer_last_ref`, `_fwd_infer_ref`, `_fwd_train_rc_ref`,
+`_bwd_rc_ref`); a CUDA tensor launches the kernel, built at first use, or
+raises. `LAUNCHES` counts kernel launches so a run can show that it went
+through the kernels (`bwd` for K2, `bwd_general` for K2g).
 
 The 128-lane padding and 8-row batch alignment of the Pallas wrappers
 (`_pad_for_kernel`) are a TPU layout choice and are not ported: the CUDA
@@ -51,8 +58,8 @@ from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exporte
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, bwd_reduce=0, fwd_infer=0,
-                bwd_general=0)
-_FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2}  # csrc FwdMode
+                bwd_general=0, fwd_train_rc=0, bwd_rc=0)
+_FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2, "fwd_train_rc": 3}  # FwdMode
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _TILES = (16, 8, 4, 2, 1)
@@ -99,6 +106,22 @@ def _gates(inp, h, w_ih, w_hh, b, sd):
     return (inp.float() @ w_ih.float() + h.to(sd).float() @ w_hh.float()) + b.float()
 
 
+def _residuals(i, f, g, o, c_prev, tanh_c, sd):
+    """The backward's residuals of one step in the stream dtype: prefac
+    [g·i(1−i), c_prev·f(1−f), i(1−g²), tanh c·o(1−o)] and qf [o(1−tanh²c), f]."""
+    prefac = torch.cat(
+        [g * (i - i * i), c_prev * (f - f * f), i - g * (i * g), tanh_c * (o - o * o)], -1)
+    return prefac.to(sd), torch.cat([o - o * tanh_c * tanh_c, f], -1).to(sd)
+
+
+def _dgates(dc_n, dh_n, pf, sd):
+    """[dc·p_i, dc·p_f, dc·p_g, dh·p_o] rounded to the stream dtype, from the
+    rounded carries and the f32 view of the stored prefactors."""
+    H = dc_n.shape[-1]
+    return torch.cat([dc_n * pf[:, :H], dc_n * pf[:, H:2 * H], dc_n * pf[:, 2 * H:3 * H],
+                      dh_n * pf[:, 3 * H:]], -1).to(sd)
+
+
 def _fwd_train_ref(x: torch.Tensor, layers: Layers):
     """Plain K1: a loop over time with the kernel's rounding points."""
     T, B, C, H, L = _dims(x, layers)
@@ -117,16 +140,12 @@ def _fwd_train_ref(x: torch.Tensor, layers: Layers):
             g = torch.tanh(gates[:, 2 * H:3 * H])
             o = torch.sigmoid(gates[:, 3 * H:])
             c_prev = c[l]
-            ig = i * g
-            c[l] = f * c_prev + ig
+            c[l] = f * c_prev + i * g
             tanh_c = torch.tanh(c[l])
             h[l] = o * tanh_c
             inp = h[l].to(sd)
             h_all[l, t] = inp
-            prefac[l, t] = torch.cat(
-                [g * (i - i * i), c_prev * (f - f * f), i - g * ig, tanh_c * (o - o * o)], -1
-            ).to(sd)
-            qf[l, t] = torch.cat([o - o * tanh_c * tanh_c, f], -1).to(sd)
+            prefac[l, t], qf[l, t] = _residuals(i, f, g, o, c_prev, tanh_c, sd)
     return h_all, prefac, qf
 
 
@@ -184,11 +203,7 @@ def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
             d_h = dh[l] + g_up
             d_c = dc[l] + d_h * q[:, :H]
             dc_n, dh_n = d_c.to(sd).float(), d_h.to(sd).float()
-            pf = prefac[l, t].float()
-            dgates = torch.cat(
-                [dc_n * pf[:, :H], dc_n * pf[:, H:2 * H], dc_n * pf[:, 2 * H:3 * H],
-                 dh_n * pf[:, 3 * H:]], -1,
-            ).to(sd).float()
+            dgates = _dgates(dc_n, dh_n, prefac[l, t].float(), sd).float()
             dh[l] = dgates @ w_hh.float().t()
             dc[l] = d_c * q[:, H:]
             h_prev = h_all[l, t - 1].float() if t > 0 else zero
@@ -203,13 +218,89 @@ def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
     return dx, [tuple(gr) for gr in grads]
 
 
+def _fwd_train_rc_ref(x: torch.Tensor, layers: Layers):
+    """Plain K10: the forward that streams h_all and c_all (L, T, B, H), c
+    rounded to the stream dtype while its f32 carry stays unrounded."""
+    T, B, C, H, L = _dims(x, layers)
+    sd = x.dtype
+    h = [torch.zeros(B, H, device=x.device) for _ in range(L)]
+    c = [torch.zeros(B, H, device=x.device) for _ in range(L)]
+    h_all = torch.empty(L, T, B, H, dtype=sd, device=x.device)
+    c_all = torch.empty(L, T, B, H, dtype=sd, device=x.device)
+    for t in range(T):
+        inp = x[t]
+        for l, (w_ih, w_hh, b) in enumerate(layers):
+            gates = _gates(inp, h[l], w_ih, w_hh, b, sd)
+            i, f, o = (torch.sigmoid(gates[:, k * H:(k + 1) * H]) for k in (0, 1, 3))
+            g = torch.tanh(gates[:, 2 * H:3 * H])
+            c[l] = f * c[l] + i * g
+            h[l] = o * torch.tanh(c[l])
+            inp = h[l].to(sd)
+            h_all[l, t] = inp
+            c_all[l, t] = c[l].to(sd)
+    return h_all, c_all
+
+
+def _bwd_rc_ref(g, x, layers: Layers, h_all, c_all):
+    """Plain K11: consumes K10's residuals. g (T, B, H) in the stream dtype
+    hits the top layer at every t. Each layer-step recomputes its gates from
+    the input at t and h at t−1, then follows `_bwd_rc_kernel`'s rounding
+    points: q and f stay f32, the four prefactors and dc, dh are rounded to
+    the stream dtype, and so are their products. Returns (dx (T, B, C) in
+    the stream dtype; f32 (dW_ih, dW_hh, db) per layer)."""
+    T, B, C, H, L = _dims(x, layers)
+    sd = x.dtype
+    dev = x.device
+
+    def rnd(a):
+        return a.to(sd).float()
+
+    dh = [torch.zeros(B, H, device=dev) for _ in range(L)]
+    dc = [torch.zeros(B, H, device=dev) for _ in range(L)]
+    grads = [
+        [torch.zeros(w_ih.shape, device=dev), torch.zeros(w_hh.shape, device=dev),
+         torch.zeros(b.shape, device=dev)]
+        for (w_ih, w_hh, b) in layers
+    ]
+    dx = torch.empty(T, B, C, dtype=sd, device=dev)
+    zero = torch.zeros(B, H, device=dev)
+    for t in reversed(range(T)):
+        g_up = g[t].float()
+        for l in reversed(range(L)):
+            w_ih, w_hh, b = layers[l]
+            inp = (x[t] if l == 0 else h_all[l - 1, t]).float()
+            h_prev = h_all[l, t - 1].float() if t > 0 else zero
+            c_prev = c_all[l, t - 1].float() if t > 0 else zero
+            gates = _gates(inp, h_prev, w_ih, w_hh, b, sd)
+            i, f, o = (torch.sigmoid(gates[:, k * H:(k + 1) * H]) for k in (0, 1, 3))
+            gg = torch.tanh(gates[:, 2 * H:3 * H])
+            tanh_c = torch.tanh(c_all[l, t].float())
+            d_h = dh[l] + g_up
+            d_c = dc[l] + d_h * (o - o * tanh_c * tanh_c)
+            dc_n, dh_n = rnd(d_c), rnd(d_h)
+            dgates = rnd(torch.cat(
+                [dc_n * rnd(gg * (i - i * i)), dc_n * rnd(c_prev * (f - f * f)),
+                 dc_n * rnd(i - gg * (i * gg)), dh_n * rnd(tanh_c * (o - o * o))], -1,
+            ))
+            dh[l] = dgates @ w_hh.float().t()
+            dc[l] = d_c * f
+            grads[l][0] += inp.t() @ dgates
+            grads[l][1] += h_prev.t() @ dgates
+            grads[l][2] += dgates.sum(0)
+            g_up = dgates @ w_ih.float().t()
+        dx[t] = g_up.to(sd)
+    return dx, [tuple(gr) for gr in grads]
+
+
 # ------------------------------------------------------------ CUDA kernels
 def _typed(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.cerebra_lstm_fwd.argtypes = [i, i, i] + [vp] * 9 + [i] * 5 + [vp]
+    lib.cerebra_lstm_fwd.argtypes = [i, i, i] + [vp] * 10 + [i] * 5 + [vp]
     lib.cerebra_lstm_fwd.restype = i
     lib.cerebra_lstm_bwd.argtypes = [i, i, i, i] + [vp] * 10 + [i] * 5 + [vp]
     lib.cerebra_lstm_bwd.restype = i
+    lib.cerebra_lstm_bwd_rc.argtypes = [i, i] + [vp] * 13 + [i] * 5 + [vp]
+    lib.cerebra_lstm_bwd_rc.restype = i
     lib.cerebra_reduce_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
     lib.cerebra_reduce_partials.restype = i
 
@@ -219,7 +310,9 @@ def _lib():
 
 
 def _smem_bytes(bwd: bool, bt: int, C: int, H: int, L: int) -> int:
-    """Dynamic shared memory of one block, as the C launchers compute it."""
+    """Dynamic shared memory of one block, as the C launchers compute it.
+    The backwards K2/K2g and K11 take the same: K11 recomputes its gates in
+    place in the dgates buffer, and its carries are K2's."""
     if bwd:
         return 4 * bt * (2 * L * H + 4 * H + H + max(C, H) + H)
     return 4 * bt * (2 * L * H + C + 4 * H)
@@ -234,7 +327,8 @@ def pick_tile(B: int, C: int, H: int, L: int, bwd: bool) -> int:
     its partial-dW traffic grows with the number of blocks; about B/16 rows
     balances the two, and enough rows to keep all blocks' partials within
     `_PART_BUDGET` (at C = 96, H = 384, B = 16, one row per block took 278 ms
-    and four 129 ms). Raises if even one row's carries overflow shared
+    and four 129 ms). K11 (`bwd_rc`) has K2's partials and shared memory and
+    takes the same rule. Raises if even one row's carries overflow shared
     memory."""
     part_bytes = 16 * H * (C + (2 * L - 1) * H + L)  # one block's f32 partial
     want = 8 if not bwd else max(1, B // 16, -(-B * part_bytes // _PART_BUDGET))
@@ -263,28 +357,51 @@ def _packed(layers: Layers, H: int):
 
 
 def _fwd_cuda(x, layers, kind: str, tile=None):
-    """K1 (`kind` fwd_train), K3 (fwd_infer_last) or K4 (fwd_infer)."""
+    """K1 (`kind` fwd_train), K3 (fwd_infer_last), K4 (fwd_infer) or K10
+    (fwd_train_rc)."""
     T, B, C, H, L = _dims(x, layers)
     tile = tile or pick_tile(B, C, H, L, bwd=False)
     w_ih0, w_ihr, w_hh, b = _packed(layers, H)
     _cuda_checks(tile, x, w_ih0, w_ihr, w_hh, b)
     lib = _lib()
-    res = out = None
-    if kind == "fwd_train":
-        res = tuple(torch.empty(L, T, B, n, dtype=x.dtype, device=x.device)
-                    for n in (H, 4 * H, 2 * H))  # h_all, prefac, qf
+    h_all = prefac = qf = c_all = out = None
+    if kind in ("fwd_train", "fwd_train_rc"):
+        h_all = torch.empty(L, T, B, H, dtype=x.dtype, device=x.device)
+        if kind == "fwd_train":
+            prefac = torch.empty(L, T, B, 4 * H, dtype=x.dtype, device=x.device)
+            qf = torch.empty(L, T, B, 2 * H, dtype=x.dtype, device=x.device)
+        else:
+            c_all = torch.empty_like(h_all)
     else:
         out = torch.empty((B, H) if kind == "fwd_infer_last" else (T, B, H),
                           dtype=x.dtype, device=x.device)
     rc = lib.cerebra_lstm_fwd(
         _FWD_MODES[kind], int(x.dtype == torch.bfloat16), tile,
         x.data_ptr(), w_ih0.data_ptr(), w_ihr.data_ptr() or None, w_hh.data_ptr(),
-        b.data_ptr(), *(ptr(r) for r in (res or (None,) * 3)), ptr(out), T, B, C, H, L,
+        b.data_ptr(), ptr(h_all), ptr(prefac), ptr(qf), ptr(c_all), ptr(out), T, B, C, H, L,
         stream_of(x),
     )
     check_rc(lib, rc, kind)
     LAUNCHES[kind] += 1
-    return res if kind == "fwd_train" else out
+    if kind == "fwd_train":
+        return h_all, prefac, qf
+    return (h_all, c_all) if kind == "fwd_train_rc" else out
+
+
+def _transposed(x, layers, need_dx: bool):
+    """The chain's weights: (w_ihT0 (4H, C) or None, w_ihT_r (L-1, 4H, H),
+    w_hhT (L, 4H, H)) contiguous."""
+    H, L = layers[0][1].shape[0], len(layers)
+    w_ihT0 = layers[0][0].t().contiguous() if need_dx else None
+    w_ihT_r = (torch.stack([l[0].t() for l in layers[1:]]) if L > 1
+               else x.new_empty((0, 4 * H, H)))
+    return w_ihT0, w_ihT_r, torch.stack([l[1].t() for l in layers])
+
+
+def _partials(x, B: int, C: int, H: int, L: int, tile: int) -> torch.Tensor:
+    """The backwards' per-block f32 dW partials (n_blk, n_part)."""
+    n_part = 4 * H * (C + (L - 1) * H + L * H + L)
+    return torch.empty(-(-B // tile), n_part, dtype=torch.float32, device=x.device)
 
 
 def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
@@ -295,15 +412,10 @@ def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
             or tuple(h_all.shape) != (L, T, B, H) or tuple(prefac.shape) != (L, T, B, 4 * H)
             or tuple(qf.shape) != (L, T, B, 2 * H)):
         raise ValueError("cotangent or residuals do not match the stack")
-    w_ihT0 = layers[0][0].t().contiguous() if need_dx else None
-    w_ihT_r = (torch.stack([l[0].t() for l in layers[1:]]) if L > 1
-               else x.new_empty((0, 4 * H, H)))
-    w_hhT = torch.stack([l[1].t() for l in layers])
+    w_ihT0, w_ihT_r, w_hhT = _transposed(x, layers, need_dx)
     _cuda_checks(tile, g, x, h_all, prefac, qf, w_ihT0, w_ihT_r, w_hhT)
     dx = torch.empty(T, B, C, dtype=x.dtype, device=x.device) if need_dx else None
-    n_blk = -(-B // tile)
-    n_part = 4 * H * (C + (L - 1) * H + L * H + L)
-    part = torch.empty(n_blk, n_part, dtype=torch.float32, device=x.device)
+    part = _partials(x, B, C, H, L, tile)
     lib = _lib()
     rc = lib.cerebra_lstm_bwd(
         int(x.dtype == torch.bfloat16), tile, int(g_full), int(need_dx), g.data_ptr(),
@@ -314,6 +426,29 @@ def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
     kind = "bwd_general" if g_full or need_dx else "bwd"
     check_rc(lib, rc, kind)
     LAUNCHES[kind] += 1
+    return dx, _unpack_grads(reduce_partials(part), C, H, L)
+
+
+def _bwd_rc_cuda(g, x, layers, h_all, c_all, tile=None):
+    T, B, C, H, L = _dims(x, layers)
+    tile = tile or pick_tile(B, C, H, L, bwd=True)
+    if (tuple(g.shape) != (T, B, H) or g.dtype != x.dtype
+            or any(tuple(r.shape) != (L, T, B, H) or r.dtype != x.dtype for r in (h_all, c_all))):
+        raise ValueError("cotangent or residuals do not match the stack")
+    w_ih0, w_ihr, w_hh, b = _packed(layers, H)
+    w_ihT0, w_ihT_r, w_hhT = _transposed(x, layers, True)
+    _cuda_checks(tile, g, x, h_all, c_all, w_ih0, w_ihr, w_hh, b, w_ihT0, w_ihT_r, w_hhT)
+    dx = torch.empty(T, B, C, dtype=x.dtype, device=x.device)
+    part = _partials(x, B, C, H, L, tile)
+    lib = _lib()
+    rc = lib.cerebra_lstm_bwd_rc(
+        int(x.dtype == torch.bfloat16), tile, g.data_ptr(), x.data_ptr(), h_all.data_ptr(),
+        c_all.data_ptr(), w_ih0.data_ptr(), w_ihr.data_ptr() or None, w_hh.data_ptr(),
+        b.data_ptr(), w_ihT0.data_ptr(), w_ihT_r.data_ptr() or None, w_hhT.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), T, B, C, H, L, stream_of(x),
+    )
+    check_rc(lib, rc, "bwd_rc")
+    LAUNCHES["bwd_rc"] += 1
     return dx, _unpack_grads(reduce_partials(part), C, H, L)
 
 
@@ -380,32 +515,49 @@ def bwd(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False, tile=Non
     return _bwd_ref(g, x, layers, h_all, prefac, qf, need_dx)
 
 
+def fwd_train_rc(x: torch.Tensor, layers: Layers, tile=None):
+    """K10 on CUDA, its plain version on the CPU → (h_all, c_all)."""
+    if on_cuda(x, *_weights(layers)):
+        return _fwd_cuda(x, layers, "fwd_train_rc", tile)
+    return _fwd_train_rc_ref(x, layers)
+
+
+def bwd_rc(g, x, layers: Layers, h_all, c_all, tile=None):
+    """K11 plus the deterministic reduction on CUDA, the plain version on the
+    CPU → (dx, f32 (dW_ih, dW_hh, db) per layer); g is (T, B, H)."""
+    if on_cuda(g, x, h_all, c_all, *_weights(layers)):
+        return _bwd_rc_cuda(g, x, layers, h_all, c_all, tile)
+    return _bwd_rc_ref(g, x, layers, h_all, c_all)
+
+
 class _Stack(torch.autograd.Function):
     """The stack's top-layer h at every t (T, B, H), or at T−1 only (B, H)
     when `last`, with gradients for the weights and, when it requires grad,
     for x: the backward takes `need_dx` from whether x needs a gradient (the
     weight gradients are the same either way).
     `impl` is (forward-train, backward) — the dispatching wrappers, or the
-    plain versions for timing them on the card."""
+    plain versions for timing them on the card; the forward's first
+    residual is h_all, and the backward takes every residual and `need_dx`."""
 
     @staticmethod
     def forward(ctx, impl, last, x, *flat):
         layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
-        h_all, prefac, qf = impl[0](x, layers)
-        ctx.impl = impl
-        ctx.save_for_backward(x, h_all, prefac, qf, *flat)
+        res = impl[0](x, layers)
+        ctx.impl, ctx.n_res = impl, len(res)
+        ctx.save_for_backward(x, *res, *flat)
         # a copy: a view would hand out the saved residual
-        return (h_all[-1, -1] if last else h_all[-1]).clone()
+        return (res[0][-1, -1] if last else res[0][-1]).clone()
 
     @staticmethod
     def backward(ctx, g):
-        x, h_all, prefac, qf, *flat = ctx.saved_tensors
+        x, *saved = ctx.saved_tensors
+        res, flat = saved[:ctx.n_res], saved[ctx.n_res:]
         layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
-        dx, grads = ctx.impl[1](g.to(x.dtype).contiguous(), x, layers, h_all, prefac, qf,
-                                ctx.needs_input_grad[2])
+        need_dx = ctx.needs_input_grad[2]
+        dx, grads = ctx.impl[1](g.to(x.dtype).contiguous(), x, layers, *res, need_dx)
         # as _vjp_bwd casts dW to the weight dtype
         dws = [dw.to(w.dtype) for w, dw in zip(flat, [d for layer in grads for d in layer])]
-        return (None, None, dx, *dws)
+        return (None, None, dx if need_dx else None, *dws)
 
 
 def _stack(impl, infer, last: bool, x: torch.Tensor, layers: Layers) -> torch.Tensor:
@@ -413,6 +565,12 @@ def _stack(impl, infer, last: bool, x: torch.Tensor, layers: Layers) -> torch.Te
                                     or any(w.requires_grad for w in _weights(layers))):
         return _Stack.apply(impl, last, x, *_weights(layers))
     return infer(x, layers)
+
+
+def _rc(fwd, bwd_fn):
+    """`_Stack`'s impl for the recompute pair: K11 emits dx whatever
+    `need_dx` says, and `_Stack` drops it when x needs no gradient."""
+    return fwd, lambda g, x, layers, h_all, c_all, need_dx: bwd_fn(g, x, layers, h_all, c_all)
 
 
 def lstm_stack(x: torch.Tensor, layers: Layers) -> torch.Tensor:
@@ -434,6 +592,16 @@ def lstm_stack_last(x: torch.Tensor, layers: Layers) -> torch.Tensor:
     return _stack((fwd_train, bwd), fwd_infer_last, True, x, layers)
 
 
+def lstm_stack_rc(x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """`lstm_stack` with the recompute backward (the Pallas
+    `lstm_stack_pallas_rc`): K10 forward, which keeps only h and c per layer
+    (2H a row instead of K1's 7H), and K11 backward, which recomputes the
+    gates, when grad is enabled and x or a weight requires grad; K4
+    otherwise. K11 always computes dx; x gets it only when it requires
+    grad."""
+    return _stack(_rc(fwd_train_rc, bwd_rc), fwd_infer, False, x, layers)
+
+
 def lstm_stack_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
     """`lstm_stack` through the plain versions on any device (for timing
     the kernels against them on the card)."""
@@ -443,3 +611,8 @@ def lstm_stack_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
 def lstm_stack_last_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
     """`lstm_stack_last` through the plain versions on any device."""
     return _stack((_fwd_train_ref, _bwd_ref), _fwd_infer_last_ref, True, x, layers)
+
+
+def lstm_stack_rc_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
+    """`lstm_stack_rc` through the plain versions on any device."""
+    return _stack(_rc(_fwd_train_rc_ref, _bwd_rc_ref), _fwd_infer_ref, False, x, layers)

@@ -6,17 +6,18 @@ width through the kernels, and time kernels and training steps.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device      nvidia-smi name and power limit, torch.version.cuda
-  2. build       nvcc of cerebra_torch/csrc/{lstm_stack,vit_attn,vit_mlp}.cu,
-                 all started together, seconds each
+  2. build       nvcc of cerebra_torch/csrc/{lstm_stack,lstm_scan,vit_attn,
+                 vit_mlp}.cu, all started together, seconds each
   3. parity      K3, K1, K2 and the dW reduction against their plain
                  versions, f32 and bf16, at B = 1024, 16 and 13 (T = 460,
                  C = H = 96, L = 2)
   4. main        `cerebra_torch.cli.lstm_distill_from_dinov2_train.main` on
                  the synthetic corpus (40 classes x 30 trials of (96, 512)),
                  bf16, batch 16, 6 epochs; launch counts cover every step
-  5. timing      each LSTM kernel against its plain version at the main
-                 path's shapes, and bench.py's step (filter, crop, LSTM
-                 fwd/bwd, RMSprop) at B = 1024, kernels and plain versions
+  5. timing      each LSTM kernel against its plain version and the cuDNN
+                 call that computes the same function at the main path's
+                 shapes, and bench.py's step (filter, crop, LSTM fwd/bwd,
+                 RMSprop) at B = 1024, kernels and plain versions
   6. vit parity  K5/K6 (attention) and K7/K8 (MLP) against their plain
                  versions at the main_dino shapes (B = 16, N = 785; B = 32,
                  N = 145) and a ragged N = 37, f32 and f32-stream/bf16-compute,
@@ -43,14 +44,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  a step and K2g once (the loss reads only the encoded latent,
                  so only the encoder's backward runs: a cotangent at every
                  t, no dx), K4 twice in the forward; ms/step, and K4/K2g
-                 against their plain versions at both widths
-A `[phases]` line after each phase gives its seconds. The line before the
-last is a JSON object of per-kernel results; the last is
-{"ok": true, "device": {...}}.
+                 against their plain versions and cuDNN at both widths
+ 11. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) against
+                 their plain versions, f32 and bf16, every output, at C = H
+                 = 96, L = 2, T = 460 (B = 1024 and 13) and the DINO-LSTM
+                 backbone's C 96, H 128, L 4, T = 300 (B = 16); the lab's
+                 rcstack at B = 1024, bf16, both shapes: ms and peak memory
+                 of the gradient of sum h_top[T-1]^2 in x and the weights
+                 through the shipped stack (K1 + K2g), the recompute stack
+                 and cuDNN; K10 and K11 alone against plain and cuDNN; one
+                 grad call launches K10 and K11 once, a no-grad call K4
+ 12. scan        K12-K14 (`lstm_scan`, one layer over a precomputed x_proj)
+                 and its two gradients against the plain versions at T =
+                 460, H = 96, B = 1024 and 13, f32 and bf16, and the library
+                 call (cuDNN nn.LSTM(4H, H) with weight_ih = I over x_proj)
+                 against them in f32; the lab's baseline (forward, forward +
+                 backward of sum h_all) through kernels and plain versions;
+                 each kernel alone against plain and cuDNN; one grad call
+                 launches K13 and K14 once, a no-grad call K12
+Every timing line gives the kernel's ms, its plain version's, its bound (the
+larger of its matrix-product operations over the H100's peak and its bytes,
+each input read and each output written once, over 3.35 TB/s) and the ms of
+the one PyTorch call that computes the same function, or none (the cuDNN
+calls: the median of five windows, each logged with its spread). A `[phases]`
+line after each phase gives its seconds. The line before the last is a JSON
+object of per-kernel results; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import os
@@ -127,6 +151,33 @@ REPLACES.update({
     "bwd_general": "cerebra/models/pallas_lstm_stack.py:239",
 })
 
+# The recompute-backward stack (K10, K11) at the headline Perils widths and
+# at the DINO-LSTM backbone's depth and width (lstm_distillation's
+# Model(96, 128, 4) over 300-sample global crops): (T, C, H, L).
+RC_SHAPES = {"headline": (460, 96, 96, 2), "dino": (300, 96, 128, 4)}
+# The per-layer scan (K12-K14) at the Perils width, T = 460, B = 1024.
+H_SCAN, B_BIG = 96, 1024
+SCAN_SOURCE = "cerebra_torch/csrc/lstm_scan.cu"
+# Limits for holding the scan's library call (nn.LSTM(4H, H) with weight_ih =
+# I) against the plain versions in f32: it only has to show that the call
+# computes the same function, and cuDNN sums in its own order, so they are
+# ten times the kernels' f32 limits.
+TOL_CUDNN_SCAN = (1e-4, 1e-4, TOL_BF16_REL)
+REPLACES.update({
+    "fwd_train_rc": "cerebra/models/pallas_lstm_stack.py:154",
+    "bwd_rc": "cerebra/models/pallas_lstm_stack.py:318",
+    "scan_fwd_infer": "cerebra/models/pallas_lstm.py:99",
+    "scan_fwd_train": "cerebra/models/pallas_lstm.py:126",
+    "scan_bwd": "cerebra/models/pallas_lstm.py:167",
+})
+
+# The least time the card could take for a kernel's work: the larger of its
+# operations over the H100 SXM's published peak (989 TFLOP/s on the bf16
+# tensor cores, 67 TFLOP/s in f32 outside them) and its bytes (each input
+# read once, each output written once) over 3.35 TB/s.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -148,7 +199,7 @@ def phase_build() -> None:
 
     from cerebra_torch.kernels import _build
 
-    names = ("lstm_stack", "vit_attn", "vit_mlp")
+    names = ("lstm_stack", "lstm_scan", "vit_attn", "vit_mlp")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         built = list(pool.map(_build.build, names))
@@ -157,7 +208,8 @@ def phase_build() -> None:
     log(f"[build] all in {time.perf_counter() - t0:.2f} s")
 
 
-def make_stack(B: int, dtype: torch.dtype, seed: int, C: int = C, H: int = H, L: int = L):
+def make_stack(B: int, dtype: torch.dtype, seed: int, C: int = C, H: int = H, L: int = L,
+               T: int = T):
     gen = torch.Generator().manual_seed(seed)
     bound = 1.0 / math.sqrt(H)
 
@@ -268,42 +320,179 @@ def phase_main() -> dict:
     return launches
 
 
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+def time_windows(fn, reps: int, windows: int, warmup: int) -> tuple:
+    """(median, least, most) ms per call over `windows` windows of `reps`
+    calls each, by CUDA events, after `warmup` calls."""
+    for _ in range(warmup):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    per_call = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    per_call.sort()
+    return per_call[len(per_call) // 2], per_call[0], per_call[-1]
+
+
+def time_ms(fn, reps: int) -> float:
+    """ms per call over one window of `reps` calls after one warm-up call."""
+    return time_windows(fn, reps, 1, 1)[0]
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors in possibly nested tuples and lists (None: 0)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def stack_flops(T: int, B: int, C: int, H: int, L: int, fwd: bool = True, bwd: bool = False,
+                need_dx: bool = False) -> int:
+    """Matrix-product operations of an LSTM stack over (T, B): the forward's
+    x·W_ih + h·W_hh; the backward's dW_ih and dW_hh, dh = dgates·W_hhᵀ and
+    the chain dgates·W_ihᵀ to each layer below (and to dx). The cell math is
+    a few elementwise operations a value and is not counted."""
+    G = 4 * H
+    ins = [C] + [H] * (L - 1)
+    gates = 2 * T * B * sum((n + H) * G for n in ins)
+    flops = gates if fwd else 0
+    if bwd:
+        flops += gates + 2 * T * B * G * (H * L + H * (L - 1) + (C if need_dx else 0))
+    return flops
+
+
+def timing_row(kern, plain, inputs, flops: int, dtype, reps: int = 5, plain_reps: int = 2,
+               library=None) -> dict:
+    """ms of the kernel's wrapper and of its plain version (CUDA events after a
+    warm-up call), the bound from `flops` and the bytes of `inputs` and of
+    the kernel's outputs, and `library`, the ms of one PyTorch call that
+    computes the same function, or None where there is none."""
+    out = kern()
+    moved = nbytes(inputs) + nbytes(out)
+    del out
+    t_ops, t_mem = flops / PEAK_FLOPS[dtype], moved / HBM_BYTES_PER_S
+    return {"ms": time_ms(kern, reps), "plain_ms": time_ms(plain, plain_reps),
+            "bound_ms": max(t_ops, t_mem) * 1e3,
+            "bound_by": "operations" if t_ops > t_mem else "bytes", "library_ms": library}
+
+
+def fmt_row(row: dict) -> str:
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.3f} ms"
+    return (f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library {lib}")
+
+
+@functools.lru_cache(maxsize=None)
+def cudnn_dtype() -> torch.dtype:
+    """bf16 where torch.nn.LSTM runs cuDNN (aten::_cudnn_rnn) in bf16, else
+    fp16: PyTorch's RNN takes the cuDNN path only for dtypes cuDNN accepts,
+    and otherwise loops over time itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lstm = torch.nn.LSTM(8, 8).to("cuda", torch.bfloat16)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        lstm(torch.zeros(3, 2, 8, device="cuda", dtype=torch.bfloat16))
+    bf16 = any("cudnn_rnn" in e.key for e in prof.key_averages())
+    dt = torch.bfloat16 if bf16 else torch.float16
+    log(f"[cudnn] torch.nn.LSTM in bf16 runs cuDNN: {bf16}; the library column times "
+        f"{str(dt).split('.')[-1]} (cuDNN {torch.backends.cudnn.version()})")
+    return dt
+
+
+def cudnn_lstm(C: int, H: int, L: int, dtype: torch.dtype, scan: bool) -> torch.nn.LSTM:
+    """torch.nn.LSTM(C, H, L) on the card. scan: one layer whose input is
+    lstm_scan's x_proj (C = 4H) itself, weight_ih = I (4H x 4H) and zero
+    biases, so that its output is lstm_scan's h_all, its input gradient the
+    dgates stream and its weight_hh gradient dW_hh transposed (gate order
+    [i, f, g, o] in both; phase_scan holds it against the plain versions)."""
+    lstm = torch.nn.LSTM(C, H, num_layers=L).to("cuda", dtype)
+    if scan:
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(torch.eye(4 * H))
+            lstm.bias_ih_l0.zero_()
+            lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def cudnn_ms(T: int, B: int, C: int, H: int, L: int, which: str, reps: int = 5,
+             scan: bool = False, dtype=None) -> float:
+    """ms of the one PyTorch call that computes what an LSTM kernel computes:
+    torch.nn.LSTM (cuDNN) at the same T, B, C, H, L, in `dtype` (default
+    `cudnn_dtype()`); `scan` as `cudnn_lstm`. which: "infer" the no-grad
+    forward (K3 reads h_n, K4 and K12 the output, one call gives both);
+    "train" the forward under grad (K1, K10, K13); "bwd_last" the backward of
+    a loss on h_n (K2); "bwd_seq" the backward of a loss on the output, with
+    dx (K2g, K11, K14; cuDNN computes dx in every backward). The median of
+    five windows of `reps` calls after three warm-up calls, with cuDNN's
+    autotuner off (one plan for a shape in every run); the spread is logged."""
+    dt = dtype or cudnn_dtype()
+    torch.backends.cudnn.benchmark = False
+    gen = torch.Generator().manual_seed(T + B + H)
+    lstm = cudnn_lstm(C, H, L, dt, scan)
+    x = torch.randn(T, B, C, generator=gen).to("cuda", dt).requires_grad_(which == "bwd_seq")
+    params = list(lstm.parameters())
+    if which == "infer":
+        def call():
+            with torch.no_grad():
+                return lstm(x)
+    elif which == "train":
+        def call():
+            return lstm(x)
+    else:
+        y, (h_n, _) = lstm(x)
+        out, inputs = (h_n[-1], params) if which == "bwd_last" else (y, [x] + params)
+        g = torch.randn(out.shape, generator=gen).to("cuda", dt)
+
+        def call():
+            return torch.autograd.grad(out, inputs, g, retain_graph=True)
+    ms, least, most = time_windows(call, reps, 5, 3)
+    log(f"[cudnn] {which}{' scan' if scan else ''} T={T} B={B} C={C} H={H} L={L} "
+        f"{str(dt).split('.')[-1]}: {ms:.3f} ms, the median of 5 windows of {reps} "
+        f"(spread {least:.3f}-{most:.3f} ms)")
+    return ms
 
 
 def phase_kernel_timing() -> dict:
     from cerebra_torch.models import lstm_stack as ls
 
     out = {}
+    bf16 = torch.bfloat16
     for B_train, B_val in ((16, 960), (1024, 1024)):
-        x, layers, g = make_stack(B_train, torch.bfloat16, seed=1)
+        x, layers, g = make_stack(B_train, bf16, seed=1)
         res = ls._fwd_train_ref(x, layers)
-        xv, layers_v, _ = make_stack(B_val, torch.bfloat16, seed=2)
+        xv, layers_v, _ = make_stack(B_val, bf16, seed=2)
         part = torch.randn(-(-B_train // ls.pick_tile(B_train, C, H, L, bwd=True)),
                            4 * H * (C + (2 * L - 1) * H + L), device="cuda")
+        # name: (kernel, plain, inputs, operations, their dtype, library call ms, B)
         rows = {
-            "fwd_train": (lambda: ls.fwd_train(x, layers),
-                          lambda: ls._fwd_train_ref(x, layers), B_train),
-            "bwd": (lambda: ls.bwd(g, x, layers, *res),
-                    lambda: ls._bwd_ref(g, x, layers, *res), B_train),
+            "fwd_train": (lambda: ls.fwd_train(x, layers), lambda: ls._fwd_train_ref(x, layers),
+                          (x, layers), stack_flops(T, B_train, C, H, L), bf16,
+                          cudnn_ms(T, B_train, C, H, L, "train"), B_train),
+            "bwd": (lambda: ls.bwd(g, x, layers, *res), lambda: ls._bwd_ref(g, x, layers, *res),
+                    (g, x, layers, res), stack_flops(T, B_train, C, H, L, fwd=False, bwd=True),
+                    bf16, cudnn_ms(T, B_train, C, H, L, "bwd_last"), B_train),
             "fwd_infer_last": (lambda: ls.fwd_infer_last(xv, layers_v),
-                               lambda: ls._fwd_infer_last_ref(xv, layers_v), B_val),
-            "bwd_reduce": (lambda: ls.reduce_partials(part), lambda: part.sum(0), B_train),
+                               lambda: ls._fwd_infer_last_ref(xv, layers_v), (xv, layers_v),
+                               stack_flops(T, B_val, C, H, L), bf16,
+                               cudnn_ms(T, B_val, C, H, L, "infer"), B_val),
+            "bwd_reduce": (lambda: ls.reduce_partials(part), lambda: part.sum(0), (part,),
+                           part.numel(), torch.float32, time_ms(lambda: part.sum(0), 5),
+                           B_train),
         }
-        for name, (kern, plain, B) in rows.items():
-            ms, plain_ms = time_ms(kern, 5), time_ms(plain, 2)
-            log(f"[timing] {name} B={B} T={T} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        for name, (kern, plain, inputs, flops, dt, lib, B) in rows.items():
+            row = timing_row(kern, plain, inputs, flops, dt, 5, 2, lib)
+            log(f"[timing] {name} B={B} T={T} bf16: {fmt_row(row)}")
             if B_train == 16:  # the CLI's shapes (train batch 16, gallery 960)
-                out[name] = (ms, plain_ms)
+                out[name] = row
         del x, layers, g, res, xv, layers_v, part
     return out
 
@@ -468,22 +657,33 @@ def phase_vit_timing() -> dict:
         xm, dm = x.reshape(B * N, D_VIT), dout.reshape(B * N, D_VIT)
         _, sa = va.attn_fwd(x, s_seq, pa, H_VIT)
         _, sm = vm.mlp_fwd(xm, s_rows, pm)
+        # operations of the products on the bf16 tensor cores, M = B·N rows:
+        # K5 qkv, proj and two attention products (QKᵀ, PV) over all heads;
+        # K6 from the saved qkv: dWp and do, five attention products (S again,
+        # dV, dP, dQ, dK), dWqkv and dy; K7 fc1 and fc2; K8 fc1 again, dW2,
+        # dgh, dW1 and dy
+        M, D, Fv = B * N, D_VIT, F_VIT
         rows = {
             "vit_attn_fwd": (lambda: va.attn_fwd(x, s_seq, pa, H_VIT),
-                             lambda: va._attn_fwd_ref(x, s_seq, pa, H_VIT)),
+                             lambda: va._attn_fwd_ref(x, s_seq, pa, H_VIT), (x, s_seq, pa),
+                             8 * M * D * D + 4 * B * N * N * D),
             "vit_attn_bwd": (lambda: va.attn_bwd(dout, x, s_seq, pa, H_VIT, sa),
-                             lambda: va._attn_bwd_ref(dout, x, s_seq, pa, H_VIT)),
+                             lambda: va._attn_bwd_ref(dout, x, s_seq, pa, H_VIT),
+                             (dout, x, s_seq, pa, sa), 16 * M * D * D + 10 * B * N * N * D),
             "vit_mlp_fwd": (lambda: vm.mlp_fwd(xm, s_rows, pm),
-                            lambda: vm._mlp_fwd_ref(xm, s_rows, pm)),
+                            lambda: vm._mlp_fwd_ref(xm, s_rows, pm), (xm, s_rows, pm),
+                            4 * M * D * Fv),
             "vit_mlp_bwd": (lambda: vm.mlp_bwd(dm, xm, s_rows, pm, sm),
-                            lambda: vm._mlp_bwd_ref(dm, xm, s_rows, pm)),
+                            lambda: vm._mlp_bwd_ref(dm, xm, s_rows, pm), (dm, xm, s_rows, pm, sm),
+                            10 * M * D * Fv),
         }
-        for name, (kern, plain) in rows.items():
-            ms, plain_ms = time_ms(kern, 5), time_ms(plain, 5)
-            log(f"[vit timing] {name} B={B} N={N} f32 stream/bf16: kernel {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms")
+        for name, (kern, plain, inputs, flops) in rows.items():
+            # no one PyTorch call computes LN + products + attention or GELU +
+            # residual as one fused half-block: library none
+            row = timing_row(kern, plain, inputs, flops, torch.bfloat16, 5, 5)
+            log(f"[vit timing] {name} B={B} N={N} f32 stream/bf16: {fmt_row(row)}")
             if (B, N) == VIT_SHAPES[0]:
-                out[name] = (ms, plain_ms)
+                out[name] = row
         del x, dout, pa, pm, sa, sm, xm, dm
     return out
 
@@ -656,20 +856,262 @@ def phase_ae_train(gpu: str) -> tuple:
         g = torch.randn(T, B_AE, h, device=dev).to(torch.bfloat16)
         dx = name == "decoder"  # the decoder's input (the repeated latent) needs dx
         rows = {
-            "fwd_infer": (lambda: ls.fwd_infer(x, layers), lambda: ls._fwd_infer_ref(x, layers)),
+            "fwd_infer": (lambda: ls.fwd_infer(x, layers), lambda: ls._fwd_infer_ref(x, layers),
+                          (x, layers), stack_flops(T, B_AE, c, h, 1),
+                          cudnn_ms(T, B_AE, c, h, 1, "infer")),
             "bwd_general": (lambda: ls.bwd(g, x, layers, *res, need_dx=dx),
-                            lambda: ls._bwd_ref(g, x, layers, *res, need_dx=dx)),
+                            lambda: ls._bwd_ref(g, x, layers, *res, need_dx=dx),
+                            (g, x, layers, res),
+                            stack_flops(T, B_AE, c, h, 1, fwd=False, bwd=True, need_dx=dx),
+                            cudnn_ms(T, B_AE, c, h, 1, "bwd_seq")),
         }
-        for kname, (kern, plain) in rows.items():
-            ms, plain_ms = time_ms(kern, 5), time_ms(plain, 2)
+        for kname, (kern, plain, inputs, flops, lib) in rows.items():
+            row = timing_row(kern, plain, inputs, flops, torch.bfloat16, 5, 2, lib)
             log(f"[ae timing] {kname} {name} C={c} H={h} B={B_AE} T={T} bf16"
                 f"{' (g all t, dx)' if kname == 'bwd_general' and dx else ''}"
-                f"{' (g all t)' if kname == 'bwd_general' and not dx else ''}: "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                f"{' (g all t)' if kname == 'bwd_general' and not dx else ''}: {fmt_row(row)}")
             if name == "encoder":
-                times[kname] = (ms, plain_ms)
+                times[kname] = row
         del x, layers, res, g
     return launches, times
+
+
+def stack_grad_call(fn, x: torch.Tensor, layers):
+    """The lab's rcstack step: the gradient of Σ h_top[T−1]² through `fn` in
+    x and every weight, all requiring grad."""
+    xs = x.detach().requires_grad_(True)
+    ws = [tuple(w.detach().requires_grad_(True) for w in layer) for layer in layers]
+    flat = [xs] + [w for layer in ws for w in layer]
+
+    def call():
+        return torch.autograd.grad((fn(xs, ws)[-1].float() ** 2).sum(), flat)
+    return call
+
+
+def cudnn_grad_call(T_: int, B: int, C_: int, H_: int, L_: int):
+    """The same gradient through torch.nn.LSTM (cuDNN) in `cudnn_dtype()`."""
+    dt = cudnn_dtype()
+    lstm = cudnn_lstm(C_, H_, L_, dt, False)
+    xs = torch.randn(T_, B, C_, generator=torch.Generator().manual_seed(9)).to(
+        "cuda", dt).requires_grad_(True)
+    flat = [xs] + list(lstm.parameters())
+
+    def call():
+        return torch.autograd.grad((lstm(xs)[0][-1].float() ** 2).sum(), flat)
+    return call
+
+
+def peak_mib(call) -> tuple:
+    """(peak device memory of one call above what was allocated before it,
+    the peak in all), MiB, from reset_peak_memory_stats and
+    max_memory_allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return (peak - base) / 2**20, peak / 2**20
+
+
+def phase_rc(gpu: str) -> tuple:
+    """Phase 11: K10/K11 against their plain versions; the lab's rcstack
+    comparison (ms and peak memory of the shipped stack, the recompute stack
+    and cuDNN); each kernel alone; the launch check."""
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.models import lstm_stack as ls
+
+    bf16 = torch.bfloat16
+    errs = {}
+    for dtype in (torch.float32, bf16):
+        for shape, B in (("headline", B_BIG), ("headline", 13), ("dino", 16)):
+            T_, C_, H_, L_ = RC_SHAPES[shape]
+            tag = f"{str(dtype).split('.')[-1]} {shape} C={C_} H={H_} L={L_} T={T_} B={B}"
+            x, layers, _ = make_stack(B, dtype, seed=B, C=C_, H=H_, L=L_, T=T_)
+            g = torch.randn(T_, B, H_, generator=torch.Generator().manual_seed(B)).to(
+                "cuda", dtype)
+            want = ls._fwd_train_rc_ref(x, layers)
+            e10 = max(compare(f"K10 {n} {tag}", a, b, dtype, False)
+                      for n, a, b in zip(("h_all", "c_all"), ls.fwd_train_rc(x, layers), want))
+            dx, got = ls.bwd_rc(g, x, layers, *want)  # on the plain residuals: K11 alone
+            want_dx, want_g = ls._bwd_rc_ref(g, x, layers, *want)
+            pairs = [("dx", dx, want_dx)] + [
+                (f"{n}[{l}]", a, b) for l in range(L_)
+                for n, a, b in zip(("dW_ih", "dW_hh", "db"), got[l], want_g[l])]
+            e11 = max(compare(f"K11 {n} {tag}", a, b, dtype, True) for n, a, b in pairs)
+            if dtype == bf16 and shape == "headline" and B == B_BIG:
+                errs = {"fwd_train_rc": e10, "bwd_rc": e11}
+            del x, layers, g, want, dx, got, want_dx, want_g, pairs
+    torch.cuda.synchronize()
+
+    times = {}
+    for shape, (T_, C_, H_, L_) in RC_SHAPES.items():
+        tag = f"{shape} C={C_} H={H_} L={L_} T={T_} B={B_BIG} bf16"
+        x, layers, _ = make_stack(B_BIG, bf16, seed=7, C=C_, H=H_, L=L_, T=T_)
+        for name, call in (("shipped K1+K2g", stack_grad_call(ls.lstm_stack, x, layers)),
+                           ("recompute K10+K11", stack_grad_call(ls.lstm_stack_rc, x, layers)),
+                           (f"cuDNN {str(cudnn_dtype()).split('.')[-1]}",
+                            cudnn_grad_call(T_, B_BIG, C_, H_, L_))):
+            ms = time_ms(call, 3)
+            own, total = peak_mib(call)
+            log(f"[rcstack] {tag} {name}: {ms:.3f} ms, peak {own:.1f} MiB above the inputs "
+                f"({total:.1f} MiB in all) on {gpu}")
+            del call
+        res = ls.fwd_train_rc(x, layers)
+        g = torch.randn(T_, B_BIG, H_, generator=torch.Generator().manual_seed(8)).to(
+            "cuda", bf16)
+        rows = {
+            "fwd_train_rc": (lambda: ls.fwd_train_rc(x, layers),
+                             lambda: ls._fwd_train_rc_ref(x, layers), (x, layers),
+                             stack_flops(T_, B_BIG, C_, H_, L_),
+                             cudnn_ms(T_, B_BIG, C_, H_, L_, "train", 3)),
+            "bwd_rc": (lambda: ls.bwd_rc(g, x, layers, *res),
+                       lambda: ls._bwd_rc_ref(g, x, layers, *res), (g, x, layers, res),
+                       stack_flops(T_, B_BIG, C_, H_, L_, fwd=True, bwd=True, need_dx=True),
+                       cudnn_ms(T_, B_BIG, C_, H_, L_, "bwd_seq", 3)),
+        }
+        tiles = (ls.pick_tile(B_BIG, C_, H_, L_, bwd=False),
+                 ls.pick_tile(B_BIG, C_, H_, L_, bwd=True))
+        for name, (kern, plain, inputs, flops, lib) in rows.items():
+            row = timing_row(kern, plain, inputs, flops, bf16, 3, 1, lib)
+            log(f"[rc timing] {name} {tag} (tiles fwd {tiles[0]}, bwd {tiles[1]}): "
+                f"{fmt_row(row)}")
+            if shape == "headline":
+                times[name] = row
+        # the shipped pair beside them, with the gradients' cotangent (at T-1
+        # only) for both backwards
+        g[:-1] = 0
+        res1 = ls.fwd_train(x, layers)
+        log(f"[rc timing] {tag}: K1 {time_ms(lambda: ls.fwd_train(x, layers), 3):.3f} ms, "
+            f"K10 {time_ms(lambda: ls.fwd_train_rc(x, layers), 3):.3f} ms; g at T-1 only: "
+            f"K2g with dx {time_ms(lambda: ls.bwd(g, x, layers, *res1, need_dx=True), 3):.3f}"
+            f" ms, K11 {time_ms(lambda: ls.bwd_rc(g, x, layers, *res), 3):.3f} ms")
+        del x, layers, res, res1, g
+
+    _, C_, H_, L_ = RC_SHAPES["headline"]
+    x, layers, _ = make_stack(B_BIG, bf16, seed=11, C=C_, H=H_, L=L_)
+    call = stack_grad_call(ls.lstm_stack_rc, x, layers)
+    reset_launches()
+    grads = call()
+    with torch.no_grad():
+        h = ls.lstm_stack_rc(x, layers)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"[rc] one grad and one no-grad call of lstm_stack_rc: launches {launches}")
+    want = {"fwd_train_rc": 1, "bwd_rc": 1, "bwd_reduce": 1, "fwd_infer": 1,
+            "fwd_train": 0, "bwd_general": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if tuple(h.shape) != (T, B_BIG, H) or not all(torch.isfinite(t).all() for t in (h, *grads)):
+        raise AssertionError("lstm_stack_rc gave a wrong shape or non-finite values")
+    return errs, times, launches
+
+
+def phase_scan(gpu: str) -> tuple:
+    """Phase 12: K12-K14 and lstm_scan's two gradients against the plain
+    versions; the lab's baseline (forward alone, forward + backward of
+    Σ h_all) through the kernels and the plain versions; each kernel alone;
+    the launch check."""
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.models import lstm_scan as sc
+
+    def case(B, dtype, seed):
+        gen = torch.Generator().manual_seed(seed)
+        x_proj = (torch.randn(T, B, 4 * H_SCAN, generator=gen) * 0.5).to("cuda", dtype)
+        w_hh = ((torch.rand(H_SCAN, 4 * H_SCAN, generator=gen) * 2 - 1)
+                / math.sqrt(H_SCAN)).to("cuda", dtype)
+        g = torch.randn(T, B, H_SCAN, generator=gen).to("cuda", dtype)
+        return x_proj, w_hh, g
+
+    def grads(fn, x_proj, w_hh, g=None):
+        xs, ws = x_proj.detach().requires_grad_(True), w_hh.detach().requires_grad_(True)
+        h = fn(xs, ws)
+        return torch.autograd.grad(h.float().sum() if g is None else (h * g).sum(), (xs, ws))
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (B_BIG, 13):
+            tag = f"{str(dtype).split('.')[-1]} H={H_SCAN} T={T} B={B}"
+            x_proj, w_hh, g = case(B, dtype, B)
+            e12 = compare(f"K12 h_all {tag}", sc.scan_fwd_infer(x_proj, w_hh),
+                          sc._scan_fwd_infer_ref(x_proj, w_hh), dtype, False)
+            want = sc._scan_fwd_train_ref(x_proj, w_hh)
+            e13 = max(compare(f"K13 {n} {tag}", a, b, dtype, False) for n, a, b in
+                      zip(("h_all", "prefac", "qf"), sc.scan_fwd_train(x_proj, w_hh), want))
+            e14 = compare(f"K14 dgates {tag}", sc.scan_bwd(g, *want[1:], w_hh),
+                          sc._scan_bwd_ref(g, *want[1:], w_hh), dtype, True)
+            want_d = grads(sc.lstm_scan_ref, x_proj, w_hh, g)
+            for n, a, b in zip(("d x_proj", "d w_hh"), grads(sc.lstm_scan, x_proj, w_hh, g),
+                               want_d):
+                compare(f"lstm_scan {n} {tag}", a, b, dtype, True)
+            if dtype == torch.float32 and B == 13:
+                # the library column's call computes lstm_scan's function
+                lstm = cudnn_lstm(4 * H_SCAN, H_SCAN, 1, dtype, scan=True)
+                with torch.no_grad():
+                    lstm.weight_hh_l0.copy_(w_hh.t())
+                xs = x_proj.detach().requires_grad_(True)
+                h = lstm(xs)[0]
+                d_x, d_wT = torch.autograd.grad(h, (xs, lstm.weight_hh_l0), g)
+                for n, a, b in (("h_all", h, sc._scan_fwd_infer_ref(x_proj, w_hh)),
+                                ("d x_proj", d_x, want_d[0]), ("d w_hh", d_wT.t(), want_d[1])):
+                    compare(f"cuDNN LSTM(4H, H) with weight_ih = I: {n} {tag}", a, b, dtype,
+                            n != "h_all", TOL_CUDNN_SCAN)
+                del lstm, xs, h, d_x, d_wT
+            if dtype == torch.bfloat16 and B == B_BIG:
+                errs = {"scan_fwd_infer": e12, "scan_fwd_train": e13, "scan_bwd": e14}
+            del x_proj, w_hh, g, want, want_d
+    torch.cuda.synchronize()
+
+    times = {}
+    cudnn_call = {"scan_fwd_infer": "infer", "scan_fwd_train": "train", "scan_bwd": "bwd_seq"}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"{str(dtype).split('.')[-1]} H={H_SCAN} T={T} B={B_BIG}"
+        x_proj, w_hh, g = case(B_BIG, dtype, 5)
+        for what, kern, plain in (
+                ("fwd", lambda: sc.lstm_scan(x_proj, w_hh), lambda: sc.lstm_scan_ref(x_proj, w_hh)),
+                ("fwd+bwd", lambda: grads(sc.lstm_scan, x_proj, w_hh),
+                 lambda: grads(sc.lstm_scan_ref, x_proj, w_hh))):
+            with torch.no_grad() if what == "fwd" else contextlib.nullcontext():
+                ms, plain_ms = time_ms(kern, 5), time_ms(plain, 2)
+            log(f"[scan baseline] {what} {tag}: kernels {ms:.3f} ms ({ms / T * 1e3:.2f} us/step),"
+                f" plain {plain_ms:.3f} ms on {gpu}")
+        res = sc.scan_fwd_train(x_proj, w_hh)
+        mm = 2 * T * B_BIG * H_SCAN * 4 * H_SCAN  # h·W_hh (K12, K13), dgates·W_hhᵀ (K14)
+        rows = {
+            "scan_fwd_infer": (lambda: sc.scan_fwd_infer(x_proj, w_hh),
+                               lambda: sc._scan_fwd_infer_ref(x_proj, w_hh), (x_proj, w_hh)),
+            "scan_fwd_train": (lambda: sc.scan_fwd_train(x_proj, w_hh),
+                               lambda: sc._scan_fwd_train_ref(x_proj, w_hh), (x_proj, w_hh)),
+            "scan_bwd": (lambda: sc.scan_bwd(g, *res[1:], w_hh),
+                         lambda: sc._scan_bwd_ref(g, *res[1:], w_hh), (g, res[1:], w_hh)),
+        }
+        for name, (kern, plain, inputs) in rows.items():
+            # library: nn.LSTM(4H, H) with weight_ih = I over x_proj, in this
+            # row's dtype where cuDNN takes it
+            lib = cudnn_ms(T, B_BIG, 4 * H_SCAN, H_SCAN, 1, cudnn_call[name], scan=True,
+                           dtype=torch.float32 if dtype == torch.float32 else None)
+            row = timing_row(kern, plain, inputs, mm, dtype, 5, 2, lib)
+            log(f"[scan timing] {name} {tag} (tile {sc.pick_tile(B_BIG, H_SCAN)}): "
+                f"{fmt_row(row)}")
+            if dtype == torch.bfloat16:
+                times[name] = row
+        del x_proj, w_hh, g, res
+
+    x_proj, w_hh, _ = case(B_BIG, torch.bfloat16, 6)
+    reset_launches()
+    d = grads(sc.lstm_scan, x_proj, w_hh)
+    with torch.no_grad():
+        h = sc.lstm_scan(x_proj, w_hh)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"[scan] one grad and one no-grad call of lstm_scan: launches {launches}")
+    want = {"scan_fwd_train": 1, "scan_bwd": 1, "scan_fwd_infer": 1}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if tuple(h.shape) != (T, B_BIG, H_SCAN) or not all(torch.isfinite(t).all() for t in (h, *d)):
+        raise AssertionError("lstm_scan gave a wrong shape or non-finite values")
+    return errs, times, launches
 
 
 def main() -> None:
@@ -701,13 +1143,21 @@ def main() -> None:
     ae_launches, ae_times = run(phase_ae_train, gpu)
     launches.update({k: ae_launches[k] for k in ("fwd_infer", "bwd_general")})
     times.update(ae_times)
+    for phase in (phase_rc, phase_scan):
+        e, t, n = run(phase, gpu)
+        errs.update(e)
+        times.update(t)
+        launches.update({k: n[k] for k in t})
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
+    sources = dict(VIT_SOURCES, **dict.fromkeys(("scan_fwd_infer", "scan_fwd_train", "scan_bwd"),
+                                                SCAN_SOURCE))
     kernels = [
-        {"name": name, "route": "cuda", "source": VIT_SOURCES.get(name, SOURCE),
+        {"name": name, "route": "cuda", "source": sources.get(name, SOURCE),
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         **times[name]}
         for name in ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce", *VIT_SOURCES,
-                     "fwd_infer", "bwd_general")
+                     "fwd_infer", "bwd_general", "fwd_train_rc", "bwd_rc", "scan_fwd_infer",
+                     "scan_fwd_train", "scan_bwd")
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

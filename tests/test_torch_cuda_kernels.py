@@ -1,5 +1,6 @@
-"""The port's CUDA LSTM-stack kernels (K1, K2/K2g with the dW reduction, K3,
-K4) against their plain PyTorch versions on the card, over shapes and tiles
+"""The port's CUDA LSTM kernels (the stack's K1, K2/K2g with the dW reduction,
+K3, K4, K10, K11; the scan's K12-K14) and the ViT kernels (K5-K8) against
+their plain PyTorch versions on the card, over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
 below one warp's multiple, and the recurrent autoencoder's widths (encoder
 C = 96, H = 384, with 4H above the block's 512 threads; decoder C = 384,
@@ -170,6 +171,164 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ls.fwd_infer_last(x.cpu(), layers)
     with pytest.raises(ValueError):
         ls.fwd_train(x, layers, tile=3)
+
+
+# ------------------------------------- recompute stack K10/K11, scan K12–K14
+# The stack shapes above and the DINO-LSTM backbone's depth and width (C 96,
+# H 128, L 4); the scan's (T, B, H) with a ragged batch, T = 1, 4H below one
+# warp's multiple and above the block's 512 threads.
+RC_SHAPES = SHAPES + [(5, 9, 96, 128, 4)]
+SCAN_SHAPES = [(1, 1, 96), (7, 13, 10), (9, 40, 96), (12, 16, 384), (6, 5, 128)]
+
+
+@pytest.mark.parametrize("tile", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", RC_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rc_kernels_match_plain(cuda, dtype, shape, tile):
+    """K10's h_all and c_all, and K11 on the plain forward's residuals: dx and
+    every dW."""
+    x, layers, _ = make_stack(shape, dtype, cuda)
+    g = torch.randn(*x.shape[:2], shape[3], generator=torch.Generator().manual_seed(1)).to(
+        cuda, dtype)
+    want = ls._fwd_train_rc_ref(x, layers)
+    for a, b in zip(ls.fwd_train_rc(x, layers, tile), want):
+        assert_close(a, b, dtype)
+    dx, got_g = ls.bwd_rc(g, x, layers, *want, tile=tile)
+    want_dx, want_g = ls._bwd_rc_ref(g, x, layers, *want)
+    assert_close(dx, want_dx, dtype, grad=True)
+    for got_l, want_l in zip(got_g, want_g):
+        for a, b in zip(got_l, want_l):
+            assert_close(a, b, dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_rc_wrapper_gives_the_plain_gradients_and_launches(cuda):
+    """lstm_stack_rc under grad: K10 + K11 once each, the gradients of the
+    plain pair; without grad: K4."""
+    x, layers, _ = make_stack((11, 6, 96, 128, 3), torch.float32, cuda, seed=3)
+    w_out = torch.randn(11, 6, 128, device=cuda)
+    grads = []
+    for fn in (ls.lstm_stack_rc, ls.lstm_stack_rc_ref):
+        xs = x.clone().requires_grad_(True)
+        ws = [tuple(w.clone().requires_grad_(True) for w in l) for l in layers]
+        (fn(xs, ws) * w_out).sum().backward()
+        grads.append([xs.grad] + [w.grad for l in ws for w in l])
+    for a, b in zip(*grads):
+        assert_close(a, b, torch.float32, grad=True)
+    ls.reset_launches()
+    xs = x.clone().requires_grad_(True)
+    ls.lstm_stack_rc(xs, layers).sum().backward()
+    with torch.no_grad():
+        ls.lstm_stack_rc(x, layers)
+    names = ("fwd_train_rc", "bwd_rc", "fwd_infer", "bwd_reduce")
+    assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
+    assert ls.LAUNCHES["fwd_train"] == ls.LAUNCHES["bwd_general"] == 0
+
+
+def test_rc_gradients_are_deterministic(cuda):
+    """K11 gives bitwise-repeatable dx and weight gradients."""
+    x, layers, _ = make_stack((20, 37, 96, 128, 2), torch.bfloat16, cuda, seed=2)
+    g = torch.randn(20, 37, 128, generator=torch.Generator().manual_seed(1)).to(
+        cuda, torch.bfloat16)
+    res = ls.fwd_train_rc(x, layers)
+    (dx1, first), (dx2, second) = (ls.bwd_rc(g, x, layers, *res) for _ in range(2))
+    assert torch.equal(dx1, dx2)
+    for a, b in zip(first, second):
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
+
+
+def scan_case(shape, dtype, device, seed=0):
+    T, B, H = shape
+    gen = torch.Generator().manual_seed(seed)
+    x_proj = (torch.randn(T, B, 4 * H, generator=gen) * 0.5).to(device, dtype)
+    w_hh = ((torch.rand(H, 4 * H, generator=gen) * 2 - 1) / math.sqrt(H)).to(device, dtype)
+    g = torch.randn(T, B, H, generator=gen).to(device, dtype)
+    return x_proj, w_hh, g
+
+
+@pytest.mark.parametrize("tile", [None, 1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_scan_kernels_match_plain(cuda, dtype, shape, tile):
+    """K12's h_all, K13's h_all, prefac and qf, and K14's dgates on the plain
+    forward's residuals."""
+    from cerebra_torch.models import lstm_scan as sc
+
+    x_proj, w_hh, g = scan_case(shape, dtype, cuda)
+    assert_close(sc.scan_fwd_infer(x_proj, w_hh, tile), sc._scan_fwd_infer_ref(x_proj, w_hh),
+                 dtype)
+    want = sc._scan_fwd_train_ref(x_proj, w_hh)
+    for a, b in zip(sc.scan_fwd_train(x_proj, w_hh, tile), want):
+        assert_close(a, b, dtype)
+    assert_close(sc.scan_bwd(g, *want[1:], w_hh, tile), sc._scan_bwd_ref(g, *want[1:], w_hh),
+                 dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_scan_wrapper_gives_the_plain_gradients_and_launches(cuda):
+    """lstm_scan under grad: K13 + K14 once each, both gradients as through
+    the plain versions; without grad: K12."""
+    from cerebra_torch.models import lstm_scan as sc
+
+    x_proj, w_hh, g = scan_case((11, 6, 96), torch.float32, cuda, seed=4)
+    grads = []
+    for fn in (sc.lstm_scan, sc.lstm_scan_ref):
+        xs, ws = x_proj.clone().requires_grad_(True), w_hh.clone().requires_grad_(True)
+        (fn(xs, ws) * g).sum().backward()
+        grads.append((xs.grad, ws.grad))
+    for a, b in zip(*grads):
+        assert_close(a, b, torch.float32, grad=True)
+    ls.reset_launches()
+    xs = x_proj.clone().requires_grad_(True)
+    sc.lstm_scan(xs, w_hh).sum().backward()
+    with torch.no_grad():
+        sc.lstm_scan(x_proj, w_hh)
+    names = ("scan_fwd_infer", "scan_fwd_train", "scan_bwd")
+    assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
+
+
+def test_scan_dw_hh_keeps_tf32_off(cuda):
+    """lstm_scan's dW_hh sums in f32 on the card where the caller turned TF32
+    on, bit for bit as where it is off, and the caller's setting survives."""
+    from cerebra_torch.models import lstm_scan as sc
+
+    x_proj, w_hh, g = scan_case((40, 64, 96), torch.float32, cuda, seed=6)
+    grads = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            ws = w_hh.clone().requires_grad_(True)
+            (sc.lstm_scan(x_proj, ws) * g).sum().backward()
+            assert torch.backends.cuda.matmul.allow_tf32 is tf32
+            grads.append(ws.grad)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(*grads)
+
+
+def test_rc_and_scan_wrappers_raise_instead_of_falling_back(cuda):
+    from cerebra_torch.models import lstm_scan as sc
+
+    x, layers, _ = make_stack((4, 5, 8, 8, 2), torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ls.fwd_train_rc(x.transpose(0, 1).contiguous().transpose(0, 1), layers)
+    with pytest.raises(RuntimeError):
+        ls.fwd_train_rc(x.cpu(), layers)
+    res = ls.fwd_train_rc(x, layers)
+    with pytest.raises(ValueError):
+        ls.bwd_rc(torch.zeros(5, 8, device=cuda), x, layers, *res)  # a (B, H) cotangent
+    with pytest.raises(ValueError):
+        ls.bwd_rc(torch.zeros(4, 5, 8, device=cuda), x, layers, *res, tile=3)
+    x_proj, w_hh, g = scan_case((4, 5, 8), torch.float32, cuda)
+    with pytest.raises(RuntimeError):
+        sc.scan_fwd_infer(x_proj, w_hh.cpu())
+    with pytest.raises(ValueError):
+        sc.scan_fwd_train(x_proj.transpose(0, 1).contiguous().transpose(0, 1), w_hh)
+    with pytest.raises(ValueError):
+        sc.scan_fwd_train(x_proj, w_hh, tile=3)
+    with pytest.raises(ValueError):
+        sc.scan_bwd(g[:, :, :-1].contiguous(), *sc.scan_fwd_train(x_proj, w_hh)[1:], w_hh)
 
 
 # ------------------------------------------------ fused ViT half-blocks K5–K8

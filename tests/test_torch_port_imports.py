@@ -19,6 +19,7 @@ assert not bad, bad
 assert "cerebra_torch.cli.lstm_distill_from_dinov2_train" in names
 assert "cerebra_torch.cli.main_dino" in names
 assert "cerebra_torch.models.autoencoders" in names
+assert "cerebra_torch.models.lstm_scan" in names
 print(len(names))
 """
 
