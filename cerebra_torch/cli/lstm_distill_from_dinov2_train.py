@@ -10,8 +10,9 @@ the reference `.pth` layout).
     python -m cerebra_torch.cli.lstm_distill_from_dinov2_train --synthetic \
         [--device cuda|cpu] [--use_bf16 true|false] ...
 
-`--profile_dir` is accepted for flag parity with the JAX CLI and ignored:
-the port has no trace hook yet.
+`--profile_dir DIR` writes a `torch.profiler` trace of the training loop
+into DIR (`train/resume.py::profile_trace`), as the JAX CLI writes its
+`jax.profiler` trace there.
 """
 
 from __future__ import annotations
@@ -31,13 +32,15 @@ from cerebra_torch.cli.common import (
 )
 from cerebra_torch.eval.retrieval import retrieval_recall_precision
 from cerebra_torch.train.recipes import FeatureDistillConfig, feature_distill_train
+from cerebra_torch.train.resume import profile_trace
 from cerebra_torch.utils.config import is_main_process
 
 
 def main(argv=None):
     parser = reference_argparser("LSTM→DINOv2 feature distillation (PyTorch/CUDA)")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="accepted for parity with the JAX CLI; ignored")
+                        help="write a torch.profiler trace of the training loop here "
+                        "(Chrome trace JSON; TensorBoard's PyTorch plugin or Perfetto)")
     FLAGS, _ = parser.parse_known_args(argv)
     print(FLAGS)
     device = resolve_device(FLAGS)
@@ -69,11 +72,12 @@ def main(argv=None):
         seed=FLAGS.seed,
         dtype=torch.bfloat16 if FLAGS.use_bf16 else None,
     )
-    model, hist = feature_distill_train(
-        corpus.eeg[train_idx], feats[train_idx], corpus.labels[train_idx],
-        corpus.eeg[val_idx], feats[val_idx], corpus.labels[val_idx],
-        device=device, config=cfg, n_classes=corpus.catalog.n_classes,
-    )
+    with profile_trace(FLAGS.profile_dir, enabled=bool(FLAGS.profile_dir)):
+        model, hist = feature_distill_train(
+            corpus.eeg[train_idx], feats[train_idx], corpus.labels[train_idx],
+            corpus.eeg[val_idx], feats[val_idx], corpus.labels[val_idx],
+            device=device, config=cfg, n_classes=corpus.catalog.n_classes,
+        )
 
     best_params = hist["best_params"][0]
     if best_params is not None and is_main_process():

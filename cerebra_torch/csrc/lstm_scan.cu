@@ -4,7 +4,9 @@
 //
 //   scan_fwd_kernel<T, BT, false> replaces _fwd_infer_kernel (K12)
 //   scan_fwd_kernel<T, BT, true>  replaces _fwd_train_kernel (K13)
-//   scan_bwd_kernel<T, BT>        replaces _bwd_kernel       (K14)
+//   scan_bwd_kernel<T, T, BT>     replaces _bwd_kernel       (K14), the
+//                                 reverse scan of lstm_common.cuh that K2/K2g
+//                                 run once per layer too
 //
 // Layouts (row-major, T = stream dtype, float or __nv_bfloat16): x_proj
 // (Tn, B, 4H); w_hh (H, 4H); h_all (Tn, B, H); prefac (Tn, B, 4H) =
@@ -16,13 +18,13 @@
 // per step a batch tile of BT rows needs H * 4H * BT multiply-adds against
 // w_hh (72 KiB in bf16 at H = 96, read from L2) and streams 4H (K12), 10H
 // (K13) or 11H (K14) values a row, so a step costs latency, not bandwidth
-// or FLOPs. The design is lstm_stack.cu's for one layer: one block per batch
-// tile loops over time with its f32 carries in shared memory; each thread
-// owns one gate column (the forwards) or one hidden unit (K14's dh product)
-// and applies each weight it reads to all BT rows, held transposed in shared
-// memory. The per-element cell math comes from lstm_common.cuh: cell_step, as
-// lstm_stack.cu's forwards, and gate_grads, as its K11. Rounding points follow
-// the Pallas kernels:
+// or FLOPs. The forwards' design is lstm_stack.cu's for one layer: one block
+// per batch tile loops over time with its f32 carries in shared memory; each
+// thread owns one gate column and applies each weight it reads to all BT
+// rows, held transposed in shared memory. K14 is the shared reverse scan
+// (lstm_common.cuh, with its own design notes). The per-element cell math
+// comes from lstm_common.cuh: cell_step, as lstm_stack.cu's forwards, and
+// gate_grads, as its K11. Rounding points follow the Pallas kernels:
 // gates = f32(x_proj_t) + (h rounded to the stream dtype) @ w_hh with f32
 // accumulation, h's f32 carry kept unrounded; K14's dh/dc carries f32, its
 // dgates stream-dtype products of the rounded carries and prefactors.
@@ -84,65 +86,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-// Replaces cerebra/models/pallas_lstm.py:_bwd_kernel: reverse time, no
-// transcendentals, no dW (the caller sums dW_hh over the dgates stream, as
-// pallas_lstm.py's _vjp_bwd does outside its kernel). Per step:
-//   dh = dh_acc + g_t    dc = dc_acc + dh·q
-//   dgates = [dc·p_i, dc·p_f, dc·p_g, dh·p_o]   (written to dgates)
-//   dh_acc = dgates @ w_hhᵀ                      dc_acc = dc·f
-// Shared memory (floats): dh_s, dc_s (BT, H) | dg_s (4H, BT)
-template <typename T, int BT>
-__global__ void __launch_bounds__(MAX_THREADS)
-    scan_bwd_kernel(const T* __restrict__ prefac, const T* __restrict__ qf,
-                    const T* __restrict__ g, const T* __restrict__ w_hhT,
-                    T* __restrict__ dgates, int Tn, int B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = 4 * H;
-  float* dh_s = smem;
-  float* dc_s = dh_s + BT * H;
-  float* dg_s = dc_s + BT * H;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int b0 = blockIdx.x * BT;
-
-  for (int i = tid; i < 2 * BT * H; i += nthr) dh_s[i] = 0.0f;  // dh_s and dc_s
-
-  for (int t = Tn - 1; t >= 0; --t) {
-    __syncthreads();  // dh_s holds step t+1's carry; dg_s is free
-    for (int i = tid; i < BT * H; i += nthr) {
-      const int r = i / H, u = i - r * H, b = b0 + r;
-      if (b >= B) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dg_s[(q * H + u) * BT + r] = 0.0f;
-        continue;
-      }
-      const size_t row = (size_t)t * B + b;
-      const T* q = qf + row * 2 * H + u;
-      float p[4], d[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) p[k] = to_f<T>(prefac[row * G + k * H + u]);
-      dc_s[i] = gate_grads<T>(dh_s[i] + to_f<T>(g[row * H + u]), dc_s[i], to_f<T>(q[0]),
-                              to_f<T>(q[H]), p, d);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        dg_s[(k * H + u) * BT + r] = d[k];
-        dgates[row * G + k * H + u] = from_f<T>(d[k]);
-      }
-    }
-    __syncthreads();  // dg_s complete
-
-    // dh_acc = dgates @ w_hh^T: one thread per hidden unit and all BT rows
-    for (int k = tid; k < H; k += nthr) {
-      float s[BT];
-#pragma unroll
-      for (int r = 0; r < BT; ++r) s[r] = 0.0f;
-      col_dot<T, BT>(s, w_hhT, dg_s, G, H, k);
-#pragma unroll
-      for (int r = 0; r < BT; ++r) dh_s[r * H + k] = s[r];
-    }
-  }
-}
-
 template <typename T, int BT>
 int launch_fwd(int train, const void* x_proj, const void* w_hh, void* h_all, void* prefac,
                void* qf, int Tn, int B, int H, cudaStream_t stream) {
@@ -153,19 +96,6 @@ int launch_fwd(int train, const void* x_proj, const void* w_hh, void* h_all, voi
   if (e != cudaSuccess) return (int)e;
   kern<<<(B + BT - 1) / BT, threads_for(H), smem, stream>>>(
       (const T*)x_proj, (const T*)w_hh, (T*)h_all, (T*)prefac, (T*)qf, Tn, B, H);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BT>
-int launch_bwd(const void* prefac, const void* qf, const void* g, const void* w_hhT,
-               void* dgates, int Tn, int B, int H, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)2 * BT * H + 4 * H * BT);
-  auto kern = scan_bwd_kernel<T, BT>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<(B + BT - 1) / BT, threads_for(H), smem, stream>>>(
-      (const T*)prefac, (const T*)qf, (const T*)g, (const T*)w_hhT, (T*)dgates, Tn, B, H);
   return (int)cudaGetLastError();
 }
 
@@ -193,8 +123,10 @@ int cerebra_scan_bwd(int bf16, int bt, const void* prefac, const void* qf, const
   cudaStream_t s = (cudaStream_t)stream;
   return with_tile(bt, [&](auto tile) {
     constexpr int BT = decltype(tile)::value;
-    return bf16 ? launch_bwd<__nv_bfloat16, BT>(prefac, qf, g, w_hhT, dgates, Tn, B, H, s)
-                : launch_bwd<float, BT>(prefac, qf, g, w_hhT, dgates, Tn, B, H, s);
+    return bf16 ? launch_scan_bwd<__nv_bfloat16, __nv_bfloat16, BT>(prefac, qf, g, 0, w_hhT,
+                                                                    dgates, Tn, B, H, s)
+                : launch_scan_bwd<float, float, BT>(prefac, qf, g, 0, w_hhT, dgates, Tn, B, H,
+                                                    s);
   });
 }
 

@@ -5,30 +5,32 @@
 //   lstm_fwd_kernel<T, BT, INFER_LAST> replaces _fwd_infer_last_kernel (K3)
 //   lstm_fwd_kernel<T, BT, INFER_SEQ>  replaces _fwd_infer_kernel      (K4)
 //   lstm_fwd_kernel<T, BT, TRAIN_RC>   replaces _fwd_train_rc_kernel   (K10)
-//   lstm_bwd_kernel<T, BT>             replaces _bwd_kernel: K2 (need_dx=False,
-//                                      g_last_only=True) and K2g (need_dx=True
-//                                      and/or a full (Tn, B, H) cotangent)
+//   cerebra_stack_scan_bwd +           replace _bwd_kernel: K2 (need_dx=False,
+//   cerebra_stack_bwd_products         g_last_only=True) and K2g (need_dx=True
+//                                      and/or a full (Tn, B, H) cotangent), as
+//                                      one reverse scan (lstm_common.cuh's
+//                                      scan_bwd_kernel, K14's) and one set of
+//                                      tensor-core products per layer
 //   lstm_bwd_rc_kernel<T, BT>          replaces _bwd_rc_kernel         (K11)
-//   reduce_partials                    replaces the backwards' accumulation
-//                                      of dW across the sequential TPU grid
+//   reduce_partials                    replaces K11's accumulation of dW
+//                                      across the sequential TPU grid
 //
 // Layouts (all row-major, T = stream dtype, float or __nv_bfloat16):
 //   x (Tn, B, C); w_ih0 (C, 4H); w_ihr (L-1, H, 4H); w_hh (L, H, 4H);
 //   bias (L, 4H); h_all (L, Tn, B, H); prefac (L, Tn, B, 4H);
 //   qf (L, Tn, B, 2H); c_all (L, Tn, B, H); h_out (B, H) for K3, (Tn, B, H)
-//   for K4; g (B, H), or (Tn, B, H) when g_full (always for K11);
+//   for K4; g (B, H) or (Tn, B, H) for K2/K2g, (Tn, B, H) for K11;
 //   dx (Tn, B, C); w_ihT0 (4H, C), w_ihT_r (L-1, 4H, H) and w_hhT (L, 4H, H)
-//   are the transposes the backwards' chain products read; gate order
-//   [i, f, g, o].
+//   are the transposes K11's chain products read; gate order [i, f, g, o].
 //
-// What bounds them on an H100: the recurrence is serial over Tn = 460 steps.
-// Per step and layer a batch tile of BT rows needs (in + H) * 4H * BT
-// multiply-adds (in = C or H) and reads the layer's whole weights (~72 K
-// values, from L2: the 2-layer bf16 stack is 288 KiB, more than one block's
-// 227 KB of shared memory), so a step costs microseconds of issue and
-// latency, not bandwidth or FLOPs. The design: one block per batch tile
-// loops over time and layers itself (the TPU's sequential grid becomes the
-// in-block loop) and keeps every layer's carry in shared memory, so the
+// What bounds the forwards and K11 on an H100: the recurrence is serial over
+// Tn = 460 steps. Per step and layer a batch tile of BT rows needs
+// (in + H) * 4H * BT multiply-adds (in = C or H) and reads the layer's whole
+// weights (~72 K values, from L2: the 2-layer bf16 stack is 288 KiB, more
+// than one block's 227 KB of shared memory), so a step costs microseconds of
+// issue and latency, not bandwidth or FLOPs. The design: one block per batch
+// tile loops over time and layers itself (the TPU's sequential grid becomes
+// the in-block loop) and keeps every layer's carry in shared memory, so the
 // layers hand over h_t without touching device memory. Each of the 4H
 // threads owns one gate column: it reads that column's weights coalesced
 // and applies each to all BT rows, which shared memory holds transposed
@@ -36,16 +38,25 @@
 // picks BT per direction from timings on the card (lstm_stack.py
 // pick_tile). Tensor cores (wgmma), TMA and clusters are later work.
 //
+// K2/K2g keep only what is serial in the serial loop: the dh/dc carries of
+// one layer (the reverse scan). Everything else is a function of a layer's
+// dgates stream and runs afterwards over all Tn·B rows at once, on the
+// tensor cores in bf16 (vit_common.cuh's tiled product): dW_ih, dW_hh and db
+// as f32 sums in fixed row chunks added in order, the f32 chain to the
+// layer below and dx.
+//
 // Rounding points follow the Pallas kernels: matmul operands in the stream
 // dtype with f32 accumulation, bias cast to f32, h cast to the stream dtype
 // before W_hh and before it feeds the next layer, residual streams stored in
 // the stream dtype; the backward's dgates are stream-dtype products of the
-// f32 accumulators rounded to the stream dtype.
+// f32 accumulators rounded to the stream dtype, the chain to the layer below
+// an f32 product that is not rounded, dx rounded once.
 //
 // The kernels allocate nothing and do not synchronise; the C entry points
 // launch on the caller's stream and return cudaGetLastError().
 
 #include "lstm_common.cuh"
+#include "vit_common.cuh"
 
 namespace {
 
@@ -149,8 +160,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-// --------------------------------------------------------------- backward
-// The two backwards share their shared-memory layout (floats):
+// ---------------------------------------------------- the recompute backward
+// K11's shared-memory layout (floats):
 //   dh_s, dc_s (L, BT, H) | dg_s (4H, BT) | gup_s (BT, H) |
 //   inp_s (max(C, H), BT) | hp_s (H, BT)
 // and, per layer-step, the two device functions below. Each block owns one
@@ -226,119 +237,18 @@ __device__ __forceinline__ void chain(float* dhl, float* gup_s, T* __restrict__ 
   }
 }
 
-// Replaces cerebra/models/pallas_lstm_stack.py:_bwd_kernel in all its forms:
-// the cotangent hits the top layer at Tn-1 only (g (B, H), g_last_only) or
-// at every step (g (Tn, B, H), g_full != 0), and need_dx != 0 adds the
-// input gradient dx = dgates_0 @ w_ih0^T (Tn, B, C), rounded to the stream
-// dtype and written straight from registers. Bound by latency: per serial
-// step and layer a tile reads both transposed weights from L2 for the chain
-// products and read-modify-writes its (in + H) * 4H f32 partial in device
-// memory. dh and dc stay in shared memory; the wrapper picks BT near B / 16,
-// which balances a block's time against the number of partials.
-// Reverse time, top layer first.
-template <typename T, int BT>
-__global__ void __launch_bounds__(MAX_THREADS)
-    lstm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                    const T* __restrict__ h_all, const T* __restrict__ prefac,
-                    const T* __restrict__ qf, const T* __restrict__ w_ihT0,
-                    const T* __restrict__ w_ihT_r, const T* __restrict__ w_hhT,
-                    T* __restrict__ dx, float* __restrict__ part, int g_full, int need_dx,
-                    int Tn, int B, int C, int H, int L) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = 4 * H;
-  const int IN = C > H ? C : H;
-  float* dh_s = smem;
-  float* dc_s = dh_s + L * BT * H;
-  float* dg_s = dc_s + L * BT * H;
-  float* gup_s = dg_s + G * BT;
-  float* inp_s = gup_s + BT * H;
-  float* hp_s = inp_s + IN * BT;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int b0 = blockIdx.x * BT;
-  const size_t n_part = (size_t)G * (C + (L - 1) * H + L * H + L);
-  float* mine = part + blockIdx.x * n_part;
-  float* p_hh = mine + (size_t)G * (C + (L - 1) * H);
-  float* p_b = p_hh + (size_t)L * H * G;
-
-  for (size_t i = tid; i < n_part; i += nthr) mine[i] = 0.0f;
-  for (int i = tid; i < 2 * L * BT * H; i += nthr) dh_s[i] = 0.0f;  // dh_s and dc_s
-  for (int i = tid; i < BT * H; i += nthr) gup_s[i] = 0.0f;
-
-  for (int t = Tn - 1; t >= 0; --t) {
-    for (int l = L - 1; l >= 0; --l) {
-      const int in = l == 0 ? C : H;
-      float* dhl = dh_s + l * BT * H;
-      float* dcl = dc_s + l * BT * H;
-      __syncthreads();  // the layer above has written gup_s; dg_s is free
-
-      // input rows of this layer at t (for dW_ih) and h at t-1 (for dW_hh)
-      for (int i = tid; i < BT * in; i += nthr) {
-        const int r = i / in, k = i - r * in, b = b0 + r;
-        float v = 0.0f;
-        if (b < B)
-          v = l == 0 ? to_f<T>(x[((size_t)t * B + b) * C + k])
-                     : to_f<T>(h_all[(((size_t)(l - 1) * Tn + t) * B + b) * H + k]);
-        inp_s[k * BT + r] = v;
-      }
-      // transcendental-free gate gradients from the saved prefactors
-      for (int i = tid; i < BT * H; i += nthr) {
-        const int r = i / H, u = i - r * H, b = b0 + r;
-        if (b >= B) {
-          hp_s[u * BT + r] = 0.0f;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) dg_s[(q * H + u) * BT + r] = 0.0f;
-          continue;
-        }
-        hp_s[u * BT + r] =
-            t > 0 ? to_f<T>(h_all[(((size_t)l * Tn + t - 1) * B + b) * H + u]) : 0.0f;
-        // the cotangent reaches the top layer at every step (g_full) or at
-        // Tn-1 only; a lower layer takes the chain from the layer above
-        float g_up = gup_s[i];
-        if (l == L - 1) {
-          if (g_full)
-            g_up = to_f<T>(g[((size_t)t * B + b) * H + u]);
-          else
-            g_up = t == Tn - 1 ? to_f<T>(g[(size_t)b * H + u]) : 0.0f;
-        }
-        // gate_grads' algebra, written out: through gate_grads this kernel
-        // took 13 % longer at H = 384 (K2g at the autoencoder encoder's
-        // width in chip_smoke.py on an H100: 147.5-148.4 against 130.6 ms),
-        // whatever the order of its loads
-        const size_t row = ((size_t)l * Tn + t) * B + b;
-        const T* q = qf + row * 2 * H;
-        const T* pf = prefac + row * G;
-        const float dh = dhl[i] + g_up;
-        const float dc = dcl[i] + dh * to_f<T>(q[u]);
-        const float dcn = rnd<T>(dc), dhn = rnd<T>(dh);
-        dg_s[u * BT + r] = rnd<T>(dcn * to_f<T>(pf[u]));
-        dg_s[(H + u) * BT + r] = rnd<T>(dcn * to_f<T>(pf[H + u]));
-        dg_s[(2 * H + u) * BT + r] = rnd<T>(dcn * to_f<T>(pf[2 * H + u]));
-        dg_s[(3 * H + u) * BT + r] = rnd<T>(dhn * to_f<T>(pf[3 * H + u]));
-        dcl[i] = dc * to_f<T>(q[H + u]);
-      }
-      __syncthreads();  // dg_s, inp_s, hp_s complete
-
-      accumulate_dw<BT>(l == 0 ? mine : mine + (size_t)G * (C + (l - 1) * H),
-                        p_hh + (size_t)l * H * G, p_b + (size_t)l * G, dg_s, inp_s, in, hp_s, H);
-      chain<T, BT>(dhl, gup_s, dx, dg_s, w_hhT + (size_t)l * G * H,
-                   l > 0 ? w_ihT_r + (size_t)(l - 1) * G * H : w_ihT0, l,
-                   l > 0 ? H : (need_dx ? C : 0), t, b0, B, C, H);
-    }
-  }
-}
-
 // Replaces cerebra/models/pallas_lstm_stack.py:_bwd_rc_kernel: the backward
 // that streams only h_all and c_all (K10's) and recomputes each layer-step's
-// gates with gate_product, bit for bit K10's, before K2's chain, dx (always)
+// gates with gate_product, bit for bit K10's, before the chain, dx (always)
 // and dW. Its rounding points are not K2's (pallas_lstm_stack.py:372-399):
 // q = o - o tanh^2 c and f stay f32; only the four prefactors and dc, dh are
 // rounded to the stream dtype before their products, which are rounded too;
 // tanh c and c_prev come from the rounded c_all; c_prev and h_prev are zero
 // at t = 0. The gates are recomputed in place in dg_s (4H, BT): each thread
 // reads its four gates and writes its four gate gradients at the same
-// places, so K11 takes K2's shared memory. Bound by latency, as K2, with one
-// more product of the layer's weights per layer-step (K10's).
+// places. Bound by latency: per serial layer-step a tile reads the layer's
+// weights three times from L2 (K10's product, dh and the chain) and
+// read-modify-writes its (in + H) * 4H f32 partial of dW in device memory.
 template <typename T, int BT>
 __global__ void __launch_bounds__(MAX_THREADS)
     lstm_bwd_rc_kernel(const T* __restrict__ g, const T* __restrict__ x,
@@ -468,24 +378,6 @@ int launch_fwd(const void* x, const void* w_ih0, const void* w_ihr, const void* 
 }
 
 template <typename T, int BT>
-int launch_bwd(int g_full, int need_dx, const void* g, const void* x, const void* h_all,
-               const void* prefac, const void* qf, const void* w_ihT0, const void* w_ihT_r,
-               const void* w_hhT, void* dx, void* part, int Tn, int B, int C, int H, int L,
-               cudaStream_t stream) {
-  const size_t smem = bwd_smem(BT, C, H, L);
-  auto kern = lstm_bwd_kernel<T, BT>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_blk = (B + BT - 1) / BT;
-  kern<<<n_blk, threads_for(H), smem, stream>>>(
-      (const T*)g, (const T*)x, (const T*)h_all, (const T*)prefac, (const T*)qf,
-      (const T*)w_ihT0, (const T*)w_ihT_r, (const T*)w_hhT, (T*)dx, (float*)part, g_full,
-      need_dx, Tn, B, C, H, L);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BT>
 int launch_bwd_rc(const void* g, const void* x, const void* h_all, const void* c_all,
                   const void* w_ih0, const void* w_ihr, const void* w_hh, const void* bias,
                   const void* w_ihT0, const void* w_ihT_r, const void* w_hhT, void* dx,
@@ -522,6 +414,65 @@ int launch_fwd_mode(int mode, const void* x, const void* w_ih0, const void* w_ih
   return (int)cudaErrorInvalidValue;
 }
 
+// -------------------------------------------------- K2/K2g's layer products
+// Replaces the products of pallas_lstm_stack.py:_bwd_kernel (:296-315) for
+// one layer, over all M = Tn·B rows of its dgates stream at once, after the
+// layer's reverse scan: the f32 weight gradients dW_ih = inpᵀ·dgates
+// (in, 4H), dW_hh = h[0:Tn-1]ᵀ·dgates[1:Tn] (H, 4H; the t = 0 term vanishes,
+// h_prev is zero there) and db = Σ dgates (4H), and the chain dgates·w_ihᵀ to
+// the layer below, kept f32 (chain 1: gup (Tn, B, in)) or rounded once to
+// the stream dtype (chain 2: dx (Tn, B, C)). w_ih (in, 4H) is read in place
+// through the product's B_T flag. Each dW sums `splits` fixed row chunks
+// into f32 partials (scratch) that sum_partials adds in order, so a result
+// is the same on every run; the caller picks the splits to fill the card and
+// keep each chunk's f32 sum short. Bound by bytes: reading dgates, inp and h
+// once and writing gup takes 0.16-0.22 ms a layer at B = 1024, C = H = 96,
+// over the 0.07-0.11 ms of its multiply-adds on the bf16 tensor cores; the
+// products load their tiles synchronously (vit_common.cuh) and read dgates
+// three or four times, so they reach neither bound.
+
+// out (K1, K2) f32 = aᵀ·b over the M rows of a (M, K1) and b (M, K2), in at
+// most `splits` row chunks of whole 32-row steps, so that every chunk's tiles
+// start where the products' 16-byte loads can reach them; scratch: splits *
+// K1 * K2 floats
+template <typename T>
+int contract(const T* a, int K1, const T* b, int K2, int M, float* out, float* scratch,
+             int splits, cudaStream_t st) {
+  const size_t n = (size_t)K1 * K2;
+  if (M == 0) return (int)cudaMemsetAsync(out, 0, n * sizeof(float), st);
+  const int kchunk = ((M + splits - 1) / splits + vit::kTcBK - 1) / vit::kTcBK * vit::kTcBK;
+  const int chunks = (M + kchunk - 1) / kchunk;
+  const dim3 grid((K2 + vit::kBN - 1) / vit::kBN, (K1 + vit::kBM - 1) / vit::kBM, chunks);
+  const vit::EpiPartial epi{scratch, K2, n};
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    vit::gemm_tc<true, false, vit::EpiPartial>
+        <<<grid, vit::kGemmThreads, 0, st>>>(a, K1, b, K2, K1, K2, M, kchunk, epi);
+  else
+    vit::gemm<T, T, true, false, vit::EpiPartial>
+        <<<grid, vit::kGemmThreads, 0, st>>>(a, K1, b, K2, K1, K2, M, kchunk, epi);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return vit::launch_sum_partials(scratch, out, chunks, (long long)n, (long long)n, st);
+}
+
+template <typename T>
+int layer_products(const T* dgates, const T* inp, int in, const T* h, const T* w_ih, int chain,
+                   void* out, float* dw_ih, float* dw_hh, float* db, float* scratch,
+                   int splits_ih, int splits_hh, int Tn, int B, int H, cudaStream_t st) {
+  const int G = 4 * H, M = Tn * B;
+  CEREBRA_VIT_RC(contract<T>(inp, in, dgates, G, M, dw_ih, scratch, splits_ih, st));
+  CEREBRA_VIT_RC(
+      contract<T>(h, H, dgates + (size_t)B * G, G, M - B, dw_hh, scratch, splits_hh, st));
+  CEREBRA_VIT_RC(vit::column_sum<T>(dgates, nullptr, 1, db, M, G, scratch, st));
+  if (chain == 1)
+    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, true>(dgates, G, w_ih, G, M, in, G,
+                                                          vit::EpiF32{(float*)out, in}, st));
+  else if (chain == 2)
+    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, true>(
+        dgates, G, w_ih, G, M, in, G, vit::EpiBiasRound<T>{nullptr, (T*)out, in}, st));
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -543,25 +494,48 @@ int cerebra_lstm_fwd(int mode, int bf16, int bt, const void* x, const void* w_ih
   });
 }
 
-// g_full != 0: g is (Tn, B, H), else (B, H) at Tn-1. need_dx != 0: dx
-// (Tn, B, C) from w_ihT0 (4H, C); both may be null otherwise.
-int cerebra_lstm_bwd(int bf16, int bt, int g_full, int need_dx, const void* g, const void* x,
-                     const void* h_all, const void* prefac, const void* qf,
-                     const void* w_ihT0, const void* w_ihT_r, const void* w_hhT, void* dx,
-                     void* part, int Tn, int B, int C, int H, int L, void* stream) {
+// K2/K2g, one layer's reverse scan: dgates (Tn, B, 4H) from the layer's
+// prefac and qf (contiguous slices of the stacked streams), its w_hhT
+// (4H, H) and the cotangent g of its h, in the stream dtype (g_f32 == 0) or
+// f32, (B, H) reaching step Tn-1 only (g_last != 0) or (Tn, B, H).
+int cerebra_stack_scan_bwd(int bf16, int g_f32, int g_last, int bt, const void* prefac,
+                           const void* qf, const void* g, const void* w_hhT, void* dgates,
+                           int Tn, int B, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return with_tile(bt, [&](auto tile) {
     constexpr int BT = decltype(tile)::value;
-    return bf16 ? launch_bwd<__nv_bfloat16, BT>(g_full, need_dx, g, x, h_all, prefac, qf,
-                                                w_ihT0, w_ihT_r, w_hhT, dx, part, Tn, B, C, H,
-                                                L, s)
-                : launch_bwd<float, BT>(g_full, need_dx, g, x, h_all, prefac, qf, w_ihT0,
-                                        w_ihT_r, w_hhT, dx, part, Tn, B, C, H, L, s);
+    if (!bf16)
+      return launch_scan_bwd<float, float, BT>(prefac, qf, g, g_last, w_hhT, dgates, Tn, B, H, s);
+    return g_f32 ? launch_scan_bwd<__nv_bfloat16, float, BT>(prefac, qf, g, g_last, w_hhT,
+                                                              dgates, Tn, B, H, s)
+                 : launch_scan_bwd<__nv_bfloat16, __nv_bfloat16, BT>(prefac, qf, g, g_last, w_hhT,
+                                                                      dgates, Tn, B, H, s);
   });
 }
 
+// K2/K2g, one layer's products (layer_products) after its scan: inp (Tn, B,
+// in) is x or the layer below's h, h (Tn, B, H) the layer's own h, w_ih
+// (in, 4H); dW_ih, dW_hh and db are f32 outputs; chain 0 none, 1 gup (f32),
+// 2 dx (stream dtype) into out. scratch: max(splits_ih * in, splits_hh * H,
+// 32) * 4H floats.
+int cerebra_stack_bwd_products(int bf16, const void* dgates, const void* inp, int in,
+                               const void* h, const void* w_ih, int chain, void* out,
+                               void* dw_ih, void* dw_hh, void* db, void* scratch, int splits_ih,
+                               int splits_hh, int Tn, int B, int H, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return layer_products<T>((const T*)dgates, (const T*)inp, in, (const T*)h, (const T*)w_ih,
+                             chain, out, (float*)dw_ih, (float*)dw_hh, (float*)db,
+                             (float*)scratch, splits_ih, splits_hh, Tn, B, H, s);
+  }
+  return layer_products<float>((const float*)dgates, (const float*)inp, in, (const float*)h,
+                               (const float*)w_ih, chain, out, (float*)dw_ih, (float*)dw_hh,
+                               (float*)db, (float*)scratch, splits_ih, splits_hh, Tn, B, H, s);
+}
+
 // K11: g (Tn, B, H); h_all, c_all from K10; the weights as the forward takes
-// them (recompute) and transposed as K2 takes them (chain, dx always).
+// them (recompute) and transposed (chain, dx always).
 int cerebra_lstm_bwd_rc(int bf16, int bt, const void* g, const void* x, const void* h_all,
                         const void* c_all, const void* w_ih0, const void* w_ihr,
                         const void* w_hh, const void* bias, const void* w_ihT0,

@@ -321,7 +321,28 @@ gemm(const TA* __restrict__ A, int lda, const TB* __restrict__ B, int ldb, int M
 // wmma fragment layout says which index is contiguous: A (i, k) row-major
 // or, with A_T, col-major; B (k, j) row-major or, with B_T, col-major.
 // Eight warps: warp w owns rows 16 (w / 2) and columns 32 (w % 2) + {0, 16}.
+// Each thread loads 8 elements of a tile that are contiguous in global
+// memory, as one 16-byte load where they are all in range and aligned, else
+// one by one; either way the tile holds the same values.
 constexpr int kTcBK = 32, kTcPad = 8;
+
+// tile[r * LD + cc + v] = src(r, cc + v) for v < 8, with src's contiguous
+// index along cc: gr (the tile row's global index, in range below nr) and
+// gc (cc's, in range below nc) address src + gr * ld + gc; zero out of range
+template <int LD>
+__device__ __forceinline__ void load8(__nv_bfloat16* tile, int r, int cc,
+                                      const __nv_bfloat16* __restrict__ src, int ld, int gr,
+                                      int nr, int gc, int nc) {
+  const __nv_bfloat16* p = src + (size_t)gr * ld + gc;
+  __nv_bfloat16* d = tile + r * LD + cc;
+  if (gr < nr && gc + 7 < nc && ((uintptr_t)p & 15) == 0) {
+    *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(p);
+    return;
+  }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+  for (int v = 0; v < 8; ++v) d[v] = (gr < nr && gc + v < nc) ? p[v] : zero;
+}
 
 template <bool A_T, bool B_T, class Epi>
 __global__ void __launch_bounds__(kGemmThreads)
@@ -342,23 +363,22 @@ gemm_tc(const __nv_bfloat16* __restrict__ A, int lda, const __nv_bfloat16* __res
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2];
   wmma::fill_fragment(c[0], 0.f);
   wmma::fill_fragment(c[1], 0.f);
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 
   for (int k0 = kb; k0 < ke; k0 += kTcBK) {
-    for (int e = tid; e < kBM * kTcBK; e += kGemmThreads) {
+    for (int e = 8 * tid; e < kBM * kTcBK; e += 8 * kGemmThreads) {
       // (row, col) of the shared tile, col contiguous in global memory
       const int r = e / (A_LD - kTcPad), cc = e % (A_LD - kTcPad);
-      const int gi = i0 + (A_T ? cc : r), gk = k0 + (A_T ? r : cc);
-      As[r * A_LD + cc] = (gi < M && gk < ke)
-                              ? (A_T ? A[(size_t)gk * lda + gi] : A[(size_t)gi * lda + gk])
-                              : zero;
+      if (A_T)
+        load8<A_LD>(As, r, cc, A, lda, k0 + r, ke, i0 + cc, M);
+      else
+        load8<A_LD>(As, r, cc, A, lda, i0 + r, M, k0 + cc, ke);
     }
-    for (int e = tid; e < kBN * kTcBK; e += kGemmThreads) {
+    for (int e = 8 * tid; e < kBN * kTcBK; e += 8 * kGemmThreads) {
       const int r = e / (B_LD - kTcPad), cc = e % (B_LD - kTcPad);
-      const int gj = j0 + (B_T ? r : cc), gk = k0 + (B_T ? cc : r);
-      Bs[r * B_LD + cc] = (gj < N && gk < ke)
-                              ? (B_T ? B[(size_t)gj * ldb + gk] : B[(size_t)gk * ldb + gj])
-                              : zero;
+      if (B_T)
+        load8<B_LD>(Bs, r, cc, B, ldb, j0 + r, N, k0 + cc, ke);
+      else
+        load8<B_LD>(Bs, r, cc, B, ldb, k0 + r, ke, j0 + cc, N);
     }
     __syncthreads();
 #pragma unroll

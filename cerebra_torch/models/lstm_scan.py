@@ -9,9 +9,11 @@ cerebra/models/pallas_lstm.py, `lstm_scan_pallas`).
   (T, B, 4H) = [g·i(1−i), c_prev·f(1−f), i(1−g²), tanh c·o(1−o)] and qf
   (T, B, 2H) = [o(1−tanh²c), f].
 - K14 `scan_bwd`: the reverse-time, transcendental-free backward on those
-  residuals, emitting dgates = dx_proj (T, B, 4H); no dW. dW_hh =
-  Σ_t h_{t−1}ᵀ·dgates_t is one matmul outside the kernel, as
-  `pallas_lstm.py`'s `_vjp_bwd` does it outside its Pallas kernel.
+  residuals, emitting dgates = dx_proj (T, B, 4H); no dW. It is the reverse
+  scan that K2/K2g run once per layer (`lstm_stack.bwd_scan`; one CUDA
+  template, one plain version `_scan_bwd_ref`). dW_hh = Σ_t h_{t−1}ᵀ·dgates_t
+  is one matmul outside the kernel, as `pallas_lstm.py`'s `_vjp_bwd` does it
+  outside its Pallas kernel.
 
 x_proj and w_hh share one stream dtype (float32 or bfloat16); gate order
 [i, f, g, o]. `batch_tile`, the TPU's VMEM choice, becomes `tile`, the batch
@@ -32,13 +34,14 @@ from typing import Tuple
 import torch
 
 from cerebra_torch.kernels import LAUNCHES, check_rc, load_lib, on_cuda, ptr, stream_of
-from cerebra_torch.models.lstm_stack import (
+from cerebra_torch.models.lstm_stack import (  # noqa: F401  (_scan_bwd_ref is K14's plain version)
     _MAX_SMEM,
     _STREAM_DTYPES,
     _TILES,
     _cuda_checks,
-    _dgates,
     _residuals,
+    _scan_bwd_ref,
+    scan_tile,
 )
 
 LAUNCHES.update(scan_fwd_infer=0, scan_fwd_train=0, scan_bwd=0)
@@ -98,30 +101,6 @@ def _scan_fwd_train_ref(x_proj: torch.Tensor, w_hh: torch.Tensor):
     return _scan_fwd(x_proj, w_hh, train=True)
 
 
-def _scan_bwd_ref(g, prefac, qf, w_hh) -> torch.Tensor:
-    """Plain K14: g (T, B, H), the cotangent of h_all, in the stream dtype →
-    dgates = dx_proj (T, B, 4H) in the stream dtype. The dh/dc carries are
-    f32; dc and dh are rounded to the stream dtype before the products with
-    the prefactors, which are rounded too (bf16 products in bf16)."""
-    T, B, G = prefac.shape
-    H = G // 4
-    sd = prefac.dtype
-    dev = prefac.device
-    wT = w_hh.float().t()
-    dh = torch.zeros(B, H, device=dev)
-    dc = torch.zeros(B, H, device=dev)
-    dgates = torch.empty(T, B, G, dtype=sd, device=dev)
-    for t in reversed(range(T)):
-        q = qf[t].float()
-        d_h = dh + g[t].float()
-        d_c = dc + d_h * q[:, :H]
-        dg = _dgates(d_c.to(sd).float(), d_h.to(sd).float(), prefac[t].float(), sd)
-        dgates[t] = dg
-        dh = dg.float() @ wT
-        dc = d_c * q[:, H:]
-    return dgates
-
-
 def _dw_hh(h_all: torch.Tensor, dgates: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """dW_hh = Σ_{t≥1} h_{t−1}ᵀ·dgates_t (the t = 0 term vanishes: h_prev = 0)
     as one matmul with f32 operands, in w_hh's dtype; outside any kernel, as
@@ -151,11 +130,11 @@ def _lib():
 
 
 def pick_tile(B: int, H: int) -> int:
-    """Batch rows per CUDA block: 8, as the stack's forward takes (its block
-    time hardly grows from 1 to 8 rows, and 8 rows keep B = 1024 to one
-    wave), or fewer where 8 rows' carries overflow shared memory; the same
-    for all three kernels, none of which sums a dW. Raises if one row's
-    carries overflow."""
+    """Batch rows per CUDA block of the forwards K12 and K13: 8, as the
+    stack's forward takes (its block time hardly grows from 1 to 8 rows, and
+    8 rows keep B = 1024 to one wave), or fewer where 8 rows' carries
+    overflow shared memory. K14 takes the reverse scan's `scan_tile`.
+    Raises if one row's carries overflow."""
     for bt in _TILES:
         if bt <= 8 and 4 * bt * 6 * H <= _MAX_SMEM:  # (2 carries + 4H gates) × bt floats
             return bt
@@ -184,8 +163,8 @@ def _fwd_cuda(x_proj, w_hh, train: bool, tile=None):
 def _bwd_cuda(g, prefac, qf, w_hh, tile=None):
     T, B, G = prefac.shape
     H = G // 4
-    tile = tile or pick_tile(B, H)
     sd = prefac.dtype
+    tile = tile or scan_tile(B, H, sd)
     if (tuple(g.shape) != (T, B, H) or tuple(qf.shape) != (T, B, 2 * H)
             or tuple(w_hh.shape) != (H, G)
             or any(t.dtype != sd for t in (g, qf, w_hh))):
@@ -259,7 +238,7 @@ def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor, tile=None) -> torch.Tens
     K13 forward and K14 backward (dx_proj = the dgates stream, dW_hh one
     matmul over it) when grad is enabled and x_proj or w_hh requires grad,
     K12 otherwise. `tile` is the batch rows of one CUDA block (default
-    `pick_tile`)."""
+    `pick_tile` for the forwards, `scan_tile` for K14)."""
     impl = (functools.partial(scan_fwd_train, tile=tile), functools.partial(scan_bwd, tile=tile))
     return _scan(impl, functools.partial(scan_fwd_infer, tile=tile), x_proj, w_hh)
 

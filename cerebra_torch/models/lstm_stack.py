@@ -7,9 +7,12 @@ and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
 - K2 `bwd`: reverse-time backward on those residuals with no
   transcendentals. The cotangent g is (B, H) at t = T−1 or (T, B, H) at
   every t; `need_dx` adds the input gradient dx (T, B, C). The form with a
-  (B, H) g and no dx is K2, every other form K2g (the general one). Each
-  CUDA block sums its own f32 partial of dW_ih, dW_hh and db, and a second
-  kernel adds the partials in block order (deterministic).
+  (B, H) g and no dx is K2, every other form K2g (the general one). It runs
+  layer by layer, top first (`_bwd_layerwise`): one reverse scan of the
+  layer's dh/dc carries (`bwd_scan`, the kernel K14 runs too) writes its
+  dgates stream, then hand-written products over all T·B rows
+  (`bwd_products`) give dW_ih, dW_hh, db and the chain to the layer below
+  (dx below layer 0), deterministic.
 - K3 `fwd_infer_last`: forward with no residuals, returning the top layer's
   h[T−1] (B, H).
 - K4 `fwd_infer`: forward with no residuals, returning the top layer's h at
@@ -19,8 +22,10 @@ and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
   row and layer instead of K1's 7H).
 - K11 `bwd_rc`: its backward, which recomputes each layer-step's gates from
   h, c and the input at t and t−1 (bit for bit K10's on the card), then runs
-  K2's chain with its own rounding points, always emits dx, and sums dW as K2
-  does. `lstm_stack_rc` runs K10/K11 under grad and K4 without.
+  the chain with its own rounding points, always emits dx, and sums dW as
+  per-block f32 partials that a second kernel adds in block order
+  (`reduce_partials`). `lstm_stack_rc` runs K10/K11 under grad and K4
+  without.
 
 Layout is time-major: x (T, B, C); layers are (w_ih (in, 4H), w_hh (H, 4H),
 b (4H,)) in the stream dtype (float32 or bfloat16), in = C for layer 0 and H
@@ -28,10 +33,12 @@ after; gate order [i, f, g, o]. Residuals are stacked over layers:
 h_all (L, T, B, H), prefac (L, T, B, 4H), qf (L, T, B, 2H), c_all (L, T, B, H).
 
 Dispatch: a tensor on the CPU takes the plain version (`_fwd_train_ref`,
-`_bwd_ref`, `_fwd_infer_last_ref`, `_fwd_infer_ref`, `_fwd_train_rc_ref`,
-`_bwd_rc_ref`); a CUDA tensor launches the kernel, built at first use, or
-raises. `LAUNCHES` counts kernel launches so a run can show that it went
-through the kernels (`bwd` for K2, `bwd_general` for K2g).
+`_bwd_ref`, `_scan_bwd_ref`, `_products_ref`, `_fwd_infer_last_ref`,
+`_fwd_infer_ref`, `_fwd_train_rc_ref`, `_bwd_rc_ref`); a CUDA tensor
+launches the kernel, built at first use, or raises. `LAUNCHES` counts
+kernel launches so a run can show that it went through the kernels (`bwd`
+for K2, `bwd_general` for K2g, one a call; `stack_bwd_scan` and
+`stack_bwd_products` one a layer of either).
 
 The 128-lane padding and 8-row batch alignment of the Pallas wrappers
 (`_pad_for_kernel`) are a TPU layout choice and are not ported: the CUDA
@@ -58,13 +65,15 @@ from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exporte
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, bwd_reduce=0, fwd_infer=0,
-                bwd_general=0, fwd_train_rc=0, bwd_rc=0)
+                bwd_general=0, fwd_train_rc=0, bwd_rc=0, stack_bwd_scan=0,
+                stack_bwd_products=0)
 _FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2, "fwd_train_rc": 3}  # FwdMode
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _TILES = (16, 8, 4, 2, 1)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
-_PART_BUDGET = 12 << 20  # bytes of the backward's dW partials: a quarter of the 50 MB L2
+_PART_BUDGET = 12 << 20  # bytes of K11's dW partials: a quarter of the 50 MB L2
+_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 # ------------------------------------------------------------------ checks
@@ -218,6 +227,87 @@ def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
     return dx, [tuple(gr) for gr in grads]
 
 
+def _scan_bwd_ref(g, prefac, qf, w_hh) -> torch.Tensor:
+    """Plain reverse scan of one layer (K14, and each layer of K2/K2g):
+    prefac (T, B, 4H) and qf (T, B, 2H) in the stream dtype, w_hh (H, 4H),
+    and g the cotangent of the layer's h: (T, B, H), or (B, H) reaching
+    t = T−1 only; in the stream dtype, or f32 (the chain from the layer
+    above, not rounded) → dgates (T, B, 4H) in the stream dtype. The dh/dc
+    carries are f32; dc and dh are rounded to the stream dtype before the
+    products with the prefactors, which are rounded too (bf16 products in
+    bf16)."""
+    T, B, G = prefac.shape
+    H = G // 4
+    sd = prefac.dtype
+    dev = prefac.device
+    wT = w_hh.float().t()
+    dh = torch.zeros(B, H, device=dev)
+    dc = torch.zeros(B, H, device=dev)
+    zero = torch.zeros(B, H, device=dev)
+    dgates = torch.empty(T, B, G, dtype=sd, device=dev)
+    for t in reversed(range(T)):
+        if g.dim() == 3:
+            g_t = g[t].float()
+        else:
+            g_t = g.float() if t == T - 1 else zero
+        q = qf[t].float()
+        d_h = dh + g_t
+        d_c = dc + d_h * q[:, :H]
+        dg = _dgates(d_c.to(sd).float(), d_h.to(sd).float(), prefac[t].float(), sd)
+        dgates[t] = dg
+        dh = dg.float() @ wT
+        dc = d_c * q[:, H:]
+    return dgates
+
+
+def _products_ref(dgates, inp, h, w_ih, chain=None):
+    """Plain products of one layer of K2/K2g over all T·B rows of its dgates
+    (T, B, 4H): f32 dW_ih = inpᵀ·dgates (in, 4H), dW_hh = h[0:T−1]ᵀ·
+    dgates[1:T] (H, 4H; h_prev is zero at t = 0) and db = Σ dgates (4H), sums
+    of exact products of the stream-dtype values; and the chain dgates·w_ihᵀ
+    (T, B, in) to the layer below, kept f32 (`chain` "gup") or rounded to the
+    stream dtype (`chain` "dx"), or None. → (dW_ih, dW_hh, db, chain)."""
+    T, B, G = dgates.shape
+    d = dgates.reshape(T * B, G).float()
+    dw_ih = inp.reshape(T * B, -1).float().t() @ d
+    dw_hh = h[:-1].reshape(-1, G // 4).float().t() @ d[B:]
+    out = None
+    if chain is not None:
+        out = (d @ w_ih.float().t()).view(T, B, -1)
+        if chain == "dx":
+            out = out.to(dgates.dtype)
+    return dw_ih, dw_hh, d.sum(0), out
+
+
+def _bwd_layerwise(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool, scan, products):
+    """K2/K2g as one reverse scan and one set of products a layer, top layer
+    first (the composition the CUDA path runs; `_bwd_ref`'s result but for
+    the order of dW's sums). `scan(cot, prefac[l], qf[l], w_hh)` → the
+    layer's dgates (T, B, 4H) from the cotangent of its h: the caller's g
+    for the top layer ((B, H) at T−1 or (T, B, H)), the f32 chain from the
+    layer above below it. `products(l, dgates, inp, h_all[l], w_ih, chain)`
+    → (dW_ih, dW_hh, db, out), out the f32 chain to the layer below
+    (`chain` "gup"), dx in the stream dtype ("dx") or None. Returns (dx or
+    None, f32 (dW_ih, dW_hh, db) per layer)."""
+    L = len(layers)
+    grads = [None] * L
+    cot = g
+    for l in reversed(range(L)):
+        w_ih, w_hh, _ = layers[l]
+        dgates = scan(cot, prefac[l], qf[l], w_hh)
+        chain = "gup" if l > 0 else ("dx" if need_dx else None)
+        dw_ih, dw_hh, db, cot = products(l, dgates, x if l == 0 else h_all[l - 1], h_all[l],
+                                         w_ih, chain)
+        grads[l] = (dw_ih, dw_hh, db)
+    return cot, grads
+
+
+def _bwd_layerwise_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
+    """`_bwd_layerwise` through the plain pieces, on any device."""
+    return _bwd_layerwise(g, x, layers, h_all, prefac, qf, need_dx, _scan_bwd_ref,
+                          lambda l, *args: _products_ref(*args))
+
+
 def _fwd_train_rc_ref(x: torch.Tensor, layers: Layers):
     """Plain K10: the forward that streams h_all and c_all (L, T, B, H), c
     rounded to the stream dtype while its f32 carry stays unrounded."""
@@ -297,8 +387,11 @@ def _typed(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.cerebra_lstm_fwd.argtypes = [i, i, i] + [vp] * 10 + [i] * 5 + [vp]
     lib.cerebra_lstm_fwd.restype = i
-    lib.cerebra_lstm_bwd.argtypes = [i, i, i, i] + [vp] * 10 + [i] * 5 + [vp]
-    lib.cerebra_lstm_bwd.restype = i
+    lib.cerebra_stack_scan_bwd.argtypes = [i] * 4 + [vp] * 5 + [i] * 3 + [vp]
+    lib.cerebra_stack_scan_bwd.restype = i
+    lib.cerebra_stack_bwd_products.argtypes = ([i, vp, vp, i, vp, vp, i] + [vp] * 5 + [i] * 5
+                                               + [vp])
+    lib.cerebra_stack_bwd_products.restype = i
     lib.cerebra_lstm_bwd_rc.argtypes = [i, i] + [vp] * 13 + [i] * 5 + [vp]
     lib.cerebra_lstm_bwd_rc.restype = i
     lib.cerebra_reduce_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
@@ -310,32 +403,57 @@ def _lib():
 
 
 def _smem_bytes(bwd: bool, bt: int, C: int, H: int, L: int) -> int:
-    """Dynamic shared memory of one block, as the C launchers compute it.
-    The backwards K2/K2g and K11 take the same: K11 recomputes its gates in
-    place in the dgates buffer, and its carries are K2's."""
+    """Dynamic shared memory of one block, as the C launchers compute it,
+    for the forwards and K11 (`bwd`)."""
     if bwd:
         return 4 * bt * (2 * L * H + 4 * H + H + max(C, H) + H)
     return 4 * bt * (2 * L * H + C + 4 * H)
 
 
 def pick_tile(B: int, C: int, H: int, L: int, bwd: bool) -> int:
-    """Batch rows per CUDA block, from timings on an H100 at T = 460
-    (PERF.md). The forward's block time hardly grows from 1 to 8 rows (the
-    per-step weight reads dominate; C = H = 96, L = 2, and the autoencoder's
-    C = 96, H = 384 and C = 384, H = 96), and 8 rows keep B = 1024 to one
-    wave, so it takes 8. The backward's block time grows with its rows while
-    its partial-dW traffic grows with the number of blocks; about B/16 rows
-    balances the two, and enough rows to keep all blocks' partials within
-    `_PART_BUDGET` (at C = 96, H = 384, B = 16, one row per block took 278 ms
-    and four 129 ms). K11 (`bwd_rc`) has K2's partials and shared memory and
-    takes the same rule. Raises if even one row's carries overflow shared
-    memory."""
+    """Batch rows per CUDA block of the forwards and K11 (`bwd`), from
+    timings on an H100 at T = 460 (PERF.md). The forward's block time hardly
+    grows from 1 to 8 rows (the per-step weight reads dominate; C = H = 96,
+    L = 2, and the autoencoder's C = 96, H = 384 and C = 384, H = 96), and 8
+    rows keep B = 1024 to one wave, so it takes 8. K11's block time grows
+    with its rows while its partial-dW traffic grows with the number of
+    blocks; about B/16 rows balances the two, and enough rows to keep all
+    blocks' partials within `_PART_BUDGET` (at C = 96, H = 384, B = 16, the
+    old K2 took 278 ms at one row per block and 129 ms at four). Raises if
+    even one row's carries overflow shared memory."""
     part_bytes = 16 * H * (C + (2 * L - 1) * H + L)  # one block's f32 partial
     want = 8 if not bwd else max(1, B // 16, -(-B * part_bytes // _PART_BUDGET))
     for bt in _TILES:
         if bt <= want and _smem_bytes(bwd, bt, C, H, L) <= _MAX_SMEM:
             return bt
     raise ValueError(f"C={C}, H={H}, L={L}: the carries exceed one block's shared memory")
+
+
+def scan_tile(B: int, H: int, dtype: torch.dtype) -> int:
+    """Batch rows per CUDA block of the reverse scan (each layer of K2/K2g,
+    and K14). The scan sums no dW, so its rows per block only trade a
+    block's step time against the number of blocks, and the blocks that fit
+    on the card at once: B/256 rows in bf16 and B/128 in f32, at least 1 and
+    at most 8. On an H100 (PERF.md, T = 460, H = 96) one row a block was
+    fastest at B = 16, and at B = 1024 four rows in bf16 (256 blocks, two a
+    SM beside w_hhᵀ's 72 KiB) and eight in f32 (128 blocks, one a SM beside
+    its 144 KiB). Fewer rows where the carries overflow shared memory (9
+    BT·H floats); raises if one row's do."""
+    want = min(8, max(1, B // (128 if dtype == torch.float32 else 256)))
+    for bt in _TILES:
+        if bt <= want and 36 * bt * H <= _MAX_SMEM:
+            return bt
+    raise ValueError(f"H={H}: the scan's carries exceed one block's shared memory")
+
+
+def _row_splits(rows: int, cols: int, K: int) -> int:
+    """Row chunks of one dW contraction over K rows into a (rows, cols)
+    output of 64 x 64 tiles: enough blocks for two waves of the card's SMs,
+    and chunks of at most 4096 rows, which keeps each f32 sum short; at
+    least 32 rows a chunk, at most 256 chunks."""
+    tiles = -(-rows // 64) * -(-cols // 64)
+    want = max(-(-2 * _SMS // tiles), -(-K // 4096))
+    return max(1, min(want, 256, -(-K // 32)))
 
 
 def _cuda_checks(tile, *tensors):
@@ -388,45 +506,122 @@ def _fwd_cuda(x, layers, kind: str, tile=None):
     return (h_all, c_all) if kind == "fwd_train_rc" else out
 
 
-def _transposed(x, layers, need_dx: bool):
-    """The chain's weights: (w_ihT0 (4H, C) or None, w_ihT_r (L-1, 4H, H),
-    w_hhT (L, 4H, H)) contiguous."""
+def _transposed(x, layers):
+    """K11's chain weights: (w_ihT0 (4H, C), w_ihT_r (L-1, 4H, H), w_hhT
+    (L, 4H, H)) contiguous."""
     H, L = layers[0][1].shape[0], len(layers)
-    w_ihT0 = layers[0][0].t().contiguous() if need_dx else None
+    w_ihT0 = layers[0][0].t().contiguous()
     w_ihT_r = (torch.stack([l[0].t() for l in layers[1:]]) if L > 1
                else x.new_empty((0, 4 * H, H)))
     return w_ihT0, w_ihT_r, torch.stack([l[1].t() for l in layers])
 
 
 def _partials(x, B: int, C: int, H: int, L: int, tile: int) -> torch.Tensor:
-    """The backwards' per-block f32 dW partials (n_blk, n_part)."""
+    """K11's per-block f32 dW partials (n_blk, n_part)."""
     n_part = 4 * H * (C + (L - 1) * H + L * H + L)
     return torch.empty(-(-B // tile), n_part, dtype=torch.float32, device=x.device)
 
 
+def _scan_cuda(g, prefac, qf, w_hh, tile=None, out=None):
+    """The reverse scan of one layer on the card (`bwd_scan`); `out` is the
+    (T, B, 4H) dgates buffer to write, allocated when None."""
+    T, B, G = prefac.shape
+    H = G // 4
+    sd = prefac.dtype
+    if (tuple(g.shape) not in ((T, B, H), (B, H)) or g.dtype not in (sd, torch.float32)
+            or tuple(qf.shape) != (T, B, 2 * H) or tuple(w_hh.shape) != (H, G)
+            or qf.dtype != sd or w_hh.dtype != sd):
+        raise ValueError("cotangent, residuals or w_hh do not match one layer")
+    tile = tile or scan_tile(B, H, sd)
+    w_hhT = w_hh.t().contiguous()
+    dgates = torch.empty(T, B, G, dtype=sd, device=prefac.device) if out is None else out
+    _cuda_checks(tile, g, prefac, qf, dgates)
+    lib = _lib()
+    rc = lib.cerebra_stack_scan_bwd(
+        int(sd == torch.bfloat16), int(g.dtype == torch.float32), int(g.dim() == 2), tile,
+        prefac.data_ptr(), qf.data_ptr(), g.data_ptr(), w_hhT.data_ptr(), dgates.data_ptr(),
+        T, B, H, stream_of(prefac),
+    )
+    check_rc(lib, rc, "stack_bwd_scan")
+    LAUNCHES["stack_bwd_scan"] += 1
+    return dgates
+
+
+def _scratch_floats(in_dim: int, H: int, T: int, B: int) -> int:
+    """f32 scratch of one layer's products: the larger dW's split partials,
+    or the 32 chunks of db."""
+    G = 4 * H
+    return G * max(_row_splits(in_dim, G, T * B) * in_dim,
+                   _row_splits(H, G, (T - 1) * B) * H, 32)
+
+
+def _products_cuda(dgates, inp, h, w_ih, chain=None, dws=None, out=None, scratch=None):
+    """One layer's products on the card (`bwd_products`). `dws` (dW_ih,
+    dW_hh, db), `out` (the chain's output) and `scratch` are the f32
+    buffers to write, allocated when None."""
+    T, B, G = dgates.shape
+    H = G // 4
+    in_dim = inp.shape[-1]
+    sd, dev = dgates.dtype, dgates.device
+    if (tuple(inp.shape) != (T, B, in_dim) or tuple(h.shape) != (T, B, H)
+            or tuple(w_ih.shape) != (in_dim, G)
+            or any(t.dtype != sd for t in (inp, h, w_ih)) or chain not in (None, "gup", "dx")):
+        raise ValueError("dgates, inputs or w_ih do not match one layer")
+    if dws is None:
+        dws = (torch.empty(in_dim, G, device=dev), torch.empty(H, G, device=dev),
+               torch.empty(G, device=dev))
+    if out is None and chain is not None:
+        out = torch.empty(T, B, in_dim, dtype=torch.float32 if chain == "gup" else sd,
+                          device=dev)
+    if scratch is None:
+        scratch = torch.empty(_scratch_floats(in_dim, H, T, B), device=dev)
+    _cuda_checks(1, dgates, inp, h, w_ih, out, *dws)
+    lib = _lib()
+    rc = lib.cerebra_stack_bwd_products(
+        int(sd == torch.bfloat16), dgates.data_ptr(), inp.data_ptr(), in_dim, h.data_ptr(),
+        w_ih.data_ptr(), {None: 0, "gup": 1, "dx": 2}[chain], ptr(out), dws[0].data_ptr(),
+        dws[1].data_ptr(), dws[2].data_ptr(), scratch.data_ptr(),
+        _row_splits(in_dim, G, T * B), _row_splits(H, G, (T - 1) * B), T, B, H,
+        stream_of(dgates),
+    )
+    check_rc(lib, rc, "stack_bwd_products")
+    LAUNCHES["stack_bwd_products"] += 1
+    return (*dws, out)
+
+
 def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
+    """K2/K2g on the card: `_bwd_layerwise` with the CUDA scan and products,
+    writing dW and db straight into one flat f32 buffer laid out as
+    [dW_ih0 | dW_ihr | dW_hh | db], and reusing one dgates and one f32 chain
+    buffer from layer to layer (stream order makes that safe: a layer's
+    scan starts after the products of the layer above have read dgates)."""
     T, B, C, H, L = _dims(x, layers)
-    tile = tile or pick_tile(B, C, H, L, bwd=True)
     g_full = g.dim() == 3
     if (tuple(g.shape) != ((T, B, H) if g_full else (B, H)) or g.dtype != x.dtype
             or tuple(h_all.shape) != (L, T, B, H) or tuple(prefac.shape) != (L, T, B, 4 * H)
             or tuple(qf.shape) != (L, T, B, 2 * H)):
         raise ValueError("cotangent or residuals do not match the stack")
-    w_ihT0, w_ihT_r, w_hhT = _transposed(x, layers, need_dx)
-    _cuda_checks(tile, g, x, h_all, prefac, qf, w_ihT0, w_ihT_r, w_hhT)
-    dx = torch.empty(T, B, C, dtype=x.dtype, device=x.device) if need_dx else None
-    part = _partials(x, B, C, H, L, tile)
-    lib = _lib()
-    rc = lib.cerebra_lstm_bwd(
-        int(x.dtype == torch.bfloat16), tile, int(g_full), int(need_dx), g.data_ptr(),
-        x.data_ptr(), h_all.data_ptr(), prefac.data_ptr(), qf.data_ptr(), ptr(w_ihT0),
-        w_ihT_r.data_ptr() or None, w_hhT.data_ptr(), ptr(dx), part.data_ptr(),
-        T, B, C, H, L, stream_of(x),
-    )
-    kind = "bwd_general" if g_full or need_dx else "bwd"
-    check_rc(lib, rc, kind)
-    LAUNCHES[kind] += 1
-    return dx, _unpack_grads(reduce_partials(part), C, H, L)
+    tile = tile or scan_tile(B, H, x.dtype)
+    _cuda_checks(tile, g, x, h_all, prefac, qf)
+    G, dev = 4 * H, x.device
+    flat = torch.empty(G * (C + (L - 1) * H + L * H + L), dtype=torch.float32, device=dev)
+    dws = _unpack_grads(flat, C, H, L)
+    dgates = torch.empty(T, B, G, dtype=x.dtype, device=dev)
+    outs = {"gup": torch.empty(T, B, H, dtype=torch.float32, device=dev) if L > 1 else None,
+            "dx": torch.empty(T, B, C, dtype=x.dtype, device=dev) if need_dx else None}
+    scratch = torch.empty(max(_scratch_floats(C, H, T, B), _scratch_floats(H, H, T, B)),
+                          dtype=torch.float32, device=dev)
+
+    def scan(cot, prefac_l, qf_l, w_hh):
+        return _scan_cuda(cot, prefac_l, qf_l, w_hh, tile, dgates)
+
+    def products(l, dg, inp, h, w_ih, chain):
+        return _products_cuda(dg, inp, h, w_ih.contiguous(), chain, dws[l], outs.get(chain),
+                              scratch)
+
+    result = _bwd_layerwise(g, x, layers, h_all, prefac, qf, need_dx, scan, products)
+    LAUNCHES["bwd_general" if g_full or need_dx else "bwd"] += 1
+    return result
 
 
 def _bwd_rc_cuda(g, x, layers, h_all, c_all, tile=None):
@@ -436,7 +631,7 @@ def _bwd_rc_cuda(g, x, layers, h_all, c_all, tile=None):
             or any(tuple(r.shape) != (L, T, B, H) or r.dtype != x.dtype for r in (h_all, c_all))):
         raise ValueError("cotangent or residuals do not match the stack")
     w_ih0, w_ihr, w_hh, b = _packed(layers, H)
-    w_ihT0, w_ihT_r, w_hhT = _transposed(x, layers, True)
+    w_ihT0, w_ihT_r, w_hhT = _transposed(x, layers)
     _cuda_checks(tile, g, x, h_all, c_all, w_ih0, w_ihr, w_hh, b, w_ihT0, w_ihT_r, w_hhT)
     dx = torch.empty(T, B, C, dtype=x.dtype, device=x.device)
     part = _partials(x, B, C, H, L, tile)
@@ -507,12 +702,31 @@ def fwd_infer(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
 
 
 def bwd(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False, tile=None):
-    """K2/K2g plus the deterministic reduction on CUDA, the plain version on
+    """K2/K2g on CUDA (a reverse scan and the products per layer; `tile` is
+    the scan's rows per block, default `scan_tile`), the plain version on
     the CPU → (dx or None, f32 (dW_ih, dW_hh, db) per layer); g is (B, H)
     at T−1 or (T, B, H)."""
     if on_cuda(g, x, h_all, prefac, qf, *_weights(layers)):
         return _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx, tile)
     return _bwd_ref(g, x, layers, h_all, prefac, qf, need_dx)
+
+
+def bwd_scan(g, prefac, qf, w_hh, tile=None) -> torch.Tensor:
+    """One layer's reverse scan, K2/K2g's serial part, on CUDA; its plain
+    version on the CPU → dgates (T, B, 4H); g is the cotangent of the
+    layer's h, (B, H) at T−1 or (T, B, H), in the stream dtype or f32."""
+    if on_cuda(g, prefac, qf, w_hh):
+        return _scan_cuda(g, prefac, qf, w_hh, tile)
+    return _scan_bwd_ref(g, prefac, qf, w_hh)
+
+
+def bwd_products(dgates, inp, h, w_ih, chain=None):
+    """One layer's products of K2/K2g over all T·B rows on CUDA, the plain
+    version on the CPU → (dW_ih, dW_hh, db, the chain to the layer below:
+    f32 for `chain` "gup", in the stream dtype for "dx", or None)."""
+    if on_cuda(dgates, inp, h, w_ih):
+        return _products_cuda(dgates, inp, h, w_ih, chain)
+    return _products_ref(dgates, inp, h, w_ih, chain)
 
 
 def fwd_train_rc(x: torch.Tensor, layers: Layers, tile=None):

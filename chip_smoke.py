@@ -8,7 +8,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device      nvidia-smi name and power limit, torch.version.cuda
   2. build       nvcc of cerebra_torch/csrc/{lstm_stack,lstm_scan,vit_attn,
                  vit_mlp}.cu, all started together, seconds each
-  3. parity      K3, K1, K2 and the dW reduction against their plain
+  3. parity      K3, K1, K2, K2's two pieces (each layer's reverse scan and
+                 its products) and K11's dW reduction against their plain
                  versions, f32 and bf16, at B = 1024, 16 and 13 (T = 460,
                  C = H = 96, L = 2)
   4. main        `cerebra_torch.cli.lstm_distill_from_dinov2_train.main` on
@@ -16,8 +17,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  bf16, batch 16, 6 epochs; launch counts cover every step
   5. timing      each LSTM kernel against its plain version and the cuDNN
                  call that computes the same function at the main path's
-                 shapes, and bench.py's step (filter, crop, LSTM fwd/bwd,
-                 RMSprop) at B = 1024, kernels and plain versions
+                 shapes (K2 also split into its scans and its products), the
+                 reverse scan's rows per block, and bench.py's step (filter,
+                 crop, LSTM fwd/bwd, RMSprop) at B = 1024, kernels and plain
+                 versions
   6. vit parity  K5/K6 (attention) and K7/K8 (MLP) against their plain
                  versions at the main_dino shapes (B = 16, N = 785; B = 32,
                  N = 145) and a ragged N = 37, f32 and f32-stream/bf16-compute,
@@ -44,15 +47,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  a step and K2g once (the loss reads only the encoded latent,
                  so only the encoder's backward runs: a cotangent at every
                  t, no dx), K4 twice in the forward; ms/step, and K4/K2g
-                 against their plain versions and cuDNN at both widths
+                 (its scan and products apart) against their plain versions
+                 and cuDNN at both widths
  11. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) against
                  their plain versions, f32 and bf16, every output, at C = H
                  = 96, L = 2, T = 460 (B = 1024 and 13) and the DINO-LSTM
                  backbone's C 96, H 128, L 4, T = 300 (B = 16); the lab's
                  rcstack at B = 1024, bf16, both shapes: ms and peak memory
                  of the gradient of sum h_top[T-1]^2 in x and the weights
-                 through the shipped stack (K1 + K2g), the recompute stack
-                 and cuDNN; K10 and K11 alone against plain and cuDNN; one
+                 through the shipped stack (K1 + K2g, K2g's scans and
+                 products apart), the recompute stack and cuDNN; K10 and K11
+                 alone against plain and cuDNN; one
                  grad call launches K10 and K11 once, a no-grad call K4
  12. scan        K12-K14 (`lstm_scan`, one layer over a precomputed x_proj)
                  and its two gradients against the plain versions at T =
@@ -93,7 +98,9 @@ REPLACES = {
     "fwd_train": "cerebra/models/pallas_lstm_stack.py:121",
     "bwd": "cerebra/models/pallas_lstm_stack.py:239",
     "fwd_infer_last": "cerebra/models/pallas_lstm_stack.py:755",
-    "bwd_reduce": "cerebra/models/pallas_lstm_stack.py:305",
+    "bwd_reduce": "cerebra/models/pallas_lstm_stack.py:392",
+    "stack_bwd_scan": "cerebra/models/pallas_lstm_stack.py:282",
+    "stack_bwd_products": "cerebra/models/pallas_lstm_stack.py:305",
 }
 # Tolerances of the LSTM kernels. f32 values by max-abs: both sides run the
 # same f32 algebra and differ only in the order of the dot products. f32
@@ -245,6 +252,30 @@ def compare(what: str, got: torch.Tensor, want: torch.Tensor, dtype, grad: bool,
     return max_abs
 
 
+def check_bwd_pieces(g, x, layers, res, tag: str, dtype) -> tuple:
+    """K2's two pieces alone against their plain versions, each layer on
+    the plain pieces' inputs: the reverse scan (the top layer under g at
+    T-1, the one below under the f32 chain) and the products (the chain
+    `gup` above layer 0, dx at layer 0). → (scan error, products error)."""
+    from cerebra_torch.models import lstm_stack as ls
+
+    h_all, prefac, qf = res
+    cot, es, ep = g, 0.0, 0.0
+    for l in reversed(range(len(layers))):
+        w_ih, w_hh, _ = layers[l]
+        dg = ls._scan_bwd_ref(cot, prefac[l], qf[l], w_hh)
+        es = max(es, compare(f"K2 scan[{l}] {tag}", ls.bwd_scan(cot, prefac[l], qf[l], w_hh), dg,
+                             dtype, True))
+        chain = "gup" if l > 0 else "dx"
+        args = (dg, x if l == 0 else h_all[l - 1], h_all[l], w_ih, chain)
+        want = ls._products_ref(*args)
+        ep = max(ep, max(compare(f"K2 products[{l}] {n} {tag}", a, b, dtype, True)
+                         for n, a, b in zip(("dW_ih", "dW_hh", "db", chain),
+                                            ls.bwd_products(*args), want)))
+        cot = want[3]
+    return es, ep
+
+
 def phase_parity() -> dict:
     from cerebra_torch.models import lstm_stack as ls
 
@@ -270,12 +301,14 @@ def phase_parity() -> dict:
             e2 = max(compare(f"K2 {name}[{l}] {tag}", a, b, dtype, True)
                      for l in range(L)
                      for name, a, b in zip(("dW_ih", "dW_hh", "db"), got_g[l], want_g[l]))
+            es, ep = check_bwd_pieces(g, x, layers, want, tag, dtype)
             part = torch.randn(-(-B // 4), 4 * H * (C + (2 * L - 1) * H + L),
                                device="cuda")
             er = compare(f"bwd_reduce {tag}", ls.reduce_partials(part), part.sum(0),
                          torch.float32, True)
             if dtype == torch.bfloat16 and B == 16:
-                errs = {"fwd_train": e1, "bwd": e2, "fwd_infer_last": e3, "bwd_reduce": er}
+                errs = {"fwd_train": e1, "bwd": e2, "fwd_infer_last": e3, "bwd_reduce": er,
+                        "stack_bwd_scan": es, "stack_bwd_products": ep}
             del x, layers, g, want, got, got_g, want_g, part
     torch.cuda.synchronize()
     return errs
@@ -312,11 +345,11 @@ def phase_main() -> dict:
     model = Model(C, H, L, F, n_classes=N_CLASSES)
     model.load_state_dict(torch.load(pth, map_location="cpu"), strict=True)
     log(f"[main] {os.path.relpath(pth, ROOT)} reloads with strict=True")
-    if launches["fwd_train"] < steps or launches["bwd"] < steps:
+    if (launches["fwd_train"] < steps or launches["bwd"] < steps
+            or min(launches["stack_bwd_scan"], launches["stack_bwd_products"]) < L * steps):
         raise AssertionError(f"train steps bypassed the kernels: {launches} for {steps} steps")
-    for name in ("fwd_infer_last", "bwd_reduce"):
-        if launches[name] == 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
+    if launches["fwd_infer_last"] == 0:
+        raise AssertionError("kernel fwd_infer_last never launched on the main path")
     return launches
 
 
@@ -383,6 +416,52 @@ def timing_row(kern, plain, inputs, flops: int, dtype, reps: int = 5, plain_reps
     return {"ms": time_ms(kern, reps), "plain_ms": time_ms(plain, plain_reps),
             "bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops > t_mem else "bytes", "library_ms": library}
+
+
+def bwd_pieces(g, x, layers, res, need_dx: bool) -> dict:
+    """K2/K2g's two sides as `bwd` runs them, each over every layer: the
+    reverse scans (each under the cotangent it gets there: g at the top,
+    the f32 chain below) and the products, with those cotangents and dgates
+    computed once beforehand. → {"scan" | "products": (kernel call, plain
+    call, inputs, matrix-product operations)}."""
+    from cerebra_torch.models import lstm_stack as ls
+
+    h_all, prefac, qf = res
+    T_, B, C_ = x.shape
+    L_, H_ = len(layers), layers[0][1].shape[0]
+    cots, dgs, chains = [None] * L_, [None] * L_, [None] * L_
+    cot = g
+    for l in reversed(range(L_)):
+        cots[l] = cot
+        dgs[l] = ls.bwd_scan(cot, prefac[l], qf[l], layers[l][1])
+        chains[l] = "gup" if l > 0 else ("dx" if need_dx else None)
+        cot = ls.bwd_products(dgs[l], x if l == 0 else h_all[l - 1], h_all[l], layers[l][0],
+                              chains[l])[3]
+
+    def scans(fn):
+        return lambda: [fn(cots[l], prefac[l], qf[l], layers[l][1]) for l in range(L_)]
+
+    def products(fn):
+        return lambda: [fn(dgs[l], x if l == 0 else h_all[l - 1], h_all[l], layers[l][0],
+                           chains[l]) for l in range(L_)]
+
+    G, ins = 4 * H_, [C_] + [H_] * (L_ - 1)
+    # the scan's dh = dgates·W_hhᵀ; the products' dW_ih, dW_hh and chain
+    scan_ops = 2 * T_ * B * G * H_ * L_
+    prod_ops = sum(2 * T_ * B * G * (n + H_ + (n if chains[l] else 0)) for l, n in enumerate(ins))
+    return {"scan": (scans(ls.bwd_scan), scans(ls._scan_bwd_ref),
+                     (cots, prefac, qf, [w[1] for w in layers]), scan_ops),
+            "products": (products(ls.bwd_products), products(ls._products_ref),
+                         (dgs, x, h_all, [w[0] for w in layers]), prod_ops)}
+
+
+def bwd_piece_rows(g, x, layers, res, need_dx: bool, reps: int = 5,
+                   plain_reps: int = 2) -> dict:
+    """Timing rows of `bwd_pieces`' two sides; library none: no one
+    PyTorch call computes L scans chained through the products, or the
+    products."""
+    return {k: timing_row(kern, plain, inputs, ops, x.dtype, reps, plain_reps)
+            for k, (kern, plain, inputs, ops) in bwd_pieces(g, x, layers, res, need_dx).items()}
 
 
 def fmt_row(row: dict) -> str:
@@ -488,13 +567,82 @@ def phase_kernel_timing() -> dict:
                            part.numel(), torch.float32, time_ms(lambda: part.sum(0), 5),
                            B_train),
         }
+        pieces = bwd_piece_rows(g, x, layers, res, False)
         for name, (kern, plain, inputs, flops, dt, lib, B) in rows.items():
             row = timing_row(kern, plain, inputs, flops, dt, 5, 2, lib)
-            log(f"[timing] {name} B={B} T={T} bf16: {fmt_row(row)}")
+            split = (f"; its {L} scans {pieces['scan']['ms']:.3f} ms, its products "
+                     f"{pieces['products']['ms']:.3f} ms" if name == "bwd" else "")
+            log(f"[timing] {name} B={B} T={T} bf16: {fmt_row(row)}{split}")
             if B_train == 16:  # the CLI's shapes (train batch 16, gallery 960)
                 out[name] = row
-        del x, layers, g, res, xv, layers_v, part
+        for side, row in pieces.items():
+            log(f"[timing] stack_bwd_{side} B={B_train} T={T} bf16 (K2's {L} layers): "
+                f"{fmt_row(row)}")
+            if B_train == 16:
+                out[f"stack_bwd_{side}"] = row
+        del x, layers, g, res, xv, layers_v, part, pieces
+    scan_tile_sweep()
     return out
+
+
+def scan_tile_sweep() -> None:
+    """ms of one reverse scan (`bwd_scan`, T = 460, a cotangent at every t)
+    at each rows-per-block, at the shapes K2, K2g and K14 give it, beside
+    the tile `scan_tile` picks."""
+    from cerebra_torch.models import lstm_scan as sc
+    from cerebra_torch.models import lstm_stack as ls
+
+    for B, h, dtype in ((16, H, torch.bfloat16), (1024, H, torch.bfloat16),
+                        (1024, H, torch.float32), (16, 384, torch.bfloat16)):
+        gen = torch.Generator().manual_seed(B + h)
+        x_proj = (torch.randn(T, B, 4 * h, generator=gen) * 0.5).to("cuda", dtype)
+        w_hh = ((torch.rand(h, 4 * h, generator=gen) * 2 - 1) / math.sqrt(h)).to("cuda", dtype)
+        g = torch.randn(T, B, h, generator=gen).to("cuda", dtype)
+        _, prefac, qf = sc.scan_fwd_train(x_proj, w_hh)
+        ms = {bt: round(time_ms(lambda: ls.bwd_scan(g, prefac, qf, w_hh, tile=bt), 3), 3)
+              for bt in (1, 2, 4, 8, 16)}
+        log(f"[scan tiles] B={B} H={h} T={T} {str(dtype).split('.')[-1]}: ms by rows per block "
+            f"{ms}; scan_tile picks {ls.scan_tile(B, h, dtype)}")
+        del x_proj, w_hh, g, prefac, qf
+
+
+# kernel name fragments → the part of a step they belong to, for the
+# profiler's split (first match wins)
+KERNEL_PARTS = (("scan_bwd_kernel", "K2/K2g scans"), ("gemm", "K2/K2g products"),
+                ("sum_partials", "K2/K2g products"), ("col_sum_part", "K2/K2g products"),
+                ("lstm_fwd_kernel", "K1 forward"))
+
+
+def profile_steps(step, n: int, what: str, gpu: str) -> None:
+    """Device time of `n` calls of `step` by kernel (torch.profiler, CPU and
+    CUDA activity), grouped by KERNEL_PARTS, and the device's idle share of
+    the profiled wall time (host clock to a synchronise; the profiler's own
+    overhead is inside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    parts, names = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total", None)
+        ms = (e.self_cuda_time_total if ms is None else ms) / 1e3 / n
+        part = next((p for frag, p in KERNEL_PARTS if frag in e.key), "other")
+        parts[part] = parts.get(part, 0.0) + ms
+        names[e.key[:60]] = names.get(e.key[:60], 0.0) + ms
+    busy = sum(parts.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[profile] {what}: {wall_ms:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms (idle {max(0.0, 1 - busy / wall_ms) * 100:.1f} %); by part "
+        f"{ {k: round(v, 3) for k, v in sorted(parts.items(), key=lambda kv: -kv[1])} }; "
+        f"top kernels {[(k, round(v, 3)) for k, v in top]} on {gpu}")
 
 
 def phase_step_timing(gpu: str) -> None:
@@ -513,6 +661,7 @@ def phase_step_timing(gpu: str) -> None:
     teacher = torch.from_numpy(rng.normal(size=(B, F)).astype(np.float32)).to(dev)
     labels = torch.from_numpy(rng.integers(0, N_CLASSES, size=B)).to(dev)
 
+    profiled = False
     for kind in ("kernels", "plain", "kernels"):
         model = Model(C, H, L, F, n_classes=N_CLASSES, dtype=torch.bfloat16, device=dev,
                       generator=torch.Generator().manual_seed(0))
@@ -543,6 +692,9 @@ def phase_step_timing(gpu: str) -> None:
             raise AssertionError(f"{kind} step loss is {loss.item()}")
         log(f"[step] {kind}: {dt * 1e3:.2f} ms/step, {B / dt:.1f} windows/s at B={B} "
             f"(filter + crop + LSTM fwd/bwd + RMSprop, bf16) on {gpu}")
+        if kind == "kernels" and not profiled:
+            profile_steps(step, 3, f"bench step B={B}", gpu)
+            profiled = True
 
 
 def vit_inputs(B: int, N: int, cdt, scaled: bool, seed: int):
@@ -826,12 +978,14 @@ def phase_ae_train(gpu: str) -> tuple:
         raise AssertionError(f"non-finite losses or reconstruction: {losses}")
     if tuple(enc.shape) != (B_AE, E_AE) or tuple(dec.shape) != (B_AE, T, C):
         raise AssertionError(f"encoded {tuple(enc.shape)}, decoded {tuple(dec.shape)}")
-    want = {"fwd_train": 2 * steps, "bwd_general": steps, "bwd_reduce": steps,
-            "fwd_infer": 2, "bwd": 0, "fwd_infer_last": 0}
+    want = {"fwd_train": 2 * steps, "bwd_general": steps, "stack_bwd_scan": steps,
+            "stack_bwd_products": steps, "fwd_infer": 2, "bwd": 0, "fwd_infer_last": 0,
+            "bwd_reduce": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 
     batch = (eeg[:B_AE], feats[:B_AE], labels[:B_AE], 0)
+    profiled = False
     for kind in ("kernels", "plain", "kernels"):
         model, opt = make()
         with mock.patch.object(lstm_mod, "lstm_stack",
@@ -844,6 +998,10 @@ def phase_ae_train(gpu: str) -> tuple:
                 loss = feature_distill_step(model, opt, loss_fn, *batch)
             torch.cuda.synchronize()
             dt = (time.perf_counter() - t0) / n
+            if kind == "kernels" and not profiled:
+                profile_steps(lambda: feature_distill_step(model, opt, loss_fn, *batch), 3,
+                              f"ae step B={B_AE}", gpu)
+                profiled = True
         if not math.isfinite(loss.item()):
             raise AssertionError(f"{kind} ae step loss is {loss.item()}")
         log(f"[ae step] {kind}: {dt * 1e3:.2f} ms/step, {B_AE / dt:.1f} trials/s "
@@ -865,11 +1023,15 @@ def phase_ae_train(gpu: str) -> tuple:
                             stack_flops(T, B_AE, c, h, 1, fwd=False, bwd=True, need_dx=dx),
                             cudnn_ms(T, B_AE, c, h, 1, "bwd_seq")),
         }
+        pieces = {k: time_ms(v[0], 5) for k, v in bwd_pieces(g, x, layers, res, dx).items()}
         for kname, (kern, plain, inputs, flops, lib) in rows.items():
             row = timing_row(kern, plain, inputs, flops, torch.bfloat16, 5, 2, lib)
+            split = (f"; its scan {pieces['scan']:.3f} ms, its products "
+                     f"{pieces['products']:.3f} ms" if kname == "bwd_general" else "")
             log(f"[ae timing] {kname} {name} C={c} H={h} B={B_AE} T={T} bf16"
                 f"{' (g all t, dx)' if kname == 'bwd_general' and dx else ''}"
-                f"{' (g all t)' if kname == 'bwd_general' and not dx else ''}: {fmt_row(row)}")
+                f"{' (g all t)' if kname == 'bwd_general' and not dx else ''}: {fmt_row(row)}"
+                f"{split}")
             if name == "encoder":
                 times[kname] = row
         del x, layers, res, g
@@ -983,10 +1145,13 @@ def phase_rc(gpu: str) -> tuple:
         # only) for both backwards
         g[:-1] = 0
         res1 = ls.fwd_train(x, layers)
+        pieces = {k: time_ms(v[0], 3)
+                  for k, v in bwd_pieces(g, x, layers, res1, True).items()}
         log(f"[rc timing] {tag}: K1 {time_ms(lambda: ls.fwd_train(x, layers), 3):.3f} ms, "
             f"K10 {time_ms(lambda: ls.fwd_train_rc(x, layers), 3):.3f} ms; g at T-1 only: "
             f"K2g with dx {time_ms(lambda: ls.bwd(g, x, layers, *res1, need_dx=True), 3):.3f}"
-            f" ms, K11 {time_ms(lambda: ls.bwd_rc(g, x, layers, *res), 3):.3f} ms")
+            f" ms (its {L_} scans {pieces['scan']:.3f} ms, its products "
+            f"{pieces['products']:.3f} ms), K11 {time_ms(lambda: ls.bwd_rc(g, x, layers, *res), 3):.3f} ms")
         del x, layers, res, res1, g
 
     _, C_, H_, L_ = RC_SHAPES["headline"]
@@ -1000,7 +1165,7 @@ def phase_rc(gpu: str) -> tuple:
     launches = dict(LAUNCHES)
     log(f"[rc] one grad and one no-grad call of lstm_stack_rc: launches {launches}")
     want = {"fwd_train_rc": 1, "bwd_rc": 1, "bwd_reduce": 1, "fwd_infer": 1,
-            "fwd_train": 0, "bwd_general": 0}
+            "fwd_train": 0, "bwd_general": 0, "stack_bwd_scan": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     if tuple(h.shape) != (T, B_BIG, H) or not all(torch.isfinite(t).all() for t in (h, *grads)):
@@ -1015,6 +1180,7 @@ def phase_scan(gpu: str) -> tuple:
     the launch check."""
     from cerebra_torch.kernels import LAUNCHES, reset_launches
     from cerebra_torch.models import lstm_scan as sc
+    from cerebra_torch.models import lstm_stack as ls
 
     def case(B, dtype, seed):
         gen = torch.Generator().manual_seed(seed)
@@ -1092,8 +1258,9 @@ def phase_scan(gpu: str) -> tuple:
             lib = cudnn_ms(T, B_BIG, 4 * H_SCAN, H_SCAN, 1, cudnn_call[name], scan=True,
                            dtype=torch.float32 if dtype == torch.float32 else None)
             row = timing_row(kern, plain, inputs, mm, dtype, 5, 2, lib)
-            log(f"[scan timing] {name} {tag} (tile {sc.pick_tile(B_BIG, H_SCAN)}): "
-                f"{fmt_row(row)}")
+            tile = (ls.scan_tile(B_BIG, H_SCAN, dtype) if name == "scan_bwd"
+                    else sc.pick_tile(B_BIG, H_SCAN))
+            log(f"[scan timing] {name} {tag} (tile {tile}): {fmt_row(row)}")
             if dtype == torch.bfloat16:
                 times[name] = row
         del x_proj, w_hh, g, res
@@ -1148,6 +1315,8 @@ def main() -> None:
         errs.update(e)
         times.update(t)
         launches.update({k: n[k] for k in t})
+        if phase is phase_rc:  # K11's reduction: no other path launches it
+            launches["bwd_reduce"] = n["bwd_reduce"]
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
     sources = dict(VIT_SOURCES, **dict.fromkeys(("scan_fwd_infer", "scan_fwd_train", "scan_bwd"),
                                                 SCAN_SOURCE))
@@ -1155,9 +1324,9 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": sources.get(name, SOURCE),
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
          **times[name]}
-        for name in ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce", *VIT_SOURCES,
-                     "fwd_infer", "bwd_general", "fwd_train_rc", "bwd_rc", "scan_fwd_infer",
-                     "scan_fwd_train", "scan_bwd")
+        for name in ("fwd_train", "bwd", "stack_bwd_scan", "stack_bwd_products",
+                     "fwd_infer_last", "bwd_reduce", *VIT_SOURCES, "fwd_infer", "bwd_general",
+                     "fwd_train_rc", "bwd_rc", "scan_fwd_infer", "scan_fwd_train", "scan_bwd")
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""The port's CUDA LSTM kernels (the stack's K1, K2/K2g with the dW reduction,
-K3, K4, K10, K11; the scan's K12-K14) and the ViT kernels (K5-K8) against
+"""The port's CUDA LSTM kernels (the stack's K1, K2/K2g and their two pieces,
+each layer's reverse scan and products, K3, K4, K10, K11 with its dW
+reduction; the scan's K12-K14) and the ViT kernels (K5-K8) against
 their plain PyTorch versions on the card, over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
 below one warp's multiple, and the recurrent autoencoder's widths (encoder
@@ -116,9 +117,11 @@ def test_autograd_wrapper_launches_the_kernels(cuda):
     ls.lstm_stack_last(x, ws).sum().backward()
     with torch.no_grad():
         ls.lstm_stack_last(x, ws)
-    names = ("fwd_train", "bwd", "fwd_infer_last", "bwd_reduce")
+    names = ("fwd_train", "bwd", "fwd_infer_last")
     assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
-    assert ls.LAUNCHES["fwd_infer"] == ls.LAUNCHES["bwd_general"] == 0
+    # K2 is one reverse scan and one set of products for each of the 2 layers
+    assert ls.LAUNCHES["stack_bwd_scan"] == ls.LAUNCHES["stack_bwd_products"] == 2
+    assert ls.LAUNCHES["fwd_infer"] == ls.LAUNCHES["bwd_general"] == ls.LAUNCHES["bwd_reduce"] == 0
 
 
 def test_sequence_wrapper_gives_the_plain_gradients_and_launches(cuda):
@@ -140,9 +143,9 @@ def test_sequence_wrapper_gives_the_plain_gradients_and_launches(cuda):
     ls.lstm_stack(xs, layers).sum().backward()
     with torch.no_grad():
         ls.lstm_stack(x, layers)
-    names = ("fwd_train", "bwd_general", "fwd_infer", "bwd_reduce")
+    names = ("fwd_train", "bwd_general", "fwd_infer", "stack_bwd_scan", "stack_bwd_products")
     assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
-    assert ls.LAUNCHES["bwd"] == ls.LAUNCHES["fwd_infer_last"] == 0
+    assert ls.LAUNCHES["bwd"] == ls.LAUNCHES["fwd_infer_last"] == ls.LAUNCHES["bwd_reduce"] == 0
 
 
 @pytest.mark.parametrize("g_full", [False, True], ids=["g_last", "g_full"])
@@ -163,6 +166,73 @@ def test_weight_gradients_are_deterministic(cuda, need_dx, g_full):
             assert torch.equal(u, v)
 
 
+# K2/K2g's pieces. The scan's (T, B, H) as SCAN_SHAPES, and H = 128 at a
+# ragged batch, where w_hhᵀ (4H x H) sits in shared memory in bf16 (128 KiB)
+# and is read through L2 in f32 (256 KiB, over the 227 KB a block may use).
+STACK_SCAN_SHAPES = [(1, 1, 96), (7, 13, 10), (9, 40, 96), (12, 16, 384), (30, 37, 128)]
+
+
+@pytest.mark.parametrize("tile", [None, 1, 4, 16])
+@pytest.mark.parametrize("cot", ["stream", "f32", "last"])
+@pytest.mark.parametrize("shape", STACK_SCAN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stack_scan_matches_plain(cuda, dtype, shape, cot, tile):
+    """K2/K2g's reverse scan of one layer under each cotangent it takes: the
+    caller's g at every t in the stream dtype, the f32 chain from the layer
+    above, and a (B, H) g that reaches T-1 only."""
+    from cerebra_torch.models import lstm_scan as sc
+
+    x_proj, w_hh, g = scan_case(shape, dtype, cuda)
+    _, prefac, qf = sc._scan_fwd_train_ref(x_proj, w_hh)
+    if cot == "f32":
+        g = torch.randn(g.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    elif cot == "last":
+        g = g[0].contiguous()
+    got = ls.bwd_scan(g, prefac, qf, w_hh, tile)
+    assert got.dtype == dtype
+    assert_close(got, ls._scan_bwd_ref(g, prefac, qf, w_hh), dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("chain", [None, "gup", "dx"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stack_products_match_plain(cuda, dtype, shape, chain):
+    """K2/K2g's products of one layer: dW_ih, dW_hh, db and the chain to the
+    layer below (f32, or dx in the stream dtype), T = 1 included (no dW_hh
+    term)."""
+    T, B, C, H, _ = shape
+    gen = torch.Generator().manual_seed(3)
+
+    def r(*s):
+        return torch.randn(*s, generator=gen).to(cuda, dtype)
+
+    args = (r(T, B, 4 * H), r(T, B, C), r(T, B, H), r(C, 4 * H) / math.sqrt(C), chain)
+    got, want = ls.bwd_products(*args), ls._products_ref(*args)
+    assert (got[3] is None) == (chain is None)
+    if chain is not None:
+        assert got[3].dtype == (torch.float32 if chain == "gup" else dtype)
+    for a, b in zip(got, want):
+        if b is not None:
+            assert_close(a, b, dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_stack_backward_calls_no_library_product(cuda):
+    """K2/K2g on the card run only the port's kernels: no cuBLAS or cuDNN
+    product appears among the operators of a backward with dx."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, layers, g = make_stack((9, 40, 96, 96, 3), torch.bfloat16, cuda, seed=4)
+    res = ls.fwd_train(x, layers)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ls.bwd(g, x, layers, *res, need_dx=True)
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::mm", "aten::matmul", "aten::bmm", "aten::addmm", "aten::linear",
+                      "aten::_cudnn_rnn"}, ops
+
+
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     x, layers, _ = make_stack((4, 5, 8, 8, 2), torch.float32, cuda)
     with pytest.raises(ValueError):
@@ -171,6 +241,13 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ls.fwd_infer_last(x.cpu(), layers)
     with pytest.raises(ValueError):
         ls.fwd_train(x, layers, tile=3)
+    h_all, prefac, qf = ls.fwd_train(x, layers)
+    with pytest.raises(ValueError):  # a cotangent of another batch
+        ls.bwd_scan(torch.zeros(3, 8, device=cuda), prefac[1], qf[1], layers[1][1])
+    with pytest.raises(ValueError):
+        ls.bwd(torch.zeros(5, 8, device=cuda), x, layers, h_all, prefac, qf, tile=3)
+    with pytest.raises(ValueError):  # the chain's kind
+        ls.bwd_products(torch.zeros(4, 5, 32, device=cuda), x, h_all[0], layers[0][0], "dh")
 
 
 # ------------------------------------- recompute stack K10/K11, scan K12–K14

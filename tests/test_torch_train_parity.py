@@ -131,3 +131,19 @@ def test_cli_raises_on_cuda_without_a_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA"):
         cli.main(["--synthetic", "--device", "cuda", "--log_dir", str(tmp_path)])
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path):
+    """`--profile_dir` writes a torch.profiler trace of the training loop
+    there, as the JAX CLI writes its jax.profiler trace."""
+    prof_dir = tmp_path / "prof"
+    _, hist = cli.main([
+        "--synthetic", "--device", "cpu", "--num_epochs", "1", "--use_bf16", "false",
+        "--synthetic_classes", "4", "--synthetic_per_class", "4", "--synthetic_channels", "8",
+        "--synthetic_samples", "48", "--time_low", "4", "--time_high", "36",
+        "--feature_dim", "16", "--log_dir", str(tmp_path / "run"),
+        "--profile_dir", str(prof_dir),
+    ])
+    assert len(hist["train_loss"]) == 1
+    traces = [p for p in prof_dir.iterdir() if p.name.endswith(".pt.trace.json")]
+    assert traces and traces[0].stat().st_size > 0, list(prof_dir.iterdir())
