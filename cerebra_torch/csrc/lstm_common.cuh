@@ -119,8 +119,8 @@ __device__ __forceinline__ float cell_step(const float* gr, int H, float& c, T* 
   return a[3] * tc;
 }
 
-// One row and unit of a transcendental-free backward step (K11, and the
-// reverse scan below that K2/K2g and K14 run): dc = dc_acc + dh·q, then
+// One row and unit of a backward step (the reverse scan below, which
+// K2/K2g, K11 and K14 run): dc = dc_acc + dh·q, then
 // the four gate gradients d = [dc·p_i, dc·p_f, dc·p_g, dh·p_o] as
 // stream-dtype products of dc and dh rounded to the stream dtype and the
 // prefactors p (as the caller rounded them); returns the next step's carry
@@ -158,16 +158,20 @@ int with_tile(int bt, F launch) {
 }
 
 // ------------------------------------------------------ the reverse scan
-// One layer's reverse-time, transcendental-free backward over its residuals,
-// emitting the dgates stream. K14 (lstm_scan.cu) runs it on the caller's
-// cotangent; K2/K2g (lstm_stack.cu) once per layer, top layer first, with the
-// products of each layer (dW, the chain below, dx) left to tensor-core
-// kernels over all Tn·B rows afterwards. Per step t, from Tn-1 down to 0:
+// One layer's reverse-time backward over its residuals, emitting the dgates
+// stream. K14 (lstm_scan.cu) runs it on the caller's cotangent; K2/K2g
+// (lstm_stack.cu) once per layer, top layer first, with the products of each
+// layer (dW, the chain below, dx) left to tensor-core kernels over all Tn·B
+// rows afterwards; K11 (lstm_stack.cu) once per layer and time chunk (RC),
+// forming the residuals from the gates it recomputed for the chunk and
+// carrying dh_acc and dc from one chunk to the next. Per step t, from Tn-1
+// down to 0:
 //   dh = dh_acc + g_t    dc = dc_acc + dh·q
 //   dgates_t = [dc·p_i, dc·p_f, dc·p_g, dh·p_o]   (gate_grads; to dgates)
 //   dh_acc = dgates_t @ w_hhᵀ                      dc_acc = dc·f
-// with f32 carries that start at zero, dgates stream-dtype products of the
-// rounded dc, dh and the stored prefactors, and dh_acc an f32 sum of exact
+// with f32 carries that start at zero (or at K11's carry), dgates
+// stream-dtype products of the rounded dc, dh and the rounded prefactors,
+// and dh_acc an f32 sum of exact
 // products of the stream-dtype dgates and w_hh (pallas_lstm_stack.py
 // _bwd_kernel :282-300, pallas_lstm.py _bwd_kernel).
 //
@@ -187,9 +191,20 @@ int with_tile(int bt, F launch) {
 //
 // TG is the cotangent's type: the stream dtype T (the caller's g) or float
 // (the unrounded chain from the layer above, pallas_lstm_stack.py :310-313).
+// RC selects where a step's residuals come from: K1/K13's stored prefac and
+// qf (false), or K11's f32 gates (Tn, B, 4H) and the stored c at t and t-1
+// (Tn, B, H) each (true), from which the scan forms K11's own: the four
+// prefactors rounded to T, q and f in f32 (pallas_lstm_stack.py :366-391).
 // g_last != 0: g is (B, H) and reaches step Tn-1 only (K2's h[-1] head);
 // else g is (Tn, B, H). Layouts: prefac (Tn, B, 4H), qf (Tn, B, 2H), w_hhT
 // (4H, H), dgates (Tn, B, 4H), all row-major.
+// carry: null (K2/K2g, K14: the carries start at zero and the scan stops
+// after step 0's dgates), or an f32 (2, B, H) buffer [dh_acc | dc] that K11
+// runs its time chunks through: read as the carries entering step Tn-1
+// (dh_acc as partial 0 of its sum, the others zero) and overwritten with
+// those leaving step 0 (dh_acc as its ordered sum of partials), so that a
+// scan cut into chunks gives the dgates of one launch over all steps, bit
+// for bit.
 // Shared memory: [w_s (4H, H) in T, when w_smem] | part_s (4S, BT, H) |
 // dc_s (BT, H) | dg_s (4H, BT), floats after w_s.
 
@@ -293,11 +308,32 @@ __device__ __forceinline__ void dh_partials_vec(float* part_s, const float* dg_s
   }
 }
 
-template <typename T, typename TG, int BT, bool VEC>
+// dh_acc of one item: its NP partials at pp[0], pp[BH], ... added in order
+__device__ __forceinline__ float dh_sum(const float* pp, int NP, size_t BH) {
+  float s = pp[0];
+  for (int p = 1; p < NP; ++p) s += pp[p * BH];
+  return s;
+}
+
+// the residual streams a scan reads: prefac and qf, or (RC) gates, c, c_prev;
+// the launch hands them to the kernel as __restrict__ parameters, which lets
+// the loads take the read-only path (a struct's pointers would not)
+template <typename T>
+struct ScanRes {
+  const T* prefac;
+  const T* qf;
+  const float* gates;
+  const T* c;
+  const T* c_prev;
+};
+
+template <typename T, typename TG, bool RC, int BT, bool VEC>
 __global__ void __launch_bounds__(MAX_THREADS)
     scan_bwd_kernel(const T* __restrict__ prefac, const T* __restrict__ qf,
-                    const TG* __restrict__ g, int g_last, const T* __restrict__ w_hhT,
-                    int w_smem, int S, T* __restrict__ dgates, int Tn, int B, int H) {
+                    const float* __restrict__ gates, const T* __restrict__ c,
+                    const T* __restrict__ c_prev, const TG* __restrict__ g, int g_last,
+                    const T* __restrict__ w_hhT, int w_smem, int S, float* carry,
+                    T* __restrict__ dgates, int Tn, int B, int H) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   const int NP = 4 * S;              // partials of dh_acc, added in order
@@ -315,6 +351,15 @@ __global__ void __launch_bounds__(MAX_THREADS)
     w = reinterpret_cast<const T*>(smem);
   }
   for (size_t i = tid; i < (NP + 1) * BH; i += nthr) part_s[i] = 0.0f;  // part_s and dc_s
+  if (carry != nullptr) {
+    __syncthreads();  // zeroed
+    for (int i = tid; i < BT * H; i += nthr) {
+      const int b = b0 + i / H, u = i % H;
+      if (b >= B) continue;
+      part_s[i] = carry[(size_t)b * H + u];
+      dc_s[i] = carry[((size_t)B + b) * H + u];
+    }
+  }
 
   for (int t = Tn - 1; t >= 0; --t) {
     __syncthreads();  // part_s holds step t+1's dh_acc partials; dg_s is free
@@ -331,14 +376,25 @@ __global__ void __launch_bounds__(MAX_THREADS)
         gt = to_f<TG>(g[row * H + u]);
       else if (t == Tn - 1)
         gt = to_f<TG>(g[(size_t)b * H + u]);
-      const float* pp = part_s + i;
-      float dh_acc = pp[0];
-      for (int p = 1; p < NP; ++p) dh_acc += pp[p * BH];
-      const T* q = qf + row * 2 * H + u;
+      const float dh_acc = dh_sum(part_s + i, NP, BH);
       float p[4], d[4];
+      // (each branch calls gate_grads itself: with q and f hoisted out of
+      // the branch the compiler's code for one row a block ran slower on an
+      // H100)
+      if constexpr (RC) {
+        float a[4];
+        activations(gates + row * G + u, H, a);
+        const float q = prefactors(a, to_f<T>(c_prev[row * H + u]),
+                                   tanhf(to_f<T>(c[row * H + u])), p);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) p[k] = to_f<T>(prefac[row * G + k * H + u]);
-      dc_s[i] = gate_grads<T>(dh_acc + gt, dc_s[i], to_f<T>(q[0]), to_f<T>(q[H]), p, d);
+        for (int k = 0; k < 4; ++k) p[k] = rnd<T>(p[k]);
+        dc_s[i] = gate_grads<T>(dh_acc + gt, dc_s[i], q, a[1], p, d);
+      } else {
+        const T* q = qf + row * 2 * H + u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) p[k] = to_f<T>(prefac[row * G + k * H + u]);
+        dc_s[i] = gate_grads<T>(dh_acc + gt, dc_s[i], to_f<T>(q[0]), to_f<T>(q[H]), p, d);
+      }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         dg_s[(k * H + u) * BT + r] = d[k];
@@ -346,12 +402,20 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
     }
     __syncthreads();  // dg_s complete; part_s is free
-    if (t == 0) break;
+    if (t == 0 && carry == nullptr) break;
 
-    const size_t next = (size_t)(t - 1) * B + b0;  // step t-1's first row of this tile
-    prefetch_l2(prefac + next * G, (size_t)nb * G * sizeof(T));
-    prefetch_l2(qf + next * 2 * H, (size_t)nb * 2 * H * sizeof(T));
-    if (!g_last) prefetch_l2(g + next * H, (size_t)nb * H * sizeof(TG));
+    if (t > 0) {
+      const size_t next = (size_t)(t - 1) * B + b0;  // step t-1's first row of this tile
+      if constexpr (RC) {
+        prefetch_l2(gates + next * G, (size_t)nb * G * sizeof(float));
+        prefetch_l2(c + next * H, (size_t)nb * H * sizeof(T));
+        prefetch_l2(c_prev + next * H, (size_t)nb * H * sizeof(T));
+      } else {
+        prefetch_l2(prefac + next * G, (size_t)nb * G * sizeof(T));
+        prefetch_l2(qf + next * 2 * H, (size_t)nb * 2 * H * sizeof(T));
+      }
+      if (!g_last) prefetch_l2(g + next * H, (size_t)nb * H * sizeof(TG));
+    }
     if constexpr (VEC) {
       dh_partials_vec<T, BT>(part_s, dg_s, w_hhT, H, S);
     } else {
@@ -367,15 +431,24 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
     }
   }
+  if (carry != nullptr) {
+    __syncthreads();  // the carries leaving step 0 are complete
+    for (int i = tid; i < BT * H; i += nthr) {
+      const int b = b0 + i / H, u = i % H;
+      if (b >= B) continue;
+      carry[(size_t)b * H + u] = dh_sum(part_s + i, NP, BH);
+      carry[((size_t)B + b) * H + u] = dc_s[i];
+    }
+  }
 }
 
 // Launch the scan on `stream`: w_hhᵀ goes to shared memory when it fits
 // beside the carries of BT rows; else, where H is a multiple of 16 bytes'
 // worth of values, the VEC path with as many ranges S a gate as fill the
 // block's threads and fit in shared memory. Returns cudaGetLastError().
-template <typename T, typename TG, int BT>
-int launch_scan_bwd(const void* prefac, const void* qf, const void* g, int g_last,
-                    const void* w_hhT, void* dgates, int Tn, int B, int H, cudaStream_t stream) {
+template <typename T, typename TG, bool RC, int BT>
+int launch_scan_bwd(ScanRes<T> res, const void* g, int g_last, const void* w_hhT, void* carry,
+                    void* dgates, int Tn, int B, int H, cudaStream_t stream) {
   constexpr int V = Vec<T>::V;
   const int nthr = threads_for(H);
   const size_t w_bytes = scan_w_floats<T>(H) * sizeof(float);
@@ -388,12 +461,13 @@ int launch_scan_bwd(const void* prefac, const void* qf, const void* g, int g_las
     S = S > 1 ? S : 1;
   }
   const size_t smem = scan_bwd_base_smem(BT, H, S) + (w_smem ? w_bytes : 0);
-  auto kern = vec ? scan_bwd_kernel<T, TG, BT, true> : scan_bwd_kernel<T, TG, BT, false>;
+  auto kern = vec ? scan_bwd_kernel<T, TG, RC, BT, true> : scan_bwd_kernel<T, TG, RC, BT, false>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<(B + BT - 1) / BT, nthr, smem, stream>>>((const T*)prefac, (const T*)qf, (const TG*)g,
-                                                  g_last, (const T*)w_hhT, w_smem, S,
+  kern<<<(B + BT - 1) / BT, nthr, smem, stream>>>(res.prefac, res.qf, res.gates, res.c,
+                                                  res.c_prev, (const TG*)g, g_last,
+                                                  (const T*)w_hhT, w_smem, S, (float*)carry,
                                                   (T*)dgates, Tn, B, H);
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,9 @@
 //
 //   scan_fwd_kernel<T, BT, false> replaces _fwd_infer_kernel (K12)
 //   scan_fwd_kernel<T, BT, true>  replaces _fwd_train_kernel (K13)
-//   scan_bwd_kernel<T, T, BT>     replaces _bwd_kernel       (K14), the
+//   scan_bwd_kernel<T, T, false, BT> replaces _bwd_kernel    (K14), the
 //                                 reverse scan of lstm_common.cuh that K2/K2g
-//                                 run once per layer too
+//                                 and K11 run once per layer too
 //
 // Layouts (row-major, T = stream dtype, float or __nv_bfloat16): x_proj
 // (Tn, B, 4H); w_hh (H, 4H); h_all (Tn, B, H); prefac (Tn, B, 4H) =
@@ -24,7 +24,7 @@
 // rows, held transposed in shared memory. K14 is the shared reverse scan
 // (lstm_common.cuh, with its own design notes). The per-element cell math
 // comes from lstm_common.cuh: cell_step, as lstm_stack.cu's forwards, and
-// gate_grads, as its K11. Rounding points follow the Pallas kernels:
+// gate_grads in the scan. Rounding points follow the Pallas kernels:
 // gates = f32(x_proj_t) + (h rounded to the stream dtype) @ w_hh with f32
 // accumulation, h's f32 carry kept unrounded; K14's dh/dc carries f32, its
 // dgates stream-dtype products of the rounded carries and prefactors.
@@ -123,10 +123,13 @@ int cerebra_scan_bwd(int bf16, int bt, const void* prefac, const void* qf, const
   cudaStream_t s = (cudaStream_t)stream;
   return with_tile(bt, [&](auto tile) {
     constexpr int BT = decltype(tile)::value;
-    return bf16 ? launch_scan_bwd<__nv_bfloat16, __nv_bfloat16, BT>(prefac, qf, g, 0, w_hhT,
-                                                                    dgates, Tn, B, H, s)
-                : launch_scan_bwd<float, float, BT>(prefac, qf, g, 0, w_hhT, dgates, Tn, B, H,
-                                                    s);
+    using bf = __nv_bfloat16;
+    return bf16 ? launch_scan_bwd<bf, bf, false, BT>(
+                      ScanRes<bf>{(const bf*)prefac, (const bf*)qf}, g, 0, w_hhT, nullptr,
+                      dgates, Tn, B, H, s)
+                : launch_scan_bwd<float, float, false, BT>(
+                      ScanRes<float>{(const float*)prefac, (const float*)qf}, g, 0, w_hhT,
+                      nullptr, dgates, Tn, B, H, s);
   });
 }
 

@@ -11,19 +11,21 @@
 //                                      one reverse scan (lstm_common.cuh's
 //                                      scan_bwd_kernel, K14's) and one set of
 //                                      tensor-core products per layer
-//   lstm_bwd_rc_kernel<T, BT>          replaces _bwd_rc_kernel         (K11)
-//   reduce_partials                    replaces K11's accumulation of dW
-//                                      across the sequential TPU grid
+//   cerebra_rc_gates +                 replace _bwd_rc_kernel (K11), per time
+//   cerebra_rc_scan +                  chunk and layer: the gates recomputed
+//   cerebra_rc_products +              on the tensor cores, the reverse scan
+//   cerebra_sum_partials               forming K11's residuals with carries
+//                                      between chunks, and the products into
+//                                      dW partials that ordered sums add
 //
 // Layouts (all row-major, T = stream dtype, float or __nv_bfloat16):
 //   x (Tn, B, C); w_ih0 (C, 4H); w_ihr (L-1, H, 4H); w_hh (L, H, 4H);
 //   bias (L, 4H); h_all (L, Tn, B, H); prefac (L, Tn, B, 4H);
 //   qf (L, Tn, B, 2H); c_all (L, Tn, B, H); h_out (B, H) for K3, (Tn, B, H)
 //   for K4; g (B, H) or (Tn, B, H) for K2/K2g, (Tn, B, H) for K11;
-//   dx (Tn, B, C); w_ihT0 (4H, C), w_ihT_r (L-1, 4H, H) and w_hhT (L, 4H, H)
-//   are the transposes K11's chain products read; gate order [i, f, g, o].
+//   dx (Tn, B, C); gate order [i, f, g, o].
 //
-// What bounds the forwards and K11 on an H100: the recurrence is serial over
+// What bounds the forwards on an H100: the recurrence is serial over
 // Tn = 460 steps. Per step and layer a batch tile of BT rows needs
 // (in + H) * 4H * BT multiply-adds (in = C or H) and reads the layer's whole
 // weights (~72 K values, from L2: the 2-layer bf16 stack is 288 KiB, more
@@ -35,15 +37,16 @@
 // threads owns one gate column: it reads that column's weights coalesced
 // and applies each to all BT rows, which shared memory holds transposed
 // ([k][row]) so one vector load fetches a value for every row. The wrapper
-// picks BT per direction from timings on the card (lstm_stack.py
-// pick_tile). Tensor cores (wgmma), TMA and clusters are later work.
+// picks BT from timings on the card (lstm_stack.py pick_tile). Tensor cores
+// (wgmma), TMA and clusters are later work.
 //
 // K2/K2g keep only what is serial in the serial loop: the dh/dc carries of
 // one layer (the reverse scan). Everything else is a function of a layer's
 // dgates stream and runs afterwards over all Tn·B rows at once, on the
 // tensor cores in bf16 (vit_common.cuh's tiled product): dW_ih, dW_hh and db
 // as f32 sums in fixed row chunks added in order, the f32 chain to the
-// layer below and dx.
+// layer below and dx. K11 is the same decomposition run over time chunks
+// (see "the recompute backward" below).
 //
 // Rounding points follow the Pallas kernels: matmul operands in the stream
 // dtype with f32 accumulation, bias cast to f32, h cast to the stream dtype
@@ -60,14 +63,12 @@
 
 namespace {
 
-// gates[r * rs + j * js] = (inp @ wi)[r][j] + (hr @ wh)[r][j] + bias[j] for the
+// gates[r * 4H + j] = (inp @ wi)[r][j] + (hr @ wh)[r][j] + bias[j] for the
 // BT rows of a batch tile and every gate column j < 4H, one thread per column;
-// inp (in, BT) and hr (H, BT) are transposed rows in shared memory. The
-// forwards compute their gates here and K11 recomputes them here, so K11's
-// gates equal K10's bit for bit (the same operands in the same order).
+// inp (in, BT) and hr (H, BT) are transposed rows in shared memory.
 template <typename T, int BT>
-__device__ __forceinline__ void gate_product(float* gates, int rs, int js,
-                                             const T* __restrict__ wi, const float* inp, int in,
+__device__ __forceinline__ void gate_product(float* gates, const T* __restrict__ wi,
+                                             const float* inp, int in,
                                              const T* __restrict__ wh, const float* hr,
                                              const T* __restrict__ bias, int H) {
   const int G = 4 * H;
@@ -79,7 +80,7 @@ __device__ __forceinline__ void gate_product(float* gates, int rs, int js,
     col_dot<T, BT>(ah, wh, hr, H, G, j);
     const float bj = to_f<T>(bias[j]);
 #pragma unroll
-    for (int r = 0; r < BT; ++r) gates[r * rs + j * js] = (ax[r] + ah[r]) + bj;
+    for (int r = 0; r < BT; ++r) gates[r * G + j] = (ax[r] + ah[r]) + bj;
   }
 }
 
@@ -135,7 +136,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
       float* cl = c_s + l * BT * H;
       __syncthreads();  // this layer's input rows are in place
 
-      gate_product<T, BT>(gates_s, G, 1, wi, inp, l == 0 ? C : H, w_hh + (size_t)l * H * G, hr,
+      gate_product<T, BT>(gates_s, wi, inp, l == 0 ? C : H, w_hh + (size_t)l * H * G, hr,
                           bias + (size_t)l * G, H);
       __syncthreads();  // gates complete; hr may be overwritten
 
@@ -160,207 +161,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-// ---------------------------------------------------- the recompute backward
-// K11's shared-memory layout (floats):
-//   dh_s, dc_s (L, BT, H) | dg_s (4H, BT) | gup_s (BT, H) |
-//   inp_s (max(C, H), BT) | hp_s (H, BT)
-// and, per layer-step, the two device functions below. Each block owns one
-// f32 partial of every dW/db (n_part floats at part + blockIdx.x * n_part,
-// laid out as [dW_ih0 (C, 4H) | dW_ihr (L-1, H, 4H) | dW_hh (L, H, 4H) |
-// db (L, 4H)]), read-modified-written only by the thread of that gate
-// column: no atomics.
-
-// this block's partial dW_ih (in, 4H), dW_hh (H, 4H) and db (4H) of one layer
-// += inp_sᵀ dg, hp_sᵀ dg, Σ_r dg: one thread per gate column
-template <int BT>
-__device__ __forceinline__ void accumulate_dw(float* p_ih, float* p_hh, float* p_b,
-                                              const float* dg_s, const float* inp_s, int in,
-                                              const float* hp_s, int H) {
-  const int G = 4 * H;
-  for (int j = threadIdx.x; j < G; j += blockDim.x) {
-    float d[BT];
-    rows<BT>(dg_s + j * BT, d);
-    float sb = 0.0f;
-#pragma unroll
-    for (int r = 0; r < BT; ++r) sb += d[r];
-#pragma unroll 4
-    for (int k = 0; k < in; ++k) {
-      float v[BT];
-      rows<BT>(inp_s + k * BT, v);
-      float s = 0.0f;
-#pragma unroll
-      for (int r = 0; r < BT; ++r) s = fmaf(v[r], d[r], s);
-      p_ih[(size_t)k * G + j] += s;
-    }
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      float v[BT];
-      rows<BT>(hp_s + k * BT, v);
-      float s = 0.0f;
-#pragma unroll
-      for (int r = 0; r < BT; ++r) s = fmaf(v[r], d[r], s);
-      p_hh[(size_t)k * G + j] += s;
-    }
-    p_b[j] += sb;
-  }
-}
-
-// the recurrent carry dh = dg @ w_hh^T (BT, H) into dhl, then the chain
-// g_up = dg @ w_ih^T over the layer's n_up input units: H for a layer above
-// 0, into gup_s; C for layer 0 when dx is wanted, into dx at step t; none
-// otherwise. One thread per output unit and all BT rows.
-template <typename T, int BT>
-__device__ __forceinline__ void chain(float* dhl, float* gup_s, T* __restrict__ dx,
-                                      const float* dg_s, const T* __restrict__ whT,
-                                      const T* __restrict__ wiT, int l, int n_up, int t, int b0,
-                                      int B, int C, int H) {
-  const int G = 4 * H;
-  for (int k = threadIdx.x; k < H + n_up; k += blockDim.x) {
-    float s[BT];
-#pragma unroll
-    for (int r = 0; r < BT; ++r) s[r] = 0.0f;
-    if (k < H) {
-      col_dot<T, BT>(s, whT, dg_s, G, H, k);
-#pragma unroll
-      for (int r = 0; r < BT; ++r) dhl[r * H + k] = s[r];
-      continue;
-    }
-    const int u = k - H;
-    col_dot<T, BT>(s, wiT, dg_s, G, n_up, u);
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      if (l > 0)
-        gup_s[r * H + u] = s[r];
-      else if (b0 + r < B)
-        dx[((size_t)t * B + b0 + r) * C + u] = from_f<T>(s[r]);
-    }
-  }
-}
-
-// Replaces cerebra/models/pallas_lstm_stack.py:_bwd_rc_kernel: the backward
-// that streams only h_all and c_all (K10's) and recomputes each layer-step's
-// gates with gate_product, bit for bit K10's, before the chain, dx (always)
-// and dW. Its rounding points are not K2's (pallas_lstm_stack.py:372-399):
-// q = o - o tanh^2 c and f stay f32; only the four prefactors and dc, dh are
-// rounded to the stream dtype before their products, which are rounded too;
-// tanh c and c_prev come from the rounded c_all; c_prev and h_prev are zero
-// at t = 0. The gates are recomputed in place in dg_s (4H, BT): each thread
-// reads its four gates and writes its four gate gradients at the same
-// places. Bound by latency: per serial layer-step a tile reads the layer's
-// weights three times from L2 (K10's product, dh and the chain) and
-// read-modify-writes its (in + H) * 4H f32 partial of dW in device memory.
-template <typename T, int BT>
-__global__ void __launch_bounds__(MAX_THREADS)
-    lstm_bwd_rc_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                       const T* __restrict__ h_all, const T* __restrict__ c_all,
-                       const T* __restrict__ w_ih0, const T* __restrict__ w_ihr,
-                       const T* __restrict__ w_hh, const T* __restrict__ bias,
-                       const T* __restrict__ w_ihT0, const T* __restrict__ w_ihT_r,
-                       const T* __restrict__ w_hhT, T* __restrict__ dx, float* __restrict__ part,
-                       int Tn, int B, int C, int H, int L) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = 4 * H;
-  const int IN = C > H ? C : H;
-  float* dh_s = smem;
-  float* dc_s = dh_s + L * BT * H;
-  float* dg_s = dc_s + L * BT * H;
-  float* gup_s = dg_s + G * BT;
-  float* inp_s = gup_s + BT * H;
-  float* hp_s = inp_s + IN * BT;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int b0 = blockIdx.x * BT;
-  const size_t n_part = (size_t)G * (C + (L - 1) * H + L * H + L);
-  float* mine = part + blockIdx.x * n_part;
-  float* p_hh = mine + (size_t)G * (C + (L - 1) * H);
-  float* p_b = p_hh + (size_t)L * H * G;
-  const size_t HB = (size_t)H * BT;  // stride between two gates of a unit in dg_s
-
-  for (size_t i = tid; i < n_part; i += nthr) mine[i] = 0.0f;
-  for (int i = tid; i < 2 * L * BT * H; i += nthr) dh_s[i] = 0.0f;  // dh_s and dc_s
-  for (int i = tid; i < BT * H; i += nthr) gup_s[i] = 0.0f;
-
-  for (int t = Tn - 1; t >= 0; --t) {
-    for (int l = L - 1; l >= 0; --l) {
-      const int in = l == 0 ? C : H;
-      float* dhl = dh_s + l * BT * H;
-      float* dcl = dc_s + l * BT * H;
-      __syncthreads();  // the layer above has written gup_s and is done with the rest
-
-      // input rows of this layer at t and h at t-1: the recompute's operands
-      // (exactly K10's) and dW's
-      for (int i = tid; i < BT * in; i += nthr) {
-        const int r = i / in, k = i - r * in, b = b0 + r;
-        float v = 0.0f;
-        if (b < B)
-          v = l == 0 ? to_f<T>(x[((size_t)t * B + b) * C + k])
-                     : to_f<T>(h_all[(((size_t)(l - 1) * Tn + t) * B + b) * H + k]);
-        inp_s[k * BT + r] = v;
-      }
-      for (int i = tid; i < BT * H; i += nthr) {
-        const int r = i / H, u = i - r * H, b = b0 + r;
-        hp_s[u * BT + r] = b < B && t > 0
-                               ? to_f<T>(h_all[(((size_t)l * Tn + t - 1) * B + b) * H + u])
-                               : 0.0f;
-      }
-      __syncthreads();  // operands in place
-
-      gate_product<T, BT>(dg_s, 1, BT, l == 0 ? w_ih0 : w_ihr + (size_t)(l - 1) * H * G,
-                          inp_s, in, w_hh + (size_t)l * H * G, hp_s, bias + (size_t)l * G, H);
-      __syncthreads();  // gates complete
-
-      for (int i = tid; i < BT * H; i += nthr) {
-        const int r = i / H, u = i - r * H, b = b0 + r;
-        float* gd = dg_s + u * BT + r;  // gate q of this row and unit at gd[q * HB]
-        if (b >= B) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) gd[q * HB] = 0.0f;
-          continue;
-        }
-        float a[4], p[4], d[4];
-        activations(gd, HB, a);
-        const size_t row = ((size_t)l * Tn + t) * B + b;
-        const float c_prev = t > 0 ? to_f<T>(c_all[(row - B) * H + u]) : 0.0f;
-        const float q = prefactors(a, c_prev, tanhf(to_f<T>(c_all[row * H + u])), p);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) p[k] = rnd<T>(p[k]);
-        // the cotangent reaches the top layer at every step; a lower layer
-        // takes the chain from the layer above
-        const float g_up = l == L - 1 ? to_f<T>(g[((size_t)t * B + b) * H + u]) : gup_s[i];
-        dcl[i] = gate_grads<T>(dhl[i] + g_up, dcl[i], q, a[1], p, d);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) gd[k * HB] = d[k];
-      }
-      __syncthreads();  // dg_s complete
-
-      accumulate_dw<BT>(l == 0 ? mine : mine + (size_t)G * (C + (l - 1) * H),
-                        p_hh + (size_t)l * H * G, p_b + (size_t)l * G, dg_s, inp_s, in, hp_s, H);
-      chain<T, BT>(dhl, gup_s, dx, dg_s, w_hhT + (size_t)l * G * H,
-                   l > 0 ? w_ihT_r + (size_t)(l - 1) * G * H : w_ihT0, l, l > 0 ? H : C, t,
-                   b0, B, C, H);
-    }
-  }
-}
-
-// Replaces the accumulation of dW across the TPU's sequential grid
-// (pallas_lstm_stack.py:_bwd_kernel and _bwd_rc_kernel, dwih_ref/dwhh_ref/
-// db_ref +=). Bound by reading the partials once (n_blk * n floats),
-// coalesced over i.
-// out[i] = sum over blocks of part[blk, i], in block order: deterministic
-__global__ void reduce_partials(const float* __restrict__ part, float* __restrict__ out,
-                                int n_blk, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.0f;
-  for (int b = 0; b < n_blk; ++b) s += part[(size_t)b * n + i];
-  out[i] = s;
-}
-
-size_t bwd_smem(int BT, int C, int H, int L) {
-  const int IN = C > H ? C : H;
-  return sizeof(float) * ((size_t)2 * L * BT * H + 4 * H * BT + BT * H + IN * BT + H * BT);
-}
-
 template <typename T, int BT, int MODE>
 int launch_fwd(const void* x, const void* w_ih0, const void* w_ihr, const void* w_hh,
                const void* bias, void* h_all, void* prefac, void* qf, void* c_all, void* h_out,
@@ -374,24 +174,6 @@ int launch_fwd(const void* x, const void* w_ih0, const void* w_ihr, const void* 
   kern<<<n_blk, threads_for(H), smem, stream>>>(
       (const T*)x, (const T*)w_ih0, (const T*)w_ihr, (const T*)w_hh, (const T*)bias,
       (T*)h_all, (T*)prefac, (T*)qf, (T*)c_all, (T*)h_out, Tn, B, C, H, L);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int BT>
-int launch_bwd_rc(const void* g, const void* x, const void* h_all, const void* c_all,
-                  const void* w_ih0, const void* w_ihr, const void* w_hh, const void* bias,
-                  const void* w_ihT0, const void* w_ihT_r, const void* w_hhT, void* dx,
-                  void* part, int Tn, int B, int C, int H, int L, cudaStream_t stream) {
-  const size_t smem = bwd_smem(BT, C, H, L);
-  auto kern = lstm_bwd_rc_kernel<T, BT>;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int n_blk = (B + BT - 1) / BT;
-  kern<<<n_blk, threads_for(H), smem, stream>>>(
-      (const T*)g, (const T*)x, (const T*)h_all, (const T*)c_all, (const T*)w_ih0,
-      (const T*)w_ihr, (const T*)w_hh, (const T*)bias, (const T*)w_ihT0, (const T*)w_ihT_r,
-      (const T*)w_hhT, (T*)dx, (float*)part, Tn, B, C, H, L);
   return (int)cudaGetLastError();
 }
 
@@ -431,6 +213,25 @@ int launch_fwd_mode(int mode, const void* x, const void* w_ih0, const void* w_ih
 // products load their tiles synchronously (vit_common.cuh) and read dgates
 // three or four times, so they reach neither bound.
 
+// part[z * zstride + i * K2 + j] = (aᵀ·b)[i][j] over rows [z R, (z + 1) R) of
+// a (M, K1) and b (M, K2), for each group z of R rows (the last one ragged):
+// one f32 partial a group, on the tensor cores in bf16
+template <typename T>
+int contract_groups(const T* a, int K1, const T* b, int K2, int M, int R, float* part,
+                    size_t zstride, cudaStream_t st) {
+  if (M <= 0) return 0;
+  const dim3 grid((K2 + vit::kBN - 1) / vit::kBN, (K1 + vit::kBM - 1) / vit::kBM,
+                  (M + R - 1) / R);
+  const vit::EpiPartial epi{part, K2, zstride};
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    vit::gemm_tc<true, false, vit::EpiPartial>
+        <<<grid, vit::kGemmThreads, 0, st>>>(a, K1, b, K2, K1, K2, M, R, epi);
+  else
+    vit::gemm<T, T, true, false, vit::EpiPartial>
+        <<<grid, vit::kGemmThreads, 0, st>>>(a, K1, b, K2, K1, K2, M, R, epi);
+  return (int)cudaGetLastError();
+}
+
 // out (K1, K2) f32 = aᵀ·b over the M rows of a (M, K1) and b (M, K2), in at
 // most `splits` row chunks of whole 32-row steps, so that every chunk's tiles
 // start where the products' 16-byte loads can reach them; scratch: splits *
@@ -441,18 +242,24 @@ int contract(const T* a, int K1, const T* b, int K2, int M, float* out, float* s
   const size_t n = (size_t)K1 * K2;
   if (M == 0) return (int)cudaMemsetAsync(out, 0, n * sizeof(float), st);
   const int kchunk = ((M + splits - 1) / splits + vit::kTcBK - 1) / vit::kTcBK * vit::kTcBK;
-  const int chunks = (M + kchunk - 1) / kchunk;
-  const dim3 grid((K2 + vit::kBN - 1) / vit::kBN, (K1 + vit::kBM - 1) / vit::kBM, chunks);
-  const vit::EpiPartial epi{scratch, K2, n};
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    vit::gemm_tc<true, false, vit::EpiPartial>
-        <<<grid, vit::kGemmThreads, 0, st>>>(a, K1, b, K2, K1, K2, M, kchunk, epi);
-  else
-    vit::gemm<T, T, true, false, vit::EpiPartial>
-        <<<grid, vit::kGemmThreads, 0, st>>>(a, K1, b, K2, K1, K2, M, kchunk, epi);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return vit::launch_sum_partials(scratch, out, chunks, (long long)n, (long long)n, st);
+  CEREBRA_VIT_RC(contract_groups<T>(a, K1, b, K2, M, kchunk, scratch, n, st));
+  return vit::launch_sum_partials(scratch, out, (M + kchunk - 1) / kchunk, (long long)n,
+                                  (long long)n, st);
+}
+
+// the chain dgates·w_ihᵀ (M, in) to the layer below: chain 1 f32 (gup), 2
+// rounded once to the stream dtype (dx), 0 none
+template <typename T>
+int chain_product(const T* dgates, const T* w_ih, int in, int chain, void* out, int M, int H,
+                  cudaStream_t st) {
+  const int G = 4 * H;
+  if (chain == 1)
+    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, true>(dgates, G, w_ih, G, M, in, G,
+                                                          vit::EpiF32{(float*)out, in}, st));
+  else if (chain == 2)
+    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, true>(
+        dgates, G, w_ih, G, M, in, G, vit::EpiBiasRound<T>{nullptr, (T*)out, in}, st));
+  return 0;
 }
 
 template <typename T>
@@ -464,13 +271,109 @@ int layer_products(const T* dgates, const T* inp, int in, const T* h, const T* w
   CEREBRA_VIT_RC(
       contract<T>(h, H, dgates + (size_t)B * G, G, M - B, dw_hh, scratch, splits_hh, st));
   CEREBRA_VIT_RC(vit::column_sum<T>(dgates, nullptr, 1, db, M, G, scratch, st));
-  if (chain == 1)
-    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, true>(dgates, G, w_ih, G, M, in, G,
-                                                          vit::EpiF32{(float*)out, in}, st));
-  else if (chain == 2)
-    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, true>(
-        dgates, G, w_ih, G, M, in, G, vit::EpiBiasRound<T>{nullptr, (T*)out, in}, st));
-  return 0;
+  return chain_product<T>(dgates, w_ih, in, chain, out, M, H, st);
+}
+
+// ---------------------------------------------------- the recompute backward
+// Replaces cerebra/models/pallas_lstm_stack.py:_bwd_rc_kernel (K11), the
+// backward that streams only K10's h_all and c_all and recomputes each
+// layer-step's gates. Its rounding points are its own, not K2's
+// (pallas_lstm_stack.py:366-398): q = o - o tanh^2 c and f stay f32; the
+// four prefactors, dc and dh are rounded to the stream dtype before their
+// products, which are rounded too; tanh c and c_prev come from the rounded
+// c_all; c_prev and h_prev are zero at t = 0.
+//
+// The gates depend on the stored h and c only, not on the backward's
+// carries, so only the dh/dc carry is serial, as in K2. The wrapper
+// (lstm_stack.py _bwd_rc_chunked) walks time chunks of Tc steps from the
+// last to the first and, in each, the layers from the top down, over the
+// chunk's M = Tc·B rows (h_prev and c_prev are h and c one step back, a
+// zero step first at t = 0):
+//   cerebra_rc_gates      gates (M, 4H) f32 = [inp | h_prev]·[W_ih; W_hh] + b,
+//                         one tiled product (vit_common.cuh: wmma in bf16,
+//                         true f32 FMA in f32) over the concatenated operands
+//   cerebra_rc_scan       the reverse scan (RC): each step forms K11's
+//                         residuals from the gates and c, c_prev as it reads
+//                         them, and a carry buffer takes dh_acc and dc to the
+//                         next chunk
+//   cerebra_rc_products   dW_ih, dW_hh and db as f32 partials of sub-groups
+//                         of R_sub rows, folded in order into one partial per
+//                         group of R = S·B rows (groups start at multiples of
+//                         S steps, and Tc is a multiple of S), and the chain
+//                         to the layer below: f32, or dx rounded once
+//   cerebra_sum_partials  per layer at the end, the groups in order
+// so the layer below takes a chunk's f32 chain, never a whole (Tn, B, H)
+// stream, and the chunk buffers, not the sequence, set the memory. dW is the
+// same for every Tc (the groups and sub-groups do not move) and on every run.
+// What bounds it: the scans are serial over Tn steps and latency-bound (see
+// lstm_common.cuh); the gate and dW products move each chunk's f32 gates,
+// dgates and partials through device memory, bound by bytes. The
+// dW contractions reduce over many rows into a small output, so a block
+// sums R_sub (~512) rows: enough blocks a chunk to keep several on each SM.
+
+// out (f32) = acc + bias (stream dtype)
+template <typename T>
+struct EpiGates {
+  float* out;
+  const T* bias;
+  int ld;
+  __device__ void operator()(int i, int j, float acc) const {
+    out[(size_t)i * ld + j] = acc + to_f<T>(bias[j]);
+  }
+};
+
+// part[z * zstride + j] = sum of a[m, j] over the rows m of group z (R rows a
+// group), 8 row strands a column added in order
+template <typename T>
+__global__ void col_sum_groups(const T* __restrict__ a, float* __restrict__ part,
+                               size_t zstride, int M, int N, int R) {
+  __shared__ float acc_s[8][33];
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  const int m0 = blockIdx.y * R, m1 = min(M, m0 + R);
+  float acc = 0.f;
+  if (j < N)
+    for (int m = m0 + threadIdx.y; m < m1; m += 8) acc += to_f<T>(a[(size_t)m * N + j]);
+  acc_s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < N) {
+    float s = 0.f;
+    for (int r = 0; r < 8; ++r) s += acc_s[r][threadIdx.x];
+    part[blockIdx.y * zstride + j] = s;
+  }
+}
+
+// part[g * n + e] = sum over the sub-groups s < k of group g (the last group
+// may have fewer, nsub in all) of sub[(g k + s) * n + e], in order of s
+__global__ void fold_groups(const float* __restrict__ sub, float* __restrict__ part, int k,
+                            int nsub, long long n) {
+  const int g = blockIdx.y, s1 = min(nsub, (g + 1) * k);
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int s = g * k; s < s1; ++s) acc += sub[s * n + e];
+    part[g * n + e] = acc;
+  }
+}
+
+// One chunk's products of one layer over its M rows: one partial of n =
+// (in + H + 1)·4H floats [dW_ih | dW_hh | db] per group of R rows into part
+// (which points at the chunk's first group), by way of sub-partials of
+// R_sub rows (R a multiple of R_sub) in sub; and the chain. h_prev (M, H)
+// pairs with dgates row by row.
+template <typename T>
+int rc_products(const T* dgates, const T* inp, int in, const T* h_prev, const T* w_ih, int chain,
+                void* out, float* part, float* sub, int M, int R, int R_sub, int H,
+                cudaStream_t st) {
+  const int G = 4 * H, nsub = (M + R_sub - 1) / R_sub, groups = (M + R - 1) / R;
+  const size_t n = (size_t)(in + H + 1) * G;
+  CEREBRA_VIT_RC(contract_groups<T>(inp, in, dgates, G, M, R_sub, sub, n, st));
+  CEREBRA_VIT_RC(contract_groups<T>(h_prev, H, dgates, G, M, R_sub, sub + (size_t)in * G, n, st));
+  CEREBRA_VIT_CHECK(col_sum_groups<T><<<dim3((G + 31) / 32, nsub), dim3(32, 8), 0, st>>>(
+      dgates, sub + (size_t)(in + H) * G, n, M, G, R_sub));
+  const long long blocks = ((long long)n + 255) / 256;
+  CEREBRA_VIT_CHECK(fold_groups<<<dim3((unsigned)(blocks < 1024 ? blocks : 1024), groups), 256,
+                                  0, st>>>(sub, part, R / R_sub, nsub, (long long)n));
+  return chain_product<T>(dgates, w_ih, in, chain, out, M, H, st);
 }
 
 }  // namespace
@@ -502,14 +405,18 @@ int cerebra_stack_scan_bwd(int bf16, int g_f32, int g_last, int bt, const void* 
                            const void* qf, const void* g, const void* w_hhT, void* dgates,
                            int Tn, int B, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
   return with_tile(bt, [&](auto tile) {
     constexpr int BT = decltype(tile)::value;
     if (!bf16)
-      return launch_scan_bwd<float, float, BT>(prefac, qf, g, g_last, w_hhT, dgates, Tn, B, H, s);
-    return g_f32 ? launch_scan_bwd<__nv_bfloat16, float, BT>(prefac, qf, g, g_last, w_hhT,
-                                                              dgates, Tn, B, H, s)
-                 : launch_scan_bwd<__nv_bfloat16, __nv_bfloat16, BT>(prefac, qf, g, g_last, w_hhT,
-                                                                      dgates, Tn, B, H, s);
+      return launch_scan_bwd<float, float, false, BT>(
+          ScanRes<float>{(const float*)prefac, (const float*)qf}, g, g_last, w_hhT, nullptr,
+          dgates, Tn, B, H, s);
+    const ScanRes<bf> res{(const bf*)prefac, (const bf*)qf};
+    return g_f32 ? launch_scan_bwd<bf, float, false, BT>(res, g, g_last, w_hhT, nullptr, dgates,
+                                                         Tn, B, H, s)
+                 : launch_scan_bwd<bf, bf, false, BT>(res, g, g_last, w_hhT, nullptr, dgates, Tn,
+                                                      B, H, s);
   });
 }
 
@@ -534,31 +441,70 @@ int cerebra_stack_bwd_products(int bf16, const void* dgates, const void* inp, in
                                (float*)db, (float*)scratch, splits_ih, splits_hh, Tn, B, H, s);
 }
 
-// K11: g (Tn, B, H); h_all, c_all from K10; the weights as the forward takes
-// them (recompute) and transposed (chain, dx always).
-int cerebra_lstm_bwd_rc(int bf16, int bt, const void* g, const void* x, const void* h_all,
-                        const void* c_all, const void* w_ih0, const void* w_ihr,
-                        const void* w_hh, const void* bias, const void* w_ihT0,
-                        const void* w_ihT_r, const void* w_hhT, void* dx, void* part, int Tn,
-                        int B, int C, int H, int L, void* stream) {
+// K11, one chunk and layer: the gates (M, 4H) f32 = a·w + bias of M rows,
+// a = [inp | h_prev] (M, K) and w = [W_ih; W_hh] (K, 4H).
+int cerebra_rc_gates(int bf16, const void* a, const void* w, const void* bias, void* gates,
+                     int M, int K, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int G = 4 * H;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, false>(
+        (const T*)a, K, (const T*)w, G, M, G, K, EpiGates<T>{(float*)gates, (const T*)bias, G},
+        s));
+  } else {
+    CEREBRA_VIT_CHECK(vit::launch_gemm<float, float, false, false>(
+        (const float*)a, K, (const float*)w, G, M, G, K,
+        EpiGates<float>{(float*)gates, (const float*)bias, G}, s));
+  }
+  return 0;
+}
+
+// K11, one chunk and layer: the reverse scan (lstm_common.cuh, RC) that
+// forms K11's residuals from the f32 gates (Tn, B, 4H) and c, c_prev (Tn, B,
+// H) of the chunk, under the cotangent g (Tn, B, H) in the stream dtype
+// (g_f32 == 0) or f32, with the layer's f32 (2, B, H) carry: dgates.
+int cerebra_rc_scan(int bf16, int g_f32, int bt, const void* gates, const void* c,
+                    const void* c_prev, const void* g, const void* w_hhT, void* carry,
+                    void* dgates, int Tn, int B, int H, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
   return with_tile(bt, [&](auto tile) {
     constexpr int BT = decltype(tile)::value;
-    return bf16 ? launch_bwd_rc<__nv_bfloat16, BT>(g, x, h_all, c_all, w_ih0, w_ihr, w_hh, bias,
-                                                   w_ihT0, w_ihT_r, w_hhT, dx, part, Tn, B, C,
-                                                   H, L, s)
-                : launch_bwd_rc<float, BT>(g, x, h_all, c_all, w_ih0, w_ihr, w_hh, bias, w_ihT0,
-                                           w_ihT_r, w_hhT, dx, part, Tn, B, C, H, L, s);
+    if (!bf16)
+      return launch_scan_bwd<float, float, true, BT>(
+          ScanRes<float>{nullptr, nullptr, (const float*)gates, (const float*)c,
+                         (const float*)c_prev},
+          g, 0, w_hhT, carry, dgates, Tn, B, H, s);
+    const ScanRes<bf> res{nullptr, nullptr, (const float*)gates, (const bf*)c, (const bf*)c_prev};
+    return g_f32 ? launch_scan_bwd<bf, float, true, BT>(res, g, 0, w_hhT, carry, dgates, Tn, B,
+                                                        H, s)
+                 : launch_scan_bwd<bf, bf, true, BT>(res, g, 0, w_hhT, carry, dgates, Tn, B, H,
+                                                     s);
   });
 }
 
-int cerebra_reduce_partials(const void* part, void* out, int n_blk, long long n,
-                            void* stream) {
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  reduce_partials<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (float*)out, n_blk, n);
-  return (int)cudaGetLastError();
+// K11, one chunk and layer: dW partials per group of R rows into part (by way
+// of sub-partials of R_sub rows in sub) and the chain (0 none, 1 f32 gup,
+// 2 dx) into out (rc_products).
+int cerebra_rc_products(int bf16, const void* dgates, const void* inp, int in,
+                        const void* h_prev, const void* w_ih, int chain, void* out, void* part,
+                        void* sub, int M, int R, int R_sub, int H, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return rc_products<T>((const T*)dgates, (const T*)inp, in, (const T*)h_prev, (const T*)w_ih,
+                          chain, out, (float*)part, (float*)sub, M, R, R_sub, H, s);
+  }
+  return rc_products<float>((const float*)dgates, (const float*)inp, in, (const float*)h_prev,
+                            (const float*)w_ih, chain, out, (float*)part, (float*)sub, M, R,
+                            R_sub, H, s);
+}
+
+// out[e] = sum over z < splits of part[z * n + e], in order of z
+int cerebra_sum_partials(const void* part, void* out, int splits, long long n, void* stream) {
+  return vit::launch_sum_partials((const float*)part, (float*)out, splits, n, n,
+                                  (cudaStream_t)stream);
 }
 
 const char* cerebra_cuda_error_string(int code) {

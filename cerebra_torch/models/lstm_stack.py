@@ -20,12 +20,16 @@ and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
 - K10 `fwd_train_rc`: the recompute variant's forward, which streams only
   h_all and c_all (T, B, H) per layer, c rounded to the stream dtype (2H a
   row and layer instead of K1's 7H).
-- K11 `bwd_rc`: its backward, which recomputes each layer-step's gates from
-  h, c and the input at t and t−1 (bit for bit K10's on the card), then runs
-  the chain with its own rounding points, always emits dx, and sums dW as
-  per-block f32 partials that a second kernel adds in block order
-  (`reduce_partials`). `lstm_stack_rc` runs K10/K11 under grad and K4
-  without.
+- K11 `bwd_rc`: its backward, which recomputes the gates from h, c and the
+  input at t and t−1, runs the chain with its own rounding points and always
+  emits dx. It runs over time chunks, last first, and in each over the
+  layers, top first (`_bwd_rc_chunked`): the chunk's gates on the tensor
+  cores (`rc_gates`), the reverse scan that forms K11's residuals from them
+  step by step, with the dh/dc carries handed from chunk to chunk
+  (`rc_scan`), and the products (`rc_products`: dW partials per fixed group
+  of rows, the chain to the layer below, dx), then one ordered sum of the
+  groups a layer.
+  `lstm_stack_rc` runs K10/K11 under grad and K4 without.
 
 Layout is time-major: x (T, B, C); layers are (w_ih (in, 4H), w_hh (H, 4H),
 b (4H,)) in the stream dtype (float32 or bfloat16), in = C for layer 0 and H
@@ -34,11 +38,13 @@ h_all (L, T, B, H), prefac (L, T, B, 4H), qf (L, T, B, 2H), c_all (L, T, B, H).
 
 Dispatch: a tensor on the CPU takes the plain version (`_fwd_train_ref`,
 `_bwd_ref`, `_scan_bwd_ref`, `_products_ref`, `_fwd_infer_last_ref`,
-`_fwd_infer_ref`, `_fwd_train_rc_ref`, `_bwd_rc_ref`); a CUDA tensor
-launches the kernel, built at first use, or raises. `LAUNCHES` counts
-kernel launches so a run can show that it went through the kernels (`bwd`
-for K2, `bwd_general` for K2g, one a call; `stack_bwd_scan` and
-`stack_bwd_products` one a layer of either).
+`_fwd_infer_ref`, `_fwd_train_rc_ref`, `_bwd_rc_ref`, `_rc_gates_ref`,
+`_rc_scan_ref`, `_rc_products_ref`); a CUDA tensor launches the kernel,
+built at first use, or raises. `LAUNCHES` counts kernel launches so a run
+can show that it went through the kernels (`bwd` for K2, `bwd_general` for
+K2g, `bwd_rc` for K11, one a call; `stack_bwd_scan` and `stack_bwd_products`
+one a layer of K2/K2g; `rc_gates`, `rc_scan` and `rc_products` one a chunk
+and layer of K11).
 
 The 128-lane padding and 8-row batch alignment of the Pallas wrappers
 (`_pad_for_kernel`) are a TPU layout choice and are not ported: the CUDA
@@ -48,7 +54,7 @@ kernels mask a ragged batch tile themselves.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -64,16 +70,16 @@ from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exporte
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
-LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, bwd_reduce=0, fwd_infer=0,
-                bwd_general=0, fwd_train_rc=0, bwd_rc=0, stack_bwd_scan=0,
-                stack_bwd_products=0)
+LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, fwd_infer=0, bwd_general=0,
+                fwd_train_rc=0, bwd_rc=0, stack_bwd_scan=0, stack_bwd_products=0, rc_gates=0,
+                rc_scan=0, rc_products=0)
 _FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2, "fwd_train_rc": 3}  # FwdMode
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
 _TILES = (16, 8, 4, 2, 1)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
-_PART_BUDGET = 12 << 20  # bytes of K11's dW partials: a quarter of the 50 MB L2
 _SMS = 132  # streaming multiprocessors of an H100 SXM
+_SM_SMEM = 233472  # bytes of shared memory of one H100 SM, for all its blocks
 
 
 # ------------------------------------------------------------------ checks
@@ -227,22 +233,26 @@ def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
     return dx, [tuple(gr) for gr in grads]
 
 
-def _scan_bwd_ref(g, prefac, qf, w_hh) -> torch.Tensor:
-    """Plain reverse scan of one layer (K14, and each layer of K2/K2g):
-    prefac (T, B, 4H) and qf (T, B, 2H) in the stream dtype, w_hh (H, 4H),
-    and g the cotangent of the layer's h: (T, B, H), or (B, H) reaching
-    t = T−1 only; in the stream dtype, or f32 (the chain from the layer
-    above, not rounded) → dgates (T, B, 4H) in the stream dtype. The dh/dc
-    carries are f32; dc and dh are rounded to the stream dtype before the
-    products with the prefactors, which are rounded too (bf16 products in
-    bf16)."""
+def _scan_bwd_ref(g, prefac, qf, w_hh, carry=None) -> torch.Tensor:
+    """Plain reverse scan of one layer (K14, each layer of K2/K2g, and each
+    chunk and layer of K11, `_rc_scan_ref`): prefac (T, B, 4H) in the stream
+    dtype, qf (T, B, 2H) in the stream dtype or f32 (K11's q and f), w_hh
+    (H, 4H), and
+    g the cotangent of the layer's h: (T, B, H), or (B, H) reaching t = T−1
+    only; in the stream dtype, or f32 (the chain from the layer above, not
+    rounded) → dgates (T, B, 4H) in the stream dtype. The dh/dc carries are
+    f32; dc and dh are rounded to the stream dtype before the products with
+    the prefactors, which are rounded too (bf16 products in bf16). `carry`:
+    None (the carries start at zero), or an f32 (2, B, H) tensor [dh_acc |
+    dc] read as the carries entering step T−1 and overwritten with those
+    leaving step 0, so that a scan cut into chunks is the scan of the whole."""
     T, B, G = prefac.shape
     H = G // 4
     sd = prefac.dtype
     dev = prefac.device
     wT = w_hh.float().t()
-    dh = torch.zeros(B, H, device=dev)
-    dc = torch.zeros(B, H, device=dev)
+    dh = torch.zeros(B, H, device=dev) if carry is None else carry[0].clone()
+    dc = torch.zeros(B, H, device=dev) if carry is None else carry[1].clone()
     zero = torch.zeros(B, H, device=dev)
     dgates = torch.empty(T, B, G, dtype=sd, device=dev)
     for t in reversed(range(T)):
@@ -257,6 +267,9 @@ def _scan_bwd_ref(g, prefac, qf, w_hh) -> torch.Tensor:
         dgates[t] = dg
         dh = dg.float() @ wT
         dc = d_c * q[:, H:]
+    if carry is not None:
+        carry[0].copy_(dh)
+        carry[1].copy_(dc)
     return dgates
 
 
@@ -382,6 +395,152 @@ def _bwd_rc_ref(g, x, layers: Layers, h_all, c_all):
     return dx, [tuple(gr) for gr in grads]
 
 
+def _shifted(prev: torch.Tensor, n: int) -> torch.Tensor:
+    """A stream one step back over a chunk of n steps (h or c at t−1), given
+    as its n steps, or as n−1 for the chunk that starts at t = 0: the n
+    steps, a zero step first there (a copy; else `prev` itself)."""
+    if prev.shape[0] == n:
+        return prev
+    return torch.cat([prev.new_zeros((1,) + tuple(prev.shape[1:])), prev])
+
+
+def _rc_gates_ref(inp, h_prev, w_ih, w_hh, b):
+    """Plain gate recompute of one K11 chunk: f32 gates (n, B, 4H) = inp·W_ih
+    + h_prev·W_hh + b for inp (n, B, in) and the layer's h one step back,
+    h_prev (n, B, H)."""
+    return _gates(inp, h_prev, w_ih, w_hh, b, inp.dtype)
+
+
+def _rc_residuals_ref(gates, c, c_prev):
+    """Plain residuals of one K11 chunk from its f32 gates (n, B, 4H) and the
+    stored c at t and t−1 (n, B, H) each: prefac, the four prefactors
+    rounded to c's dtype, and qf = [q, f] (n, B, 2H), f32."""
+    H = c.shape[-1]
+    i, f, o = (torch.sigmoid(gates[..., k * H:(k + 1) * H]) for k in (0, 1, 3))
+    gg = torch.tanh(gates[..., 2 * H:3 * H])
+    cp = c_prev.float()
+    tc = torch.tanh(c.float())
+    prefac = torch.cat([gg * (i - i * i), cp * (f - f * f), i - gg * (i * gg), tc * (o - o * o)],
+                       -1)
+    return prefac.to(c.dtype), torch.cat([o - o * tc * tc, f], -1)
+
+
+def _rc_scan_ref(g, gates, c, c_prev, w_hh, carry=None):
+    """Plain reverse scan of one K11 chunk: `_scan_bwd_ref` on the residuals
+    `_rc_residuals_ref` forms from the chunk's f32 gates and c, c_prev."""
+    return _scan_bwd_ref(g, *_rc_residuals_ref(gates, c, c_prev), w_hh, carry)
+
+
+def _rc_products_ref(dgates, inp, h_prev, w_ih, chain, rows: int, part=None, out=None):
+    """Plain products of one K11 chunk over its n·B rows of dgates
+    (n, B, 4H): for each group of `rows` rows, part[z] = [dW_ih | dW_hh |
+    db] of the group flattened (f32 sums of exact products; h_prev
+    (n, B, H) pairs with dgates step by step), and the chain dgates·w_ihᵀ
+    (n, B, in), f32 ("gup") or rounded to the stream dtype ("dx"), written
+    into `out` where given. → (part (groups, (in + H + 1)·4H), chain)."""
+    n, B, G = dgates.shape
+    d = dgates.reshape(n * B, G).float()
+    a = inp.reshape(n * B, -1).float()
+    hp = h_prev.reshape(n * B, -1).float()
+    groups = -(-n * B // rows)
+    if part is None:
+        part = torch.empty(groups, (a.shape[1] + hp.shape[1] + 1) * G, device=d.device)
+    for z in range(groups):
+        r = slice(z * rows, (z + 1) * rows)
+        part[z] = torch.cat([(a[r].t() @ d[r]).flatten(), (hp[r].t() @ d[r]).flatten(),
+                             d[r].sum(0)])
+    res = None
+    if chain is not None:
+        res = (d @ w_ih.float().t()).view(n, B, -1)
+        if chain == "dx":
+            res = res.to(dgates.dtype)
+        if out is not None:
+            res = out.copy_(res)
+    return part, res
+
+
+class _RcPieces(NamedTuple):
+    """K11's pieces as `_bwd_rc_chunked` calls them: gates(inp, h_prev, w_ih,
+    w_hh, b), scan(cot, gates, c, c_prev, w_hh, carry), products(dgates,
+    inp, h_prev, w_ih, chain, rows, part, out) and sum(part) over the
+    groups."""
+    gates: Callable
+    scan: Callable
+    products: Callable
+    sum: Callable
+
+
+_RC_PLAIN = _RcPieces(_rc_gates_ref, _rc_scan_ref, _rc_products_ref, lambda part: part.sum(0))
+
+
+def rc_group(B: int) -> int:
+    """Steps in one of K11's dW groups: enough for 4096 rows (the longest row
+    chunk of K2's products), so each f32 partial sums at most as many rows
+    as there and B = 1024 takes 4 steps."""
+    return max(1, -(-4096 // B))
+
+
+def rc_chunk(T: int, B: int, group: int) -> int:
+    """Steps in one of K11's time chunks: a multiple of `group`, about 65536
+    rows, or the whole sequence where that is shorter. On an H100 (PERF.md,
+    `[rc chunks]`, B = 1024, bf16) 64 steps took K11 within 9 % of one
+    chunk of the whole sequence at both shapes (C = H = 96, L = 2, T = 460;
+    C 96, H 128, L 4, T = 300), and 32 steps 19 % and 11 %, while the chunk
+    buffers and so K11's peak grow with the chunk (405 against 1968 MiB
+    above its inputs at the first shape)."""
+    return min(-(-T // group), max(1, -(-65536 // (B * group)))) * group
+
+
+def _bwd_rc_chunked(g, x, layers: Layers, h_all, c_all, chunk: int, group: int,
+                    pieces: _RcPieces):
+    """K11 as the CUDA path composes it. Time chunks of `chunk` steps (a
+    multiple of `group`, or the whole sequence), last first; in each, the
+    layers top first: the chunk's gates, the reverse scan forming the
+    residuals from them under the cotangent of the layer's h (g for the top
+    layer, the f32 chain from the layer above below it) with the layer's
+    dh/dc carried from the chunk after, and the products into the chunk's
+    dW groups of `group` steps and the chain (dx at layer 0). One sum of
+    the groups a layer at the end. dx and dW do not depend on `chunk`.
+    Returns (dx (T, B, C) in the stream dtype; f32 (dW_ih, dW_hh, db) per
+    layer)."""
+    T, B, C, H, L = _dims(x, layers)
+    if chunk < T and chunk % group:
+        raise ValueError(f"chunk {chunk} is not a multiple of the dW group {group}")
+    G, dev = 4 * H, x.device
+    n_groups = -(-T // group)
+    sizes = [((C if l == 0 else H) + H + 1) * G for l in range(L)]
+    scratch = torch.empty(n_groups * sum(sizes), dtype=torch.float32, device=dev)
+    parts = list(scratch.split([n_groups * n for n in sizes]))
+    parts = [p.view(n_groups, n) for p, n in zip(parts, sizes)]
+    carry = torch.zeros(L, 2, B, H, dtype=torch.float32, device=dev)
+    dx = torch.empty(T, B, C, dtype=x.dtype, device=dev)
+    for t0 in reversed(range(0, T, chunk)):
+        t1 = min(T, t0 + chunk)
+        back = slice(max(t0 - 1, 0), t1 - 1)  # one step back; t = 0 has none
+        z = slice(t0 // group, -(-t1 // group))
+        cot = g[t0:t1]
+        for l in reversed(range(L)):
+            w_ih, w_hh, b = layers[l]
+            inp = x[t0:t1] if l == 0 else h_all[l - 1, t0:t1]
+            h_prev = _shifted(h_all[l, back], t1 - t0)
+            dgates = pieces.scan(cot, pieces.gates(inp, h_prev, w_ih, w_hh, b), c_all[l, t0:t1],
+                                 _shifted(c_all[l, back], t1 - t0), w_hh, carry[l])
+            cot = pieces.products(dgates, inp, h_prev, w_ih, "gup" if l else "dx", group * B,
+                                  parts[l][z], None if l else dx[t0:t1])[1]
+    grads = []
+    for l in range(L):
+        in_dim = C if l == 0 else H
+        flat = pieces.sum(parts[l])
+        grads.append((flat[:in_dim * G].view(in_dim, G),
+                      flat[in_dim * G:(in_dim + H) * G].view(H, G), flat[(in_dim + H) * G:]))
+    return dx, grads
+
+
+def _bwd_rc_chunked_ref(g, x, layers: Layers, h_all, c_all, chunk: int, group: int = 1):
+    """`_bwd_rc_chunked` through the plain pieces, on any device."""
+    return _bwd_rc_chunked(g, x, layers, h_all, c_all, chunk, group, _RC_PLAIN)
+
+
 # ------------------------------------------------------------ CUDA kernels
 def _typed(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
@@ -392,58 +551,60 @@ def _typed(lib) -> None:
     lib.cerebra_stack_bwd_products.argtypes = ([i, vp, vp, i, vp, vp, i] + [vp] * 5 + [i] * 5
                                                + [vp])
     lib.cerebra_stack_bwd_products.restype = i
-    lib.cerebra_lstm_bwd_rc.argtypes = [i, i] + [vp] * 13 + [i] * 5 + [vp]
-    lib.cerebra_lstm_bwd_rc.restype = i
-    lib.cerebra_reduce_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
-    lib.cerebra_reduce_partials.restype = i
+    lib.cerebra_rc_gates.argtypes = [i] + [vp] * 4 + [i] * 3 + [vp]
+    lib.cerebra_rc_gates.restype = i
+    lib.cerebra_rc_scan.argtypes = [i] * 3 + [vp] * 7 + [i] * 3 + [vp]
+    lib.cerebra_rc_scan.restype = i
+    lib.cerebra_rc_products.argtypes = [i, vp, vp, i, vp, vp, i, vp, vp, vp] + [i] * 4 + [vp]
+    lib.cerebra_rc_products.restype = i
+    lib.cerebra_sum_partials.argtypes = [vp, vp, i, ctypes.c_longlong, vp]
+    lib.cerebra_sum_partials.restype = i
 
 
 def _lib():
     return load_lib("lstm_stack", _typed)
 
 
-def _smem_bytes(bwd: bool, bt: int, C: int, H: int, L: int) -> int:
-    """Dynamic shared memory of one block, as the C launchers compute it,
-    for the forwards and K11 (`bwd`)."""
-    if bwd:
-        return 4 * bt * (2 * L * H + 4 * H + H + max(C, H) + H)
-    return 4 * bt * (2 * L * H + C + 4 * H)
-
-
-def pick_tile(B: int, C: int, H: int, L: int, bwd: bool) -> int:
-    """Batch rows per CUDA block of the forwards and K11 (`bwd`), from
-    timings on an H100 at T = 460 (PERF.md). The forward's block time hardly
-    grows from 1 to 8 rows (the per-step weight reads dominate; C = H = 96,
-    L = 2, and the autoencoder's C = 96, H = 384 and C = 384, H = 96), and 8
-    rows keep B = 1024 to one wave, so it takes 8. K11's block time grows
-    with its rows while its partial-dW traffic grows with the number of
-    blocks; about B/16 rows balances the two, and enough rows to keep all
-    blocks' partials within `_PART_BUDGET` (at C = 96, H = 384, B = 16, the
-    old K2 took 278 ms at one row per block and 129 ms at four). Raises if
-    even one row's carries overflow shared memory."""
-    part_bytes = 16 * H * (C + (2 * L - 1) * H + L)  # one block's f32 partial
-    want = 8 if not bwd else max(1, B // 16, -(-B * part_bytes // _PART_BUDGET))
+def pick_tile(B: int, C: int, H: int, L: int) -> int:
+    """Batch rows per CUDA block of the forwards, from timings on an H100 at
+    T = 460 (PERF.md). The forward's block time hardly grows from 1 to 8
+    rows (the per-step weight reads dominate; C = H = 96, L = 2, and the
+    autoencoder's C = 96, H = 384 and C = 384, H = 96), and 8 rows keep
+    B = 1024 to one wave, so it takes 8, or fewer where the carries (the
+    launcher's shared memory) overflow one block. Raises if even one row's
+    do."""
     for bt in _TILES:
-        if bt <= want and _smem_bytes(bwd, bt, C, H, L) <= _MAX_SMEM:
+        if bt <= 8 and 4 * bt * (2 * L * H + C + 4 * H) <= _MAX_SMEM:
             return bt
     raise ValueError(f"C={C}, H={H}, L={L}: the carries exceed one block's shared memory")
 
 
 def scan_tile(B: int, H: int, dtype: torch.dtype) -> int:
     """Batch rows per CUDA block of the reverse scan (each layer of K2/K2g,
-    and K14). The scan sums no dW, so its rows per block only trade a
-    block's step time against the number of blocks, and the blocks that fit
-    on the card at once: B/256 rows in bf16 and B/128 in f32, at least 1 and
-    at most 8. On an H100 (PERF.md, T = 460, H = 96) one row a block was
-    fastest at B = 16, and at B = 1024 four rows in bf16 (256 blocks, two a
-    SM beside w_hhᵀ's 72 KiB) and eight in f32 (128 blocks, one a SM beside
-    its 144 KiB). Fewer rows where the carries overflow shared memory (9
-    BT·H floats); raises if one row's do."""
-    want = min(8, max(1, B // (128 if dtype == torch.float32 else 256)))
-    for bt in _TILES:
-        if bt <= want and 36 * bt * H <= _MAX_SMEM:
+    each chunk and layer of K11, and K14). The scan sums no dW, so its rows
+    per block only trade a block's step time against the number of blocks
+    and the blocks the card holds at once: the fewest rows (1 to 8) whose
+    blocks all fit in one wave, where a SM holds as many blocks (at most 2)
+    as its shared memory takes (w_hhᵀ, 4H·H values, where it fits beside
+    the carries, and 9 BT·H floats of carries). On an H100 (PERF.md, T =
+    460) one row a block was fastest at B = 16, and at B = 1024, H = 96,
+    four rows in bf16 (256 blocks, two a SM beside w_hhᵀ's 72 KiB) and
+    eight in f32 (128 blocks, one a SM beside its 144 KiB); at H = 128 in
+    bf16 (128 KiB) the rule takes eight. Raises if one row's carries
+    overflow shared memory."""
+    if 36 * H > _MAX_SMEM:
+        raise ValueError(f"H={H}: the scan's carries exceed one block's shared memory")
+    w = 4 * H * H * dtype.itemsize
+    bt = 1
+    for bt in (1, 2, 4, 8):
+        carries = 36 * bt * H
+        if carries > _MAX_SMEM:
+            return bt // 2
+        smem = carries + (w if carries + w <= _MAX_SMEM else 0)
+        # the SM keeps 1 KiB of each block's shared memory for itself
+        if -(-B // bt) <= _SMS * max(1, min(2, _SM_SMEM // (smem + 1024))):
             return bt
-    raise ValueError(f"H={H}: the scan's carries exceed one block's shared memory")
+    return bt
 
 
 def _row_splits(rows: int, cols: int, K: int) -> int:
@@ -478,7 +639,7 @@ def _fwd_cuda(x, layers, kind: str, tile=None):
     """K1 (`kind` fwd_train), K3 (fwd_infer_last), K4 (fwd_infer) or K10
     (fwd_train_rc)."""
     T, B, C, H, L = _dims(x, layers)
-    tile = tile or pick_tile(B, C, H, L, bwd=False)
+    tile = tile or pick_tile(B, C, H, L)
     w_ih0, w_ihr, w_hh, b = _packed(layers, H)
     _cuda_checks(tile, x, w_ih0, w_ihr, w_hh, b)
     lib = _lib()
@@ -504,22 +665,6 @@ def _fwd_cuda(x, layers, kind: str, tile=None):
     if kind == "fwd_train":
         return h_all, prefac, qf
     return (h_all, c_all) if kind == "fwd_train_rc" else out
-
-
-def _transposed(x, layers):
-    """K11's chain weights: (w_ihT0 (4H, C), w_ihT_r (L-1, 4H, H), w_hhT
-    (L, 4H, H)) contiguous."""
-    H, L = layers[0][1].shape[0], len(layers)
-    w_ihT0 = layers[0][0].t().contiguous()
-    w_ihT_r = (torch.stack([l[0].t() for l in layers[1:]]) if L > 1
-               else x.new_empty((0, 4 * H, H)))
-    return w_ihT0, w_ihT_r, torch.stack([l[1].t() for l in layers])
-
-
-def _partials(x, B: int, C: int, H: int, L: int, tile: int) -> torch.Tensor:
-    """K11's per-block f32 dW partials (n_blk, n_part)."""
-    n_part = 4 * H * (C + (L - 1) * H + L * H + L)
-    return torch.empty(-(-B // tile), n_part, dtype=torch.float32, device=x.device)
 
 
 def _scan_cuda(g, prefac, qf, w_hh, tile=None, out=None):
@@ -624,44 +769,158 @@ def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
     return result
 
 
-def _bwd_rc_cuda(g, x, layers, h_all, c_all, tile=None):
-    T, B, C, H, L = _dims(x, layers)
-    tile = tile or pick_tile(B, C, H, L, bwd=True)
-    if (tuple(g.shape) != (T, B, H) or g.dtype != x.dtype
-            or any(tuple(r.shape) != (L, T, B, H) or r.dtype != x.dtype for r in (h_all, c_all))):
-        raise ValueError("cotangent or residuals do not match the stack")
-    w_ih0, w_ihr, w_hh, b = _packed(layers, H)
-    w_ihT0, w_ihT_r, w_hhT = _transposed(x, layers)
-    _cuda_checks(tile, g, x, h_all, c_all, w_ih0, w_ihr, w_hh, b, w_ihT0, w_ihT_r, w_hhT)
-    dx = torch.empty(T, B, C, dtype=x.dtype, device=x.device)
-    part = _partials(x, B, C, H, L, tile)
+def _rc_gates_cuda(inp, h_prev, w_ih, w_hh, b, out=None, cat=None):
+    """One chunk's gate recompute on the card (`rc_gates`): one product of
+    [inp | h_prev] (copied into `cat`, (n, B, in + H), allocated when None)
+    and [W_ih; W_hh], into `out` (n, B, 4H) f32, allocated when None."""
+    n, B, in_dim = inp.shape
+    H = w_hh.shape[0]
+    G, sd = 4 * H, inp.dtype
+    if (tuple(h_prev.shape) != (n, B, H) or tuple(w_ih.shape) != (in_dim, G)
+            or tuple(w_hh.shape) != (H, G) or tuple(b.shape) != (G,)
+            or any(t.dtype != sd for t in (h_prev, w_ih, w_hh, b)) or sd not in _STREAM_DTYPES):
+        raise ValueError("inputs, h_prev or weights do not match one chunk of a layer")
+    out = torch.empty(n, B, G, dtype=torch.float32, device=inp.device) if out is None else out
+    cat = torch.cat([inp, h_prev], -1, out=cat)
+    w = torch.cat([w_ih, w_hh])
+    _cuda_checks(1, cat, w, b, out)
     lib = _lib()
-    rc = lib.cerebra_lstm_bwd_rc(
-        int(x.dtype == torch.bfloat16), tile, g.data_ptr(), x.data_ptr(), h_all.data_ptr(),
-        c_all.data_ptr(), w_ih0.data_ptr(), w_ihr.data_ptr() or None, w_hh.data_ptr(),
-        b.data_ptr(), w_ihT0.data_ptr(), w_ihT_r.data_ptr() or None, w_hhT.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), T, B, C, H, L, stream_of(x),
+    rc = lib.cerebra_rc_gates(int(sd == torch.bfloat16), cat.data_ptr(), w.data_ptr(),
+                              b.data_ptr(), out.data_ptr(), n * B, in_dim + H, H, stream_of(inp))
+    check_rc(lib, rc, "rc_gates")
+    LAUNCHES["rc_gates"] += 1
+    return out
+
+
+def _rc_scan_cuda(g, gates, c, c_prev, w_hh, carry, tile=None, out=None):
+    """One chunk's reverse scan on the card (`rc_scan`), forming K11's
+    residuals from the f32 gates (n, B, 4H) and c, c_prev (n, B, H) as it
+    goes, with the layer's f32 (2, B, H) carry read and overwritten; into
+    `out` (n, B, 4H) dgates, allocated when None."""
+    n, B, H = c.shape
+    G, sd, f32 = 4 * H, c.dtype, torch.float32
+    if (tuple(g.shape) != (n, B, H) or g.dtype not in (sd, f32)
+            or tuple(gates.shape) != (n, B, G) or gates.dtype != f32
+            or c_prev.shape != c.shape or c_prev.dtype != sd or sd not in _STREAM_DTYPES
+            or tuple(w_hh.shape) != (H, G) or w_hh.dtype != sd
+            or tuple(carry.shape) != (2, B, H) or carry.dtype != f32):
+        raise ValueError("cotangent, gates, c, w_hh or carry do not match one chunk of a layer")
+    tile = tile or scan_tile(B, H, sd)
+    w_hhT = w_hh.t().contiguous()
+    dgates = torch.empty(n, B, G, dtype=sd, device=c.device) if out is None else out
+    _cuda_checks(tile, g, gates, c, c_prev, carry, dgates)
+    lib = _lib()
+    rc = lib.cerebra_rc_scan(
+        int(sd == torch.bfloat16), int(g.dtype == f32), tile, gates.data_ptr(), c.data_ptr(),
+        c_prev.data_ptr(), g.data_ptr(), w_hhT.data_ptr(), carry.data_ptr(), dgates.data_ptr(),
+        n, B, H, stream_of(c),
     )
-    check_rc(lib, rc, "bwd_rc")
-    LAUNCHES["bwd_rc"] += 1
-    return dx, _unpack_grads(reduce_partials(part), C, H, L)
+    check_rc(lib, rc, "rc_scan")
+    LAUNCHES["rc_scan"] += 1
+    return dgates
 
 
-def reduce_partials(part: torch.Tensor) -> torch.Tensor:
-    """Sum f32 partials (n_blk, n) over blocks in block order: the
-    deterministic reduction kernel on CUDA, `part.sum(0)` on the CPU."""
-    if part.dim() != 2 or part.dtype != torch.float32 or not part.is_contiguous():
-        raise ValueError("partials must be a contiguous f32 (n_blk, n) tensor")
-    if not on_cuda(part):
-        return part.sum(0)
+def _sub_rows(rows: int) -> int:
+    """Rows of one block's share of a dW group: the fewest of at least 512
+    (16 of the products' 32-row steps) that divide the group, so a chunk of
+    32 steps at B = 1024 gives each dW contraction 64 row blocks, several
+    on each SM; the whole group where it is shorter."""
+    k = max(1, rows // 512)
+    while rows % k:
+        k -= 1
+    return rows // k
+
+
+def _rc_products_cuda(dgates, inp, h_prev, w_ih, chain, rows: int, part=None, out=None,
+                      sub=None):
+    """One chunk's products on the card (`rc_products`): dW partials per
+    group of `rows` rows into `part`, the chain into `out`, by way of the
+    f32 scratch `sub` (the sub-groups' partials); each allocated when None.
+    → (part, chain)."""
+    n, B, G = dgates.shape
+    H, in_dim, sd = G // 4, inp.shape[-1], dgates.dtype
+    width, r_sub = (in_dim + H + 1) * G, _sub_rows(rows)
+    groups = -(-n * B // rows)
+    if (tuple(inp.shape) != (n, B, in_dim) or tuple(h_prev.shape) != (n, B, H)
+            or tuple(w_ih.shape) != (in_dim, G) or any(t.dtype != sd for t in (inp, h_prev, w_ih))
+            or chain not in (None, "gup", "dx")):
+        raise ValueError("dgates, inputs or w_ih do not match one chunk of a layer")
+    dev = dgates.device
+    if part is None:
+        part = torch.empty(groups, width, dtype=torch.float32, device=dev)
+    if sub is None:
+        sub = torch.empty(-(-n * B // r_sub) * width, dtype=torch.float32, device=dev)
+    if tuple(part.shape) != (groups, width) or sub.numel() < -(-n * B // r_sub) * width:
+        raise ValueError(f"part must be ({groups}, {width}) for this chunk, with room in sub")
+    if out is None and chain is not None:
+        out = torch.empty(n, B, in_dim, dtype=torch.float32 if chain == "gup" else sd,
+                          device=dev)
+    _cuda_checks(1, dgates, inp, h_prev, w_ih, part, sub, out)
+    lib = _lib()
+    rc = lib.cerebra_rc_products(
+        int(sd == torch.bfloat16), dgates.data_ptr(), inp.data_ptr(), in_dim, h_prev.data_ptr(),
+        w_ih.data_ptr(), {None: 0, "gup": 1, "dx": 2}[chain], ptr(out), part.data_ptr(),
+        sub.data_ptr(), n * B, rows, r_sub, H, stream_of(dgates),
+    )
+    check_rc(lib, rc, "rc_products")
+    LAUNCHES["rc_products"] += 1
+    return part, out
+
+
+def _sum_partials_cuda(part):
+    """part (groups, n) f32 summed over the groups in order, on the card."""
     out = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
     lib = _lib()
-    rc = lib.cerebra_reduce_partials(
-        part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1], stream_of(part),
-    )
-    check_rc(lib, rc, "bwd_reduce")
-    LAUNCHES["bwd_reduce"] += 1
+    rc = lib.cerebra_sum_partials(part.data_ptr(), out.data_ptr(), part.shape[0], part.shape[1],
+                                  stream_of(part))
+    check_rc(lib, rc, "bwd_rc")
     return out
+
+
+def _bwd_rc_cuda(g, x, layers, h_all, c_all, tile=None, chunk=None, group=None):
+    """K11 on the card: `_bwd_rc_chunked` with the CUDA pieces, reusing one
+    chunk's buffers from chunk to chunk and layer to layer (stream order
+    makes that safe), the dgates in the f32 gates' memory (the residual
+    pass has read the gates before the scan writes dgates). `tile` is the
+    scan's rows per block (default `scan_tile`), `chunk` and `group` the
+    steps of a time chunk and of a dW group (default `rc_chunk`,
+    `rc_group`)."""
+    T, B, C, H, L = _dims(x, layers)
+    sd, dev, G = x.dtype, x.device, 4 * H
+    if (tuple(g.shape) != (T, B, H) or g.dtype != sd
+            or any(tuple(r.shape) != (L, T, B, H) or r.dtype != sd for r in (h_all, c_all))):
+        raise ValueError("cotangent or residuals do not match the stack")
+    tile = tile or scan_tile(B, H, sd)
+    _cuda_checks(tile, g, x, h_all, c_all)
+    group = group or rc_group(B)
+    chunk = chunk or rc_chunk(T, B, group)
+    n = min(chunk, T)
+    gates = torch.empty(n, B, G, dtype=torch.float32, device=dev)
+    dgates = torch.empty(n, B, G, dtype=sd, device=dev)
+    gup = torch.empty(n, B, H, dtype=torch.float32, device=dev) if L > 1 else None
+    cat = torch.empty(n * B * (max(C, H) + H), dtype=sd, device=dev)
+    sub = torch.empty(-(-n * B // _sub_rows(group * B)) * (max(C, H) + H + 1) * G,
+                      dtype=torch.float32, device=dev)
+
+    def gates_of(inp, h_prev, w_ih, w_hh, b):
+        k, width = inp.shape[0], inp.shape[-1] + H
+        return _rc_gates_cuda(inp, h_prev, w_ih, w_hh, b, gates[:k],
+                              cat[:k * B * width].view(k, B, width))
+
+    def products(dg, inp, h_prev, w_ih, chain, rows, part, out):
+        k = dg.shape[0]
+        return _rc_products_cuda(dg, inp, h_prev, w_ih, chain, rows, part,
+                                 gup[:k] if out is None else out, sub)
+
+    pieces = _RcPieces(
+        gates_of,
+        lambda cot, gt, c, c_prev, w_hh, carry: _rc_scan_cuda(cot, gt, c, c_prev, w_hh, carry,
+                                                              tile, dgates[:c.shape[0]]),
+        products, _sum_partials_cuda)
+    layers = [tuple(w.contiguous() for w in layer) for layer in layers]
+    result = _bwd_rc_chunked(g, x, layers, h_all, c_all, chunk, group, pieces)
+    LAUNCHES["bwd_rc"] += 1
+    return result
 
 
 def _unpack_grads(flat: torch.Tensor, C: int, H: int, L: int):
@@ -737,11 +996,38 @@ def fwd_train_rc(x: torch.Tensor, layers: Layers, tile=None):
 
 
 def bwd_rc(g, x, layers: Layers, h_all, c_all, tile=None):
-    """K11 plus the deterministic reduction on CUDA, the plain version on the
-    CPU → (dx, f32 (dW_ih, dW_hh, db) per layer); g is (T, B, H)."""
+    """K11 on CUDA (gate products, a reverse scan and products per
+    time chunk and layer; `tile` is the scan's rows per block, default
+    `scan_tile`), the plain version on the CPU → (dx, f32 (dW_ih, dW_hh, db)
+    per layer); g is (T, B, H)."""
     if on_cuda(g, x, h_all, c_all, *_weights(layers)):
         return _bwd_rc_cuda(g, x, layers, h_all, c_all, tile)
     return _bwd_rc_ref(g, x, layers, h_all, c_all)
+
+
+def rc_gates(inp, h_prev, w_ih, w_hh, b):
+    """K11's gate recompute of one time chunk on CUDA, the plain version on
+    the CPU → f32 gates (n, B, 4H); h_prev as `_rc_gates_ref`."""
+    if on_cuda(inp, h_prev, w_ih, w_hh, b):
+        return _rc_gates_cuda(inp, h_prev, w_ih, w_hh, b)
+    return _rc_gates_ref(inp, h_prev, w_ih, w_hh, b)
+
+
+def rc_scan(g, gates, c, c_prev, w_hh, carry, tile=None):
+    """K11's reverse scan of one time chunk on CUDA, the plain version on the
+    CPU → dgates (n, B, 4H); `carry` the layer's f32 (2, B, H) carries, read
+    and overwritten."""
+    if on_cuda(g, gates, c, c_prev, w_hh, carry):
+        return _rc_scan_cuda(g, gates, c, c_prev, w_hh, carry, tile)
+    return _rc_scan_ref(g, gates, c, c_prev, w_hh, carry)
+
+
+def rc_products(dgates, inp, h_prev, w_ih, chain, rows: int, part=None, out=None):
+    """K11's products of one time chunk on CUDA, the plain version on the CPU
+    → (dW partials per group of `rows` rows, the chain or None)."""
+    if on_cuda(dgates, inp, h_prev, w_ih, part, out):
+        return _rc_products_cuda(dgates, inp, h_prev, w_ih, chain, rows, part, out)
+    return _rc_products_ref(dgates, inp, h_prev, w_ih, chain, rows, part, out)
 
 
 class _Stack(torch.autograd.Function):

@@ -8,10 +8,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device      nvidia-smi name and power limit, torch.version.cuda
   2. build       nvcc of cerebra_torch/csrc/{lstm_stack,lstm_scan,vit_attn,
                  vit_mlp}.cu, all started together, seconds each
-  3. parity      K3, K1, K2, K2's two pieces (each layer's reverse scan and
-                 its products) and K11's dW reduction against their plain
-                 versions, f32 and bf16, at B = 1024, 16 and 13 (T = 460,
-                 C = H = 96, L = 2)
+  3. parity      K3, K1, K2 and K2's two pieces (each layer's reverse scan
+                 and its products) against their plain versions, f32 and
+                 bf16, at B = 1024, 16 and 13 (T = 460, C = H = 96, L = 2)
   4. main        `cerebra_torch.cli.lstm_distill_from_dinov2_train.main` on
                  the synthetic corpus (40 classes x 30 trials of (96, 512)),
                  bf16, batch 16, 6 epochs; launch counts cover every step
@@ -52,13 +51,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  11. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) against
                  their plain versions, f32 and bf16, every output, at C = H
                  = 96, L = 2, T = 460 (B = 1024 and 13) and the DINO-LSTM
-                 backbone's C 96, H 128, L 4, T = 300 (B = 16); the lab's
-                 rcstack at B = 1024, bf16, both shapes: ms and peak memory
-                 of the gradient of sum h_top[T-1]^2 in x and the weights
-                 through the shipped stack (K1 + K2g, K2g's scans and
-                 products apart), the recompute stack and cuDNN; K10 and K11
-                 alone against plain and cuDNN; one
-                 grad call launches K10 and K11 once, a no-grad call K4
+                 backbone's C 96, H 128, L 4, T = 300 (B = 16); K11's three
+                 pieces (gate products, scans that form the residuals and
+                 hand on carries, products) alone against their plain
+                 versions over every
+                 time chunk and layer at B = 1024; the lab's rcstack at
+                 B = 1024, bf16, both shapes: ms and peak memory of the
+                 gradient of sum h_top[T-1]^2 in x and the weights through
+                 the shipped stack (K1 + K2g, K2g's scans and products
+                 apart), the recompute stack and cuDNN; K10, K11 and K11's
+                 pieces alone against plain and cuDNN; K11's ms and peak at
+                 each time chunk (`[rc chunks]`); one grad call launches K10
+                 and K11 once (each piece once a chunk and layer), a no-grad
+                 call K4
  12. scan        K12-K14 (`lstm_scan`, one layer over a precomputed x_proj)
                  and its two gradients against the plain versions at T =
                  460, H = 96, B = 1024 and 13, f32 and bf16, and the library
@@ -98,7 +103,6 @@ REPLACES = {
     "fwd_train": "cerebra/models/pallas_lstm_stack.py:121",
     "bwd": "cerebra/models/pallas_lstm_stack.py:239",
     "fwd_infer_last": "cerebra/models/pallas_lstm_stack.py:755",
-    "bwd_reduce": "cerebra/models/pallas_lstm_stack.py:392",
     "stack_bwd_scan": "cerebra/models/pallas_lstm_stack.py:282",
     "stack_bwd_products": "cerebra/models/pallas_lstm_stack.py:305",
 }
@@ -173,6 +177,9 @@ TOL_CUDNN_SCAN = (1e-4, 1e-4, TOL_BF16_REL)
 REPLACES.update({
     "fwd_train_rc": "cerebra/models/pallas_lstm_stack.py:154",
     "bwd_rc": "cerebra/models/pallas_lstm_stack.py:318",
+    "rc_gates": "cerebra/models/pallas_lstm_stack.py:361",
+    "rc_scan": "cerebra/models/pallas_lstm_stack.py:366",
+    "rc_products": "cerebra/models/pallas_lstm_stack.py:392",
     "scan_fwd_infer": "cerebra/models/pallas_lstm.py:99",
     "scan_fwd_train": "cerebra/models/pallas_lstm.py:126",
     "scan_bwd": "cerebra/models/pallas_lstm.py:167",
@@ -230,7 +237,7 @@ def make_stack(B: int, dtype: torch.dtype, seed: int, C: int = C, H: int = H, L:
 
 
 def compare(what: str, got: torch.Tensor, want: torch.Tensor, dtype, grad: bool,
-            tols=(TOL_F32_ABS, TOL_F32_GRAD_REL, TOL_BF16_REL)) -> float:
+            tols=(TOL_F32_ABS, TOL_F32_GRAD_REL, TOL_BF16_REL), quiet: bool = False) -> float:
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -245,8 +252,9 @@ def compare(what: str, got: torch.Tensor, want: torch.Tensor, dtype, grad: bool,
         ok, limit = rel <= f32_grad_rel, f"rel_frob <= {f32_grad_rel}"
     else:
         ok, limit = rel <= bf16_rel, f"rel_frob <= {bf16_rel}"
-    log(f"[parity] {what}: max_abs {max_abs:.3e} rel_frob {rel:.3e} ({limit}) "
-        f"{'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        log(f"[parity] {what}: max_abs {max_abs:.3e} rel_frob {rel:.3e} ({limit}) "
+            f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain version ({limit})")
     return max_abs
@@ -302,14 +310,10 @@ def phase_parity() -> dict:
                      for l in range(L)
                      for name, a, b in zip(("dW_ih", "dW_hh", "db"), got_g[l], want_g[l]))
             es, ep = check_bwd_pieces(g, x, layers, want, tag, dtype)
-            part = torch.randn(-(-B // 4), 4 * H * (C + (2 * L - 1) * H + L),
-                               device="cuda")
-            er = compare(f"bwd_reduce {tag}", ls.reduce_partials(part), part.sum(0),
-                         torch.float32, True)
             if dtype == torch.bfloat16 and B == 16:
-                errs = {"fwd_train": e1, "bwd": e2, "fwd_infer_last": e3, "bwd_reduce": er,
+                errs = {"fwd_train": e1, "bwd": e2, "fwd_infer_last": e3,
                         "stack_bwd_scan": es, "stack_bwd_products": ep}
-            del x, layers, g, want, got, got_g, want_g, part
+            del x, layers, g, want, got, got_g, want_g
     torch.cuda.synchronize()
     return errs
 
@@ -549,8 +553,6 @@ def phase_kernel_timing() -> dict:
         x, layers, g = make_stack(B_train, bf16, seed=1)
         res = ls._fwd_train_ref(x, layers)
         xv, layers_v, _ = make_stack(B_val, bf16, seed=2)
-        part = torch.randn(-(-B_train // ls.pick_tile(B_train, C, H, L, bwd=True)),
-                           4 * H * (C + (2 * L - 1) * H + L), device="cuda")
         # name: (kernel, plain, inputs, operations, their dtype, library call ms, B)
         rows = {
             "fwd_train": (lambda: ls.fwd_train(x, layers), lambda: ls._fwd_train_ref(x, layers),
@@ -563,9 +565,6 @@ def phase_kernel_timing() -> dict:
                                lambda: ls._fwd_infer_last_ref(xv, layers_v), (xv, layers_v),
                                stack_flops(T, B_val, C, H, L), bf16,
                                cudnn_ms(T, B_val, C, H, L, "infer"), B_val),
-            "bwd_reduce": (lambda: ls.reduce_partials(part), lambda: part.sum(0), (part,),
-                           part.numel(), torch.float32, time_ms(lambda: part.sum(0), 5),
-                           B_train),
         }
         pieces = bwd_piece_rows(g, x, layers, res, False)
         for name, (kern, plain, inputs, flops, dt, lib, B) in rows.items():
@@ -580,20 +579,22 @@ def phase_kernel_timing() -> dict:
                 f"{fmt_row(row)}")
             if B_train == 16:
                 out[f"stack_bwd_{side}"] = row
-        del x, layers, g, res, xv, layers_v, part, pieces
+        del x, layers, g, res, xv, layers_v, pieces
     scan_tile_sweep()
     return out
 
 
 def scan_tile_sweep() -> None:
     """ms of one reverse scan (`bwd_scan`, T = 460, a cotangent at every t)
-    at each rows-per-block, at the shapes K2, K2g and K14 give it, beside
-    the tile `scan_tile` picks."""
+    at each rows-per-block, at the shapes K2, K2g and K14 give it and at the
+    DINO-LSTM's H = 128 (K2g's and K11's there), beside the tile
+    `scan_tile` picks."""
     from cerebra_torch.models import lstm_scan as sc
     from cerebra_torch.models import lstm_stack as ls
 
     for B, h, dtype in ((16, H, torch.bfloat16), (1024, H, torch.bfloat16),
-                        (1024, H, torch.float32), (16, 384, torch.bfloat16)):
+                        (1024, H, torch.float32), (16, 384, torch.bfloat16),
+                        (1024, 128, torch.bfloat16)):
         gen = torch.Generator().manual_seed(B + h)
         x_proj = (torch.randn(T, B, 4 * h, generator=gen) * 0.5).to("cuda", dtype)
         w_hh = ((torch.rand(h, 4 * h, generator=gen) * 2 - 1) / math.sqrt(h)).to("cuda", dtype)
@@ -980,7 +981,7 @@ def phase_ae_train(gpu: str) -> tuple:
         raise AssertionError(f"encoded {tuple(enc.shape)}, decoded {tuple(dec.shape)}")
     want = {"fwd_train": 2 * steps, "bwd_general": steps, "stack_bwd_scan": steps,
             "stack_bwd_products": steps, "fwd_infer": 2, "bwd": 0, "fwd_infer_last": 0,
-            "bwd_reduce": 0}
+            "bwd_rc": 0, "rc_scan": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 
@@ -1077,10 +1078,106 @@ def peak_mib(call) -> tuple:
     return (peak - base) / 2**20, peak / 2**20
 
 
+RC_PIECES = ("rc_gates", "rc_scan", "rc_products")
+
+
+def rc_piece_calls(g, x, layers, res) -> dict:
+    """K11's three pieces as `bwd_rc` runs them, over every time chunk and
+    layer, each on the inputs it gets there: one run of the chunked
+    composition through the pieces' dispatching wrappers (fresh outputs, so
+    every recorded input stays), recorded. → {name: (kernel wrapper, plain
+    version, [argument lists])}; a scan's carry is recorded as it was read."""
+    from cerebra_torch.models import lstm_stack as ls
+
+    T_, B, _ = x.shape
+    calls = {name: [] for name in RC_PIECES}
+
+    def rec(name, fn):
+        def call(*args):
+            args = list(args)
+            if name == "rc_scan":
+                args[5] = args[5].clone()
+            calls[name].append(args)
+            return fn(*args)
+        return call
+
+    pieces = ls._RcPieces(rec("rc_gates", ls.rc_gates), rec("rc_scan", ls.rc_scan),
+                          rec("rc_products", ls.rc_products),
+                          lambda part: part.sum(0))  # not timed
+    group = ls.rc_group(B)
+    ls._bwd_rc_chunked(g, x, layers, *res, ls.rc_chunk(T_, B, group), group, pieces)
+    plain = {"rc_gates": ls._rc_gates_ref, "rc_scan": ls._rc_scan_ref,
+             "rc_products": ls._rc_products_ref}
+    kern = {"rc_gates": ls.rc_gates, "rc_scan": ls.rc_scan, "rc_products": ls.rc_products}
+    return {name: (kern[name], plain[name], calls[name]) for name in RC_PIECES}
+
+
+def check_rc_pieces(calls: dict, tag: str, dtype) -> dict:
+    """Each recorded call of K11's pieces through the kernel and the plain
+    version on the same inputs (fresh outputs, a copy of the scan's carry,
+    both carries compared after), one line a piece: the largest error of
+    each piece."""
+    errs = dict.fromkeys(RC_PIECES, 0.0)
+    for name, (kern, plain, arg_lists) in calls.items():
+        for k, args in enumerate(arg_lists):
+            args = list(args)
+            if name == "rc_products":
+                args[6:] = [None, None]  # fresh partials and chain
+            got_args, want_args = list(args), list(args)
+            if name == "rc_scan":
+                got_args[5], want_args[5] = args[5].clone(), args[5].clone()
+            got, want = kern(*got_args), plain(*want_args)
+            if name == "rc_gates":
+                pairs = [("gates", got, want, torch.float32, True)]
+            elif name == "rc_scan":
+                # the f32 carries sum products of the rounded dgates: the
+                # stream dtype's limit
+                pairs = [("dgates", got, want, dtype, True),
+                         ("carry", got_args[5], want_args[5], dtype, True)]
+            else:
+                pairs = [("dW partials", got[0], want[0], dtype, True),
+                         (args[4], got[1], want[1], dtype, True)]
+            for what, a, b, dt, grad in pairs:
+                e = compare(f"K11 {name}[{k}] {what} {tag}", a, b, dt, grad, quiet=True)
+                errs[name] = max(errs[name], e)
+        log(f"[parity] K11 {name} {tag}: {len(arg_lists)} calls (every chunk and layer) "
+            f"within their limits, max_abs at most {errs[name]:.3e}")
+    torch.cuda.synchronize()
+    return errs
+
+
+def rc_piece_rows(calls: dict, dtype, plain_reps: int = 1) -> dict:
+    """Timing rows of K11's pieces, each over all its recorded calls: the
+    operations of their matrix products (the gates' inp·W_ih and h·W_hh,
+    the scans' dgates·W_hhᵀ, the products' dW_ih, dW_hh and chain) and the
+    tensors they read and write; library none (no one PyTorch call computes
+    a piece over the chunks)."""
+    rows = {}
+    for name, (kern, plain, arg_lists) in calls.items():
+        ops = 0
+        for args in arg_lists:
+            if name == "rc_gates":
+                (n_, B_, in_), (n_h, _, H_) = args[0].shape, args[1].shape
+                ops += 2 * B_ * 4 * H_ * (n_ * in_ + n_h * H_)
+            elif name == "rc_scan":
+                n_, B_, G_ = args[1].shape  # the gates
+                ops += 2 * n_ * B_ * G_ * (G_ // 4)
+            elif name == "rc_products":
+                n_, B_, G_ = args[0].shape
+                ops += 2 * n_ * B_ * G_ * (2 * args[1].shape[-1] + G_ // 4)
+        inputs = [[a for a in (args[:6] if name == "rc_products" else args)
+                   if isinstance(a, torch.Tensor)] for args in arg_lists]
+        rows[name] = timing_row(lambda: [kern(*a) for a in arg_lists],
+                                lambda: [plain(*a) for a in arg_lists], inputs, ops, dtype, 3,
+                                plain_reps)
+    return rows
+
+
 def phase_rc(gpu: str) -> tuple:
-    """Phase 11: K10/K11 against their plain versions; the lab's rcstack
-    comparison (ms and peak memory of the shipped stack, the recompute stack
-    and cuDNN); each kernel alone; the launch check."""
+    """Phase 11: K10/K11 against their plain versions; K11's pieces alone
+    against theirs; the lab's rcstack comparison (ms and peak memory of the
+    shipped stack, the recompute stack and cuDNN); each kernel and piece
+    alone; K11 at each time chunk; the launch check."""
     from cerebra_torch.kernels import LAUNCHES, reset_launches
     from cerebra_torch.models import lstm_stack as ls
 
@@ -1102,8 +1199,10 @@ def phase_rc(gpu: str) -> tuple:
                 (f"{n}[{l}]", a, b) for l in range(L_)
                 for n, a, b in zip(("dW_ih", "dW_hh", "db"), got[l], want_g[l])]
             e11 = max(compare(f"K11 {n} {tag}", a, b, dtype, True) for n, a, b in pairs)
+            if B == B_BIG:
+                pieces = check_rc_pieces(rc_piece_calls(g, x, layers, want), tag, dtype)
             if dtype == bf16 and shape == "headline" and B == B_BIG:
-                errs = {"fwd_train_rc": e10, "bwd_rc": e11}
+                errs = {"fwd_train_rc": e10, "bwd_rc": e11, **pieces}
             del x, layers, g, want, dx, got, want_dx, want_g, pairs
     torch.cuda.synchronize()
 
@@ -1133,14 +1232,28 @@ def phase_rc(gpu: str) -> tuple:
                        stack_flops(T_, B_BIG, C_, H_, L_, fwd=True, bwd=True, need_dx=True),
                        cudnn_ms(T_, B_BIG, C_, H_, L_, "bwd_seq", 3)),
         }
-        tiles = (ls.pick_tile(B_BIG, C_, H_, L_, bwd=False),
-                 ls.pick_tile(B_BIG, C_, H_, L_, bwd=True))
+        group = ls.rc_group(B_BIG)
+        chunk = ls.rc_chunk(T_, B_BIG, group)
+        setting = (f"tile fwd {ls.pick_tile(B_BIG, C_, H_, L_)}, scan "
+                   f"{ls.scan_tile(B_BIG, H_, bf16)}, chunk {chunk}, dW group {group}")
         for name, (kern, plain, inputs, flops, lib) in rows.items():
             row = timing_row(kern, plain, inputs, flops, bf16, 3, 1, lib)
-            log(f"[rc timing] {name} {tag} (tiles fwd {tiles[0]}, bwd {tiles[1]}): "
+            log(f"[rc timing] {name} {tag} ({setting}): {fmt_row(row)}")
+            if shape == "headline":
+                times[name] = row
+        piece_rows = rc_piece_rows(rc_piece_calls(g, x, layers, res), bf16)
+        for name, row in piece_rows.items():
+            log(f"[rc timing] {name} {tag} (over {-(-T_ // chunk)} chunks x {L_} layers): "
                 f"{fmt_row(row)}")
             if shape == "headline":
                 times[name] = row
+        sweep = {}
+        for c in sorted({8, 16, 32, 48, 64, 96, 128, chunk, T_}):
+            c = -(-c // group) * group
+            call = functools.partial(ls._bwd_rc_cuda, g, x, layers, *res, chunk=c)
+            sweep[c] = (round(time_ms(call, 3), 3), round(peak_mib(call)[0], 1))
+        log(f"[rc chunks] {tag}: chunk steps -> (K11 ms, K11 peak MiB above its inputs) "
+            f"{sweep}; rc_chunk picks {chunk} on {gpu}")
         # the shipped pair beside them, with the gradients' cotangent (at T-1
         # only) for both backwards
         g[:-1] = 0
@@ -1152,9 +1265,9 @@ def phase_rc(gpu: str) -> tuple:
             f"K2g with dx {time_ms(lambda: ls.bwd(g, x, layers, *res1, need_dx=True), 3):.3f}"
             f" ms (its {L_} scans {pieces['scan']:.3f} ms, its products "
             f"{pieces['products']:.3f} ms), K11 {time_ms(lambda: ls.bwd_rc(g, x, layers, *res), 3):.3f} ms")
-        del x, layers, res, res1, g
+        del x, layers, res, res1, g, piece_rows
 
-    _, C_, H_, L_ = RC_SHAPES["headline"]
+    T_, C_, H_, L_ = RC_SHAPES["headline"]
     x, layers, _ = make_stack(B_BIG, bf16, seed=11, C=C_, H=H_, L=L_)
     call = stack_grad_call(ls.lstm_stack_rc, x, layers)
     reset_launches()
@@ -1164,8 +1277,9 @@ def phase_rc(gpu: str) -> tuple:
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     log(f"[rc] one grad and one no-grad call of lstm_stack_rc: launches {launches}")
-    want = {"fwd_train_rc": 1, "bwd_rc": 1, "bwd_reduce": 1, "fwd_infer": 1,
-            "fwd_train": 0, "bwd_general": 0, "stack_bwd_scan": 0}
+    per_piece = -(-T_ // ls.rc_chunk(T_, B_BIG, ls.rc_group(B_BIG))) * L_
+    want = {"fwd_train_rc": 1, "bwd_rc": 1, "fwd_infer": 1, "fwd_train": 0, "bwd_general": 0,
+            "stack_bwd_scan": 0, **dict.fromkeys(RC_PIECES, per_piece)}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     if tuple(h.shape) != (T, B_BIG, H) or not all(torch.isfinite(t).all() for t in (h, *grads)):
@@ -1315,8 +1429,6 @@ def main() -> None:
         errs.update(e)
         times.update(t)
         launches.update({k: n[k] for k in t})
-        if phase is phase_rc:  # K11's reduction: no other path launches it
-            launches["bwd_reduce"] = n["bwd_reduce"]
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
     sources = dict(VIT_SOURCES, **dict.fromkeys(("scan_fwd_infer", "scan_fwd_train", "scan_bwd"),
                                                 SCAN_SOURCE))
@@ -1325,8 +1437,8 @@ def main() -> None:
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
          **times[name]}
         for name in ("fwd_train", "bwd", "stack_bwd_scan", "stack_bwd_products",
-                     "fwd_infer_last", "bwd_reduce", *VIT_SOURCES, "fwd_infer", "bwd_general",
-                     "fwd_train_rc", "bwd_rc", "scan_fwd_infer", "scan_fwd_train", "scan_bwd")
+                     "fwd_infer_last", *VIT_SOURCES, "fwd_infer", "bwd_general", "fwd_train_rc",
+                     "bwd_rc", *RC_PIECES, "scan_fwd_infer", "scan_fwd_train", "scan_bwd")
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

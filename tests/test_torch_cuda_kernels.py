@@ -1,6 +1,6 @@
 """The port's CUDA LSTM kernels (the stack's K1, K2/K2g and their two pieces,
-each layer's reverse scan and products, K3, K4, K10, K11 with its dW
-reduction; the scan's K12-K14) and the ViT kernels (K5-K8) against
+each layer's reverse scan and products, K3, K4, K10, K11 and its pieces per
+time chunk; the scan's K12-K14) and the ViT kernels (K5-K8) against
 their plain PyTorch versions on the card, over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
 below one warp's multiple, and the recurrent autoencoder's widths (encoder
@@ -121,7 +121,7 @@ def test_autograd_wrapper_launches_the_kernels(cuda):
     assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
     # K2 is one reverse scan and one set of products for each of the 2 layers
     assert ls.LAUNCHES["stack_bwd_scan"] == ls.LAUNCHES["stack_bwd_products"] == 2
-    assert ls.LAUNCHES["fwd_infer"] == ls.LAUNCHES["bwd_general"] == ls.LAUNCHES["bwd_reduce"] == 0
+    assert ls.LAUNCHES["fwd_infer"] == ls.LAUNCHES["bwd_general"] == ls.LAUNCHES["rc_scan"] == 0
 
 
 def test_sequence_wrapper_gives_the_plain_gradients_and_launches(cuda):
@@ -145,7 +145,7 @@ def test_sequence_wrapper_gives_the_plain_gradients_and_launches(cuda):
         ls.lstm_stack(x, layers)
     names = ("fwd_train", "bwd_general", "fwd_infer", "stack_bwd_scan", "stack_bwd_products")
     assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
-    assert ls.LAUNCHES["bwd"] == ls.LAUNCHES["fwd_infer_last"] == ls.LAUNCHES["bwd_reduce"] == 0
+    assert ls.LAUNCHES["bwd"] == ls.LAUNCHES["fwd_infer_last"] == ls.LAUNCHES["rc_scan"] == 0
 
 
 @pytest.mark.parametrize("g_full", [False, True], ids=["g_last", "g_full"])
@@ -297,9 +297,14 @@ def test_rc_wrapper_gives_the_plain_gradients_and_launches(cuda):
     ls.lstm_stack_rc(xs, layers).sum().backward()
     with torch.no_grad():
         ls.lstm_stack_rc(x, layers)
-    names = ("fwd_train_rc", "bwd_rc", "fwd_infer", "bwd_reduce")
+    names = ("fwd_train_rc", "bwd_rc", "fwd_infer")
     assert {k: ls.LAUNCHES[k] for k in names} == dict.fromkeys(names, 1)
+    # K11 is one gate product, scan and products a chunk and layer
+    chunks = -(-11 // ls.rc_chunk(11, 6, ls.rc_group(6)))
+    pieces = ("rc_gates", "rc_scan", "rc_products")
+    assert {k: ls.LAUNCHES[k] for k in pieces} == dict.fromkeys(pieces, 3 * chunks)
     assert ls.LAUNCHES["fwd_train"] == ls.LAUNCHES["bwd_general"] == 0
+    assert ls.LAUNCHES["stack_bwd_scan"] == 0
 
 
 def test_rc_gradients_are_deterministic(cuda):
@@ -313,6 +318,144 @@ def test_rc_gradients_are_deterministic(cuda):
     for a, b in zip(first, second):
         for u, v in zip(a, b):
             assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, -1], ids=["chunk1", "chunk3", "chunkT-1"])
+@pytest.mark.parametrize("shape", RC_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rc_chunks_match_plain(cuda, dtype, shape, chunk):
+    """K11 cut into time chunks of 1, 3 and T-1 steps (dW groups of one
+    step) against the plain K11, and bit for bit the same as one chunk of
+    the whole sequence: the chunked scan is the unchunked one, and the dW
+    groups do not move with the chunk."""
+    x, layers, _ = make_stack(shape, dtype, cuda)
+    T = shape[0]
+    g = torch.randn(*x.shape[:2], shape[3], generator=torch.Generator().manual_seed(1)).to(
+        cuda, dtype)
+    res = ls._fwd_train_rc_ref(x, layers)
+    dx, got_g = ls._bwd_rc_cuda(g, x, layers, *res, chunk=chunk % T or T, group=1)
+    want_dx, want_g = ls._bwd_rc_ref(g, x, layers, *res)
+    assert_close(dx, want_dx, dtype, grad=True)
+    for got_l, want_l in zip(got_g, want_g):
+        for a, b in zip(got_l, want_l):
+            assert_close(a, b, dtype, grad=True)
+    whole_dx, whole_g = ls._bwd_rc_cuda(g, x, layers, *res, chunk=T, group=1)
+    assert torch.equal(dx, whole_dx)
+    for got_l, whole_l in zip(got_g, whole_g):
+        for a, b in zip(got_l, whole_l):
+            assert torch.equal(a, b)
+
+
+# (n steps of a chunk, B, in, H, starting at t = 0): a first chunk (h_prev and
+# c_prev zero at its first step) and a later one, a one-step first chunk, a
+# ragged batch, C = 300 and H = 384
+RC_PIECE_SHAPES = [(5, 8, 96, 96, True), (5, 8, 96, 96, False), (1, 13, 24, 10, True),
+                   (4, 13, 300, 64, False), (3, 16, 96, 384, True), (6, 9, 96, 128, False)]
+
+
+def rc_piece_case(shape, dtype, device, seed=0):
+    n, B, in_dim, H, first = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*s, sc=1.0):
+        return (torch.randn(*s, generator=gen) * sc).to(device, dtype)
+
+    back = n - 1 if first else n
+    return (r(n, B, in_dim), ls._shifted(r(back, B, H, sc=0.5), n),
+            r(in_dim, 4 * H, sc=in_dim ** -0.5), r(H, 4 * H, sc=H ** -0.5), r(4 * H, sc=0.1),
+            r(n, B, H), ls._shifted(r(back, B, H), n))
+
+
+@pytest.mark.parametrize("shape", RC_PIECE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rc_gates_and_scan_match_plain(cuda, dtype, shape):
+    """K11's gate recompute (f32 gates of a chunk, h one step back, zero at
+    t = 0) and its scan, which forms the residuals (prefactors in the stream
+    dtype, q and f in f32) from the gates as it goes, under a cotangent in
+    the stream dtype and in f32 with a carry in and out, against their
+    plain versions, each on the same inputs."""
+    inp, h_prev, w_ih, w_hh, b, c, c_prev = rc_piece_case(shape, dtype, cuda)
+    gates = ls.rc_gates(inp, h_prev, w_ih, w_hh, b)
+    assert gates.dtype == torch.float32
+    want = ls._rc_gates_ref(inp, h_prev, w_ih, w_hh, b)
+    rel = ((gates - want).norm() / want.norm()).item()
+    assert rel <= 1e-6, rel  # f32 sums of exact products in another order
+    n, B, _, H, _ = shape
+    gen = torch.Generator().manual_seed(5)
+    carry = torch.randn(2, B, H, generator=gen).to(cuda)
+    for g in (torch.randn(n, B, H, generator=gen).to(cuda, dtype),
+              torch.randn(n, B, H, generator=gen).to(cuda)):
+        got_carry, want_carry = carry.clone(), carry.clone()
+        dg = ls.rc_scan(g, want, c, c_prev, w_hh, got_carry)
+        assert dg.dtype == dtype
+        assert_close(dg, ls._rc_scan_ref(g, want, c, c_prev, w_hh, want_carry), dtype, grad=True)
+        assert_close(got_carry, want_carry, dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("chain", ["gup", "dx"])
+@pytest.mark.parametrize("shape", RC_PIECE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rc_products_match_plain(cuda, dtype, shape, chain):
+    """K11's products of one chunk: dW partials per group of 2 steps (from
+    sub-groups of the rows) and the chain, against the plain version; and
+    groups of 600 rows, which split into sub-groups of 600 and fold
+    nothing."""
+    inp, h_prev, w_ih, _, _, _, _ = rc_piece_case(shape, dtype, cuda, seed=1)
+    n, B, _, H, _ = shape
+    dgates = torch.randn(n, B, 4 * H, generator=torch.Generator().manual_seed(2)).to(cuda, dtype)
+    part, out = ls.rc_products(dgates, inp, h_prev, w_ih, chain, 2 * B)
+    want_part, want_out = ls._rc_products_ref(dgates, inp, h_prev, w_ih, chain, 2 * B)
+    assert part.shape == want_part.shape and out.dtype == want_out.dtype
+    for a, b in zip(part, want_part):
+        assert_close(a, b, dtype, grad=True)
+    assert_close(out, want_out, dtype, grad=True)
+    for a, b in zip(ls.rc_products(dgates, inp, h_prev, w_ih, chain, 600)[0],
+                    ls._rc_products_ref(dgates, inp, h_prev, w_ih, chain, 600)[0]):
+        assert_close(a, b, dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cot", ["stream", "f32"])
+@pytest.mark.parametrize("shape", STACK_SCAN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rc_scan_chunks_equal_one_scan(cuda, dtype, shape, cot):
+    """K11's scan over a sequence's gates and c, cut into chunks of 1 and 3
+    steps that hand the carries on, gives one launch's dgates bit for bit,
+    and holds to the plain scan."""
+    x_proj, w_hh, g = scan_case(shape, dtype, cuda)
+    T, B, H = shape
+    gates = x_proj.float() * 2
+    c = torch.randn(T, B, H, generator=torch.Generator().manual_seed(3)).to(cuda, dtype)
+    c_prev = ls._shifted(c[:-1], T)
+    if cot == "f32":
+        g = torch.randn(g.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    zero = torch.zeros(2, B, H, device=cuda)
+    whole = ls.rc_scan(g, gates, c, c_prev, w_hh, zero.clone())
+    assert_close(whole, ls._rc_scan_ref(g, gates, c, c_prev, w_hh, zero.clone()), dtype,
+                 grad=True)
+    for chunk in (1, 3):
+        carry = zero.clone()
+        parts = [ls.rc_scan(g[t0:t0 + chunk], gates[t0:t0 + chunk], c[t0:t0 + chunk],
+                            c_prev[t0:t0 + chunk], w_hh, carry)
+                 for t0 in reversed(range(0, T, chunk))]
+        assert torch.equal(torch.cat(parts[::-1]), whole)
+
+
+def test_rc_backward_calls_no_library_product(cuda):
+    """K11 on the card runs only the port's kernels: no cuBLAS or cuDNN
+    product appears among the operators of one backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, layers, _ = make_stack((9, 40, 96, 96, 3), torch.bfloat16, cuda, seed=4)
+    g = torch.randn(9, 40, 96, device=cuda).to(torch.bfloat16)
+    res = ls.fwd_train_rc(x, layers)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ls.bwd_rc(g, x, layers, *res)
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::mm", "aten::matmul", "aten::bmm", "aten::addmm", "aten::linear",
+                      "aten::_cudnn_rnn"}, ops
 
 
 def scan_case(shape, dtype, device, seed=0):

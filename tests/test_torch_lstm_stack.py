@@ -115,7 +115,6 @@ def test_cpu_wrapper_takes_plain_path():
     ls.lstm_stack_last(xt, lt).sum().backward()
     with torch.no_grad():
         ls.lstm_stack_last(xt, lt)
-    ls.reduce_partials(torch.ones(3, 4))
     assert all(v == 0 for v in ls.LAUNCHES.values()), ls.LAUNCHES
 
 
@@ -144,15 +143,20 @@ def test_wrapper_rejects_bad_stacks():
 
 
 def test_reduce_and_unpack_layout():
-    """The CUDA path's partial buffer [dW_ih0 | dW_ihr | dW_hh | db] splits
-    back into per-layer gradients of the right shapes and values."""
+    """The CUDA path's flat gradient buffer [dW_ih0 | dW_ihr | dW_hh | db]
+    splits back into per-layer gradients of the right shapes and values,
+    as views of the buffer."""
     C, H, L = 5, 4, 3
     G = 4 * H
     grads = [(torch.randn(C if l == 0 else H, G), torch.randn(H, G), torch.randn(G))
              for l in range(L)]
     flat = torch.cat([grads[0][0].flatten()] + [g[0].flatten() for g in grads[1:]]
                      + [g[1].flatten() for g in grads] + [g[2] for g in grads])
-    part = torch.stack([flat, 2 * flat])
-    for l, got in enumerate(ls._unpack_grads(ls.reduce_partials(part), C, H, L)):
+    unpacked = ls._unpack_grads(flat, C, H, L)
+    for l, got in enumerate(unpacked):
+        for a, b in zip(got, grads[l]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    flat.mul_(3)
+    for l, got in enumerate(unpacked):
         for a, b in zip(got, grads[l]):
             torch.testing.assert_close(a, 3 * b)
