@@ -97,14 +97,15 @@ __device__ __forceinline__ float prefactors(const float (&a)[4], float c_prev, f
 }
 
 // One row and unit of a forward step: the f32 cell update from the
-// pre-activations at gr[k * H] (c holds c_{t-1} in and c_t out), returning
+// pre-activations at gr[k * gs] (c holds c_{t-1} in and c_t out), returning
 // h_t. With pf and q non-null (K1, K13) it also stores the backward's
 // residuals in the stream dtype: the prefactors at pf[k * H], q and f at
 // q[0] and q[H].
 template <typename T>
-__device__ __forceinline__ float cell_step(const float* gr, int H, float& c, T* pf, T* q) {
+__device__ __forceinline__ float cell_step(const float* gr, size_t gs, int H, float& c, T* pf,
+                                           T* q) {
   float a[4];
-  activations(gr, H, a);
+  activations(gr, gs, a);
   const float c_prev = c;
   c = a[1] * c_prev + a[0] * a[2];
   const float tc = tanhf(c);
@@ -117,6 +118,12 @@ __device__ __forceinline__ float cell_step(const float* gr, int H, float& c, T* 
     q[H] = from_f<T>(a[1]);
   }
   return a[3] * tc;
+}
+
+// cell_step with the pre-activations H apart, as the gates of a row lie
+template <typename T>
+__device__ __forceinline__ float cell_step(const float* gr, int H, float& c, T* pf, T* q) {
+  return cell_step<T>(gr, (size_t)H, H, c, pf, q);
 }
 
 // One row and unit of a backward step (the reverse scan below, which

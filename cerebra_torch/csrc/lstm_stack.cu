@@ -5,6 +5,13 @@
 //   lstm_fwd_kernel<T, BT, INFER_LAST> replaces _fwd_infer_last_kernel (K3)
 //   lstm_fwd_kernel<T, BT, INFER_SEQ>  replaces _fwd_infer_kernel      (K4)
 //   lstm_fwd_kernel<T, BT, TRAIN_RC>   replaces _fwd_train_rc_kernel   (K10)
+//   cerebra_fwd_in_product +           replace _fwd_train_kernel (K1) and
+//   cerebra_fwd_cluster_scan           _fwd_infer_kernel (K4) at the small
+//                                      batches lstm_stack.py pick_fwd takes,
+//                                      layer by layer: the input product on
+//                                      the tensor cores, then the recurrence
+//                                      on a thread-block cluster that keeps
+//                                      W_hh in shared memory
 //   cerebra_stack_scan_bwd +           replace _bwd_kernel: K2 (need_dx=False,
 //   cerebra_stack_bwd_products         g_last_only=True) and K2g (need_dx=True
 //                                      and/or a full (Tn, B, H) cotangent), as
@@ -37,8 +44,9 @@
 // threads owns one gate column: it reads that column's weights coalesced
 // and applies each to all BT rows, which shared memory holds transposed
 // ([k][row]) so one vector load fetches a value for every row. The wrapper
-// picks BT from timings on the card (lstm_stack.py pick_tile). Tensor cores
-// (wgmma), TMA and clusters are later work.
+// picks BT from timings on the card (lstm_stack.py pick_tile). At small
+// batches K1 and K4 take the layer-by-layer path instead ("the
+// layer-by-layer forward" below).
 //
 // K2/K2g keep only what is serial in the serial loop: the dh/dc carries of
 // one layer (the reverse scan). Everything else is a function of a layer's
@@ -57,6 +65,8 @@
 //
 // The kernels allocate nothing and do not synchronise; the C entry points
 // launch on the caller's stream and return cudaGetLastError().
+
+#include <cooperative_groups.h>
 
 #include "lstm_common.cuh"
 #include "vit_common.cuh"
@@ -193,6 +203,410 @@ int launch_fwd_mode(int mode, const void* x, const void* w_ih0, const void* w_ih
     CEREBRA_MODE(TRAIN_RC)
   }
 #undef CEREBRA_MODE
+  return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------- the layer-by-layer forward
+// Replaces _fwd_train_kernel (K1) and _fwd_infer_kernel (K4) at the batches
+// lstm_stack.py pick_fwd sends here (the autoencoder's B = 16), layer by
+// layer, bottom first, in two launches a layer:
+//   cerebra_fwd_in_product   P (Tn, B, 4H) f32 = inp·W_ih over all Tn·B rows
+//                            (pallas_lstm_stack.py:140, :213): the input's
+//                            product does not depend on h, so it leaves the
+//                            serial loop for one tiled product
+//                            (vit_common.cuh: wmma in bf16, true f32 FMA in
+//                            f32), no bias, nothing rounded
+//   cerebra_fwd_cluster_scan the recurrence over P (:141-144, :214-225): one
+//                            thread-block cluster of N CTAs a batch tile of
+//                            16 rows; gates = (P + h·W_hh) + b in that order
+// What bounds the scan on an H100: Tn serial steps, each a (16, H) x (H, 4H)
+// product, the cell and a hand-over of h to every CTA: latency. The old
+// forward's block read all of W_hh from L2 at every step (1.18 MB in bf16 at
+// H = 384); here CTA k of the cluster owns the hidden units [kU, (k+1)U),
+// U = H/N, and their 4U gate columns, holds that slice of W_hh (H x 4U) in
+// its shared memory for the whole sequence, keeps its units' f32 c on chip,
+// and per step multiplies the 16 rows of h_{t-1} by its slice (true f32 FMA
+// in f32, never TF32; the tensor cores in bf16, below), runs the cell,
+// writes its units of h_t, rounded to the stream dtype, into the h buffer of
+// every CTA
+// of the cluster (distributed shared memory) and meets the others at one
+// cluster barrier (release/acquire). h is double-buffered by step parity, so
+// that one barrier a step suffices: step t reads buffer t%2 and writes
+// (t+1)%2, which every CTA finished reading before the barrier of step t-1.
+// P of step t+1 is loaded into registers while step t multiplies.
+
+constexpr int kClusterRows = 16;  // batch rows of one cluster's tile
+
+// bytes of shared memory of one CTA of the f32 cluster scan:
+//   w_s (H, 4U) | h_s (2, H, 16) | g_s (16, 4U) | c_s (16, U), all f32
+inline size_t cluster_smem(int H, int N) {
+  const size_t U = H / N;
+  return sizeof(float) * ((size_t)H * 4 * U + kClusterRows * (2 * (size_t)H + 5 * U));
+}
+
+// rows a thread of the cluster scan multiplies: 16 / RG for the most row
+// groups RG (a power of two up to 16) that keep the 2U column pairs x RG
+// groups within 256 threads
+inline int cluster_rows(int NC) {
+  int rg = 1;
+  while (rg < kClusterRows && NC / 2 * rg * 2 <= 256) rg *= 2;
+  return kClusterRows / rg;
+}
+
+// One layer's recurrence over its input product P (Tn, B, 4H) f32, in
+// clusters of N CTAs (the launch's cluster size) over batch tiles of 16
+// rows: h_seq (Tn, B, H) and, with RES (K1), prefac (Tn, B, 4H) and qf
+// (Tn, B, 2H) of the layer, f32 streams. Thread (p, g) multiplies the local
+// gate columns 2p and 2p+1 for rows [g RR, (g+1) RR) of the tile.
+template <int RR, bool RES>
+__global__ void __launch_bounds__(256, 1)
+    cluster_scan_kernel(const float* __restrict__ P, const float* __restrict__ w_hh,
+                        const float* __restrict__ bias, float* __restrict__ h_seq,
+                        float* __restrict__ prefac, float* __restrict__ qf, int Tn, int B,
+                        int H) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int U = H / N, NC = 4 * U, G = 4 * H, k0 = rank * U, NH = H * kClusterRows;
+  const int b0 = (int)(blockIdx.x / N) * kClusterRows;
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                            // [k][local col]
+  float* h_s = w_s + (size_t)H * NC;             // [buf][k][row]
+  float* g_s = h_s + 2 * NH;                     // [row][local col]
+  float* c_s = g_s + kClusterRows * NC;          // [row][unit]
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  // local column j = q U + u is gate q of unit k0 + u: global column q H + k0 + u
+  for (int i = tid; i < H * NC; i += nthr) {
+    const int k = i / NC, j = i - k * NC, q = j / U;
+    w_s[i] = w_hh[(size_t)k * G + q * H + k0 + (j - q * U)];
+  }
+  for (int i = tid; i < 2 * NH; i += nthr) h_s[i] = 0.0f;
+  for (int i = tid; i < kClusterRows * U; i += nthr) c_s[i] = 0.0f;
+
+  const int NP = NC / 2, p = tid % NP, r0 = (tid / NP) * RR;
+  int col[2];
+  float bv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int j = 2 * p + e, q = j / U;
+    col[e] = q * H + k0 + (j - q * U);
+    bv[e] = bias[col[e]];
+  }
+  float pc[RR][2], pn[RR][2];  // P of this step and of the next
+  auto load_p = [&](float (&dst)[RR][2], int t) {
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      const int b = b0 + r0 + r;
+      const float* row = P + ((size_t)t * B + (b < B ? b : 0)) * G;
+      dst[r][0] = b < B ? row[col[0]] : 0.0f;
+      dst[r][1] = b < B ? row[col[1]] : 0.0f;
+    }
+  };
+  load_p(pc, 0);
+  cluster.sync();  // every CTA's h_s is zero before a peer writes into it
+
+  for (int t = 0; t < Tn; ++t) {
+    const float* hc = h_s + (t & 1) * NH;
+    float* hn = h_s + ((t + 1) & 1) * NH;
+    if (t + 1 < Tn) load_p(pn, t + 1);
+    float acc[RR][2];
+#pragma unroll
+    for (int r = 0; r < RR; ++r) acc[r][0] = acc[r][1] = 0.0f;
+    const float* wp = w_s + 2 * p;
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      const float2 w = *reinterpret_cast<const float2*>(wp + k * NC);
+      float v[RR];
+      rows<RR>(hc + k * kClusterRows + r0, v);
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        acc[r][0] = fmaf(v[r], w.x, acc[r][0]);
+        acc[r][1] = fmaf(v[r], w.y, acc[r][1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      float* gr = g_s + (r0 + r) * NC + 2 * p;
+      gr[0] = (pc[r][0] + acc[r][0]) + bv[0];
+      gr[1] = (pc[r][1] + acc[r][1]) + bv[1];
+    }
+    __syncthreads();  // the tile's gates of this CTA's columns are complete
+
+    for (int i = tid; i < kClusterRows * U; i += nthr) {
+      const int r = i / U, u = i - r * U, b = b0 + r;
+      const size_t row = (size_t)t * B + b;
+      const bool res = RES && b < B;
+      const float h = cell_step<float>(g_s + r * NC + u, (size_t)U, H, c_s[i],
+                                       res ? prefac + row * G + k0 + u : nullptr,
+                                       res ? qf + row * 2 * H + k0 + u : nullptr);
+      if (b < B) h_seq[row * H + k0 + u] = h;
+      hn[(k0 + u) * kClusterRows + r] = b < B ? h : 0.0f;
+    }
+    __syncthreads();  // this CTA's slice of h_t is in its own buffer
+
+    // hand the slice, U units x 16 rows and contiguous, to the other CTAs
+    const int n4 = U * kClusterRows / 4;
+    float* slice = hn + k0 * kClusterRows;
+    const float4* src = reinterpret_cast<const float4*>(slice);
+    for (int i = tid; i < (N - 1) * n4; i += nthr) {
+      const int k = i / n4, e = i - k * n4;
+      float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(slice, k < rank ? k : k + 1));
+      dst[e] = src[e];
+    }
+    cluster.sync();  // h_t complete in every CTA; g_s free
+
+#pragma unroll
+    for (int r = 0; r < RR; ++r) {
+      pc[r][0] = pn[r][0];
+      pc[r][1] = pn[r][1];
+    }
+  }
+}
+
+// Launch kern on `stream` in `tiles` clusters of N CTAs of nthr threads and
+// `smem` bytes of dynamic shared memory each; a cluster the card cannot
+// place (too large, too much shared memory) is refused before the launch.
+// Returns the first CUDA error, else 0.
+template <typename... KArgs, typename... Args>
+int launch_clusters(void (*kern)(KArgs...), int N, int tiles, int nthr, size_t smem,
+                    cudaStream_t stream, Args... args) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && N > 8)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N * tiles);
+  cfg.blockDim = dim3(nthr);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  if (e == cudaSuccess && clusters < 1) e = cudaErrorInvalidConfiguration;
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no error behind for the next one
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- the bf16 step product on the tensor cores
+// In bf16 the step's product runs as mma.sync m16n8k16 (bf16 operands, f32
+// accumulation), which fits the 16-row tile: h_{t-1} is the A operand,
+// held in bf16 (rows padded to H + 8 values, so the fragment loads of a
+// warp hit 32 different banks), and the CTA's slice of W_hh the B operand,
+// held column by column ([4U][H + 8], k contiguous). Warp w owns the 8-column
+// tiles w, w + W, ... (W warps, at most MT each) over all H/16 k-steps. The
+// rest of a step is the f32 kernel's.
+
+// the 32 bits at p (two bf16)
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a·b for one m16n8k16 tile: bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bytes of shared memory of one CTA of the bf16 cluster scan:
+//   w_s (4U, H + 8) bf16 | h_s (2, 16, H + 8) bf16 | g_s (16, 4U) f32 | c_s (16, U) f32
+inline size_t cluster_tc_smem(int H, int N) {
+  const size_t U = H / N, HP = H + 8;
+  return 2 * (4 * U * HP + 2 * kClusterRows * HP) + sizeof(float) * kClusterRows * 5 * U;
+}
+
+// warps of the bf16 cluster scan: one a column tile, 4 to 8
+inline int cluster_tc_warps(int NC) {
+  const int tiles = NC / 8;
+  return tiles < 4 ? 4 : (tiles > 8 ? 8 : tiles);
+}
+
+// this CTA's slice of h_t, rows of U bf16 at hn + r HP + k0, copied into the
+// same place of every other CTA of the cluster, V (4, 8 or 16 bytes) a store
+template <typename V>
+__device__ __forceinline__ void push_rows(cooperative_groups::cluster_group& cluster,
+                                          __nv_bfloat16* hn, int HP, int k0, int U, int N,
+                                          int rank) {
+  const int nv = U * 2 / (int)sizeof(V), per_peer = kClusterRows * nv;
+  for (int i = threadIdx.x; i < (N - 1) * per_peer; i += blockDim.x) {
+    const int k = i / per_peer, rem = i - k * per_peer, r = rem / nv, e = rem - r * nv;
+    V* src = reinterpret_cast<V*>(hn + r * HP + k0);
+    cluster.map_shared_rank(src, k < rank ? k : k + 1)[e] = src[e];
+  }
+}
+
+// One layer's recurrence in bf16 (cluster_scan_kernel's contract) with the
+// step's product on the tensor cores. H is a multiple of 16, U of 2.
+template <int MT, bool RES>
+__global__ void __launch_bounds__(256, 1)
+    cluster_scan_tc_kernel(const float* __restrict__ P, const __nv_bfloat16* __restrict__ w_hh,
+                           const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ h_seq,
+                           __nv_bfloat16* __restrict__ prefac, __nv_bfloat16* __restrict__ qf,
+                           int Tn, int B, int H) {
+  using bf = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int U = H / N, NC = 4 * U, G = 4 * H, k0 = rank * U, HP = H + 8;
+  const int b0 = (int)(blockIdx.x / N) * kClusterRows;
+  extern __shared__ __align__(16) float smem[];
+  bf* w_s = reinterpret_cast<bf*>(smem);                         // [local col][k]
+  bf* h_s = w_s + (size_t)NC * HP;                               // [buf][row][k]
+  float* g_s = reinterpret_cast<float*>(h_s + 2 * kClusterRows * HP);  // [row][local col]
+  float* c_s = g_s + kClusterRows * NC;                          // [row][unit]
+  const int tid = threadIdx.x, nthr = blockDim.x;
+
+  // local column j = q U + u is gate q of unit k0 + u: global column q H + k0 + u
+  for (int i = tid; i < H * NC; i += nthr) {
+    const int k = i / NC, j = i - k * NC, q = j / U;
+    w_s[j * HP + k] = w_hh[(size_t)k * G + q * H + k0 + (j - q * U)];
+  }
+  for (int i = tid; i < 2 * kClusterRows * HP; i += nthr) h_s[i] = __float2bfloat16_rn(0.0f);
+  for (int i = tid; i < kClusterRows * U; i += nthr) c_s[i] = 0.0f;
+
+  const int lane = tid % 32, warp = tid / 32, nwarps = nthr / 32, tiles = NC / 8;
+  const int g = lane / 4, tg = lane % 4;  // the fragments' row and column pair
+  int col[MT][2];
+  float bv[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int nt = warp + m * nwarps, j = nt * 8 + 2 * tg + e, q = j / U;
+      col[m][e] = nt < tiles ? q * H + k0 + (j - q * U) : 0;
+      bv[m][e] = nt < tiles ? to_f<bf>(bias[col[m][e]]) : 0.0f;
+    }
+  float pc[MT][4], pn[MT][4];  // P of this step and of the next: rows g, g + 8
+  auto load_p = [&](float (&dst)[MT][4], int t) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int b = b0 + g + 8 * rr;
+        const bool ok = b < B && warp + m * nwarps < tiles;
+        const float* row = P + ((size_t)t * B + (ok ? b : 0)) * G;
+        dst[m][2 * rr] = ok ? row[col[m][0]] : 0.0f;
+        dst[m][2 * rr + 1] = ok ? row[col[m][1]] : 0.0f;
+      }
+  };
+  load_p(pc, 0);
+  cluster.sync();  // every CTA's h_s is zero before a peer writes into it
+
+  for (int t = 0; t < Tn; ++t) {
+    const bf* hc = h_s + (t & 1) * kClusterRows * HP;
+    bf* hn = h_s + ((t + 1) & 1) * kClusterRows * HP;
+    if (t + 1 < Tn) load_p(pn, t + 1);
+    float acc[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.0f;
+    const bf* ha = hc + g * HP + 2 * tg;
+    for (int kb = 0; kb < H; kb += 16) {
+      const uint32_t a[4] = {ld32(ha + kb), ld32(ha + 8 * HP + kb), ld32(ha + kb + 8),
+                             ld32(ha + 8 * HP + kb + 8)};
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int nt = warp + m * nwarps;
+        if (nt < tiles) {
+          const bf* wb = w_s + (nt * 8 + g) * HP + kb + 2 * tg;
+          mma_bf16(acc[m], a, ld32(wb), ld32(wb + 8));
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int nt = warp + m * nwarps;
+      if (nt >= tiles) continue;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float* gr = g_s + (g + 8 * rr) * NC + nt * 8 + 2 * tg;
+        gr[0] = (pc[m][2 * rr] + acc[m][2 * rr]) + bv[m][0];
+        gr[1] = (pc[m][2 * rr + 1] + acc[m][2 * rr + 1]) + bv[m][1];
+      }
+    }
+    __syncthreads();  // the tile's gates of this CTA's columns are complete
+
+    for (int i = tid; i < kClusterRows * U; i += nthr) {
+      const int r = i / U, u = i - r * U, b = b0 + r;
+      const size_t row = (size_t)t * B + b;
+      const bool res = RES && b < B;
+      const float h = cell_step<bf>(g_s + r * NC + u, (size_t)U, H, c_s[i],
+                                    res ? prefac + row * G + k0 + u : nullptr,
+                                    res ? qf + row * 2 * H + k0 + u : nullptr);
+      const bf hb = from_f<bf>(b < B ? h : 0.0f);
+      if (b < B) h_seq[row * H + k0 + u] = hb;
+      hn[r * HP + k0 + u] = hb;
+    }
+    __syncthreads();  // this CTA's slice of h_t is in its own buffer
+
+    if (U % 8 == 0)
+      push_rows<uint4>(cluster, hn, HP, k0, U, N, rank);
+    else if (U % 4 == 0)
+      push_rows<uint2>(cluster, hn, HP, k0, U, N, rank);
+    else
+      push_rows<uint32_t>(cluster, hn, HP, k0, U, N, rank);
+    cluster.sync();  // h_t complete in every CTA; g_s free
+
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pc[m][e] = pn[m][e];
+  }
+}
+
+template <bool RES>
+int launch_cluster_scan(int N, const float* P, const float* w_hh, const float* bias,
+                        float* h_seq, float* prefac, float* qf, int Tn, int B, int H,
+                        cudaStream_t s) {
+  if (N < 1 || H % N != 0) return (int)cudaErrorInvalidValue;
+  const int NC = 4 * (H / N), tiles = (B + kClusterRows - 1) / kClusterRows;
+  const size_t smem = cluster_smem(H, N);
+#define CEREBRA_RR(R)                                                                          \
+  case R:                                                                                      \
+    return launch_clusters(cluster_scan_kernel<R, RES>, N, tiles,                              \
+                           NC / 2 * (kClusterRows / R), smem, s, P, w_hh, bias, h_seq, prefac, \
+                           qf, Tn, B, H);
+  switch (cluster_rows(NC)) {
+    CEREBRA_RR(16)
+    CEREBRA_RR(8)
+    CEREBRA_RR(4)
+    CEREBRA_RR(2)
+    CEREBRA_RR(1)
+  }
+#undef CEREBRA_RR
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool RES>
+int launch_cluster_scan(int N, const float* P, const __nv_bfloat16* w_hh,
+                        const __nv_bfloat16* bias, __nv_bfloat16* h_seq, __nv_bfloat16* prefac,
+                        __nv_bfloat16* qf, int Tn, int B, int H, cudaStream_t s) {
+  if (N < 1 || H % N != 0 || H % 16 != 0 || (H / N) % 2 != 0) return (int)cudaErrorInvalidValue;
+  const int NC = 4 * (H / N), tiles = (B + kClusterRows - 1) / kClusterRows;
+  const int nwarps = cluster_tc_warps(NC), mt = (NC / 8 + nwarps - 1) / nwarps;
+  const size_t smem = cluster_tc_smem(H, N);
+#define CEREBRA_MT(M)                                                                        \
+  if (mt <= M)                                                                               \
+    return launch_clusters(cluster_scan_tc_kernel<M, RES>, N, tiles, 32 * nwarps, smem, s, P, \
+                           w_hh, bias, h_seq, prefac, qf, Tn, B, H);
+  CEREBRA_MT(1)
+  CEREBRA_MT(2)
+  CEREBRA_MT(4)
+  CEREBRA_MT(8)
+#undef CEREBRA_MT
   return (int)cudaErrorInvalidValue;
 }
 
@@ -395,6 +809,45 @@ int cerebra_lstm_fwd(int mode, int bf16, int bt, const void* x, const void* w_ih
                 : launch_fwd_mode<float, BT>(mode, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac,
                                              qf, c_all, h_out, Tn, B, C, H, L, s);
   });
+}
+
+// K1/K4's layer-by-layer path, one layer's input product: P (M, 4H) f32 =
+// inp (M, in)·w_ih (in, 4H), M = Tn·B rows.
+int cerebra_fwd_in_product(int bf16, const void* inp, const void* w_ih, void* P, int M, int in,
+                           int H, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int G = 4 * H;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, false>((const T*)inp, in, (const T*)w_ih, G, M,
+                                                           G, in, vit::EpiF32{(float*)P, G}, s));
+  } else {
+    CEREBRA_VIT_CHECK(vit::launch_gemm<float, float, false, false>(
+        (const float*)inp, in, (const float*)w_ih, G, M, G, in, vit::EpiF32{(float*)P, G}, s));
+  }
+  return 0;
+}
+
+// K1/K4's layer-by-layer path, one layer's recurrence over its input product
+// P (Tn, B, 4H) f32 in clusters of n CTAs: h_seq (Tn, B, H) and, when res != 0
+// (K1), prefac (Tn, B, 4H) and qf (Tn, B, 2H) of the layer.
+int cerebra_fwd_cluster_scan(int bf16, int res, int n, const void* P, const void* w_hh,
+                             const void* bias, void* h_seq, void* prefac, void* qf, int Tn, int B,
+                             int H, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* p = (const float*)P;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return res ? launch_cluster_scan<true>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
+                                           (T*)prefac, (T*)qf, Tn, B, H, s)
+               : launch_cluster_scan<false>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
+                                            (T*)nullptr, (T*)nullptr, Tn, B, H, s);
+  }
+  using T = float;
+  return res ? launch_cluster_scan<true>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
+                                         (T*)prefac, (T*)qf, Tn, B, H, s)
+             : launch_cluster_scan<false>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
+                                          (T*)nullptr, (T*)nullptr, Tn, B, H, s);
 }
 
 // K2/K2g, one layer's reverse scan: dgates (Tn, B, 4H) from the layer's

@@ -17,6 +17,13 @@ and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
   h[T−1] (B, H).
 - K4 `fwd_infer`: forward with no residuals, returning the top layer's h at
   every t (T, B, H).
+- K1 and K4 at the small batches `pick_fwd` takes (the recurrent
+  autoencoder's B = 16) run layer by layer, bottom first
+  (`_fwd_layerwise`): the layer's input product over all T·B rows
+  (`fwd_in_product`, f32 P = inp·W_ih), then its recurrence over P on a
+  thread-block cluster that keeps W_hh in shared memory
+  (`fwd_cluster_scan`), which writes h and, for K1, the residuals. Every
+  other shape runs the whole stack in one launch (`lstm_fwd_kernel`).
 - K10 `fwd_train_rc`: the recompute variant's forward, which streams only
   h_all and c_all (T, B, H) per layer, c rounded to the stream dtype (2H a
   row and layer instead of K1's 7H).
@@ -38,13 +45,15 @@ h_all (L, T, B, H), prefac (L, T, B, 4H), qf (L, T, B, 2H), c_all (L, T, B, H).
 
 Dispatch: a tensor on the CPU takes the plain version (`_fwd_train_ref`,
 `_bwd_ref`, `_scan_bwd_ref`, `_products_ref`, `_fwd_infer_last_ref`,
-`_fwd_infer_ref`, `_fwd_train_rc_ref`, `_bwd_rc_ref`, `_rc_gates_ref`,
-`_rc_scan_ref`, `_rc_products_ref`); a CUDA tensor launches the kernel,
-built at first use, or raises. `LAUNCHES` counts kernel launches so a run
-can show that it went through the kernels (`bwd` for K2, `bwd_general` for
-K2g, `bwd_rc` for K11, one a call; `stack_bwd_scan` and `stack_bwd_products`
-one a layer of K2/K2g; `rc_gates`, `rc_scan` and `rc_products` one a chunk
-and layer of K11).
+`_fwd_infer_ref`, `_in_product_ref`, `_fwd_scan_ref`, `_fwd_train_rc_ref`,
+`_bwd_rc_ref`, `_rc_gates_ref`, `_rc_scan_ref`, `_rc_products_ref`); a CUDA
+tensor launches the kernel, built at first use, or raises. `LAUNCHES` counts
+kernel launches so a run can show that it went through the kernels
+(`fwd_train`, `fwd_infer`, `bwd` for K2, `bwd_general` for K2g, `bwd_rc` for
+K11, one a call; `fwd_in_product` and `fwd_cluster_scan` one a layer of
+K1/K4's layer-by-layer path; `stack_bwd_scan` and `stack_bwd_products` one
+a layer of K2/K2g; `rc_gates`, `rc_scan` and `rc_products` one a chunk and
+layer of K11).
 
 The 128-lane padding and 8-row batch alignment of the Pallas wrappers
 (`_pad_for_kernel`) are a TPU layout choice and are not ported: the CUDA
@@ -71,8 +80,8 @@ from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exporte
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, fwd_infer=0, bwd_general=0,
-                fwd_train_rc=0, bwd_rc=0, stack_bwd_scan=0, stack_bwd_products=0, rc_gates=0,
-                rc_scan=0, rc_products=0)
+                fwd_train_rc=0, bwd_rc=0, fwd_in_product=0, fwd_cluster_scan=0,
+                stack_bwd_scan=0, stack_bwd_products=0, rc_gates=0, rc_scan=0, rc_products=0)
 _FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2, "fwd_train_rc": 3}  # FwdMode
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
@@ -188,6 +197,71 @@ def _fwd_infer_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
 def _fwd_infer_last_ref(x: torch.Tensor, layers: Layers) -> torch.Tensor:
     """Plain K3: the forward without residuals; the top layer's h[T−1]."""
     return _fwd_infer_ref(x, layers)[-1]
+
+
+def _in_product_ref(inp: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
+    """Plain input product of one layer of K1/K4's layer-by-layer path:
+    P (T, B, 4H) f32 = inp·W_ih over all T·B rows of inp (T, B, in), with
+    stream-dtype operands and f32 sums; no bias, nothing rounded."""
+    return inp.float() @ w_ih.float()
+
+
+def _fwd_scan_ref(P: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor, res: bool = False):
+    """Plain recurrence of one layer over its input product P (T, B, 4H) f32:
+    gates = (P_t + h_{t−1}·W_hh) + b, h rounded to the stream dtype (w_hh's)
+    before W_hh, K1's cell math and rounding. → (h (T, B, H) in the stream
+    dtype, and with `res` K1's prefac (T, B, 4H) and qf (T, B, 2H) of the
+    layer, else None, None)."""
+    T, B, G = P.shape
+    H, sd = G // 4, w_hh.dtype
+    h = torch.zeros(B, H, device=P.device)
+    c = torch.zeros(B, H, device=P.device)
+    h_seq = torch.empty(T, B, H, dtype=sd, device=P.device)
+    prefac = torch.empty(T, B, G, dtype=sd, device=P.device) if res else None
+    qf = torch.empty(T, B, 2 * H, dtype=sd, device=P.device) if res else None
+    for t in range(T):
+        gates = (P[t] + h.to(sd).float() @ w_hh.float()) + b.float()
+        i = torch.sigmoid(gates[:, :H])
+        f = torch.sigmoid(gates[:, H:2 * H])
+        g = torch.tanh(gates[:, 2 * H:3 * H])
+        o = torch.sigmoid(gates[:, 3 * H:])
+        c_prev = c
+        c = f * c_prev + i * g
+        tanh_c = torch.tanh(c)
+        h = o * tanh_c
+        h_seq[t] = h.to(sd)
+        if res:
+            prefac[t], qf[t] = _residuals(i, f, g, o, c_prev, tanh_c, sd)
+    return h_seq, prefac, qf
+
+
+def _fwd_layerwise(x: torch.Tensor, layers: Layers, product, scan) -> torch.Tensor:
+    """K1/K4 as the layer-by-layer CUDA path composes them, bottom layer
+    first: `product(inp, w_ih)` → the layer's f32 input product P, then
+    `scan(l, P, w_hh, b)` → the layer's h (T, B, H), which is the next
+    layer's input (the scan writes whatever else the caller keeps: K1's
+    residuals). Returns the top layer's h."""
+    inp = x
+    for l, (w_ih, w_hh, b) in enumerate(layers):
+        inp = scan(l, product(inp, w_ih), w_hh, b)
+    return inp
+
+
+def _fwd_layerwise_ref(x: torch.Tensor, layers: Layers, train: bool):
+    """`_fwd_layerwise` through the plain pieces, on any device: K1's
+    (h_all, prefac, qf) stacked over the layers when `train`, else K4's top
+    h (T, B, H)."""
+    _dims(x, layers)
+    outs = []
+
+    def scan(l, P, w_hh, b):
+        outs.append(_fwd_scan_ref(P, w_hh, b, train))
+        return outs[-1][0]
+
+    top = _fwd_layerwise(x, layers, _in_product_ref, scan)
+    if not train:
+        return top
+    return tuple(torch.stack([o[k] for o in outs]) for k in range(3))
 
 
 def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
@@ -546,6 +620,10 @@ def _typed(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.cerebra_lstm_fwd.argtypes = [i, i, i] + [vp] * 10 + [i] * 5 + [vp]
     lib.cerebra_lstm_fwd.restype = i
+    lib.cerebra_fwd_in_product.argtypes = [i, vp, vp, vp, i, i, i, vp]
+    lib.cerebra_fwd_in_product.restype = i
+    lib.cerebra_fwd_cluster_scan.argtypes = [i, i, i] + [vp] * 6 + [i] * 3 + [vp]
+    lib.cerebra_fwd_cluster_scan.restype = i
     lib.cerebra_stack_scan_bwd.argtypes = [i] * 4 + [vp] * 5 + [i] * 3 + [vp]
     lib.cerebra_stack_scan_bwd.restype = i
     lib.cerebra_stack_bwd_products.argtypes = ([i, vp, vp, i, vp, vp, i] + [vp] * 5 + [i] * 5
@@ -577,6 +655,58 @@ def pick_tile(B: int, C: int, H: int, L: int) -> int:
         if bt <= 8 and 4 * bt * (2 * L * H + C + 4 * H) <= _MAX_SMEM:
             return bt
     raise ValueError(f"C={C}, H={H}, L={L}: the carries exceed one block's shared memory")
+
+
+_CLUSTER_ROWS = 16  # batch rows of one cluster's tile (csrc/lstm_stack.cu kClusterRows)
+_CLUSTER_SIZES = (16, 8, 4, 2, 1)  # CTAs a cluster, as the scan is launched
+_FWD_MAX_TILES = 4  # batch tiles of 16 rows the layer-by-layer path takes
+
+
+def cluster_smem(H: int, n: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory of one CTA of the cluster scan at H with n CTAs
+    (csrc/lstm_stack.cu cluster_smem, cluster_tc_smem). f32: its slice of
+    W_hh (H x 4H/n), h double-buffered (2, H, 16), the gates (16, 4H/n) and
+    c (16, H/n), all f32. bf16 (the tensor-core step): the slice column by
+    column and h (2, 16, ·) in bf16, each row padded to H + 8 values, then
+    the gates and c in f32."""
+    u = H // n
+    if dtype == torch.bfloat16:
+        return 2 * (4 * u + 2 * _CLUSTER_ROWS) * (H + 8) + 4 * _CLUSTER_ROWS * 5 * u
+    return 4 * (H * 4 * u + _CLUSTER_ROWS * (2 * H + 5 * u))
+
+
+def cluster_sizes(H: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    """The cluster sizes n the scan can run H at: n divides H, a CTA's 2H/n
+    column pairs fit its 256 threads, its shared memory fits one H100 block,
+    and in bf16 the tensor-core step's tiles fit (H a multiple of 16, H/n
+    even). At H = 384: 16 and 8 in bf16, 16 in f32."""
+    return tuple(n for n in _CLUSTER_SIZES
+                 if H % n == 0 and 2 * H // n <= 256 and cluster_smem(H, n, dtype) <= _MAX_SMEM
+                 and (dtype != torch.bfloat16 or (H % 16 == 0 and H // n % 2 == 0)))
+
+
+def pick_fwd(B: int, C: int, H: int, L: int, dtype: torch.dtype) -> int:
+    """Which forward K1 and K4 run: the cluster size n of the layer-by-layer
+    path (input product, then the recurrence on clusters of n CTAs), or 0
+    for `lstm_fwd_kernel`, the whole stack in one launch.
+
+    The layer-by-layer path takes batches of at most 4 tiles of 16 rows
+    (B <= 64): its f32 input product is T·B·4H floats a layer (45 MB at the
+    encoder's B = 16, 723 MB at B = 1024, H = 96), and its clusters, n SMs
+    each, must fit the card's 132 SMs at once. Of the sizes H fits
+    (`cluster_sizes`), from timings on an H100 at T = 460, B = 16 (PERF.md,
+    `[fwd paths]`): in bf16 the tensor cores make a CTA's product short,
+    and the cell, the hand-over of h and the barrier, which grow with the
+    cluster, set the step, so the largest n that leaves each CTA at least
+    12 hidden units (K4 at C 96, H 384: 2.22 ms at 16 CTAs, 2.74 at 8; at
+    C 384, H 96: 1.06 ms at 8, 1.22 at 16, 1.34 at 4; the CLI's two H = 96
+    layers 2.02 ms at 8, 2.38 at 16; `lstm_fwd_kernel` 32.96, 10.35 and
+    8.74); in f32 the FMA product sets the step, so the largest n."""
+    fits = [n for n in cluster_sizes(H, dtype) if dtype != torch.bfloat16 or H // n >= 12]
+    tiles = -(-B // _CLUSTER_ROWS)
+    if not fits or tiles > _FWD_MAX_TILES or tiles * fits[0] > _SMS:
+        return 0
+    return fits[0]
 
 
 def scan_tile(B: int, H: int, dtype: torch.dtype) -> int:
@@ -665,6 +795,93 @@ def _fwd_cuda(x, layers, kind: str, tile=None):
     if kind == "fwd_train":
         return h_all, prefac, qf
     return (h_all, c_all) if kind == "fwd_train_rc" else out
+
+
+def _in_product_cuda(inp, w_ih, out=None):
+    """One layer's input product on the card (`fwd_in_product`): P (T, B, 4H)
+    f32 into `out`, allocated when None."""
+    T, B, in_dim = inp.shape
+    G, sd = w_ih.shape[1], inp.dtype
+    if tuple(w_ih.shape) != (in_dim, G) or w_ih.dtype != sd or sd not in _STREAM_DTYPES:
+        raise ValueError("inp and w_ih do not match one layer")
+    P = torch.empty(T, B, G, dtype=torch.float32, device=inp.device) if out is None else out
+    _cuda_checks(1, inp, w_ih, P)
+    lib = _lib()
+    rc = lib.cerebra_fwd_in_product(int(sd == torch.bfloat16), inp.data_ptr(), w_ih.data_ptr(),
+                                    P.data_ptr(), T * B, in_dim, G // 4, stream_of(inp))
+    check_rc(lib, rc, "fwd_in_product")
+    LAUNCHES["fwd_in_product"] += 1
+    return P
+
+
+def _cluster_scan_cuda(P, w_hh, b, n: int, h=None, prefac=None, qf=None, res: bool = False):
+    """One layer's recurrence over its input product on the card
+    (`fwd_cluster_scan`) in clusters of n CTAs: h (T, B, H) and, with `res`,
+    prefac and qf, each written where given, else allocated. A cluster the
+    card refuses raises. → (h, prefac, qf)."""
+    T, B, G = P.shape
+    H, sd, dev = G // 4, w_hh.dtype, P.device
+    if (P.dtype != torch.float32 or tuple(w_hh.shape) != (H, G) or tuple(b.shape) != (G,)
+            or b.dtype != sd or sd not in _STREAM_DTYPES):
+        raise ValueError("P, w_hh or b do not match one layer")
+    if n < 1 or H % n:
+        raise ValueError(f"a cluster of {n} CTAs does not split H={H} units")
+    h = torch.empty(T, B, H, dtype=sd, device=dev) if h is None else h
+    if not res:
+        prefac = qf = None
+    else:
+        prefac = torch.empty(T, B, G, dtype=sd, device=dev) if prefac is None else prefac
+        qf = torch.empty(T, B, 2 * H, dtype=sd, device=dev) if qf is None else qf
+    _cuda_checks(1, P, w_hh, b, h, prefac, qf)
+    lib = _lib()
+    rc = lib.cerebra_fwd_cluster_scan(
+        int(sd == torch.bfloat16), int(res), n, P.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
+        h.data_ptr(), ptr(prefac), ptr(qf), T, B, H, stream_of(P))
+    check_rc(lib, rc, "fwd_cluster_scan")
+    LAUNCHES["fwd_cluster_scan"] += 1
+    return h, prefac, qf
+
+
+def _fwd_cluster_cuda(x, layers, kind: str, n: int):
+    """K1 (`kind` fwd_train) or K4 (fwd_infer) on the card as
+    `_fwd_layerwise`, with clusters of n CTAs: one f32 P buffer for every
+    layer, and for K4 one scratch h for the layers below the top (stream
+    order makes both safe: a layer's product has read the layer below's h
+    before its scan writes)."""
+    T, B, C, H, L = _dims(x, layers)
+    sd, dev, G = x.dtype, x.device, 4 * H
+    layers = [tuple(w.contiguous() for w in layer) for layer in layers]
+    _cuda_checks(1, x)
+    P = torch.empty(T, B, G, dtype=torch.float32, device=dev)
+    train = kind == "fwd_train"
+    if train:
+        h_all = torch.empty(L, T, B, H, dtype=sd, device=dev)
+        prefac = torch.empty(L, T, B, G, dtype=sd, device=dev)
+        qf = torch.empty(L, T, B, 2 * H, dtype=sd, device=dev)
+    else:
+        out = torch.empty(T, B, H, dtype=sd, device=dev)
+        below = torch.empty(T, B, H, dtype=sd, device=dev) if L > 1 else None
+
+    def scan(l, P_, w_hh, b):
+        if train:
+            return _cluster_scan_cuda(P_, w_hh, b, n, h_all[l], prefac[l], qf[l], True)[0]
+        return _cluster_scan_cuda(P_, w_hh, b, n, out if l == L - 1 else below)[0]
+
+    top = _fwd_layerwise(x, layers, lambda inp, w_ih: _in_product_cuda(inp, w_ih, P), scan)
+    LAUNCHES[kind] += 1
+    return (h_all, prefac, qf) if train else top
+
+
+def _fwd_dispatch(x, layers, kind: str, tile):
+    """K1 or K4 on the card by `pick_fwd`'s rule: the layer-by-layer path, or
+    `lstm_fwd_kernel` with `tile` rows a block (default `pick_tile`)."""
+    T, B, C, H, L = _dims(x, layers)
+    if tile is not None and tile not in _TILES:
+        raise ValueError(f"tile must be one of {_TILES}, got {tile}")
+    n = pick_fwd(B, C, H, L, x.dtype)
+    if n:
+        return _fwd_cluster_cuda(x, layers, kind, n)
+    return _fwd_cuda(x, layers, kind, tile)
 
 
 def _scan_cuda(g, prefac, qf, w_hh, tile=None, out=None):
@@ -940,9 +1157,11 @@ def _weights(layers: Layers):
 
 
 def fwd_train(x: torch.Tensor, layers: Layers, tile=None):
-    """K1 on CUDA, its plain version on the CPU → (h_all, prefac, qf)."""
+    """K1 on CUDA, its plain version on the CPU → (h_all, prefac, qf). On the
+    card `pick_fwd` chooses the path; `tile` is `lstm_fwd_kernel`'s rows a
+    block where that path runs."""
     if on_cuda(x, *_weights(layers)):
-        return _fwd_cuda(x, layers, "fwd_train", tile)
+        return _fwd_dispatch(x, layers, "fwd_train", tile)
     return _fwd_train_ref(x, layers)
 
 
@@ -954,10 +1173,34 @@ def fwd_infer_last(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
 
 
 def fwd_infer(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
-    """K4 on CUDA, its plain version on the CPU → the top layer's h (T, B, H)."""
+    """K4 on CUDA, its plain version on the CPU → the top layer's h (T, B, H).
+    On the card `pick_fwd` chooses the path, as for `fwd_train`."""
     if on_cuda(x, *_weights(layers)):
-        return _fwd_cuda(x, layers, "fwd_infer", tile)
+        return _fwd_dispatch(x, layers, "fwd_infer", tile)
     return _fwd_infer_ref(x, layers)
+
+
+def fwd_in_product(inp: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
+    """One layer's input product of K1/K4's layer-by-layer path on CUDA, its
+    plain version on the CPU → P (T, B, 4H) f32 = inp·W_ih."""
+    if on_cuda(inp, w_ih):
+        return _in_product_cuda(inp, w_ih)
+    return _in_product_ref(inp, w_ih)
+
+
+def fwd_cluster_scan(P: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor, res: bool = False,
+                     n=None):
+    """One layer's recurrence over its input product P (T, B, 4H) f32 on CUDA,
+    in clusters of n CTAs (default: `pick_fwd`'s at this B and H), its plain
+    version on the CPU → (h (T, B, H), and with `res` K1's prefac and qf,
+    else None, None)."""
+    if on_cuda(P, w_hh, b):
+        T, B, G = P.shape
+        n = n or pick_fwd(B, G // 4, G // 4, 1, w_hh.dtype)
+        if not n:
+            raise ValueError(f"B={B}, H={G // 4}: no cluster of the scan takes this shape")
+        return _cluster_scan_cuda(P, w_hh, b, n, res=res)
+    return _fwd_scan_ref(P, w_hh, b, res)
 
 
 def bwd(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False, tile=None):

@@ -45,10 +45,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  features, then one no-grad forward: finite losses, K1 twice
                  a step and K2g once (the loss reads only the encoded latent,
                  so only the encoder's backward runs: a cotangent at every
-                 t, no dx), K4 twice in the forward; ms/step, and K4/K2g
-                 (its scan and products apart) against their plain versions
-                 and cuDNN at both widths
- 11. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) against
+                 t, no dx), K4 twice in the forward, each K1 and K4 as one
+                 input product and one cluster scan; ms/step, and K1, K4 and
+                 K2g (its scan and products apart) against their plain
+                 versions and cuDNN at both widths
+ 11. fwd paths   K1/K4's layer-by-layer path (the input product, then the
+                 recurrence on a thread-block cluster) at the autoencoder's
+                 widths, B = 16 and 13, f32 and bf16: K1 against its plain
+                 version, and each piece alone at every cluster size the
+                 width fits; `[fwd paths]`: K1 and K4 through
+                 `lstm_fwd_kernel` and through the layer-by-layer path at
+                 each cluster size, at the four shapes that set `pick_fwd`
+                 (both autoencoder widths and the CLI's B = 16, bf16 and
+                 f32, and the bench step's B = 1024, bf16); the two pieces
+                 alone against plain and the
+                 library call at the encoder's width
+ 12. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) against
                  their plain versions, f32 and bf16, every output, at C = H
                  = 96, L = 2, T = 460 (B = 1024 and 13) and the DINO-LSTM
                  backbone's C 96, H 128, L 4, T = 300 (B = 16); K11's three
@@ -64,7 +76,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  each time chunk (`[rc chunks]`); one grad call launches K10
                  and K11 once (each piece once a chunk and layer), a no-grad
                  call K4
- 12. scan        K12-K14 (`lstm_scan`, one layer over a precomputed x_proj)
+ 13. scan        K12-K14 (`lstm_scan`, one layer over a precomputed x_proj)
                  and its two gradients against the plain versions at T =
                  460, H = 96, B = 1024 and 13, f32 and bf16, and the library
                  call (cuDNN nn.LSTM(4H, H) with weight_ih = I over x_proj)
@@ -160,7 +172,15 @@ TOL_AE = (TOL_F32_ABS, 1e-5, 5e-3)
 REPLACES.update({
     "fwd_infer": "cerebra/models/pallas_lstm_stack.py:196",
     "bwd_general": "cerebra/models/pallas_lstm_stack.py:239",
+    # K1/K4's layer-by-layer path: the input's product and the recurrence
+    # (h·W_hh and the cell) of the bodies at :121 and :196
+    "fwd_in_product": "cerebra/models/pallas_lstm_stack.py:140",
+    "fwd_cluster_scan": "cerebra/models/pallas_lstm_stack.py:141",
 })
+# The shapes whose timings set pick_fwd, (B, C, H, L): both autoencoder
+# widths, the LSTM CLI's step and bench.py's step.
+FWD_SHAPES = ((B_AE, *AE_SHAPES["encoder"], 1), (B_AE, *AE_SHAPES["decoder"], 1), (16, C, H, L),
+              (1024, C, H, L))
 
 # The recompute-backward stack (K10, K11) at the headline Perils widths and
 # at the DINO-LSTM backbone's depth and width (lstm_distillation's
@@ -354,6 +374,9 @@ def phase_main() -> dict:
         raise AssertionError(f"train steps bypassed the kernels: {launches} for {steps} steps")
     if launches["fwd_infer_last"] == 0:
         raise AssertionError("kernel fwd_infer_last never launched on the main path")
+    if ls.pick_fwd(16, C, H, L, torch.bfloat16) and min(
+            launches["fwd_in_product"], launches["fwd_cluster_scan"]) < L * steps:
+        raise AssertionError(f"K1 bypassed its layer-by-layer pieces: {launches}")
     return launches
 
 
@@ -609,7 +632,9 @@ def scan_tile_sweep() -> None:
 
 # kernel name fragments → the part of a step they belong to, for the
 # profiler's split (first match wins)
-KERNEL_PARTS = (("scan_bwd_kernel", "K2/K2g scans"), ("gemm", "K2/K2g products"),
+KERNEL_PARTS = (("scan_bwd_kernel", "K2/K2g scans"), ("cluster_scan", "K1/K4 cluster scans"),
+                ("gemm_tc<false, false, vit::EpiF32>", "K1/K4 input products"),
+                ("gemm", "K2/K2g products"),
                 ("sum_partials", "K2/K2g products"), ("col_sum_part", "K2/K2g products"),
                 ("lstm_fwd_kernel", "K1 forward"))
 
@@ -979,9 +1004,12 @@ def phase_ae_train(gpu: str) -> tuple:
         raise AssertionError(f"non-finite losses or reconstruction: {losses}")
     if tuple(enc.shape) != (B_AE, E_AE) or tuple(dec.shape) != (B_AE, T, C):
         raise AssertionError(f"encoded {tuple(enc.shape)}, decoded {tuple(dec.shape)}")
+    # every K1 and K4 of the model (1 layer each) is one input product and
+    # one cluster scan (pick_fwd takes both widths at B = 16)
     want = {"fwd_train": 2 * steps, "bwd_general": steps, "stack_bwd_scan": steps,
             "stack_bwd_products": steps, "fwd_infer": 2, "bwd": 0, "fwd_infer_last": 0,
-            "bwd_rc": 0, "rc_scan": 0}
+            "bwd_rc": 0, "rc_scan": 0, "fwd_in_product": 2 * steps + 2,
+            "fwd_cluster_scan": 2 * steps + 2}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 
@@ -1015,6 +1043,9 @@ def phase_ae_train(gpu: str) -> tuple:
         g = torch.randn(T, B_AE, h, device=dev).to(torch.bfloat16)
         dx = name == "decoder"  # the decoder's input (the repeated latent) needs dx
         rows = {
+            "fwd_train": (lambda: ls.fwd_train(x, layers), lambda: ls._fwd_train_ref(x, layers),
+                          (x, layers), stack_flops(T, B_AE, c, h, 1),
+                          cudnn_ms(T, B_AE, c, h, 1, "train")),
             "fwd_infer": (lambda: ls.fwd_infer(x, layers), lambda: ls._fwd_infer_ref(x, layers),
                           (x, layers), stack_flops(T, B_AE, c, h, 1),
                           cudnn_ms(T, B_AE, c, h, 1, "infer")),
@@ -1029,14 +1060,98 @@ def phase_ae_train(gpu: str) -> tuple:
             row = timing_row(kern, plain, inputs, flops, torch.bfloat16, 5, 2, lib)
             split = (f"; its scan {pieces['scan']:.3f} ms, its products "
                      f"{pieces['products']:.3f} ms" if kname == "bwd_general" else "")
+            n = ls.pick_fwd(B_AE, c, h, 1, torch.bfloat16) if kname.startswith("fwd") else 0
             log(f"[ae timing] {kname} {name} C={c} H={h} B={B_AE} T={T} bf16"
                 f"{' (g all t, dx)' if kname == 'bwd_general' and dx else ''}"
-                f"{' (g all t)' if kname == 'bwd_general' and not dx else ''}: {fmt_row(row)}"
-                f"{split}")
-            if name == "encoder":
+                f"{' (g all t)' if kname == 'bwd_general' and not dx else ''}"
+                f"{f' (clusters of {n})' if n else ''}: {fmt_row(row)}{split}")
+            if name == "encoder" and kname != "fwd_train":  # K1's row is the CLI's
                 times[kname] = row
         del x, layers, res, g
     return launches, times
+
+
+def phase_fwd_paths(gpu: str) -> tuple:
+    """Phase 11: K1 at the autoencoder's widths (K4's parity is phase 9's)
+    and the layer-by-layer path's two pieces alone against their plain
+    versions; the `[fwd paths]` sweep; the pieces' timing rows."""
+    from cerebra_torch.models import lstm_stack as ls
+
+    errs = {"fwd_in_product": 0.0, "fwd_cluster_scan": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (c, h) in AE_SHAPES.items():
+            for B in (16, 13):
+                tag = f"{str(dtype).split('.')[-1]} {name} B={B}"
+                x, layers, _ = make_stack(B, dtype, seed=B + 1, C=c, H=h, L=1)
+                n = ls.pick_fwd(B, c, h, 1, dtype)
+                if not n:
+                    raise AssertionError(f"pick_fwd leaves the autoencoder's {tag} to lstm_fwd_kernel")
+                want = ls._fwd_train_ref(x, layers)
+                for k, a, b in zip(("h_all", "prefac", "qf"), ls.fwd_train(x, layers), want):
+                    compare(f"K1 {k} {tag} (clusters of {n})", a, b, dtype, False)
+                w_ih, w_hh, bias = layers[0]
+                P = ls._in_product_ref(x, w_ih)
+                ep = compare(f"K1/K4 input product {tag}", ls.fwd_in_product(x, w_ih), P,
+                             torch.float32, True)  # f32 sums of exact products
+                es = 0.0
+                for m in ls.cluster_sizes(h, dtype):
+                    for res in (False, True):
+                        for k, a, b in zip(("h", "prefac", "qf"),
+                                           ls.fwd_cluster_scan(P, w_hh, bias, res, m),
+                                           ls._fwd_scan_ref(P, w_hh, bias, res)):
+                            if b is not None:
+                                es = max(es, compare(f"K1/K4 cluster scan {k} {tag} n={m}"
+                                                     f"{' res' if res else ''}", a, b, dtype,
+                                                     False, quiet=True))
+                log(f"[parity] K1/K4 cluster scan {tag}: every cluster size "
+                    f"{ls.cluster_sizes(h, dtype)}, with and without residuals, within its "
+                    f"limit; max_abs at most {es:.3e}")
+                if dtype == torch.bfloat16 and name == "encoder" and B == B_AE:
+                    errs = {"fwd_in_product": ep, "fwd_cluster_scan": es}
+                del x, layers, want, P
+    torch.cuda.synchronize()
+
+    bf16 = torch.bfloat16
+    # the cluster sizes' order differs between the bf16 (tensor-core) and
+    # the f32 (FMA) step, so the small batches run in both
+    for (B, c, h, l_), dtype in [(s, d) for s in FWD_SHAPES for d in (bf16, torch.float32)
+                                 if d == bf16 or s[0] < B_BIG]:
+        x, layers, _ = make_stack(B, dtype, seed=6, C=c, H=h, L=l_)
+        ms = {}
+        for kind in ("fwd_train", "fwd_infer"):
+            ms[f"{kind} lstm_fwd_kernel"] = round(time_ms(lambda: ls._fwd_cuda(x, layers, kind), 3), 3)
+            for n in ls.cluster_sizes(h, dtype):
+                ms[f"{kind} n={n}"] = round(
+                    time_ms(lambda: ls._fwd_cluster_cuda(x, layers, kind, n), 3), 3)
+        log(f"[fwd paths] B={B} C={c} H={h} L={l_} T={T} {str(dtype).split('.')[-1]}: ms {ms}; "
+            f"pick_fwd takes {ls.pick_fwd(B, c, h, l_, dtype) or 'lstm_fwd_kernel'} on {gpu}")
+        del x, layers
+
+    # the pieces alone at the encoder's width, as the AE step runs them (K1's
+    # scan, with residuals)
+    c, h = AE_SHAPES["encoder"]
+    x, layers, _ = make_stack(B_AE, bf16, seed=7, C=c, H=h, L=1)
+    w_ih, w_hh, bias = layers[0]
+    P = ls.fwd_in_product(x, w_ih)
+    n = ls.pick_fwd(B_AE, c, h, 1, bf16)
+    x2 = x.view(T * B_AE, c)
+    lib_product = time_windows(lambda: torch.mm(x2, w_ih, out_dtype=torch.float32), 5, 5, 3)[0]
+    rows = {
+        "fwd_in_product": (lambda: ls.fwd_in_product(x, w_ih), lambda: ls._in_product_ref(x, w_ih),
+                           (x, w_ih), 2 * T * B_AE * c * 4 * h, lib_product),
+        "fwd_cluster_scan": (lambda: ls.fwd_cluster_scan(P, w_hh, bias, True, n),
+                             lambda: ls._fwd_scan_ref(P, w_hh, bias, True), (P, w_hh, bias),
+                             2 * T * B_AE * h * 4 * h,
+                             cudnn_ms(T, B_AE, 4 * h, h, 1, "train", scan=True)),
+    }
+    times = {}
+    for name, (kern, plain, inputs, flops, lib) in rows.items():
+        times[name] = timing_row(kern, plain, inputs, flops, bf16, 5, 2, lib)
+        log(f"[fwd timing] {name} encoder C={c} H={h} B={B_AE} T={T} bf16 (clusters of {n}; "
+            f"library: {'torch.mm to f32' if name == 'fwd_in_product' else 'cuDNN LSTM(4H, H) with weight_ih = I'}): "
+            f"{fmt_row(times[name])}")
+    del x, layers, P
+    return errs, times
 
 
 def stack_grad_call(fn, x: torch.Tensor, layers):
@@ -1279,7 +1394,7 @@ def phase_rc(gpu: str) -> tuple:
     log(f"[rc] one grad and one no-grad call of lstm_stack_rc: launches {launches}")
     per_piece = -(-T_ // ls.rc_chunk(T_, B_BIG, ls.rc_group(B_BIG))) * L_
     want = {"fwd_train_rc": 1, "bwd_rc": 1, "fwd_infer": 1, "fwd_train": 0, "bwd_general": 0,
-            "stack_bwd_scan": 0, **dict.fromkeys(RC_PIECES, per_piece)}
+            "stack_bwd_scan": 0, "fwd_cluster_scan": 0, **dict.fromkeys(RC_PIECES, per_piece)}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     if tuple(h.shape) != (T, B_BIG, H) or not all(torch.isfinite(t).all() for t in (h, *grads)):
@@ -1422,8 +1537,12 @@ def main() -> None:
     run(phase_dino_step_timing, gpu)
     errs.update(run(phase_ae_parity))
     ae_launches, ae_times = run(phase_ae_train, gpu)
-    launches.update({k: ae_launches[k] for k in ("fwd_infer", "bwd_general")})
+    launches.update({k: ae_launches[k] for k in ("fwd_infer", "bwd_general", "fwd_in_product",
+                                                  "fwd_cluster_scan")})
     times.update(ae_times)
+    e, t = run(phase_fwd_paths, gpu)
+    errs.update(e)
+    times.update(t)
     for phase in (phase_rc, phase_scan):
         e, t, n = run(phase, gpu)
         errs.update(e)
@@ -1437,7 +1556,8 @@ def main() -> None:
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
          **times[name]}
         for name in ("fwd_train", "bwd", "stack_bwd_scan", "stack_bwd_products",
-                     "fwd_infer_last", *VIT_SOURCES, "fwd_infer", "bwd_general", "fwd_train_rc",
+                     "fwd_infer_last", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
+                     "fwd_cluster_scan", "bwd_general", "fwd_train_rc",
                      "bwd_rc", *RC_PIECES, "scan_fwd_infer", "scan_fwd_train", "scan_bwd")
     ]
     log(gpu)

@@ -1,5 +1,7 @@
 """The port's CUDA LSTM kernels (the stack's K1, K2/K2g and their two pieces,
-each layer's reverse scan and products, K3, K4, K10, K11 and its pieces per
+each layer's reverse scan and products, K3, K4, K1/K4's layer-by-layer path
+and its two pieces, the input product and the cluster scan, K10, K11 and its
+pieces per
 time chunk; the scan's K12-K14) and the ViT kernels (K5-K8) against
 their plain PyTorch versions on the card, over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
@@ -248,6 +250,137 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
         ls.bwd(torch.zeros(5, 8, device=cuda), x, layers, h_all, prefac, qf, tile=3)
     with pytest.raises(ValueError):  # the chain's kind
         ls.bwd_products(torch.zeros(4, 5, 32, device=cuda), x, h_all[0], layers[0][0], "dh")
+
+
+# ------------------------------ K1/K4's layer-by-layer path at small batches
+# The autoencoder's widths (encoder C 96, H 384; decoder C 384, H 96) at
+# B = 16 and a ragged 13, T = 12: the input product and the cluster scan
+# alone, at every cluster size the scan can run the width at (`pick_fwd`
+# takes one of them), and the composed K1/K4.
+AE_WIDTHS = [(96, 384), (384, 96)]
+
+
+def fwd_piece_case(B, C, H, dtype, device, seed=0):
+    x, layers, _ = make_stack((12, B, C, H, 1), dtype, device, seed)
+    return x, layers[0]
+
+
+@pytest.mark.parametrize("B", [16, 13])
+@pytest.mark.parametrize("width", AE_WIDTHS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fwd_pieces_match_plain(cuda, dtype, width, B):
+    """The input product (f32 P, no bias) and the cluster scan at each
+    cluster size, with and without K1's residuals, against their plain
+    versions on the same inputs."""
+    C, H = width
+    x, (w_ih, w_hh, b) = fwd_piece_case(B, C, H, dtype, cuda)
+    P = ls.fwd_in_product(x, w_ih)
+    want_P = ls._in_product_ref(x, w_ih)
+    assert P.dtype == torch.float32
+    rel = ((P - want_P).norm() / want_P.norm()).item()
+    assert rel <= 1e-6, rel  # f32 sums of exact products in another order
+    assert ls.pick_fwd(B, C, H, 1, dtype) in ls.cluster_sizes(H, dtype)
+    for n in ls.cluster_sizes(H, dtype):
+        for res in (False, True):
+            got = ls.fwd_cluster_scan(want_P, w_hh, b, res=res, n=n)
+            for a, w in zip(got, ls._fwd_scan_ref(want_P, w_hh, b, res)):
+                if w is None:
+                    assert a is None
+                else:
+                    assert a.dtype == dtype
+                    assert_close(a, w, dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [16, 13])
+@pytest.mark.parametrize("width", AE_WIDTHS, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fwd_layerwise_matches_plain_and_repeats(cuda, dtype, width, B):
+    """K1 and K4 through `pick_fwd`'s path (the layer-by-layer one here)
+    against the per-step plain versions, one launch of each piece a layer,
+    and bit for bit the same on a second run."""
+    C, H = width
+    x, layers, _ = make_stack((12, B, C, H, 1), dtype, cuda, seed=1)
+    ls.reset_launches()
+    got = ls.fwd_train(x, layers)
+    top = ls.fwd_infer(x, layers)
+    assert ls.LAUNCHES["fwd_in_product"] == ls.LAUNCHES["fwd_cluster_scan"] == 2
+    for a, b in zip(got, ls._fwd_train_ref(x, layers)):
+        assert_close(a, b, dtype)
+    assert_close(top, ls._fwd_infer_ref(x, layers), dtype)
+    for a, b in zip(got, ls.fwd_train(x, layers)):
+        assert torch.equal(a, b)
+    assert torch.equal(top, ls.fwd_infer(x, layers))
+
+
+@pytest.mark.parametrize("L", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fwd_layerwise_stacks(cuda, dtype, L):
+    """Several layers at the CLI's widths and at H = 128: each layer's h is
+    the next one's input product; K4 keeps the layers below the top in one
+    scratch buffer."""
+    for shape in ((9, 16, 96, 96, L), (7, 13, 96, 128, L)):
+        x, layers, _ = make_stack(shape, dtype, cuda, seed=2)
+        B, C, H = shape[1:4]
+        for n in ls.cluster_sizes(H, dtype):
+            got = ls._fwd_cluster_cuda(x, layers, "fwd_train", n)
+            for a, b in zip(got, ls._fwd_train_ref(x, layers)):
+                assert_close(a, b, dtype)
+            assert_close(ls._fwd_cluster_cuda(x, layers, "fwd_infer", n),
+                         ls._fwd_infer_ref(x, layers), dtype)
+    torch.cuda.synchronize()
+
+
+def test_fwd_old_path_keeps_the_shapes_pick_fwd_leaves_it(cuda):
+    """At B = 1024 (the bench step's K1) `fwd_train` and `fwd_infer` run
+    `lstm_fwd_kernel`: bit for bit its outputs, no layer-by-layer launch;
+    and at the CLI's B = 16 the old kernel still holds to the plain K1 and
+    repeats bit for bit."""
+    x, layers, _ = make_stack((8, 1024, 96, 96, 2), torch.bfloat16, cuda, seed=3)
+    assert ls.pick_fwd(1024, 96, 96, 2, torch.bfloat16) == 0
+    ls.reset_launches()
+    got = ls.fwd_train(x, layers)
+    top = ls.fwd_infer(x, layers)
+    assert ls.LAUNCHES["fwd_in_product"] == ls.LAUNCHES["fwd_cluster_scan"] == 0
+    for a, b in zip(got, ls._fwd_cuda(x, layers, "fwd_train")):
+        assert torch.equal(a, b)
+    assert torch.equal(top, ls._fwd_cuda(x, layers, "fwd_infer"))
+    x, layers, _ = make_stack((8, 16, 96, 96, 2), torch.bfloat16, cuda, seed=4)
+    old = ls._fwd_cuda(x, layers, "fwd_train")
+    for a, b, c in zip(old, ls._fwd_train_ref(x, layers), ls._fwd_cuda(x, layers, "fwd_train")):
+        assert_close(a, b, torch.bfloat16)
+        assert torch.equal(a, c)
+
+
+def test_refused_cluster_raises(cuda):
+    """A cluster the card cannot place (32 CTAs, over the 16 a cluster may
+    hold) raises and counts no launch; no other path runs in its stead."""
+    x, (w_ih, w_hh, b) = fwd_piece_case(16, 384, 96, torch.bfloat16, cuda)
+    P = ls.fwd_in_product(x, w_ih)
+    ls.reset_launches()
+    with pytest.raises(RuntimeError, match="fwd_cluster_scan"):
+        ls.fwd_cluster_scan(P, w_hh, b, n=32)
+    assert ls.LAUNCHES["fwd_cluster_scan"] == 0
+    with pytest.raises(ValueError):  # 7 CTAs do not split 96 units
+        ls.fwd_cluster_scan(P, w_hh, b, n=7)
+    # the next launch runs clean: the refusal left no error behind
+    h, _, _ = ls.fwd_cluster_scan(P, w_hh, b)
+    assert_close(h, ls._fwd_scan_ref(P, w_hh, b)[0], torch.bfloat16)
+
+
+def test_fwd_layerwise_calls_no_library_product(cuda):
+    """The layer-by-layer K1/K4 run only the port's kernels: no cuBLAS or
+    cuDNN product appears among the operators."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, layers, _ = make_stack((9, 16, 96, 384, 1), torch.bfloat16, cuda, seed=5)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ls.fwd_train(x, layers)
+        ls.fwd_infer(x, layers)
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::mm", "aten::matmul", "aten::bmm", "aten::addmm", "aten::linear",
+                      "aten::_cudnn_rnn"}, ops
 
 
 # ------------------------------------- recompute stack K10/K11, scan K12–K14
