@@ -70,6 +70,7 @@
 
 #include "lstm_common.cuh"
 #include "vit_common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -407,20 +408,9 @@ int launch_clusters(void (*kern)(KArgs...), int N, int tiles, int nthr, size_t s
 // tiles w, w + W, ... (W warps, at most MT each) over all H/16 k-steps. The
 // rest of a step is the f32 kernel's.
 
-// the 32 bits at p (two bf16)
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a·b for one m16n8k16 tile: bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// (ld32 and mma_bf16 come from warp_mma.cuh)
+using tc::ld32;
+using tc::mma_bf16;
 
 // bytes of shared memory of one CTA of the bf16 cluster scan:
 //   w_s (4U, H + 8) bf16 | h_s (2, 16, H + 8) bf16 | g_s (16, 4U) f32 | c_s (16, U) f32

@@ -17,26 +17,33 @@
 // Np = 800); a block has 227 KB of shared memory. So the half-block is a
 // chain of launches on one stream:
 //   forward:  LN rows (y) -> y @ Wqkv + bqkv rounded to CD (qkv) ->
-//             attention over 64x64 query/key tiles (o) -> o @ Wp + bp,
-//             scaled, plus the residual;
-//   backward: dout*s in CD -> dWp, dbp -> do = dn @ Wp^T -> dq (query tiles)
-//             -> dk, dv (key tiles) -> dWqkv, dbqkv -> dy = dqkv @ Wqkv^T ->
-//             LN backward.
-// The attention never holds more than one 64x64 tile of scores. It is
-// two-pass: pass 1 finds each row's max m and sum l = sum exp(s - m), pass 2
-// forms p = exp(s - m) / l, rounds p to CD and accumulates p @ v, so p is
-// rounded at the point where the Pallas body rounds its full-row softmax
-// (a one-pass online softmax would round unnormalised values instead). The
-// forward saves m and l per row; the backward recomputes p from them
-// bit-for-bit and, for dS = p (dp - sum_j p dp), first sums p * dp over
-// every key tile as the Pallas body does (not FlashAttention's do . o,
-// which would use the rounded o). Every dW is a contraction over rows summed
-// in fixed chunks and a fixed order (vit_common.cuh): deterministic, no
-// atomics. In bf16 every product, the attention tiles' included, runs on the
-// tensor cores (wmma); in f32 on the CUDA cores with true f32 FMA. Bound: the
-// attention tiles, two score products in the forward and three in the
-// backward per tile pair, each passed through shared memory for the softmax
-// algebra; wgmma, TMA and a one-pass kernel are later work.
+//             attention core (o, and each query row's m and l) -> o @ Wp +
+//             bp, scaled, plus the residual;
+//   backward: dout*s in CD -> dWp, dbp -> do = dn @ Wp^T -> dq core (query
+//             tiles) -> dk/dv core (key tiles) -> dWqkv, dbqkv -> dy = dqkv
+//             @ Wqkv^T -> LN backward.
+// The attention cores never hold more than a 64x64 tile of scores. The
+// forward is two-pass: pass 1 finds each row's max m and sum l = sum exp(s -
+// m), pass 2 forms p = exp(s - m) / l, rounds p to CD and accumulates p @ v,
+// so p is rounded where the Pallas body rounds its full-row softmax (a
+// one-pass online softmax would round unnormalised values instead). The
+// forward saves m and l per row; the backward recomputes p from them bit for
+// bit and, for dS = p (dp - sum_j p dp), first sums p * dp over every key
+// tile as the Pallas body does (not FlashAttention's do . o, which would use
+// the rounded o). Every dW is a contraction over rows summed in fixed chunks
+// and a fixed order (vit_common.cuh): deterministic, no atomics.
+//
+// In bf16 the cores are bound by their tensor-core products (4 N^2 dh a
+// head and sequence forward, 10 backward, as the bound counts them; the
+// forward forms the scores twice and the backward five score-sized products
+// a tile pair in dq and four in dk/dv) and by the exp and divide of every
+// score. So the scores never leave registers: each warp owns 16 whole rows,
+// takes its row max and sums with two quad shuffles, and packs p or dS,
+// rounded, straight into the A fragment of the next mma.sync; the streamed
+// tiles come through a cp.async ring that overlaps the next tile's copy
+// with this tile's math, one barrier a tile. wgmma, TMA and a key-split of
+// the long sequences are later work. In f32 the cores run on the CUDA cores
+// with true f32 FMA; the products are vit_common.cuh's.
 //
 // Rounding points follow the Pallas bodies: LN in f32 with eps 1e-6; y, q,
 // k, v, p, o, dout*s, do, dS, dq, dk, dv rounded to CD where the body casts
@@ -44,6 +51,7 @@
 // residual stream in SD.
 
 #include "vit_common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -375,397 +383,609 @@ attn_bwd_dkdv(const CD* __restrict__ qkv, const CD* __restrict__ dob,
   }
 }
 
-// ------------------------------------------- tensor-core attention (bf16)
-// The same three kernels for a bf16 compute dtype, with every tile product
-// on the tensor cores (wmma 16x16x16 bf16, f32 accumulation). Tiles are bf16
-// [row][c] in shared memory, zero beyond dh up to 64 columns; each 64x64
-// score tile goes through f32 shared memory to the threads' 4x4 sub-tiles,
-// which run the softmax algebra exactly as above; p and dS are rounded to
-// bf16 into shared memory as the next product's operand. One helper forms
-// every score tile, so the backward recomputes the forward's p bit for bit.
+// ------------------------------------------------ attention cores (bf16)
+// The same three kernels for a bf16 compute dtype, on mma.sync m16n8k16
+// (bf16 operands, f32 sums), with every score tile in registers. A CTA of
+// four warps owns 64 rows of one (sequence, head): query rows in the forward
+// and in dq, key rows in dk/dv; warp w owns rows 16 w .. 16 w + 15 across
+// every column, so a row's max and sums stay in the four lanes of a quad
+// (two shuffles). Its own rows' operands go from shared memory into A
+// fragments once; the other side's 64-row tiles stream through a ring of
+// kStages shared-memory stages filled by cp.async (16-byte copies, zero
+// fill past N) while the previous tile is being used, one barrier a tile.
+// Tiles are bf16 [row][c], rows kLdH = 72 values apart (the 8 rows an
+// ldmatrix reads land in 8 different 4-bank groups), zero from dh up to
+// the depth KD * 16.
 using bf16 = __nv_bfloat16;
-namespace wm = nvcuda::wmma;
-using FragAcc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-constexpr int kHLd = kT + 8;  // bf16 tile row stride (a multiple of 8 elements)
-constexpr int kHTile = kT * kHLd;
+constexpr int kRows = 64;            // rows a CTA owns, and rows of a ring tile
+constexpr int kMmaThreads = 128;     // four warps of 16 rows
+constexpr int kLdH = kT + 8;         // bf16 row stride of a shared tile
+constexpr int kHTile = kRows * kLdH;
+constexpr int kStages = 2;
+// CTAs an SM holds, as the launch bounds ask: 4 for the forward and dq
+// (registers capped at 128 a thread; the forward takes 140 without the cap)
+// and 3 for dk/dv (168 registers); none spills (nvcc -Xptxas -v).
 
-// t[r][c] = src row r0 + r, column c, for c < dh; zero elsewhere in 64 x 64
-__device__ __forceinline__ void load_h(bf16* t, const bf16* src, int ld, int r0, int n, int dh) {
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int e = threadIdx.x; e < kT * kT; e += kAttnThreads) {
-    const int r = e / kT, c = e % kT;
-    t[r * kHLd + c] = (r0 + r < n && c < dh) ? src[(size_t)(r0 + r) * ld + c] : zero;
-  }
-}
+// Shared memory of each kernel, bytes: its own rows' tiles and the ring.
+constexpr int kFwdSmem = (1 + 2 * kStages) * kHTile * 2;                 // Q | (K, V) x stages
+constexpr int kDqSmem = (2 + 2 * kStages) * kHTile * 2;                  // Q, dO | (K, V)
+constexpr int kDkdvSmem = (2 + 2 * kStages) * kHTile * 2 + kStages * kRows * 3 * 4;
 
-// Warp w owns rows 16 (w / 2) and columns 32 (w % 2) + {0, 16} of a 64x64 result.
-__device__ __forceinline__ void warp_tile(int& wr, int& wc) {
-  const int warp = threadIdx.x / 32;
-  wr = 16 * (warp / 2);
-  wc = 32 * (warp % 2);
-}
-
-// out (64x64 f32, row stride kLd) = a . b^T over `depth` columns: every row
-// of a against every row of b (scores q k^T, dp = do v^T)
-__device__ __forceinline__ void tc_abt(const bf16* a, const bf16* b, int depth, float* out) {
-  int wr, wc;
-  warp_tile(wr, wc);
-  FragAcc c[2];
-  wm::fill_fragment(c[0], 0.f);
-  wm::fill_fragment(c[1], 0.f);
-  for (int kk = 0; kk < depth; kk += 16) {
-    wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> fa;
-    wm::load_matrix_sync(fa, a + wr * kHLd + kk, kHLd);
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> fb;
-      wm::load_matrix_sync(fb, b + (wc + 16 * f) * kHLd + kk, kHLd);
-      wm::mma_sync(c[f], fa, fb, c[f]);
+// t[r][c] = src row r0 + r, column c, for r < 64 and c < KD * 16; zero at
+// rows >= n and columns >= dh. vec (dh % 8 == 0, 16-byte aligned rows):
+// cp.async of 8 values, completed by the caller's cp_async_wait and barrier;
+// else one value at a time, visible after the caller's barrier.
+template <int KD>
+__device__ __forceinline__ void load_tile(bf16* t, const bf16* src, int ld, int r0, int n,
+                                          int dh, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < kRows * 2 * KD; e += kMmaThreads) {
+      const int r = e / (2 * KD), c = 8 * (e % (2 * KD));
+      bf16* d = t + r * kLdH + c;
+      if (c < dh)
+        tc::cp_async<16>(d, src + (size_t)(r0 + r < n ? r0 + r : 0) * ld + c, r0 + r < n);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16_rn(0.f);
+    for (int e = threadIdx.x; e < kRows * 16 * KD; e += kMmaThreads) {
+      const int r = e / (16 * KD), c = e % (16 * KD);
+      t[r * kLdH + c] = (r0 + r < n && c < dh) ? src[(size_t)(r0 + r) * ld + c] : zero;
     }
   }
+}
+
+// a[kk] = the A fragments of this warp's 16 rows of tile t, k-steps kk < KD
+template <int KD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KD][4], const bf16* t) {
+  const int lane = threadIdx.x % 32;
+  const bf16* p = t + (16 * (threadIdx.x / 32) + lane % 8 + 8 * (lane / 8 % 2)) * kLdH;
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) tc::ldmatrix_x4(a[kk], p + 16 * kk + 8 * (lane / 16));
+}
+
+// s = a . t[c16 .. c16 + 15]^T: this warp's 16 rows against 16 rows of tile
+// t (two n8 tiles), summed over k-steps 0 .. KD-1 in order from zero. Every
+// score of every kernel is formed here, so a score recomputed with its
+// operands swapped (S^T = K Q^T in dk/dv) adds the same products in the
+// same order as the forward.
+template <int KD>
+__device__ __forceinline__ void score16(float (&s)[2][4], const uint32_t (&a)[KD][4],
+                                        const bf16* t, int c16) {
+  const int lane = threadIdx.x % 32;
+  const bf16* p = t + (c16 + lane % 8 + 8 * (lane / 16)) * kLdH + 8 * (lane / 8 % 2);
 #pragma unroll
   for (int f = 0; f < 2; ++f)
-    wm::store_matrix_sync(out + wr * kLd + wc + 16 * f, c[f], kLd, wm::mem_row_major);
-}
-
-// c += a . b over 64 (A_T: a^T . b), a and b stored [k][...] or [row][k]:
-// a (row, k) row-major, or with A_T stored [k][row]; b (k, col) [k][col]
-template <bool A_T>
-__device__ __forceinline__ void tc_ab(const bf16* a, const bf16* b, FragAcc (&c)[2]) {
-  using LA = typename std::conditional<A_T, wm::col_major, wm::row_major>::type;
-  int wr, wc;
-  warp_tile(wr, wc);
 #pragma unroll
-  for (int kk = 0; kk < kT; kk += 16) {
-    wm::fragment<wm::matrix_a, 16, 16, 16, bf16, LA> fa;
-    wm::load_matrix_sync(fa, A_T ? a + kk * kHLd + wr : a + wr * kHLd + kk, kHLd);
+    for (int e = 0; e < 4; ++e) s[f][e] = 0.f;
 #pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> fb;
-      wm::load_matrix_sync(fb, b + kk * kHLd + wc + 16 * f, kHLd);
-      wm::mma_sync(c[f], fa, fb, c[f]);
-    }
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t b[4];
+    tc::ldmatrix_x4(b, p + 16 * kk);
+    tc::mma_bf16(s[0], a[kk], b[0], b[1]);
+    tc::mma_bf16(s[1], a[kk], b[2], b[3]);
   }
 }
 
-__device__ __forceinline__ void tc_store(FragAcc (&c)[2], float* out) {
-  int wr, wc;
-  warp_tile(wr, wc);
+// acc[n8] += pa . t[k16 .. k16 + 15][n8 tiles]: the packed 16-column A
+// fragment pa against 16 rows of tile t as the k side (ldmatrix.trans), for
+// every n8 tile of the depth
+template <int KD>
+__device__ __forceinline__ void acc16(float (&acc)[2 * KD][4], const uint32_t (&pa)[4],
+                                      const bf16* t, int k16) {
+  const int lane = threadIdx.x % 32;
+  const bf16* p = t + (k16 + lane % 8 + 8 * (lane / 8 % 2)) * kLdH + 8 * (lane / 16);
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wm::store_matrix_sync(out + wr * kLd + wc + 16 * f, c[f], kLd, wm::mem_row_major);
-}
-
-// v[r][c] = t[4 ty + r][4 tx + c] of an f32 64x64 tile
-__device__ __forceinline__ void read44(const float* t, int ty, int tx, float (&v)[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const float4 q = *reinterpret_cast<const float4*>(t + (4 * ty + r) * kLd + 4 * tx);
-    v[r][0] = q.x;
-    v[r][1] = q.y;
-    v[r][2] = q.z;
-    v[r][3] = q.w;
+  for (int nd = 0; nd < KD; ++nd) {
+    uint32_t b[4];
+    tc::ldmatrix_x4_trans(b, p + 16 * nd);
+    tc::mma_bf16(acc[2 * nd], pa, b[0], b[1]);
+    tc::mma_bf16(acc[2 * nd + 1], pa, b[2], b[3]);
   }
 }
 
-constexpr int kFwdTcSmem = 4 * kHTile * 2 + kTile * 4;
-constexpr int kDqTcSmem = 5 * kHTile * 2 + 2 * kTile * 4;
-constexpr int kDkdvTcSmem = 6 * kHTile * 2 + 2 * kTile * 4;
+// the A fragment of 16 columns from their two n8 C fragments
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[4], const float (&c)[2][4]) {
+  pa[0] = tc::pack_bf16(c[0][0], c[0][1]);
+  pa[1] = tc::pack_bf16(c[0][2], c[0][3]);
+  pa[2] = tc::pack_bf16(c[1][0], c[1][1]);
+  pa[3] = tc::pack_bf16(c[1][2], c[1][3]);
+}
 
-__global__ void __launch_bounds__(kAttnThreads)
-attn_fwd_tc(const bf16* __restrict__ qkv, bf16* __restrict__ o, float* __restrict__ stats, int N,
-            int H, int dh) {
-  extern __shared__ __align__(32) unsigned char smraw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smraw);  // [i][c]
-  bf16* Ks = Qs + kHTile;                      // [j][c]
-  bf16* Vs = Ks + kHTile;                      // [j][c]
-  bf16* Ps = Vs + kHTile;                      // [i][j]
-  float* Ss = reinterpret_cast<float*>(Ps + kHTile);
-  const int D = H * dh, ld = 3 * D, depth = (dh + 15) / 16 * 16;
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bf16* q = qkv + (size_t)b * N * ld + h * dh;
-  const bf16* k = q + D;
-  const bf16* v = q + 2 * D;
-  load_h(Qs, q, ld, i0, N, dh);
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
 
-  float m[4], l[4], s[4][4];
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// exp(s - m) as every core forms it, 2^(s log2e - m log2e) with mL = m
+// log2e: one FMA and the MUFU ex2; p is that times rl = 1 / l (both
+// rounded to nearest). The forward, dq and dk/dv run exactly these
+// instructions on the same scores, so they form the same p.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float exp_sm(float s, float mL) {
+  return ex2(__fmaf_rn(s, kLog2e, -mL));
+}
+
+__device__ __forceinline__ float log2e_of(float m) { return __fmul_rn(m, kLog2e); }
+
+// column col of the 64-column tile at j0 lies below n; always true in a full
+// tile, where Masked is std::false_type (the kernels branch once a tile)
+template <class Masked>
+__device__ __forceinline__ bool col_ok(Masked, int j0, int col, int n) {
+  return !Masked::value || j0 + col < n;
+}
+
+// f(false_type) for a full tile at j0, f(true_type) for the ragged last one
+template <class F>
+__device__ __forceinline__ void by_tile(int j0, int n, F f) {
+  if (j0 + kRows <= n)
+    f(std::false_type{});
+  else
+    f(std::true_type{});
+}
+
+// Write this warp's 16 x (KD * 16) accumulators, rows r0 + 16 w + (g, g + 8),
+// to f32 (if out32) and bf16 tiles whose row r starts at base + r * ld; only
+// rows < n and columns < dh.
+template <int KD>
+__device__ __forceinline__ void store_rows(const float (&acc)[2 * KD][4], float* out32,
+                                           bf16* out16, size_t ld, int r0, int n, int dh) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) m[r] = -INFINITY, l[r] = 0.f;
-  for (int j0 = 0; j0 < N; j0 += kT) {
-    __syncthreads();
-    load_h(Ks, k, ld, j0, N, dh);
-    __syncthreads();
-    tc_abt(Qs, Ks, depth, Ss);
-    __syncthreads();
-    read44(Ss, ty, tx, s);
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 16 * (threadIdx.x / 32) + g + 8 * half;
+    if (r >= n) continue;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (j0 + 4 * tx + c < N) mx = fmaxf(mx, s[r][c]);
-      const float mn = fmaxf(m[r], group16_max(mx));
-      float e = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (j0 + 4 * tx + c < N) e += expf(s[r][c] - mn);
-      l[r] = l[r] * expf(m[r] - mn) + group16_sum(e);
-      m[r] = mn;
-    }
-  }
-  FragAcc oc[2];
-  wm::fill_fragment(oc[0], 0.f);
-  wm::fill_fragment(oc[1], 0.f);
-  for (int j0 = 0; j0 < N; j0 += kT) {
-    __syncthreads();
-    load_h(Ks, k, ld, j0, N, dh);
-    load_h(Vs, v, ld, j0, N, dh);
-    __syncthreads();
-    tc_abt(Qs, Ks, depth, Ss);
-    __syncthreads();
-    read44(Ss, ty, tx, s);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const bool ok = j0 + 4 * tx + c < N;
-        Ps[(4 * ty + r) * kHLd + 4 * tx + c] =
-            __float2bfloat16_rn(ok ? expf(s[r][c] - m[r]) / l[r] : 0.f);
+    for (int nd = 0; nd < 2 * KD; ++nd) {
+      const int c = 8 * nd + 2 * t;
+      const float v0 = acc[nd][2 * half], v1 = acc[nd][2 * half + 1];
+      const size_t at = (size_t)r * ld + c;
+      if (dh % 2 == 0 && c < dh) {  // an even dh keeps every pair 4- and 8-byte aligned
+        if (out32) *reinterpret_cast<float2*>(out32 + at) = make_float2(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(out16 + at) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (c < dh) {
+          if (out32) out32[at] = v0;
+          out16[at] = __float2bfloat16_rn(v0);
+        }
+        if (c + 1 < dh) {
+          if (out32) out32[at + 1] = v1;
+          out16[at + 1] = __float2bfloat16_rn(v1);
+        }
       }
-    __syncthreads();
-    tc_ab<false>(Ps, Vs, oc);
-  }
-  __syncthreads();
-  tc_store(oc, Ss);
-  __syncthreads();
-  read44(Ss, ty, tx, s);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 4 * ty + r;
-    if (i >= N) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (4 * tx + c < dh)
-        o[((size_t)b * N + i) * D + h * dh + 4 * tx + c] = __float2bfloat16_rn(s[r][c]);
-    if (tx == 0) {
-      float* st = stats + (((size_t)b * H + h) * N + i) * 2;
-      st[0] = m[r];
-      st[1] = l[r];
     }
   }
 }
 
-__global__ void __launch_bounds__(kAttnThreads)
-attn_bwd_dq_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
-               const float* __restrict__ stats, float* __restrict__ delta,
-               float* __restrict__ dqkv32, bf16* __restrict__ dqkvn, int N, int H, int dh) {
-  extern __shared__ __align__(32) unsigned char smraw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smraw);  // [i][c]
-  bf16* dOs = Qs + kHTile;                     // [i][c]
-  bf16* Ks = dOs + kHTile;                     // [j][c]
-  bf16* Vs = Ks + kHTile;                      // [j][c]
-  bf16* dSs = Vs + kHTile;                     // [i][j]
-  float* Ss = reinterpret_cast<float*>(dSs + kHTile);
-  float* dPs = Ss + kTile;
-  const int D = H * dh, ld = 3 * D, depth = (dh + 15) / 16 * 16;
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// Forward core for one (query tile, head, sequence). qkv (B*N, 3D); o (B*N,
+// D); stats (B, H, N, 2) f32 = (m, l) per query row. The ring runs 2 nt
+// tiles: the K tiles for pass 1 (m and l), then K and V for pass 2 (p = exp(s
+// - m) / l rounded to bf16, packed straight into the A fragment of p v).
+template <int KD>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+attn_fwd_mma(const bf16* __restrict__ qkv, bf16* __restrict__ o, float* __restrict__ stats,
+             int N, int H, int dh, int vec) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smraw);
+  bf16* ring = Qs + kHTile;  // stage st: K at ring + 2 st kHTile, V after it
+  const int D = H * dh, ld = 3 * D;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, t = lane % 4;
   const bf16* q = qkv + (size_t)b * N * ld + h * dh;
   const bf16* k = q + D;
   const bf16* v = q + 2 * D;
-  load_h(Qs, q, ld, i0, N, dh);
-  load_h(dOs, dob + (size_t)b * N * D + h * dh, D, i0, N, dh);
-  float m[4], l[4], dl[4], s[4][4], dp[4][4];
+  const int nt = (N + kRows - 1) / kRows, total = 2 * nt;
+
+  auto fetch = [&](int it) {
+    if (it < total) {
+      bf16* st = ring + 2 * (it % kStages) * kHTile;
+      const int j0 = (it % nt) * kRows;
+      load_tile<KD>(st, k, ld, j0, N, dh, vec);
+      if (it >= nt) load_tile<KD>(st + kHTile, v, ld, j0, N, dh, vec);
+    }
+    tc::cp_async_commit();
+  };
+  load_tile<KD>(Qs, q, ld, i0, N, dh, vec);  // in the first group
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 4 * ty + r;
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
+  uint32_t qa[KD][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mL[2], rl[2], acc[2 * KD][4];
+#pragma unroll
+  for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it == 0) load_a<KD>(qa, Qs);
+    fetch(it + kStages - 1);
+    const bf16* Ks = ring + 2 * (it % kStages) * kHTile;
+    const int j0 = (it % nt) * kRows;
+    const bool pass1 = it < nt;
+    by_tile(j0, N, [&](auto masked) {
+      if (pass1) {  // the tile's row max, then the rescaled sum
+        float s[4][2][4], mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          score16<KD>(s[c], qa, Ks, 16 * c);
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N))
+                mx[e / 2] = fmaxf(mx[e / 2], s[c][f][e]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[r], quad_max(mx[r])), mnL = log2e_of(mn);
+          float sum = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int f = 0; f < 2; ++f)
+#pragma unroll
+              for (int e = 2 * r; e < 2 * r + 2; ++e)
+                if (col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N))
+                  sum += exp_sm(s[c][f][e], mnL);
+          l[r] = l[r] * ex2(log2e_of(m[r] - mn)) + quad_sum(sum);
+          m[r] = mn;
+        }
+      } else {  // pass 2: o += p v, 16 keys at a time
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float s[2][4];
+          score16<KD>(s, qa, Ks, 16 * c);
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[f][e] = col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N)
+                            ? __fmul_rn(exp_sm(s[f][e], mL[e / 2]), rl[e / 2]) : 0.f;
+          uint32_t pa[4];
+          pack_a(pa, s);
+          acc16<KD>(acc, pa, Ks + kHTile, 16 * c);
+        }
+      }
+    });
+    if (it == nt - 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mL[r] = log2e_of(m[r]), rl[r] = __frcp_rn(l[r]);
+  }
+  tc::cp_async_wait<0>();
+  store_rows<KD>(acc, nullptr, o + (size_t)b * N * D + h * dh, D, i0, N, dh);
+  if (t == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * r;
+      if (i < N) {
+        float* st = stats + (((size_t)b * H + h) * N + i) * 2;
+        st[0] = m[r];
+        st[1] = l[r];
+      }
+    }
+}
+
+// dq for one (query tile, head, sequence), and delta_i = sum_j p_ij dp_ij.
+// dob (B*N, D) holds do; dq goes to columns [0, D) of dqkv32 (f32) and dqkvn
+// (bf16), both (B*N, 3D). The ring runs K and V twice: pass A sums delta
+// over f32 p (the Pallas body's sum), pass B forms dS = p (dp - delta),
+// rounds it into the A fragment of dS k and accumulates dq.
+template <int KD>
+__global__ void __launch_bounds__(kMmaThreads, 4)
+attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
+                const float* __restrict__ stats, float* __restrict__ delta,
+                float* __restrict__ dqkv32, bf16* __restrict__ dqkvn, int N, int H, int dh,
+                int vec) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smraw);
+  bf16* dOs = Qs + kHTile;
+  bf16* ring = dOs + kHTile;  // stage st: K at ring + 2 st kHTile, V after it
+  const int D = H * dh, ld = 3 * D;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, t = lane % 4;
+  const bf16* q = qkv + (size_t)b * N * ld + h * dh;
+  const bf16* k = q + D;
+  const bf16* v = q + 2 * D;
+  const int nt = (N + kRows - 1) / kRows, total = 2 * nt;
+
+  auto fetch = [&](int it) {
+    if (it < total) {
+      bf16* st = ring + 2 * (it % kStages) * kHTile;
+      const int j0 = (it % nt) * kRows;
+      load_tile<KD>(st, k, ld, j0, N, dh, vec);
+      load_tile<KD>(st + kHTile, v, ld, j0, N, dh, vec);
+    }
+    tc::cp_async_commit();
+  };
+  load_tile<KD>(Qs, q, ld, i0, N, dh, vec);
+  load_tile<KD>(dOs, dob + (size_t)b * N * D + h * dh, D, i0, N, dh, vec);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
+  float mL[2], rl[2], dl[2] = {0.f, 0.f}, acc[2 * KD][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * r;
     const float* st = stats + (((size_t)b * H + h) * N + (i < N ? i : 0)) * 2;
-    m[r] = st[0];
-    l[r] = st[1];
-    dl[r] = 0.f;
+    mL[r] = log2e_of(st[0]);
+    rl[r] = __frcp_rn(st[1]);
   }
-  for (int j0 = 0; j0 < N; j0 += kT) {
-    __syncthreads();
-    load_h(Ks, k, ld, j0, N, dh);
-    load_h(Vs, v, ld, j0, N, dh);
-    __syncthreads();
-    tc_abt(Qs, Ks, depth, Ss);
-    tc_abt(dOs, Vs, depth, dPs);
-    __syncthreads();
-    read44(Ss, ty, tx, s);
-    read44(dPs, ty, tx, dp);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float part = 0.f;
+  for (int nd = 0; nd < 2 * KD; ++nd)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (j0 + 4 * tx + c < N) part += (expf(s[r][c] - m[r]) / l[r]) * dp[r][c];
-      dl[r] += group16_sum(part);
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  uint32_t qa[KD][4], da[KD][4];
+
+  for (int it = 0; it < total; ++it) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (it == 0) {
+      load_a<KD>(qa, Qs);
+      load_a<KD>(da, dOs);
     }
-  }
-  FragAcc dq[2];
-  wm::fill_fragment(dq[0], 0.f);
-  wm::fill_fragment(dq[1], 0.f);
-  for (int j0 = 0; j0 < N; j0 += kT) {
-    __syncthreads();
-    load_h(Ks, k, ld, j0, N, dh);
-    load_h(Vs, v, ld, j0, N, dh);
-    __syncthreads();
-    tc_abt(Qs, Ks, depth, Ss);
-    tc_abt(dOs, Vs, depth, dPs);
-    __syncthreads();
-    read44(Ss, ty, tx, s);
-    read44(dPs, ty, tx, dp);
+    if (it == nt) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 2; ++r) dl[r] = quad_sum(dl[r]);
+    }
+    fetch(it + kStages - 1);
+    const bf16* Ks = ring + 2 * (it % kStages) * kHTile;
+    const int j0 = (it % nt) * kRows;
+    const bool passA = it < nt;
+    by_tile(j0, N, [&](auto masked) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const bool ok = j0 + 4 * tx + c < N;
-        const float p = expf(s[r][c] - m[r]) / l[r];
-        dSs[(4 * ty + r) * kHLd + 4 * tx + c] =
-            __float2bfloat16_rn(ok ? p * (dp[r][c] - dl[r]) : 0.f);
-      }
-    __syncthreads();
-    tc_ab<false>(dSs, Ks, dq);
-  }
-  __syncthreads();
-  tc_store(dq, Ss);
-  __syncthreads();
-  read44(Ss, ty, tx, s);
+        float s[2][4], dp[2][4];
+        score16<KD>(s, qa, Ks, 16 * c);
+        score16<KD>(dp, da, Ks + kHTile, 16 * c);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 4 * ty + r;
-    if (i >= N) continue;
-    const size_t row = ((size_t)b * N + i) * ld + h * dh;
+        for (int f = 0; f < 2; ++f)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (4 * tx + c < dh) {
-        dqkv32[row + 4 * tx + c] = s[r][c];
-        dqkvn[row + 4 * tx + c] = __float2bfloat16_rn(s[r][c]);
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N);
+            const float p = __fmul_rn(exp_sm(s[f][e], mL[e / 2]), rl[e / 2]);
+            if (passA)
+              dl[e / 2] += ok ? p * dp[f][e] : 0.f;
+            else
+              s[f][e] = ok ? p * (dp[f][e] - dl[e / 2]) : 0.f;
+          }
+        if (!passA) {
+          uint32_t pa[4];
+          pack_a(pa, s);
+          acc16<KD>(acc, pa, Ks, 16 * c);
+        }
       }
-    if (tx == 0) delta[((size_t)b * H + h) * N + i] = dl[r];
+    });
   }
+  tc::cp_async_wait<0>();
+  const size_t row0 = (size_t)b * N * ld + h * dh;
+  store_rows<KD>(acc, dqkv32 + row0, dqkvn + row0, ld, i0, N, dh);
+  if (t == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * r;
+      if (i < N) delta[((size_t)b * H + h) * N + i] = dl[r];
+    }
 }
 
-__global__ void __launch_bounds__(kAttnThreads)
-attn_bwd_dkdv_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
-                 const float* __restrict__ stats, const float* __restrict__ delta,
-                 float* __restrict__ dqkv32, bf16* __restrict__ dqkvn, int N, int H, int dh) {
-  extern __shared__ __align__(32) unsigned char smraw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);  // [j][c]
-  bf16* Vs = Ks + kHTile;                      // [j][c]
-  bf16* Qs = Vs + kHTile;                      // [i][c]
-  bf16* dOs = Qs + kHTile;                     // [i][c]
-  bf16* Ps = dOs + kHTile;                     // [i][j]
-  bf16* dSs = Ps + kHTile;                     // [i][j]
-  float* Ss = reinterpret_cast<float*>(dSs + kHTile);
-  float* dPs = Ss + kTile;
-  __shared__ float mS[kT], lS[kT], dS_[kT];
-  const int D = H * dh, ld = 3 * D, depth = (dh + 15) / 16 * 16;
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * kT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// dk and dv for one (key tile, head, sequence): dv = p_bf16^T do, dk = dS^T q
+// over every query tile in order; to columns [D, 2D) and [2D, 3D). The key
+// rows are the A side: S^T = K Q^T and dP^T = V dO^T come out with a key per
+// row, so p^T and dS^T are already the A fragments of p^T do and dS^T q. The
+// ring carries each query tile's Q, dO and its rows' m, l and delta.
+template <int KD>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+attn_bwd_dkdv_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
+                  const float* __restrict__ stats, const float* __restrict__ delta,
+                  float* __restrict__ dqkv32, bf16* __restrict__ dqkvn, int N, int H, int dh,
+                  int vec) {
+  extern __shared__ __align__(16) unsigned char smraw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smraw);
+  bf16* Vs = Ks + kHTile;
+  bf16* ring = Vs + kHTile;  // stage st: Q at ring + 2 st kHTile, dO after it
+  // stage st's rows: (m, l) pairs at rowst + st 3 kRows, delta after them;
+  // each pair becomes (m log2e, 1 / l) once it has landed
+  float* rowst = reinterpret_cast<float*>(ring + 2 * kStages * kHTile);
+  const int D = H * dh, ld = 3 * D;
+  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, t = lane % 4;
   const bf16* q = qkv + (size_t)b * N * ld + h * dh;
   const bf16* k = q + D;
   const bf16* v = q + 2 * D;
   const bf16* dO = dob + (size_t)b * N * D + h * dh;
-  load_h(Ks, k, ld, j0, N, dh);
-  load_h(Vs, v, ld, j0, N, dh);
-  float s[4][4], dp[4][4];
-  FragAcc dk[2], dv[2];
-  for (int f = 0; f < 2; ++f) {
-    wm::fill_fragment(dk[f], 0.f);
-    wm::fill_fragment(dv[f], 0.f);
-  }
-  for (int i0 = 0; i0 < N; i0 += kT) {
-    __syncthreads();
-    load_h(Qs, q, ld, i0, N, dh);
-    load_h(dOs, dO, D, i0, N, dh);
-    if (threadIdx.x < kT) {
-      const int i = i0 + threadIdx.x;
-      const size_t bh = (size_t)b * H + h;
-      mS[threadIdx.x] = i < N ? stats[(bh * N + i) * 2] : 0.f;
-      lS[threadIdx.x] = i < N ? stats[(bh * N + i) * 2 + 1] : 1.f;
-      dS_[threadIdx.x] = i < N ? delta[bh * N + i] : 0.f;
+  const size_t bh = (size_t)b * H + h;
+  const int nt = (N + kRows - 1) / kRows;
+
+  auto fetch = [&](int it) {
+    if (it < nt) {
+      bf16* st = ring + 2 * (it % kStages) * kHTile;
+      const int r0 = it * kRows;
+      load_tile<KD>(st, q, ld, r0, N, dh, vec);
+      load_tile<KD>(st + kHTile, dO, D, r0, N, dh, vec);
+      float* rs = rowst + (it % kStages) * kRows * 3;
+      const int r = threadIdx.x % kRows, i = r0 + r < N ? r0 + r : 0;
+      if (threadIdx.x < kRows)
+        tc::cp_async<8>(rs + 2 * r, stats + (bh * N + i) * 2, r0 + r < N);
+      else
+        tc::cp_async<4>(rs + 2 * kRows + r, delta + bh * N + i, r0 + r < N);
+    }
+    tc::cp_async_commit();
+  };
+  load_tile<KD>(Ks, k, ld, j0, N, dh, vec);
+  load_tile<KD>(Vs, v, ld, j0, N, dh, vec);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
+  float dk[2 * KD][4], dv[2 * KD][4];
+#pragma unroll
+  for (int nd = 0; nd < 2 * KD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+  uint32_t ka[KD][4], va[KD][4];
+
+  for (int it = 0; it < nt; ++it) {
+    tc::cp_async_wait<kStages - 2>();
+    if (threadIdx.x < kRows) {  // this thread's own copy: (m, l) -> (m log2e, 1 / l)
+      float* ml = rowst + (it % kStages) * kRows * 3 + 2 * threadIdx.x;
+      ml[0] = log2e_of(ml[0]);
+      ml[1] = __frcp_rn(ml[1]);
     }
     __syncthreads();
-    tc_abt(Qs, Ks, depth, Ss);    // rows i, columns j
-    tc_abt(dOs, Vs, depth, dPs);
-    __syncthreads();
-    read44(Ss, ty, tx, s);
-    read44(dPs, ty, tx, dp);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int il = 4 * ty + r;
+    if (it == 0) {
+      load_a<KD>(ka, Ks);
+      load_a<KD>(va, Vs);
+    }
+    fetch(it + kStages - 1);
+    const bf16* Qs = ring + 2 * (it % kStages) * kHTile;
+    const float* rs = rowst + (it % kStages) * kRows * 3;
+    const int i0 = it * kRows;
+    by_tile(i0, N, [&](auto masked) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const bool ok = i0 + il < N && j0 + 4 * tx + c < N;
-        const float p = ok ? expf(s[r][c] - mS[il]) / lS[il] : 0.f;
-        Ps[il * kHLd + 4 * tx + c] = __float2bfloat16_rn(p);
-        dSs[il * kHLd + 4 * tx + c] = __float2bfloat16_rn(p * (dp[r][c] - dS_[il]));
+        float s[2][4], dp[2][4];
+        score16<KD>(s, ka, Qs, 16 * c);  // rows keys, columns queries
+        score16<KD>(dp, va, Qs + kHTile, 16 * c);
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int il = 16 * c + 8 * f + 2 * t + e % 2;
+            const float p = col_ok(masked, i0, il, N)
+                                ? __fmul_rn(exp_sm(s[f][e], rs[2 * il]), rs[2 * il + 1]) : 0.f;
+            s[f][e] = p;
+            dp[f][e] = p * (dp[f][e] - rs[2 * kRows + il]);
+          }
+        uint32_t pa[4], da[4];
+        pack_a(pa, s);
+        pack_a(da, dp);
+        acc16<KD>(dv, pa, Qs + kHTile, 16 * c);
+        acc16<KD>(dk, da, Qs, 16 * c);
       }
-    }
-    __syncthreads();
-    tc_ab<true>(Ps, dOs, dv);   // rows j, columns c
-    tc_ab<true>(dSs, Qs, dk);
+    });
   }
+  tc::cp_async_wait<0>();
+  const size_t row0 = (size_t)b * N * ld + h * dh;
+  store_rows<KD>(dk, dqkv32 + row0 + D, dqkvn + row0 + D, ld, j0, N, dh);
+  store_rows<KD>(dv, dqkv32 + row0 + 2 * D, dqkvn + row0 + 2 * D, ld, j0, N, dh);
+}
+
+// S (B, H, N, N) from the forward's orientation (A = q rows, B = k rows) and
+// St (B, H, N, N) from dk/dv's (A = k rows, B = q rows), both through
+// score16: for the card test that the backward recomputes the forward's
+// scores bit for bit.
+template <int KD>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_scores_mma(const bf16* __restrict__ qkv, float* __restrict__ S, float* __restrict__ St,
+                int N, int H, int dh, int vec) {
+  __shared__ __align__(16) bf16 Qs[kHTile], Ks[kHTile];
+  const int D = H * dh, ld = 3 * D;
+  const int bh = blockIdx.z, b = bh / H, h = bh % H;
+  const int i0 = blockIdx.y * kRows, j0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4, w = threadIdx.x / 32;
+  const bf16* q = qkv + (size_t)b * N * ld + h * dh;
+  load_tile<KD>(Qs, q, ld, i0, N, dh, vec);
+  load_tile<KD>(Ks, q + D, ld, j0, N, dh, vec);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
   __syncthreads();
-  tc_store(dk, Ss);
-  tc_store(dv, dPs);
-  __syncthreads();
-  read44(Ss, ty, tx, s);
-  read44(dPs, ty, tx, dp);
+  uint32_t a[KD][4];
+  for (int side = 0; side < 2; ++side) {
+    load_a<KD>(a, side ? Ks : Qs);
+    const int r0 = side ? j0 : i0, c0 = side ? i0 : j0;
+    float* out = (side ? St : S) + (size_t)bh * N * N;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = j0 + 4 * ty + r;
-    if (j >= N) continue;
-    const size_t row = ((size_t)b * N + j) * ld + h * dh;
+    for (int c = 0; c < 4; ++c) {
+      float s[2][4];
+      score16<KD>(s, a, side ? Qs : Ks, 16 * c);
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (4 * tx + c < dh) {
-        dqkv32[row + D + 4 * tx + c] = s[r][c];
-        dqkvn[row + D + 4 * tx + c] = __float2bfloat16_rn(s[r][c]);
-        dqkv32[row + 2 * D + 4 * tx + c] = dp[r][c];
-        dqkvn[row + 2 * D + 4 * tx + c] = __float2bfloat16_rn(dp[r][c]);
-      }
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + 16 * w + g + 8 * (e / 2), col = c0 + 16 * c + 8 * f + 2 * t + e % 2;
+          if (r < N && col < N) out[(size_t)r * N + col] = s[f][e];
+        }
+    }
   }
 }
 
-// Launch the attention kernels of compute dtype CD: the tensor-core bodies
-// for bf16, the CUDA-core f32 bodies for float.
+// the depth in k-steps of 16 for head dim dh <= 64, as a template argument
+template <class F>
+int with_kd(int dh, F f) {
+  switch ((dh + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// 16-byte copies need a head dim of 8k and 16-byte aligned bases
+bool vec_ok(int dh, const void* a, const void* b) {
+  return dh % 8 == 0 && ((uintptr_t)a % 16) == 0 && ((uintptr_t)b % 16) == 0;
+}
+
+// Launch the attention kernels of compute dtype CD: the mma.sync cores for
+// bf16, the CUDA-core f32 bodies for float.
 template <typename CD>
 int launch_attn_fwd(const CD* qkv, CD* o, float* stats, int B, int N, int H, int dh,
                     cudaStream_t st) {
-  const dim3 grid((N + kT - 1) / kT, H, B);
   if constexpr (std::is_same<CD, bf16>::value) {
-    CEREBRA_VIT_CHECK(cudaFuncSetAttribute(attn_fwd_tc,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kFwdTcSmem));
-    CEREBRA_VIT_CHECK(attn_fwd_tc<<<grid, kAttnThreads, kFwdTcSmem, st>>>(qkv, o, stats, N, H,
-                                                                         dh));
+    const dim3 grid((N + kRows - 1) / kRows, H, B);
+    const int vec = vec_ok(dh, qkv, qkv);
+    return with_kd(dh, [&](auto kd) {
+      auto kern = attn_fwd_mma<decltype(kd)::value>;
+      CEREBRA_VIT_CHECK(
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem));
+      CEREBRA_VIT_CHECK(kern<<<grid, kMmaThreads, kFwdSmem, st>>>(qkv, o, stats, N, H, dh, vec));
+      return 0;
+    });
   } else {
+    const dim3 grid((N + kT - 1) / kT, H, B);
     const int smem = 4 * kTile * (int)sizeof(float);
     CEREBRA_VIT_CHECK(cudaFuncSetAttribute(attn_fwd<CD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
     CEREBRA_VIT_CHECK(attn_fwd<CD><<<grid, kAttnThreads, smem, st>>>(qkv, o, stats, N, H, dh));
+    return 0;
   }
-  return 0;
 }
 
 template <typename CD>
 int launch_attn_bwd(const CD* qkv, const CD* dob, const float* stats, float* delta,
                     float* dqkv32, CD* dqkvn, int B, int N, int H, int dh, cudaStream_t st) {
-  const dim3 grid((N + kT - 1) / kT, H, B);
   if constexpr (std::is_same<CD, bf16>::value) {
-    CEREBRA_VIT_CHECK(cudaFuncSetAttribute(
-        attn_bwd_dq_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqTcSmem));
-    CEREBRA_VIT_CHECK(cudaFuncSetAttribute(
-        attn_bwd_dkdv_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvTcSmem));
-    CEREBRA_VIT_CHECK(attn_bwd_dq_tc<<<grid, kAttnThreads, kDqTcSmem, st>>>(
-        qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh));
-    CEREBRA_VIT_CHECK(attn_bwd_dkdv_tc<<<grid, kAttnThreads, kDkdvTcSmem, st>>>(
-        qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh));
+    const dim3 grid((N + kRows - 1) / kRows, H, B);
+    const int vec = vec_ok(dh, qkv, dob);
+    return with_kd(dh, [&](auto kd) {
+      auto dq = attn_bwd_dq_mma<decltype(kd)::value>;
+      auto dkdv = attn_bwd_dkdv_mma<decltype(kd)::value>;
+      CEREBRA_VIT_CHECK(
+          cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem));
+      CEREBRA_VIT_CHECK(
+          cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem));
+      CEREBRA_VIT_CHECK(dq<<<grid, kMmaThreads, kDqSmem, st>>>(qkv, dob, stats, delta, dqkv32,
+                                                                dqkvn, N, H, dh, vec));
+      CEREBRA_VIT_CHECK(dkdv<<<grid, kMmaThreads, kDkdvSmem, st>>>(qkv, dob, stats, delta,
+                                                                    dqkv32, dqkvn, N, H, dh,
+                                                                    vec));
+      return 0;
+    });
   } else {
+    const dim3 grid((N + kT - 1) / kT, H, B);
     const int smem_dq = 6 * kTile * (int)sizeof(float);
     const int smem_dkdv = 8 * kTile * (int)sizeof(float);
     CEREBRA_VIT_CHECK(cudaFuncSetAttribute(
@@ -776,8 +996,8 @@ int launch_attn_bwd(const CD* qkv, const CD* dob, const float* stats, float* del
         qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh));
     CEREBRA_VIT_CHECK(attn_bwd_dkdv<CD><<<grid, kAttnThreads, smem_dkdv, st>>>(
         qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh));
+    return 0;
   }
-  return 0;
 }
 
 constexpr int kRowThreads = 256;  // 8 rows (warps) per block
@@ -849,6 +1069,49 @@ int cerebra_vit_attn_fwd(int sd_bf16, int cd_bf16, const void* x, const float* s
                                          (const CD*)wqkv, (const CD*)bqkv, (const CD*)wp,
                                          (const CD*)bp, (CD*)y, mu, rstd, (CD*)qkv, (CD*)o,
                                          stats, (SD*)out, B, N, D, H, st)));
+}
+
+// The attention core of the forward alone: qkv (B*N, 3D) CD -> o (B*N, D)
+// CD and stats (B, H, N, 2) f32, as cerebra_vit_attn_fwd runs it.
+int cerebra_vit_attn_core_fwd(int cd_bf16, const void* qkv, void* o, float* stats, int B, int N,
+                              int D, int H, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
+  if (cd_bf16)
+    return launch_attn_fwd<bf16>((const bf16*)qkv, (bf16*)o, stats, B, N, H, D / H, st);
+  return launch_attn_fwd<float>((const float*)qkv, (float*)o, stats, B, N, H, D / H, st);
+}
+
+// The attention core of the backward alone: from qkv, dob (B*N, D) CD and
+// the forward's stats -> delta (B, H, N) f32, dq, dk, dv into dqkv32 (B*N,
+// 3D) f32 and dqkvn (B*N, 3D) CD, as cerebra_vit_attn_bwd runs it.
+int cerebra_vit_attn_core_bwd(int cd_bf16, const void* qkv, const void* dob, const float* stats,
+                              float* delta, float* dqkv32, void* dqkvn, int B, int N, int D,
+                              int H, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
+  if (cd_bf16)
+    return launch_attn_bwd<bf16>((const bf16*)qkv, (const bf16*)dob, stats, delta, dqkv32,
+                                 (bf16*)dqkvn, B, N, H, D / H, st);
+  return launch_attn_bwd<float>((const float*)qkv, (const float*)dob, stats, delta, dqkv32,
+                                (float*)dqkvn, B, N, H, D / H, st);
+}
+
+// The scores of every (sequence, head) as the forward forms them, S (B, H,
+// N, N) f32, and as the dk/dv core forms them with the operands swapped, St
+// (B, H, N, N) f32, row key: St[j][i] must equal S[i][j] bit for bit.
+int cerebra_vit_attn_scores(const void* qkv, float* S, float* St, int B, int N, int D, int H,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
+  const int dh = D / H, tiles = (N + kRows - 1) / kRows;
+  const dim3 grid(tiles, tiles, B * H);
+  const int vec = vec_ok(dh, qkv, qkv);
+  return with_kd(dh, [&](auto kd) {
+    CEREBRA_VIT_CHECK(attn_scores_mma<decltype(kd)::value><<<grid, kMmaThreads, 0, st>>>(
+        (const bf16*)qkv, S, St, N, H, dh, vec));
+    return 0;
+  });
 }
 
 // f32 scratch floats the backward needs for width D.

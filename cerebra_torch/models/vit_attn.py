@@ -9,6 +9,11 @@ PyTorch versions (port of cerebra/models/pallas_vit_attn.py).
   them).
 - K6 `vit_attn_bwd` (`_bwd_kernel`): dx = dout + the LN backward, and f32
   dγ, dβ, dWqkv, dbqkv, dWp, dbp.
+- Their attention cores alone, the launches between the products:
+  `attn_core_fwd` (o and each query row's softmax max and sum) and
+  `attn_core_bwd` (dq, then dk and dv), with plain pieces
+  `attn_core_fwd_ref` / `attn_core_bwd_ref`; `attn_scores_cuda` gives the
+  bf16 cores' scores in the forward's and in dk/dv's orientation.
 
 The q scale dh^-0.5 is folded into Wq and bq before the kernel, and dWq, dbq
 are rescaled after it (`_split_params`, `_bwd`). The qkv feature order is
@@ -32,7 +37,7 @@ import torch
 from cerebra_torch.kernels import LAUNCHES, check_rc, load_lib, on_cuda, ptr, stream_of
 from cerebra_torch.models.vit_mlp import check_cuda, layernorm_f32, ln_backward, mm
 
-LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0)
+LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0, vit_attn_core_fwd=0, vit_attn_core_bwd=0)
 
 MAX_HEAD_DIM = 64  # the CUDA kernels' tile width
 Params = Sequence[torch.Tensor]
@@ -105,6 +110,47 @@ def _attn_bwd_ref(dout, x, s, p: Params, num_heads: int, saved=()):
     return dx, dg, db, dwqkv, dbqkv, dwp, dbp
 
 
+def _qkv_heads(qkv, B, N, H):
+    """(B·N, 3D) → q, k, v each (B, H, N, dh)"""
+    D = qkv.shape[1] // 3
+    return (_heads(qkv[:, i * D:(i + 1) * D].reshape(B, N, D), B, N, H) for i in range(3))
+
+
+def _rows(t, B, N):
+    """(B, H, N, dh) → (B·N, D)"""
+    return t.transpose(1, 2).reshape(B * N, -1)
+
+
+def attn_core_fwd_ref(qkv, B: int, N: int, H: int):
+    """Plain attention core of K5, whole-row softmax as the Pallas body:
+    qkv (B·N, 3D) in cdt → (o (B·N, D) in cdt, stats (B, H, N, 2) f32 = each
+    query row's max m and sum l of exp(s − m))."""
+    q, k, v = _qkv_heads(qkv, B, N, H)
+    s = mm(q, k.transpose(-1, -2))
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    o = mm((e / l).to(qkv.dtype), v).to(qkv.dtype)
+    return _rows(o, B, N), torch.cat([m, l], -1)
+
+
+def attn_core_bwd_ref(qkv, dob, stats, B: int, N: int, H: int):
+    """Plain attention core of K6: p = exp(s − m) / l from the forward's
+    stats, delta = Σ_j p·dp over f32 p (the Pallas body's sum, not do·o),
+    dS = p·(dp − delta) rounded to cdt → (dqkv32 (B·N, 3D) f32 holding dq,
+    dk, dv; dqkvn, the same rounded to cdt; delta (B, H, N) f32)."""
+    cdt = qkv.dtype
+    q, k, v = _qkv_heads(qkv, B, N, H)
+    do = _heads(dob.reshape(B, N, -1), B, N, H)
+    p = torch.exp(mm(q, k.transpose(-1, -2)) - stats[..., :1]) / stats[..., 1:]
+    dp = mm(do, v.transpose(-1, -2))
+    delta = (p * dp).sum(-1)
+    ds = (p * (dp - delta[..., None])).to(cdt)
+    dq, dk, dv = mm(ds, k), mm(ds.transpose(-1, -2), q), mm(p.to(cdt).transpose(-1, -2), do)
+    dqkv32 = torch.cat([_rows(t, B, N) for t in (dq, dk, dv)], 1)
+    return dqkv32, dqkv32.to(cdt), delta
+
+
 # ------------------------------------------------------------ CUDA kernels
 def _typed(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
@@ -114,6 +160,12 @@ def _typed(lib) -> None:
     lib.cerebra_vit_attn_bwd.restype = i
     lib.cerebra_vit_attn_scratch.argtypes = [i]
     lib.cerebra_vit_attn_scratch.restype = ctypes.c_longlong
+    lib.cerebra_vit_attn_core_fwd.argtypes = [i] + [vp] * 3 + [i] * 4 + [vp]
+    lib.cerebra_vit_attn_core_fwd.restype = i
+    lib.cerebra_vit_attn_core_bwd.argtypes = [i] + [vp] * 6 + [i] * 4 + [vp]
+    lib.cerebra_vit_attn_core_bwd.restype = i
+    lib.cerebra_vit_attn_scores.argtypes = [vp] * 3 + [i] * 4 + [vp]
+    lib.cerebra_vit_attn_scores.restype = i
 
 
 def _dims(x, p: Params, num_heads: int):
@@ -188,6 +240,52 @@ def _attn_bwd_cuda(dout, x, s, p: Params, num_heads: int, saved):
     return dx, dg, db, dwqkv, dbqkv, dwp, dbp
 
 
+def _core_dims(qkv, B, N, H, others=()):
+    if qkv.dim() != 2 or qkv.shape[0] != B * N or qkv.shape[1] % 3:
+        raise ValueError(f"qkv must be (B·N, 3D) = ({B * N}, 3D), got {tuple(qkv.shape)}")
+    D = qkv.shape[1] // 3
+    if D % H or D // H > MAX_HEAD_DIM:
+        raise ValueError(f"D={D} with {H} heads: the CUDA kernels take a head dim dividing D "
+                         f"and at most {MAX_HEAD_DIM}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute dtype {qkv.dtype}: float32 or bfloat16 only")
+    for t in (qkv, *others):
+        if not t.is_contiguous():
+            raise ValueError("the attention cores take contiguous tensors only")
+    return D
+
+
+def _core_fwd_cuda(qkv, B, N, H):
+    D = _core_dims(qkv, B, N, H)
+    o = torch.empty(B * N, D, dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty(B, H, N, 2, dtype=torch.float32, device=qkv.device)
+    lib = load_lib("vit_attn", _typed)
+    rc = lib.cerebra_vit_attn_core_fwd(int(qkv.dtype == torch.bfloat16), ptr(qkv), ptr(o),
+                                       ptr(stats), B, N, D, H, stream_of(qkv))
+    check_rc(lib, rc, "vit_attn_core_fwd")
+    LAUNCHES["vit_attn_core_fwd"] += 1
+    return o, stats
+
+
+def _core_bwd_cuda(qkv, dob, stats, B, N, H):
+    D = _core_dims(qkv, B, N, H, (dob, stats))
+    if dob.shape != (B * N, D) or dob.dtype != qkv.dtype:
+        raise ValueError("dob must be (B·N, D) in qkv's dtype")
+    if stats.shape != (B, H, N, 2) or stats.dtype != torch.float32:
+        raise ValueError("stats must be (B, H, N, 2) float32")
+    dev, f32 = qkv.device, torch.float32
+    delta = torch.empty(B, H, N, dtype=f32, device=dev)
+    dqkv32 = torch.empty(B * N, 3 * D, dtype=f32, device=dev)
+    dqkvn = torch.empty(B * N, 3 * D, dtype=qkv.dtype, device=dev)
+    lib = load_lib("vit_attn", _typed)
+    rc = lib.cerebra_vit_attn_core_bwd(int(qkv.dtype == torch.bfloat16), ptr(qkv), ptr(dob),
+                                       ptr(stats), ptr(delta), ptr(dqkv32), ptr(dqkvn), B, N, D,
+                                       H, stream_of(qkv))
+    check_rc(lib, rc, "vit_attn_core_bwd")
+    LAUNCHES["vit_attn_core_bwd"] += 1
+    return dqkv32, dqkvn, delta
+
+
 # ---------------------------------------------------------------- wrappers
 def attn_fwd(x, s, p: Params, num_heads: int):
     """K5 on CUDA, its plain version on the CPU → (out, saved)."""
@@ -202,6 +300,36 @@ def attn_bwd(dout, x, s, p: Params, num_heads: int, saved):
     if on_cuda(dout, x, s, *p):
         return _attn_bwd_cuda(dout, x, s, p, num_heads, saved)
     return _attn_bwd_ref(dout, x, s, p, num_heads, saved)
+
+
+def attn_scores_cuda(qkv, B: int, N: int, H: int):
+    """The bf16 cores' scores of every (sequence, head) on the card, formed
+    as the forward and dq form them (S, q rows against k rows) and as dk/dv
+    forms them (St, k rows against q rows), both (B, H, N, N) f32 with rows
+    the first operand's; St must be S transposed bit for bit."""
+    D = _core_dims(qkv, B, N, H)
+    if qkv.dtype != torch.bfloat16 or not on_cuda(qkv):
+        raise ValueError("the scores come from the bf16 CUDA cores: a bf16 CUDA qkv only")
+    S, St = (torch.empty(B, H, N, N, dtype=torch.float32, device=qkv.device) for _ in range(2))
+    lib = load_lib("vit_attn", _typed)
+    check_rc(lib, lib.cerebra_vit_attn_scores(ptr(qkv), ptr(S), ptr(St), B, N, D, H,
+                                              stream_of(qkv)), "vit_attn_scores")
+    return S, St
+
+
+def attn_core_fwd(qkv, B: int, N: int, H: int):
+    """K5's attention core alone (the kernel on CUDA, its plain version on
+    the CPU) → (o, stats); K5 runs the same kernel between its products."""
+    if on_cuda(qkv):
+        return _core_fwd_cuda(qkv, B, N, H)
+    return attn_core_fwd_ref(qkv, B, N, H)
+
+
+def attn_core_bwd(qkv, dob, stats, B: int, N: int, H: int):
+    """K6's attention cores alone (dq, then dk/dv) → (dqkv32, dqkvn, delta)."""
+    if on_cuda(qkv, dob, stats):
+        return _core_bwd_cuda(qkv, dob, stats, B, N, H)
+    return attn_core_bwd_ref(qkv, dob, stats, B, N, H)
 
 
 class _FusedAttn(torch.autograd.Function):

@@ -31,8 +31,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  2 epochs (10 steps each); finite losses, log.txt, and every
                  step through K5-K8 in all 12 blocks
   8. vit timing  each ViT kernel against its plain version at the globals'
-                 and the locals' shapes, and ms/step and views/s of the
+                 and the locals' shapes; `[vit pieces]`: K5 and K6 split by
+                 launch (torch.profiler), each attention core alone (K5's
+                 forward core, K6's dq and dk/dv cores) against its plain
+                 piece (parity, time, bound), the dk/dv core's scores against
+                 the forward's bit for bit, and SDPA's flash kernels on the
+                 same q, k, v as a yardstick; ms/step and views/s of the
                  main_dino step through the kernels and the plain versions
+                 (median of three windows), and `[dino profile]`: its device
+                 time by half-block, the attention cores apart, the idle
+                 share and the host's time by op
   9. ae parity   K4 and K2g (cotangent at T-1 or at every t, with and
                  without dx) against their plain versions at the recurrent
                  autoencoder's encoder (C 96, H 384) and decoder (C 384,
@@ -151,6 +159,10 @@ VIT_SHAPES = ((16, 785), (32, 145), (3, 37))  # (sequences, tokens): globals, lo
 # at 1e-4 / 1e-4 / 2e-2; an H100 showed at most 1.5e-5 (f32 values, K7,
 # whose outputs reach ~10), 1.1e-6 (f32 gradients) and 6.3e-4 (bf16, K6
 # dWqkv). f32 values keep 1e-4 (6.8x); the others were tightened to ~20x.
+# With K5/K6's attention cores on mma.sync (ex2 and a per-row 1/l in the
+# softmax) the worst case read 1.2e-6 (f32 values, K5), 1.1e-6 (f32
+# gradients, K6 dg) and 6.3e-4 (bf16, K6 dWqkv); the cores alone at most
+# 1.1e-4 (bf16, relative).
 TOL_VIT = (1e-4, 2e-5, 1.5e-2)
 
 # The recurrent autoencoder: 1-layer LSTMs at its encoder and decoder widths
@@ -639,30 +651,65 @@ KERNEL_PARTS = (("scan_bwd_kernel", "K2/K2g scans"), ("cluster_scan", "K1/K4 clu
                 ("lstm_fwd_kernel", "K1 forward"))
 
 
-def profile_steps(step, n: int, what: str, gpu: str) -> None:
-    """Device time of `n` calls of `step` by kernel (torch.profiler, CPU and
-    CUDA activity), grouped by KERNEL_PARTS, and the device's idle share of
-    the profiled wall time (host clock to a synchronise; the profiler's own
-    overhead is inside it)."""
+def device_kernels(call, n: int, check=None) -> tuple:
+    """The CUDA kernels of `n` calls of `call` in launch order, each (name,
+    device ms) from torch.profiler, and the host-clock ms per call to a
+    synchronise (the profiler's own overhead inside it). A trace can lose
+    its first kernels, so 64 small kernels and one call run ahead of the
+    `n`, then a marker kernel (torch.cuda._sleep's `spin_kernel`); only the
+    kernels after the marker are kept. Also the host's ops, (name, self CPU ms per call) from
+    the largest, over all n + 1 calls. A trace that lost its marker, or
+    whose kernel names `check` rejects (AssertionError), is taken again, up
+    to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
+    pad = torch.empty(1, device="cuda")
+    for attempt in range(3):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    parts, names = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):  # kernels for the trace to lose first
+                pad.zero_()
+            call()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
+        try:
+            if not marks:
+                raise AssertionError(f"the trace holds no marker kernel among its {len(kernels)}"
+                                     f" kernels, first {[e.name[:30] for e in kernels[:3]]}")
+            kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in kernels[marks[-1] + 1:]]
+            if check is not None:
+                check([k for k, _ in kernels])
+        except AssertionError as e:
+            if attempt == 2:
+                raise
+            log(f"[profile] trace {attempt + 1} rejected ({str(e)[:200]}); tracing again")
             continue
-        ms = getattr(e, "self_device_time_total", None)
-        ms = (e.self_cuda_time_total if ms is None else ms) / 1e3 / n
-        part = next((p for frag, p in KERNEL_PARTS if frag in e.key), "other")
-        parts[part] = parts.get(part, 0.0) + ms
-        names[e.key[:60]] = names.get(e.key[:60], 0.0) + ms
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3 / (n + 1))
+                       for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda kv: -kv[1])
+        return kernels, wall_ms, host
+
+
+def profile_steps(step, n: int, what: str, gpu: str) -> None:
+    """Device time of `n` calls of `step` by kernel (`device_kernels`),
+    grouped by KERNEL_PARTS, and the device's idle share of the profiled
+    wall time (host clock to a synchronise; the profiler's own overhead is
+    inside it)."""
+    kernels, wall_ms, _ = device_kernels(step, n)
+    parts, names = {}, {}
+    for name, ms in kernels:
+        part = next((p for frag, p in KERNEL_PARTS if frag in name), "other")
+        parts[part] = parts.get(part, 0.0) + ms / n
+        names[name[:60]] = names.get(name[:60], 0.0) + ms / n
     busy = sum(parts.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
     log(f"[profile] {what}: {wall_ms:.2f} ms/step under the profiler, device busy "
@@ -825,7 +872,146 @@ def phase_main_dino() -> dict:
     return launches
 
 
-def phase_vit_timing() -> dict:
+def label_vit(names) -> list:
+    """(half-block, piece) of each kernel of the ViT half-blocks, by name in
+    launch order, None for the others. K5 launches LN, the qkv product
+    (`EpiBiasRound`), its attention core and the proj (`EpiResidual`); K6
+    from `scale_round` to `ln_bwd_rows`, its two attention cores in the
+    middle; K7 LN, fc1 (`EpiGelu`) and fc2 (`EpiResidual`); K8 from its
+    recomputed fc1 (`EpiGelu`, then `scale_round`) to `ln_bwd_rows`."""
+    labels = [None] * len(names)
+
+    def expect(i: int, frag: str) -> None:
+        if not (0 <= i < len(names) and frag in names[i]):
+            raise AssertionError(f"launch {i} of a ViT half-block is not {frag}: {names}")
+
+    def nearest(i: int, frag: str, step: int) -> int:
+        while 0 <= i < len(names) and frag not in names[i]:
+            i += step
+        expect(i, frag)
+        return i
+
+    for i, name in enumerate(names):
+        if "attn_fwd" in name:
+            expect(i - 2, "ln_fwd_rows")
+            expect(i - 1, "EpiBiasRound")
+            expect(i + 1, "EpiResidual")
+            labels[i - 2:i + 2] = [("K5", "LN"), ("K5", "qkv product"),
+                                   ("K5", "attention core"), ("K5", "proj")]
+        elif "attn_bwd_dq" in name:
+            expect(i + 1, "attn_bwd_dkdv")
+            piece = "scale/dbp"
+            for j in range(nearest(i, "scale_round", -1), nearest(i, "ln_bwd_rows", 1) + 1):
+                for frag, p in (("attn_bwd_dq", "dq core"), ("attn_bwd_dkdv", "dk/dv core"),
+                                ("EpiPartial", "dWp" if j < i else "dWqkv/dbqkv"),
+                                ("EpiBiasRound", "do product"), ("EpiF32", "dy product"),
+                                ("ln_bwd", "LN backward")):
+                    if frag in names[j]:
+                        piece = p
+                        break
+                labels[j] = ("K6", piece)
+        elif "EpiGelu" in name and i + 1 < len(names) and "EpiResidual" in names[i + 1]:
+            expect(i - 1, "ln_fwd_rows")
+            labels[i - 1:i + 2] = [("K7", "LN"), ("K7", "fc1"), ("K7", "fc2")]
+        elif "EpiGelu" in name:
+            expect(i + 1, "scale_round")
+            end = nearest(i, "ln_bwd_rows", 1)
+            labels[i:end + 1] = [("K8", "backward")] * (end + 1 - i)
+    return labels
+
+
+def split_ms(kernels, labels, n: int, key) -> dict:
+    """Device ms per call of `kernels` summed by key(label)."""
+    out = {}
+    for (_, ms), lab in zip(kernels, labels):
+        k = key(lab)
+        out[k] = out.get(k, 0.0) + ms / n
+    return out
+
+
+def sdpa_ms(qkv, dob, B: int, N: int) -> tuple:
+    """The yardstick: F.scaled_dot_product_attention at (B, H, N, dh) bf16,
+    scale 1 (q carries the scale), on the flash backend, forward and forward
+    + backward under the cotangent do; ms, median of three windows. The port
+    never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from cerebra_torch.models import vit_attn as va
+
+    q, k, v = (t.contiguous() for t in va._qkv_heads(qkv, B, N, H_VIT))
+    do = va._heads(dob.reshape(B, N, D_VIT), B, N, H_VIT).contiguous()
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd():
+        torch.autograd.grad(sdpa(qg, kg, vg, scale=1.0), (qg, kg, vg), do)
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd = time_windows(lambda: sdpa(q, k, v, scale=1.0), 10, 3, 2)[0]
+        both = time_windows(fwd_bwd, 10, 3, 2)[0]
+    return fwd, both
+
+
+def vit_pieces(B: int, N: int, x, dout, s_seq, pa, sa, gpu: str) -> dict:
+    """`[vit pieces]`: K5 and K6 split by launch, each attention core alone
+    against its plain piece (parity, time, bound) and the SDPA yardstick.
+    → the cores' ms for the kernels line."""
+    from cerebra_torch.models import vit_attn as va
+
+    n, D = 5, D_VIT
+    for what, call in (("K5", lambda: va.attn_fwd(x, s_seq, pa, H_VIT)),
+                       ("K6", lambda: va.attn_bwd(dout, x, s_seq, pa, H_VIT, sa))):
+        kernels, _, _ = device_kernels(call, n, label_vit)
+        parts = split_ms(kernels, label_vit([k for k, _ in kernels]), n,
+                         lambda lab: lab[1] if lab else "not a half-block's")
+        log(f"[vit pieces] {what} B={B} N={N} device ms per call by piece: "
+            f"{ {k: round(v, 4) for k, v in parts.items()} } (sum {sum(parts.values()):.4f}) "
+            f"on {gpu}")
+    qkv, stats = sa[3], sa[5]
+    dob = (dout.reshape(B * N, D) @ pa[4].float().t()).to(torch.bfloat16)
+    tag = f"B={B} N={N} bf16"
+    o_k, st_k = va.attn_core_fwd(qkv, B, N, H_VIT)
+    o_r, st_r = va.attn_core_fwd_ref(qkv, B, N, H_VIT)
+    err_f = max(compare(f"core fwd {name} {tag}", a, b, torch.bfloat16, False, TOL_VIT)
+                for name, a, b in (("o", o_k, o_r), ("m", st_k[..., 0], st_r[..., 0]),
+                                   ("l", st_k[..., 1], st_r[..., 1])))
+    got = va.attn_core_bwd(qkv, dob, st_k, B, N, H_VIT)
+    want = va.attn_core_bwd_ref(qkv, dob, st_k, B, N, H_VIT)
+    err_b = max(compare(f"core bwd {name} {tag}", a, b, torch.bfloat16, True, TOL_VIT)
+                for name, a, b in zip(("dqkv32", "dqkvn", "delta"), got, want))
+    # dk/dv forms S^T = K Q^T with the key rows as the A operand; p there is
+    # the forward's only if every score equals the forward's bit for bit
+    S, St = va.attn_scores_cuda(qkv, B, N, H_VIT)
+    if not torch.equal(S, St.transpose(-1, -2)) or not torch.equal(st_k[..., 0], S.amax(-1)):
+        raise AssertionError(f"dk/dv's scores differ from the forward's at {tag}")
+    log(f"[parity] scores {tag}: dk/dv's S^T equals the forward's S bit for bit, and the "
+        f"forward's row max is their max")
+    del S, St
+    sdpa_f, sdpa_fb = sdpa_ms(qkv, dob, B, N)
+    rows = {
+        "fwd": timing_row(lambda: va.attn_core_fwd(qkv, B, N, H_VIT),
+                          lambda: va.attn_core_fwd_ref(qkv, B, N, H_VIT), (qkv,),
+                          4 * B * N * N * D, torch.bfloat16, 10, 3),
+        "bwd": timing_row(lambda: va.attn_core_bwd(qkv, dob, st_k, B, N, H_VIT),
+                          lambda: va.attn_core_bwd_ref(qkv, dob, st_k, B, N, H_VIT),
+                          (qkv, dob, st_k), 10 * B * N * N * D, torch.bfloat16, 10, 3),
+    }
+    kernels, _, _ = device_kernels(lambda: va.attn_core_bwd(qkv, dob, st_k, B, N, H_VIT), n)
+    split = {core: sum(ms for k, ms in kernels if frag in k) / n
+             for core, frag in (("dq core", "attn_bwd_dq"), ("dk/dv core", "attn_bwd_dkdv"))}
+    log(f"[vit pieces] core fwd {tag}: {fmt_row(rows['fwd'])}; max_abs {err_f:.3e}; SDPA "
+        f"flash forward {sdpa_f:.4f} ms (kernel / SDPA {rows['fwd']['ms'] / sdpa_f:.2f}) on {gpu}")
+    log(f"[vit pieces] core bwd {tag}: {fmt_row(rows['bwd'])}; dq {split['dq core']:.4f} ms, "
+        f"dk/dv {split['dk/dv core']:.4f} ms (device); max_abs {err_b:.3e}; SDPA flash forward "
+        f"+ backward {sdpa_fb:.4f} ms, backward {sdpa_fb - sdpa_f:.4f} ms (kernel / SDPA "
+        f"backward {rows['bwd']['ms'] / (sdpa_fb - sdpa_f):.2f}) on {gpu}")
+    return {"fwd_core_ms": rows["fwd"]["ms"], "fwd_core_bound_ms": rows["fwd"]["bound_ms"],
+            "sdpa_fwd_ms": sdpa_f, "bwd_core_ms": rows["bwd"]["ms"],
+            "bwd_core_bound_ms": rows["bwd"]["bound_ms"], "dq_core_ms": split["dq core"],
+            "dkdv_core_ms": split["dk/dv core"], "sdpa_bwd_ms": sdpa_fb - sdpa_f}
+
+
+def phase_vit_timing(gpu: str) -> dict:
     from cerebra_torch.models import vit_attn as va
     from cerebra_torch.models import vit_mlp as vm
 
@@ -862,6 +1048,10 @@ def phase_vit_timing() -> dict:
             log(f"[vit timing] {name} B={B} N={N} f32 stream/bf16: {fmt_row(row)}")
             if (B, N) == VIT_SHAPES[0]:
                 out[name] = row
+        cores = vit_pieces(B, N, x, dout, s_seq, pa, sa, gpu)
+        if (B, N) == VIT_SHAPES[0]:
+            out["vit_attn_fwd"].update({k: v for k, v in cores.items() if "fwd" in k})
+            out["vit_attn_bwd"].update({k: v for k, v in cores.items() if "fwd" not in k})
         del x, dout, pa, pm, sa, sm, xm, dm
     return out
 
@@ -877,6 +1067,7 @@ def phase_dino_step_timing(gpu: str) -> None:
     B, views = cfg.batch_size_per_device, 2 + cfg.local_crops_number
     rng = np.random.default_rng(0)
     eeg = torch.from_numpy(rng.normal(size=(B, T, C)).astype(np.float32)).to("cuda")
+    profiled = False
     for kind in ("kernels", "plain", "kernels"):
         state, step, gen, _ = make_dino_vit(cfg, 80, torch.device("cuda"))
         with ExitStack() as stack:
@@ -887,18 +1078,51 @@ def phase_dino_step_timing(gpu: str) -> None:
                     vit, "fused_mlp_residual", vit_mlp.fused_mlp_residual_ref))
             state, metrics = step(state, eeg, gen)
             torch.cuda.synchronize()
-            n = 4
-            t0 = time.perf_counter()
-            for _ in range(n):
-                state, metrics = step(state, eeg, gen)
-            loss = metrics["loss"].item()
-            dt = (time.perf_counter() - t0) / n
-        if not math.isfinite(loss):
-            raise AssertionError(f"{kind} main_dino step loss is {loss}")
-        log(f"[dino step] {kind}: {dt * 1e3:.2f} ms/step, {B / dt:.2f} samples/s, "
+            # host clock over windows of 3 steps, each ended by reading the loss
+            windows = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    state, metrics = step(state, eeg, gen)
+                loss = metrics["loss"].item()
+                windows.append((time.perf_counter() - t0) / 3)
+                if not math.isfinite(loss):
+                    raise AssertionError(f"{kind} main_dino step loss is {loss}")
+            if kind == "kernels" and not profiled:
+                box = [state]
+
+                def one_step():
+                    box[0], _ = step(box[0], eeg, gen)
+
+                profile_dino(one_step, 3, gpu)
+                profiled = True
+        windows.sort()
+        dt = windows[1]
+        log(f"[dino step] {kind}: {dt * 1e3:.2f} ms/step (median of 3 windows of 3 steps; "
+            f"{windows[0] * 1e3:.2f}-{windows[-1] * 1e3:.2f}), {B / dt:.2f} samples/s, "
             f"{B * views / dt:.2f} views/s (ViT-S/8, 2x224 + 4x96, batch {B}, bf16) on {gpu}")
         del state, step
         torch.cuda.empty_cache()
+
+
+def profile_dino(step, n: int, gpu: str) -> None:
+    """`[dino profile]`: device ms per main_dino step of K5 and K6 (their
+    attention cores apart), K7, K8 and the rest, and the device's idle share
+    of the profiled wall time."""
+    kernels, wall_ms, host = device_kernels(step, n, label_vit)
+
+    def key(lab):
+        if lab is None:
+            return "rest"
+        return f"{lab[0]} {lab[1]}" if "core" in lab[1] else f"{lab[0]} other"
+
+    parts = split_ms(kernels, label_vit([k for k, _ in kernels]), n, key)
+    busy = sum(parts.values())
+    log(f"[dino profile] {wall_ms:.2f} ms/step under the profiler, device busy {busy:.2f} ms "
+        f"(idle {max(0.0, 1 - busy / wall_ms) * 100:.1f} %); by part "
+        f"{ {k: round(v, 3) for k, v in sorted(parts.items(), key=lambda kv: -kv[1])} } on {gpu}")
+    log(f"[dino profile] host ms per step by op, self time under the profiler (top 10 of "
+        f"{sum(ms for _, ms in host):.1f}): {[(k[:40], round(ms, 2)) for k, ms in host[:10]]}")
 
 
 def phase_ae_parity() -> dict:
@@ -1533,7 +1757,7 @@ def main() -> None:
     run(phase_step_timing, gpu)
     errs.update(run(phase_vit_parity))
     launches.update({k: v for k, v in run(phase_main_dino).items() if k in VIT_SOURCES})
-    times.update(run(phase_vit_timing))
+    times.update(run(phase_vit_timing, gpu))
     run(phase_dino_step_timing, gpu)
     errs.update(run(phase_ae_parity))
     ae_launches, ae_times = run(phase_ae_train, gpu)

@@ -794,3 +794,59 @@ def test_vit_wrappers_launch_the_kernels_and_are_deterministic(cuda):
         va.fused_attn_residual(x.detach().cpu(), *pa, H)
     with pytest.raises(ValueError):  # not contiguous
         va.fused_attn_residual(x.detach()[:, ::2], *[t.detach() for t in pa], H)
+
+
+# The attention cores alone (K5's forward core; K6's dq and dk/dv cores),
+# against their plain pieces over N on both sides of the 64-row tiles, up to
+# the globals' 785 tokens, and head dims 8, 24 and 64, and 6 (D 30, H 5: rows
+# not 16-byte aligned, so the tiles are copied value by value).
+CORE_HEADS = {8: (16, 2), 24: (48, 2), 64: (128, 2), 6: (30, 5)}  # dh → (D, H)
+CORE_NS = [1, 63, 64, 65, 127, 128, 129, 785]
+
+
+def core_inputs(N, dh, cdt, cuda, seed=7):
+    gen = torch.Generator().manual_seed(seed)
+    D, H = CORE_HEADS[dh]
+    B = 2
+    qkv = torch.randn(B * N, 3 * D, generator=gen).mul(0.5).to(cuda, cdt)
+    dob = torch.randn(B * N, D, generator=gen).mul(0.1).to(cuda, cdt)
+    return qkv, dob, B, H
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dh", sorted(CORE_HEADS))
+@pytest.mark.parametrize("N", CORE_NS)
+def test_vit_attn_cores_match_plain(cuda, N, dh, dt):
+    from cerebra_torch.kernels import LAUNCHES
+    from cerebra_torch.models import vit_attn as va
+
+    cdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    qkv, dob, B, H = core_inputs(N, dh, cdt, cuda)
+    before = LAUNCHES["vit_attn_core_fwd"], LAUNCHES["vit_attn_core_bwd"]
+    o, stats = va.attn_core_fwd(qkv, B, N, H)
+    o_r, stats_r = va.attn_core_fwd_ref(qkv, B, N, H)
+    vit_close(o, o_r, cdt, grad=False)
+    vit_close(stats, stats_r, torch.float32, grad=False)
+    got = va.attn_core_bwd(qkv, dob, stats, B, N, H)
+    for a, b in zip(got, va.attn_core_bwd_ref(qkv, dob, stats, B, N, H)):
+        vit_close(a, b, cdt, grad=True)
+    assert (LAUNCHES["vit_attn_core_fwd"], LAUNCHES["vit_attn_core_bwd"]) == (
+        before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dh", sorted(CORE_HEADS))
+@pytest.mark.parametrize("N", CORE_NS)
+def test_vit_attn_backward_recomputes_the_forward_scores(cuda, N, dh):
+    """dk/dv forms S^T = K Q^T with the key rows as the A operand; it must
+    equal the forward's S = Q K^T bit for bit, and the forward's saved row
+    max must be the max of those scores, so every core forms the same p."""
+    from cerebra_torch.models import vit_attn as va
+
+    qkv, _, B, H = core_inputs(N, dh, torch.bfloat16, cuda, seed=N)
+    S, St = va.attn_scores_cuda(qkv, B, N, H)
+    assert torch.equal(S, St.transpose(-1, -2))
+    q, k, _ = va._qkv_heads(qkv, B, N, H)
+    vit_close(S, q.float() @ k.float().transpose(-1, -2), torch.float32, grad=False)
+    _, stats = va.attn_core_fwd(qkv, B, N, H)
+    assert torch.equal(stats[..., 0], S.amax(-1))
