@@ -11,7 +11,9 @@
 //
 // What bounds them on an H100: the products load their tiles synchronously
 // from device memory into shared memory (no cp.async/TMA ring, no wgmma), so
-// they run well below the tensor cores' rate; a pipelined wgmma body is
+// they run well below the tensor cores' rate. The MLP half-block K7/K8 no
+// longer uses them: its products run on wgmma_gemm.cuh (a TMA ring feeding
+// wgmma); moving K5/K6's, K1/K4's, K2/K2g's and K11's products there is
 // later work. The row and column kernels are bound by memory bandwidth.
 
 #pragma once

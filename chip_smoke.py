@@ -31,7 +31,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  2 epochs (10 steps each); finite losses, log.txt, and every
                  step through K5-K8 in all 12 blocks
   8. vit timing  each ViT kernel against its plain version at the globals'
-                 and the locals' shapes; `[vit pieces]`: K5 and K6 split by
+                 and the locals' shapes; `[mlp pieces]`: K7 and K8 split by
+                 launch (torch.profiler) with their launches a call, each
+                 product's device ms against its bound and cuBLAS torch.mm
+                 on the same operands (a yardstick), K8's fused dh kernel
+                 alone against its plain piece; `[vit pieces]`: K5 and K6 split by
                  launch (torch.profiler), each attention core alone (K5's
                  forward core, K6's dq and dk/dv cores) against its plain
                  piece (parity, time, bound), the dk/dv core's scores against
@@ -877,8 +881,10 @@ def label_vit(names) -> list:
     launch order, None for the others. K5 launches LN, the qkv product
     (`EpiBiasRound`), its attention core and the proj (`EpiResidual`); K6
     from `scale_round` to `ln_bwd_rows`, its two attention cores in the
-    middle; K7 LN, fc1 (`EpiGelu`) and fc2 (`EpiResidual`); K8 from its
-    recomputed fc1 (`EpiGelu`, then `scale_round`) to `ln_bwd_rows`."""
+    middle; K7 LN, fc1 (`EpiGelu`) and fc2 (`EpiResidual`); K8 from
+    `mlp_bwd_dn` to `ln_bwd_rows`: dn/db2, the fused dh kernel, the dW
+    contractions (`EpiPartial`), dy (`EpiF32`), the LN column partials, the
+    sums of partials (`sum_jobs`) and the LN rows."""
     labels = [None] * len(names)
 
     def expect(i: int, frag: str) -> None:
@@ -913,11 +919,20 @@ def label_vit(names) -> list:
         elif "EpiGelu" in name and i + 1 < len(names) and "EpiResidual" in names[i + 1]:
             expect(i - 1, "ln_fwd_rows")
             labels[i - 1:i + 2] = [("K7", "LN"), ("K7", "fc1"), ("K7", "fc2")]
-        elif "EpiGelu" in name:
-            expect(i + 1, "scale_round")
+        elif "mlp_bwd_dn" in name:
             end = nearest(i, "ln_bwd_rows", 1)
-            labels[i:end + 1] = [("K8", "backward")] * (end + 1 - i)
+            for j in range(i, end + 1):
+                piece = next((p for frag, p in K8_PIECES if frag in names[j]), None)
+                if piece is None:
+                    raise AssertionError(f"launch {j} of K8 is none of its pieces: {names}")
+                labels[j] = ("K8", piece)
     return labels
+
+
+# K8's launches by kernel name fragment, in launch order
+K8_PIECES = (("mlp_bwd_dn", "dn/db2"), ("mlp_bwd_dh", "dh"), ("EpiPartial", "dW1/dW2"),
+             ("EpiF32", "dy"), ("ln_bwd_cols", "LN columns"), ("sum_jobs", "sums"),
+             ("ln_bwd_rows", "LN rows"))
 
 
 def split_ms(kernels, labels, n: int, key) -> dict:
@@ -1011,6 +1026,75 @@ def vit_pieces(B: int, N: int, x, dout, s_seq, pa, sa, gpu: str) -> dict:
             "dkdv_core_ms": split["dk/dv core"], "sdpa_bwd_ms": sdpa_fb - sdpa_f}
 
 
+def mlp_pieces(B: int, N: int, xm, dm, s_rows, pm, sm, gpu: str) -> dict:
+    """`[mlp pieces]`: K7 and K8 split by launch (torch.profiler), their
+    launches a call, each product's device ms against its bound and against
+    cuBLAS `torch.mm` on the same bf16 operands (a yardstick the port never
+    calls), and K8's fused dh kernel alone against its plain piece (parity,
+    time, bound). → the pieces' numbers for the kernels line."""
+    from cerebra_torch.models import vit_mlp as vm
+
+    n, M, D, F = 5, B * N, D_VIT, F_VIT
+    bf = torch.bfloat16
+    parts, launches = {}, {}
+    for what, call in (("K7", lambda: vm.mlp_fwd(xm, s_rows, pm)),
+                       ("K8", lambda: vm.mlp_bwd(dm, xm, s_rows, pm, sm))):
+        kernels, _, _ = device_kernels(call, n, label_vit)
+        labels = label_vit([k for k, _ in kernels])
+        mine = [lab for lab in labels if lab and lab[0] == what]
+        if len(mine) % n:
+            raise AssertionError(f"{what}: {len(mine)} launches in {n} calls")
+        launches[what] = len(mine) // n
+        parts[what] = split_ms(kernels, labels, n,
+                               lambda lab: lab[1] if lab and lab[0] == what else "other")
+        parts[what].pop("other", None)
+        log(f"[mlp pieces] {what} B={B} N={N} device ms per call by piece: "
+            f"{ {k: round(v, 4) for k, v in parts[what].items()} } (sum "
+            f"{sum(parts[what].values()):.4f}); {launches[what]} launches a call on {gpu}")
+    g, b, w1, b1, w2, b2 = pm
+    y = sm[0]
+    dn = (dm * s_rows[:, None]).to(bf)
+    tag = f"B={B} N={N} bf16"
+    got = vm.mlp_dh(y, dn, w1, b1, w2)
+    want = vm.mlp_dh_ref(y, dn, w1, b1, w2)
+    err = max(compare(f"dh {name} {tag}", a, c, dt, True, TOL_VIT)
+              for name, a, c, dt in zip(("gh", "dhn", "db1 partials"), got, want,
+                                        (bf, bf, torch.float32)))
+    gh, dhn, dparts = got
+    splits = vm.contraction_splits(M, D, F)
+    row = timing_row(lambda: vm.mlp_dh(y, dn, w1, b1, w2), lambda: vm.mlp_dh_ref(y, dn, w1, b1, w2),
+                     (y, dn, w1, b1, w2), 4 * M * D * F, bf, 10, 3)
+    log(f"[mlp pieces] dh kernel alone {tag}: {fmt_row(row)}; max_abs {err:.3e} on {gpu}")
+    mmd = 2 * M * D * F
+    f32 = 4
+    # (half-block, piece) → (operations, bytes each input read and each
+    # output written once, the cuBLAS yardstick)
+    products = {
+        ("K7", "fc1"): (mmd, nbytes(y, w1, b1) + M * F * 2, lambda: torch.mm(y, w1)),
+        ("K7", "fc2"): (mmd, nbytes(gh, w2, b2, xm, s_rows) + M * D * f32,
+                        lambda: torch.mm(gh, w2)),
+        ("K8", "dh"): (2 * mmd, nbytes(y, dn, w1, b1, w2, gh, dhn, dparts),
+                       lambda: (torch.mm(y, w1), torch.mm(dn, w2.t()))),
+        ("K8", "dW1/dW2"): (2 * mmd, nbytes(gh, dn, y, dhn) + 2 * D * F * f32,
+                            lambda: (torch.mm(gh.t(), dn), torch.mm(y.t(), dhn))),
+        ("K8", "dy"): (mmd, nbytes(dhn, w1) + M * D * f32, lambda: torch.mm(dhn, w1.t())),
+    }
+    out = {"vit_mlp_fwd": {"launches_per_call": launches["K7"]},
+           "vit_mlp_bwd": {"launches_per_call": launches["K8"], "dh_alone_ms": row["ms"],
+                           "dh_plain_ms": row["plain_ms"], "contraction_splits": splits}}
+    for (what, piece), (ops, moved, mm_call) in products.items():
+        ms = parts[what][piece]
+        bound = max(ops / PEAK_FLOPS[bf], moved / HBM_BYTES_PER_S) * 1e3
+        mm_ms = time_windows(mm_call, 10, 3, 2)[0]
+        log(f"[mlp pieces] {what} {piece} {tag}: device {ms:.4f} ms ({ops / ms / 1e9:.0f} "
+            f"TFLOP/s), bound {bound:.4f} ms, torch.mm {mm_ms:.4f} ms (kernel / mm "
+            f"{ms / mm_ms:.2f}) on {gpu}")
+        key = "vit_mlp_fwd" if what == "K7" else "vit_mlp_bwd"
+        name = piece.replace("/", "_")
+        out[key].update({f"{name}_ms": ms, f"{name}_bound_ms": bound, f"{name}_mm_ms": mm_ms})
+    return out
+
+
 def phase_vit_timing(gpu: str) -> dict:
     from cerebra_torch.models import vit_attn as va
     from cerebra_torch.models import vit_mlp as vm
@@ -1049,9 +1133,12 @@ def phase_vit_timing(gpu: str) -> dict:
             if (B, N) == VIT_SHAPES[0]:
                 out[name] = row
         cores = vit_pieces(B, N, x, dout, s_seq, pa, sa, gpu)
+        mlp = mlp_pieces(B, N, xm, dm, s_rows, pm, sm, gpu)
         if (B, N) == VIT_SHAPES[0]:
             out["vit_attn_fwd"].update({k: v for k, v in cores.items() if "fwd" in k})
             out["vit_attn_bwd"].update({k: v for k, v in cores.items() if "fwd" not in k})
+            for k, v in mlp.items():
+                out[k].update(v)
         del x, dout, pa, pm, sa, sm, xm, dm
     return out
 
@@ -1114,6 +1201,8 @@ def profile_dino(step, n: int, gpu: str) -> None:
     def key(lab):
         if lab is None:
             return "rest"
+        if lab[0] in ("K7", "K8"):
+            return lab[0]
         return f"{lab[0]} {lab[1]}" if "core" in lab[1] else f"{lab[0]} other"
 
     parts = split_ms(kernels, label_vit([k for k, _ in kernels]), n, key)

@@ -3,7 +3,8 @@ each layer's reverse scan and products, K3, K4, K1/K4's layer-by-layer path
 and its two pieces, the input product and the cluster scan, K10, K11 and its
 pieces per
 time chunk; the scan's K12-K14) and the ViT kernels (K5-K8) against
-their plain PyTorch versions on the card, over shapes and tiles
+their plain PyTorch versions on the card (K7/K8 also piece by piece: the
+fused dh kernel and each product alone), over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
 below one warp's multiple, and the recurrent autoencoder's widths (encoder
 C = 96, H = 384, with 4H above the block's 512 threads; decoder C = 384,
@@ -794,6 +795,111 @@ def test_vit_wrappers_launch_the_kernels_and_are_deterministic(cuda):
         va.fused_attn_residual(x.detach().cpu(), *pa, H)
     with pytest.raises(ValueError):  # not contiguous
         va.fused_attn_residual(x.detach()[:, ::2], *[t.detach() for t in pa], H)
+
+
+# K7/K8's products alone (TMA + wgmma) against their plain version (f32
+# products of the same bf16 operands), in each orientation the half-blocks
+# use (fc1/fc2: A·B; dy: A·Bᵀ; dW: Aᵀ·B), with each epilogue, at ragged M, N
+# and K: (77, 200, 72) and (300, 260, 200) with 16-byte aligned rows (K not
+# a multiple of the 64-deep k step); (45, 130, 45), whose odd rows the TMA
+# cannot read, is refused with a ValueError. f32 outputs relative Frobenius
+# 2e-5, bf16 ones 1.5e-2 (TOL_VIT's).
+MLP_ORIENT = {"ab": (False, False), "abt": (False, True), "atb": (True, False)}
+MLP_PRODUCT_SHAPES = [(77, 200, 72), (300, 260, 200), (45, 130, 45)]
+
+
+def mlp_product_inputs(M, N, K, a_t, b_t, cuda, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*s, sc=0.5):
+        return (torch.randn(*s, generator=gen) * sc).to(cuda)
+
+    a = r(*((K, M) if a_t else (M, K))).to(torch.bfloat16)
+    b = r(*((N, K) if b_t else (K, N))).to(torch.bfloat16)
+    bias = r(N, sc=0.1).to(torch.bfloat16)
+    x = r(M, N, sc=1.0)
+    s = torch.full((M,), 1 / 0.9, device=cuda)
+    s[0] = 0.0
+    return a, b, bias, x, s
+
+
+@pytest.mark.parametrize("epi", ["f32", "gelu", "residual", "partial"])
+@pytest.mark.parametrize("orient", list(MLP_ORIENT))
+@pytest.mark.parametrize("shape", MLP_PRODUCT_SHAPES, ids=str)
+def test_vit_mlp_product_matches_plain(cuda, shape, orient, epi):
+    from cerebra_torch.kernels import LAUNCHES
+    from cerebra_torch.models import vit_mlp as vm
+
+    a_t, b_t = MLP_ORIENT[orient]
+    a, b, bias, x, s = mlp_product_inputs(*shape, a_t, b_t, cuda)
+    kw = dict(a_t=a_t, b_t=b_t, epi=epi, bias=bias, x=x, s=s, splits=3)
+    before = LAUNCHES["vit_mlp_product"]
+    if a.shape[1] % 8 or b.shape[1] % 8:  # rows the TMA cannot read
+        with pytest.raises(ValueError):
+            vm.mlp_product(a, b, **kw)
+        assert LAUNCHES["vit_mlp_product"] == before
+        return
+    got = vm.mlp_product(a, b, **kw)
+    want = vm.mlp_product_ref(a, b, **kw)
+    assert LAUNCHES["vit_mlp_product"] == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    vit_close(got, want, torch.bfloat16 if epi == "gelu" else torch.float32, grad=True)
+    torch.cuda.synchronize()
+
+
+# K8's fused dh kernel alone against its plain piece at main_dino's globals
+# and locals (M = 16·785 and 32·145 rows, D 384, F 1536) and a ragged small
+# shape; one whose rows are not 16-byte aligned (F 100) is refused with a
+# ValueError.
+@pytest.mark.parametrize("shape", [(16 * 785, 384, 1536), (32 * 145, 384, 1536), (37, 32, 96),
+                                   (45, 40, 100)], ids=str)
+def test_vit_mlp_dh_matches_plain(cuda, shape):
+    from cerebra_torch.kernels import LAUNCHES
+    from cerebra_torch.models import vit_mlp as vm
+
+    M, D, F = shape
+    gen = torch.Generator().manual_seed(M)
+
+    def r(*s, sc):
+        return (torch.randn(*s, generator=gen) * sc).to(cuda, torch.bfloat16)
+
+    y, dn = r(M, D, sc=1.0), r(M, D, sc=1.0)
+    w1, b1, w2 = r(D, F, sc=0.05), r(F, sc=0.05), r(F, D, sc=0.05)
+    before = LAUNCHES["vit_mlp_dh"]
+    if F % 8:  # rows the TMA cannot read
+        with pytest.raises(ValueError):
+            vm.mlp_dh(y, dn, w1, b1, w2)
+        assert LAUNCHES["vit_mlp_dh"] == before
+        return
+    got = vm.mlp_dh(y, dn, w1, b1, w2)
+    assert LAUNCHES["vit_mlp_dh"] == before + 1
+    want = vm.mlp_dh_ref(y, dn, w1, b1, w2)
+    assert got[2].shape == want[2].shape == (-(-M // vm.DH_ROWS), F)
+    vit_close(got[0], want[0], torch.bfloat16, grad=True)
+    vit_close(got[1], want[1], torch.bfloat16, grad=True)
+    vit_close(got[2], want[2], torch.float32, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_vit_mlp_pieces_repeat_bit_for_bit(cuda):
+    """The dh kernel, a split contraction and K8 whole give the same bits on
+    a second run (fixed chunks and orders, no atomics)."""
+    from cerebra_torch.models import vit_mlp as vm
+
+    B, N, D, F = 2, 145, 384, 1536
+    x, params, dout, s = vit_inputs(B, N, D, F, torch.float32, cuda, 6, True, attn=False)
+    p = vm._prep(*params, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, saved = vm.mlp_fwd(x, s, p)
+        y = saved[0]
+        dn = (dout * s[:, None]).to(torch.bfloat16)
+        gh, dhn, parts = vm.mlp_dh(y, dn, p[2], p[3], p[4])
+        dw = vm.mlp_product(gh, dn, a_t=True, epi="partial", splits=vm.contraction_splits(
+            B * N, D, F))
+        runs.append((out, gh, dhn, parts, dw, *vm.mlp_bwd(dout, x, s, p, saved)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 # The attention cores alone (K5's forward core; K6's dq and dk/dv cores),
