@@ -96,28 +96,40 @@ __device__ __forceinline__ float prefactors(const float (&a)[4], float c_prev, f
   return og - og * tc * tc;
 }
 
-// One row and unit of a forward step: the f32 cell update from the
-// pre-activations at gr[k * gs] (c holds c_{t-1} in and c_t out), returning
-// h_t. With pf and q non-null (K1, K13) it also stores the backward's
-// residuals in the stream dtype: the prefactors at pf[k * H], q and f at
-// q[0] and q[H].
-template <typename T>
-__device__ __forceinline__ float cell_step(const float* gr, size_t gs, int H, float& c, T* pf,
-                                           T* q) {
+// One row and unit of a forward step from its pre-activations at gr[k * gs]:
+// the f32 cell update (c holds c_{t-1} in and c_t out), returning h_t; with
+// RES also the backward's residuals in f32, r = [the four prefactors, q, f].
+template <bool RES>
+__device__ __forceinline__ float cell_update(const float* gr, size_t gs, float& c,
+                                             float (&r)[6]) {
   float a[4];
   activations(gr, gs, a);
   const float c_prev = c;
   c = a[1] * c_prev + a[0] * a[2];
   const float tc = tanhf(c);
-  if (pf != nullptr) {
+  if constexpr (RES) {
     float p[4];
-    const float qv = prefactors(a, c_prev, tc, p);
+    r[4] = prefactors(a, c_prev, tc, p);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) pf[k * H] = from_f<T>(p[k]);
-    q[0] = from_f<T>(qv);
-    q[H] = from_f<T>(a[1]);
+    for (int k = 0; k < 4; ++k) r[k] = p[k];
+    r[5] = a[1];
   }
   return a[3] * tc;
+}
+
+// cell_update, with pf and q non-null (K1, K13) storing the residuals in the
+// stream dtype: the prefactors at pf[k * H], q and f at q[0] and q[H].
+template <typename T>
+__device__ __forceinline__ float cell_step(const float* gr, size_t gs, int H, float& c, T* pf,
+                                           T* q) {
+  float r[6];
+  if (pf == nullptr) return cell_update<false>(gr, gs, c, r);
+  const float h = cell_update<true>(gr, gs, c, r);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) pf[k * H] = from_f<T>(r[k]);
+  q[0] = from_f<T>(r[4]);
+  q[H] = from_f<T>(r[5]);
+  return h;
 }
 
 // cell_step with the pre-activations H apart, as the gates of a row lie

@@ -12,6 +12,12 @@
 //                                      the tensor cores, then the recurrence
 //                                      on a thread-block cluster that keeps
 //                                      W_hh in shared memory
+//   cerebra_fwd_wave                   replaces _fwd_train_kernel (K1) and
+//                                      _fwd_infer_last_kernel (K3) in bf16 at
+//                                      the widths lstm_stack.py wave_fits
+//                                      takes: a cluster a batch tile, a CTA a
+//                                      layer holding [W_ih; W_hh] in shared
+//                                      memory, the layers one step apart
 //   cerebra_stack_scan_bwd +           replace _bwd_kernel: K2 (need_dx=False,
 //   cerebra_stack_bwd_products         g_last_only=True) and K2g (need_dx=True
 //                                      and/or a full (Tn, B, H) cotangent), as
@@ -46,7 +52,8 @@
 // ([k][row]) so one vector load fetches a value for every row. The wrapper
 // picks BT from timings on the card (lstm_stack.py pick_tile). At small
 // batches K1 and K4 take the layer-by-layer path instead ("the
-// layer-by-layer forward" below).
+// layer-by-layer forward" below), and in bf16 at the CLI's widths K1 and K3
+// take the wavefront path ("the wavefront forward").
 //
 // K2/K2g keep only what is serial in the serial loop: the dh/dc carries of
 // one layer (the reverse scan). Everything else is a function of a layer's
@@ -365,18 +372,11 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-// Launch kern on `stream` in `tiles` clusters of N CTAs of nthr threads and
-// `smem` bytes of dynamic shared memory each; a cluster the card cannot
-// place (too large, too much shared memory) is refused before the launch.
-// Returns the first CUDA error, else 0.
-template <typename... KArgs, typename... Args>
-int launch_clusters(void (*kern)(KArgs...), int N, int tiles, int nthr, size_t smem,
-                    cudaStream_t stream, Args... args) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess && N > 8)
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  cudaLaunchAttribute attr[1];
+// the launch of `tiles` clusters of N CTAs of nthr threads and `smem` bytes
+// of dynamic shared memory each on `stream`; attr is the one attribute it
+// names, the cluster's size
+inline cudaLaunchConfig_t cluster_config(int N, int tiles, int nthr, size_t smem,
+                                         cudaStream_t stream, cudaLaunchAttribute* attr) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = N;
   attr[0].val.clusterDim.y = 1;
@@ -388,9 +388,37 @@ int launch_clusters(void (*kern)(KArgs...), int N, int tiles, int nthr, size_t s
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+// kern's shared-memory and cluster-size attributes for `smem` bytes and N
+// CTAs a cluster, then the clusters the card holds at once (into *clusters)
+template <typename... KArgs>
+cudaError_t cluster_occupancy(void (*kern)(KArgs...), int N, int nthr, size_t smem,
+                              int* clusters) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && N > 8)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(N, 1, nthr, smem, 0, attr);
+  *clusters = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(clusters, (const void*)kern, &cfg);
+  return e;
+}
+
+// Launch kern on `stream` in `tiles` clusters of N CTAs of nthr threads and
+// `smem` bytes of dynamic shared memory each; a cluster the card cannot
+// place (too large, too much shared memory) is refused before the launch.
+// Returns the first CUDA error, else 0.
+template <typename... KArgs, typename... Args>
+int launch_clusters(void (*kern)(KArgs...), int N, int tiles, int nthr, size_t smem,
+                    cudaStream_t stream, Args... args) {
   int clusters = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  cudaError_t e = cluster_occupancy(kern, N, nthr, smem, &clusters);
   if (e == cudaSuccess && clusters < 1) e = cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(N, tiles, nthr, smem, stream, attr);
   if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves no error behind for the next one
@@ -598,6 +626,279 @@ int launch_cluster_scan(int N, const float* P, const __nv_bfloat16* w_hh,
   CEREBRA_MT(8)
 #undef CEREBRA_MT
   return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------- the wavefront forward
+// Replaces _fwd_train_kernel (K1) and _fwd_infer_last_kernel (K3) in bf16 at
+// the widths lstm_stack.py wave_fits takes (the CLI's C = H = 96, L = 2, at
+// every batch): the whole stack in one launch, with no input product in
+// device memory. One thread-block cluster of L CTAs a batch tile of 16
+// rows; CTA l is layer l and holds its [W_ih; W_hh] ((in + H) x 4H bf16,
+// 150 KiB at C = H = 96) in shared memory for the whole sequence, column by
+// column, and runs the steps t = 0 .. T-1 of its layer: the step's product
+// [inp_t | h_{t-1}]·[W_ih; W_hh] on mma.sync (m16n8k16, bf16 operands, f32
+// sums; inp·W_ih and h·W_hh in two accumulators, then (ax + ah) + b, the
+// Pallas body's order), the f32 cell in registers straight from the
+// accumulators, h_t rounded to bf16 into the CTA's own h buffer and into
+// CTA l+1's input ring, and one __syncthreads. Layer 0 copies x_t into its
+// ring with cp.async, kWaveRing - 1 steps ahead. The layers meet only at
+// the ring (a wavefront: layer l runs behind layer l-1, at most
+// kWaveRing - 1 steps): layer l writes h_t into slot t % kWaveRing of layer
+// l+1 with st.async, whose bytes complete on that slot's "full" mbarrier
+// there, and layer l+1, once it has read a slot, arrives on the slot's
+// "empty" mbarrier in layer l, which waits for it before it refills the
+// slot. So no barrier spans the cluster in the loop, and no barrier waits
+// for the residuals' stores to device memory.
+// Warp w owns hidden units [8w, 8w + 8) and their four gates: its n8 tiles
+// are the columns q H + 8w .. of gate q, so each lane's accumulators hold
+// all four pre-activations of its 2 rows x 2 units and the cell needs no
+// exchange: H/8 warps, c in registers.
+// What bounds it on an H100: T serial steps of a few µs, not the bytes (K1
+// at B = 1024 writes 1.27 GB, 0.38 ms at 3.35 TB/s) or the operations (0.07
+// ms). In a step a CTA's product reads 222 KiB of fragments from shared
+// memory (the weights' 150 KiB and every warp's copy of A: ~1,700 cycles at
+// 128 bytes a cycle), then its cell runs ten MUFU operations a value on
+// 16 x H values (~1,000 cycles at 16 a cycle), one after the other. A
+// barrier across the cluster at every step, which this kernel first used,
+// cost more than the handshake that replaced it and waited for K1's stores
+// to device memory (PERF.md §6).
+// Buffers, the same offsets in every CTA (the ring is written across the
+// cluster): bf16 w_s (4H, KW) | in_s (kWaveRing, 16, IW) | h_s (2, 16,
+// H + 8), KW = max(C, H) + H + 8, IW = max(C, H) + 8 (rows padded by 8
+// values, so a warp's fragment loads hit 32 banks); then the mbarriers
+// full[kWaveRing] and empty[kWaveRing].
+
+constexpr int kWaveRows = 16;  // batch rows of one cluster's tile
+constexpr int kWaveRing = 4;   // slots of a layer's input ring
+constexpr int kWaveThreads = 384;  // H/8 warps, H <= 96: at most 170 registers a thread
+
+inline size_t wave_smem(int C, int H) {
+  const size_t in = C > H ? C : H;
+  return 2 * (4 * (size_t)H * (in + H + 8) + kWaveRing * kWaveRows * (in + 8) +
+              2 * kWaveRows * ((size_t)H + 8)) +
+         2 * kWaveRing * sizeof(uint64_t);
+}
+
+// ---- the handshake between neighbouring layers (mbarriers in shared memory)
+// the address of p in CTA rank's shared memory
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(tc::smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void wave_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(tc::smem_addr(b)), "r"(count)
+               : "memory");
+}
+
+// arrive on local barrier b, expecting `bytes` more to complete on it
+__device__ __forceinline__ void wave_expect(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(tc::smem_addr(b)), "r"(bytes) : "memory");
+}
+
+// arrive (release at cluster scope) on barrier b of CTA rank
+__device__ __forceinline__ void wave_arrive_peer(uint64_t* b, int rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(peer_addr(b, rank)) : "memory");
+}
+
+// wait (acquire at cluster scope) until the phase of parity `parity` of
+// local barrier b has completed
+__device__ __forceinline__ void wave_wait(uint64_t* b, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(tc::smem_addr(b)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// v into CTA rank's shared memory at p's offset, its 4 bytes completing on
+// that CTA's barrier b
+__device__ __forceinline__ void wave_store_peer(void* p, uint32_t v, uint64_t* b, int rank) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               :: "r"(peer_addr(p, rank)), "r"(v), "r"(peer_addr(b, rank)) : "memory");
+}
+
+template <bool TRAIN>
+__global__ void __launch_bounds__(kWaveThreads, 1)
+    wave_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_ih0,
+                    const __nv_bfloat16* __restrict__ w_ihr,
+                    const __nv_bfloat16* __restrict__ w_hh,
+                    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ h_all,
+                    __nv_bfloat16* __restrict__ prefac, __nv_bfloat16* __restrict__ qf,
+                    __nv_bfloat16* __restrict__ h_out, int Tn, int B, int C, int H) {
+  using bf = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int L = (int)cluster.num_blocks(), l = (int)cluster.block_rank();
+  const int G = 4 * H, in = l == 0 ? C : H, wide = C > H ? C : H;
+  const int KW = wide + H + 8, IW = wide + 8, HW = H + 8;
+  const int b0 = (int)(blockIdx.x / L) * kWaveRows;
+  extern __shared__ __align__(16) float smem[];
+  bf* w_s = reinterpret_cast<bf*>(smem);          // [column][k]: W_ih rows, then W_hh's
+  bf* in_s = w_s + (size_t)G * KW;                 // [slot][row][k]
+  bf* h_s = in_s + (size_t)kWaveRing * kWaveRows * IW;  // [buf][row][unit]
+  // full[k]: the layer below's h has filled slot k; empty[k]: the layer
+  // above has read its slot k
+  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + 2 * kWaveRows * HW);
+  uint64_t* empty = full + kWaveRing;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int slot_bytes = kWaveRows * H * (int)sizeof(bf);
+
+  const bf* wi = l == 0 ? w_ih0 : w_ihr + (size_t)(l - 1) * H * G;
+  const bf* wh = w_hh + (size_t)l * H * G;
+  for (int i = tid; i < (in + H) * G; i += nthr) {
+    const int k = i / G, j = i - k * G;
+    w_s[(size_t)j * KW + k] = k < in ? wi[(size_t)k * G + j] : wh[(size_t)(k - in) * G + j];
+  }
+  for (int i = tid; i < 2 * kWaveRows * HW; i += nthr) h_s[i] = __float2bfloat16_rn(0.0f);
+  if (tid == 0) {
+    for (int k = 0; k < kWaveRing; ++k) {
+      wave_init(full + k, 1);
+      wave_init(empty + k, 1);
+      if (l > 0) wave_expect(full + k, slot_bytes);  // the first use of each slot
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // layer 0: x_t's 16 rows into ring slot t % kWaveRing, 16 bytes a copy,
+  // zeros for rows past B; one commit group a step (empty past Tn)
+  auto load_x = [&](int t) {
+    if (l == 0 && t < Tn) {
+      bf* dst = in_s + (size_t)(t % kWaveRing) * kWaveRows * IW;
+      const int chunks = C / 8;
+      for (int i = tid; i < kWaveRows * chunks; i += nthr) {
+        const int r = i / chunks, e = i - r * chunks, b = b0 + r;
+        tc::cp_async<16>(dst + r * IW + e * 8,
+                         x + ((size_t)t * B + (b < B ? b : 0)) * C + e * 8, b < B);
+      }
+    }
+    tc::cp_async_commit();
+  };
+  for (int t = 0; t < kWaveRing - 1; ++t) load_x(t);
+
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, tg = lane % 4;
+  const int u0 = 8 * warp + 2 * tg;  // this lane's units u0, u0 + 1
+  float bv[4][2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bv[q][e] = to_f<bf>(bias[(size_t)l * G + q * H + u0 + e]);
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // [2 rr + e]: row g + 8 rr, unit u0 + e
+
+  tc::cp_async_wait<kWaveRing - 2>();  // x_0 is in
+  cluster.sync();  // weights, zero h, x_0 and the barriers in place; every CTA has started
+
+  // this lane's h_t (bf16 pairs) and, for K1, its residuals, [rr]: h,
+  // the four prefactors, q, f
+  uint32_t out[2][7];
+  for (int t = 0; t < Tn; ++t) {
+    const int k = t % kWaveRing, phase = (t / kWaveRing) & 1;
+    bf* slot = in_s + (size_t)k * kWaveRows * IW;
+    if (l == 0)
+      load_x(t + kWaveRing - 1);  // into the slot step t - 1 read
+    else
+      wave_wait(full + k, phase);  // h_t of the layer below is in slot k
+    // fragments by ldmatrix.x4 (lane i gives a row of matrix i / 8): A's
+    // rows i % 8 + 8 ((i / 8) & 1) at k + 8 (i / 16), the mma's a[0..3]; B's
+    // column 8 warp + i % 8 of gate q + i / 16 at k + 8 ((i / 8) & 1), the
+    // b0 and b1 of gates q and q + 1
+    const int ar = (lane % 8) + 8 * ((lane / 8) & 1), ak = 8 * (lane / 16);
+    const bf* xa = slot + ar * IW + ak;
+    const bf* ha = h_s + (size_t)(t & 1) * kWaveRows * HW + ar * HW + ak;
+    const bf* wl =
+        w_s + (size_t)(8 * warp + lane % 8 + (lane / 16) * H) * KW + 8 * ((lane / 8) & 1);
+    float ax[4][4], ah[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ax[q][e] = ah[q][e] = 0.0f;
+#pragma unroll 3
+    for (int kb = 0; kb < in; kb += 16) {
+      uint32_t a[4], b[4];
+      tc::ldmatrix_x4(a, xa + kb);
+#pragma unroll
+      for (int q = 0; q < 4; q += 2) {
+        tc::ldmatrix_x4(b, wl + (size_t)q * H * KW + kb);
+        mma_bf16(ax[q], a, b[0], b[1]);
+        mma_bf16(ax[q + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll 3
+    for (int kb = 0; kb < H; kb += 16) {
+      uint32_t a[4], b[4];
+      tc::ldmatrix_x4(a, ha + kb);
+#pragma unroll
+      for (int q = 0; q < 4; q += 2) {
+        tc::ldmatrix_x4(b, wl + (size_t)q * H * KW + in + kb);
+        mma_bf16(ah[q], a, b[0], b[1]);
+        mma_bf16(ah[q + 1], a, b[2], b[3]);
+      }
+    }
+
+    const bool up = l + 1 < L;
+    // the layer above reads h_t from its slot k, once it has read step t - 4
+    if (up && t >= kWaveRing) wave_wait(empty + k, phase ^ 1);
+    bf* hn = h_s + (size_t)((t + 1) & 1) * kWaveRows * HW;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = g + 8 * rr;
+      float hv[2], res[2][6];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float gv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gv[q] = (ax[q][2 * rr + e] + ah[q][2 * rr + e]) + bv[q][e];
+        hv[e] = cell_update<TRAIN>(gv, 1, c[2 * rr + e], res[e]);
+      }
+      out[rr][0] = tc::pack_bf16(hv[0], hv[1]);
+      *reinterpret_cast<uint32_t*>(hn + r * HW + u0) = out[rr][0];
+      if (up) wave_store_peer(slot + r * IW + u0, out[rr][0], full + k, l + 1);
+      if constexpr (TRAIN) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) out[rr][j + 1] = tc::pack_bf16(res[0][j], res[1][j]);
+      }
+    }
+    if (l == 0) tc::cp_async_wait<kWaveRing - 2>();  // x_{t+1} is in
+    __syncthreads();  // h_t in place; every warp has read slot k
+    if (tid == 0 && l > 0) {
+      wave_expect(full + k, slot_bytes);  // slot k's next use, step t + 4
+      wave_arrive_peer(empty + k, l - 1);  // the layer below may refill slot k
+    }
+    if (TRAIN || (l == L - 1 && t == Tn - 1)) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int b = b0 + g + 8 * rr;
+        if (b >= B) continue;
+        const size_t row = ((size_t)l * Tn + t) * B + b;
+        if constexpr (TRAIN) {
+          *reinterpret_cast<uint32_t*>(h_all + row * H + u0) = out[rr][0];
+          bf* pf = prefac + row * G + u0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) *reinterpret_cast<uint32_t*>(pf + q * H) = out[rr][q + 1];
+          bf* qr = qf + row * 2 * H + u0;
+          *reinterpret_cast<uint32_t*>(qr) = out[rr][5];
+          *reinterpret_cast<uint32_t*>(qr + H) = out[rr][6];
+        } else {
+          *reinterpret_cast<uint32_t*>(h_out + (size_t)b * H + u0) = out[rr][0];
+        }
+      }
+    }
+  }
+  cluster.sync();  // no CTA leaves while a neighbour may still signal it
+}
+
+inline bool wave_shape_ok(int C, int H, int L) {
+  return C > 0 && H > 0 && C % 16 == 0 && H % 16 == 0 && 4 * H <= kWaveThreads && L >= 1 &&
+         L <= 8 &&
+         wave_smem(C, H) <= 232448;
 }
 
 // -------------------------------------------------- K2/K2g's layer products
@@ -838,6 +1139,35 @@ int cerebra_fwd_cluster_scan(int bf16, int res, int n, const void* P, const void
                                          (T*)prefac, (T*)qf, Tn, B, H, s)
              : launch_cluster_scan<false>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
                                           (T*)nullptr, (T*)nullptr, Tn, B, H, s);
+}
+
+// K1 (train != 0: h_all, prefac, qf) or K3 (h_out (B, H)) on the wavefront
+// path, bf16 streams: one cluster of L CTAs a 16-row batch tile. C and H
+// multiples of 16, 4H <= 512 threads, L <= 8, the weights within one CTA's
+// shared memory (wave_shape_ok; lstm_stack.py wave_fits), else
+// cudaErrorInvalidValue.
+int cerebra_fwd_wave(int train, const void* x, const void* w_ih0, const void* w_ihr,
+                     const void* w_hh, const void* bias, void* h_all, void* prefac, void* qf,
+                     void* h_out, int Tn, int B, int C, int H, int L, void* stream) {
+  if (!wave_shape_ok(C, H, L)) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = wave_smem(C, H);
+  const int tiles = (B + kWaveRows - 1) / kWaveRows;
+  return launch_clusters(train ? wave_fwd_kernel<true> : wave_fwd_kernel<false>, L, tiles, 4 * H,
+                         smem, s, (const bf*)x, (const bf*)w_ih0, (const bf*)w_ihr,
+                         (const bf*)w_hh, (const bf*)bias, (bf*)h_all, (bf*)prefac, (bf*)qf,
+                         (bf*)h_out, Tn, B, C, H);
+}
+
+// clusters of the wavefront forward the card holds at once at (C, H, L), or
+// minus a CUDA error code
+int cerebra_fwd_wave_clusters(int C, int H, int L) {
+  if (!wave_shape_ok(C, H, L)) return -(int)cudaErrorInvalidValue;
+  int clusters = 0;
+  const cudaError_t e = cluster_occupancy(wave_fwd_kernel<true>, L, 4 * H, wave_smem(C, H),
+                                          &clusters);
+  return e == cudaSuccess ? clusters : -(int)e;
 }
 
 // K2/K2g, one layer's reverse scan: dgates (Tn, B, 4H) from the layer's

@@ -17,13 +17,20 @@ and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
   h[T−1] (B, H).
 - K4 `fwd_infer`: forward with no residuals, returning the top layer's h at
   every t (T, B, H).
+- K1 and K3 in bf16 at the widths `wave_fits` takes (the CLI's C = H =
+  96, L = 2, at every batch) run the wavefront forward (`_fwd_wave`, its
+  plain composition `_fwd_wave_ref`): one launch, a thread-block cluster a
+  16-row batch tile, a CTA a layer that holds [W_ih; W_hh] in shared
+  memory, the layers one step apart, each step's product on the tensor
+  cores and the cell in registers.
 - K1 and K4 at the small batches `pick_fwd` takes (the recurrent
   autoencoder's B = 16) run layer by layer, bottom first
   (`_fwd_layerwise`): the layer's input product over all T·B rows
   (`fwd_in_product`, f32 P = inp·W_ih), then its recurrence over P on a
   thread-block cluster that keeps W_hh in shared memory
   (`fwd_cluster_scan`), which writes h and, for K1, the residuals. Every
-  other shape runs the whole stack in one launch (`lstm_fwd_kernel`).
+  other shape runs the whole stack in one launch (`lstm_fwd_kernel`);
+  `fwd_path` states the rule.
 - K10 `fwd_train_rc`: the recompute variant's forward, which streams only
   h_all and c_all (T, B, H) per layer, c rounded to the stream dtype (2H a
   row and layer instead of K1's 7H).
@@ -50,8 +57,9 @@ Dispatch: a tensor on the CPU takes the plain version (`_fwd_train_ref`,
 tensor launches the kernel, built at first use, or raises. `LAUNCHES` counts
 kernel launches so a run can show that it went through the kernels
 (`fwd_train`, `fwd_infer`, `bwd` for K2, `bwd_general` for K2g, `bwd_rc` for
-K11, one a call; `fwd_in_product` and `fwd_cluster_scan` one a layer of
-K1/K4's layer-by-layer path; `stack_bwd_scan` and `stack_bwd_products` one
+K11, one a call; `fwd_wave` one a launch of the wavefront forward (K1 or
+K3); `fwd_in_product` and `fwd_cluster_scan` one a layer of K1/K4's
+layer-by-layer path; `stack_bwd_scan` and `stack_bwd_products` one
 a layer of K2/K2g; `rc_gates`, `rc_scan` and `rc_products` one a chunk and
 layer of K11).
 
@@ -80,7 +88,7 @@ from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exporte
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, fwd_infer=0, bwd_general=0,
-                fwd_train_rc=0, bwd_rc=0, fwd_in_product=0, fwd_cluster_scan=0,
+                fwd_train_rc=0, bwd_rc=0, fwd_in_product=0, fwd_cluster_scan=0, fwd_wave=0,
                 stack_bwd_scan=0, stack_bwd_products=0, rc_gates=0, rc_scan=0, rc_products=0)
 _FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2, "fwd_train_rc": 3}  # FwdMode
 
@@ -262,6 +270,74 @@ def _fwd_layerwise_ref(x: torch.Tensor, layers: Layers, train: bool):
     if not train:
         return top
     return tuple(torch.stack([o[k] for o in outs]) for k in range(3))
+
+
+_WAVE_ROWS = 16  # batch rows of one cluster's tile (csrc/lstm_stack.cu kWaveRows)
+_WAVE_RING = 4  # slots of a layer's input ring (kWaveRing)
+
+
+def _wave_step_ref(inp, h, c, w_ih, w_hh, b, res: bool):
+    """Plain layer-step of the wavefront path over a tile's rows: gates =
+    (inp·W_ih + h·W_hh) + b with stream-dtype operands and f32 sums, K1's
+    f32 cell → (h_t in the stream dtype, c_t f32, and with `res` K1's
+    prefac and qf of the step, else None, None)."""
+    H, sd = w_hh.shape[0], w_hh.dtype
+    gates = _gates(inp, h, w_ih, w_hh, b, sd)
+    i = torch.sigmoid(gates[:, :H])
+    f = torch.sigmoid(gates[:, H:2 * H])
+    g = torch.tanh(gates[:, 2 * H:3 * H])
+    o = torch.sigmoid(gates[:, 3 * H:])
+    c_new = f * c + i * g
+    tanh_c = torch.tanh(c_new)
+    prefac, qf = _residuals(i, f, g, o, c, tanh_c, sd) if res else (None, None)
+    return (o * tanh_c).to(sd), c_new, prefac, qf
+
+
+def _fwd_wave(x: torch.Tensor, layers: Layers, train: bool, step):
+    """K1 (`train`: (h_all, prefac, qf)) or K3 (the top layer's h at T−1,
+    (B, H)) as the wavefront CUDA path composes them, through `step(l, inp,
+    h, c, res)` → (h_t, c_t, prefac_t, qf_t) of layer l. The batch runs in
+    tiles of 16 rows, zero rows past B. In a tile, at iteration s = 0 ..
+    T + L − 2 each layer l, bottom first, runs its step t = s − l on the
+    input its ring holds in slot t % 4 (x_t for layer 0; h_t of the layer
+    below, put there an iteration before) and its own h_{t−1}, then puts
+    h_t into the ring of the layer above."""
+    T, B, C, H, L = _dims(x, layers)
+    sd, dev, R = x.dtype, x.device, _WAVE_RING
+    if train:
+        h_all = torch.empty(L, T, B, H, dtype=sd, device=dev)
+        prefac = torch.empty(L, T, B, 4 * H, dtype=sd, device=dev)
+        qf = torch.empty(L, T, B, 2 * H, dtype=sd, device=dev)
+    else:
+        out = torch.empty(B, H, dtype=sd, device=dev)
+    for b0 in range(0, B, _WAVE_ROWS):
+        n = min(_WAVE_ROWS, B - b0)
+        rows = slice(b0, b0 + n)
+        ring = [[None] * R for _ in range(L)]
+        h = [torch.zeros(_WAVE_ROWS, H, dtype=sd, device=dev) for _ in range(L)]
+        c = [torch.zeros(_WAVE_ROWS, H, device=dev) for _ in range(L)]
+        for s in range(T + L - 1):
+            for l in range(L):
+                t = s - l
+                if not 0 <= t < T:
+                    continue
+                if l == 0:
+                    ring[0][t % R] = x.new_zeros(_WAVE_ROWS, C)
+                    ring[0][t % R][:n] = x[t, rows]
+                h[l], c[l], pf, q = step(l, ring[l][t % R], h[l], c[l], train)
+                if l + 1 < L:
+                    ring[l + 1][t % R] = h[l]
+                if train:
+                    h_all[l, t, rows], prefac[l, t, rows], qf[l, t, rows] = h[l][:n], pf[:n], q[:n]
+                elif l == L - 1 and t == T - 1:
+                    out[rows] = h[l][:n]
+    return (h_all, prefac, qf) if train else out
+
+
+def _fwd_wave_ref(x: torch.Tensor, layers: Layers, train: bool):
+    """`_fwd_wave` through the plain layer-step, on any device."""
+    return _fwd_wave(x, layers, train,
+                     lambda l, inp, h, c, res: _wave_step_ref(inp, h, c, *layers[l], res))
 
 
 def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
@@ -624,6 +700,10 @@ def _typed(lib) -> None:
     lib.cerebra_fwd_in_product.restype = i
     lib.cerebra_fwd_cluster_scan.argtypes = [i, i, i] + [vp] * 6 + [i] * 3 + [vp]
     lib.cerebra_fwd_cluster_scan.restype = i
+    lib.cerebra_fwd_wave.argtypes = [i] + [vp] * 9 + [i] * 5 + [vp]
+    lib.cerebra_fwd_wave.restype = i
+    lib.cerebra_fwd_wave_clusters.argtypes = [i, i, i]
+    lib.cerebra_fwd_wave_clusters.restype = i
     lib.cerebra_stack_scan_bwd.argtypes = [i] * 4 + [vp] * 5 + [i] * 3 + [vp]
     lib.cerebra_stack_scan_bwd.restype = i
     lib.cerebra_stack_bwd_products.argtypes = ([i, vp, vp, i, vp, vp, i] + [vp] * 5 + [i] * 5
@@ -686,9 +766,10 @@ def cluster_sizes(H: int, dtype: torch.dtype) -> Tuple[int, ...]:
 
 
 def pick_fwd(B: int, C: int, H: int, L: int, dtype: torch.dtype) -> int:
-    """Which forward K1 and K4 run: the cluster size n of the layer-by-layer
-    path (input product, then the recurrence on clusters of n CTAs), or 0
-    for `lstm_fwd_kernel`, the whole stack in one launch.
+    """Which forward K1 and K4 run where the wavefront forward does not
+    (`fwd_path`): the cluster size n of the layer-by-layer path (input
+    product, then the recurrence on clusters of n CTAs), or 0 for
+    `lstm_fwd_kernel`, the whole stack in one launch.
 
     The layer-by-layer path takes batches of at most 4 tiles of 16 rows
     (B <= 64): its f32 input product is T·B·4H floats a layer (45 MB at the
@@ -707,6 +788,44 @@ def pick_fwd(B: int, C: int, H: int, L: int, dtype: torch.dtype) -> int:
     if not fits or tiles > _FWD_MAX_TILES or tiles * fits[0] > _SMS:
         return 0
     return fits[0]
+
+
+def wave_smem(C: int, H: int) -> int:
+    """Bytes of shared memory of one CTA of the wavefront forward
+    (csrc/lstm_stack.cu wave_smem): in bf16 a layer's [W_ih; W_hh] column by
+    column, each of the 4H columns padded to max(C, H) + H + 8 values, its
+    input ring (4, 16, max(C, H) + 8) and h (2, 16, H + 8); then a "full"
+    and an "empty" mbarrier (8 bytes) a ring slot."""
+    w = max(C, H)
+    return (2 * (4 * H * (w + H + 8) + _WAVE_RING * _WAVE_ROWS * (w + 8) + 2 * _WAVE_ROWS * (H + 8))
+            + 2 * 8 * _WAVE_RING)
+
+
+def wave_fits(C: int, H: int, L: int, dtype: torch.dtype) -> bool:
+    """Whether the wavefront forward can run a stack: bf16 streams (its
+    products are bf16 mma.sync; f32 keeps the FMA kernels), C and H
+    multiples of 16 (the products' k-steps), H/8 warps within the kernel's
+    384 threads (H <= 96), at most 8 layers (a portable cluster) and one
+    layer's weights within a CTA's shared memory: 169.5 KiB at the CLI's
+    C = H = 96. Not the DINO-LSTM's H = 128 (289.5 KiB) or the
+    autoencoder's widths (C 384, H 96: 421.5 KiB; H = 384)."""
+    return (dtype == torch.bfloat16 and C % 16 == 0 and H % 16 == 0 and 4 * H <= 384
+            and 1 <= L <= 8 and wave_smem(C, H) <= _MAX_SMEM)
+
+
+def fwd_path(B: int, C: int, H: int, L: int, dtype: torch.dtype, kind: str) -> str:
+    """Which forward `kind` runs on the card: "wave" (the wavefront path, one
+    launch), "cluster" (the layer-by-layer path, clusters of `pick_fwd`'s
+    size) or "stack" (`lstm_fwd_kernel`). K1 (fwd_train) and K3
+    (fwd_infer_last) take the wavefront path where `wave_fits`; K1 and K4
+    (fwd_infer) then the layer-by-layer path where `pick_fwd` gives a
+    cluster size; the rest, and K10 (fwd_train_rc) always,
+    `lstm_fwd_kernel`."""
+    if kind in ("fwd_train", "fwd_infer_last") and wave_fits(C, H, L, dtype):
+        return "wave"
+    if kind in ("fwd_train", "fwd_infer") and pick_fwd(B, C, H, L, dtype):
+        return "cluster"
+    return "stack"
 
 
 def scan_tile(B: int, H: int, dtype: torch.dtype) -> int:
@@ -872,15 +991,58 @@ def _fwd_cluster_cuda(x, layers, kind: str, n: int):
     return (h_all, prefac, qf) if train else top
 
 
+def _fwd_wave_cuda(x, layers, kind: str):
+    """K1 (`kind` fwd_train) or K3 (fwd_infer_last) on the card on the
+    wavefront path (`fwd_wave`): one launch, no input product in memory."""
+    T, B, C, H, L = _dims(x, layers)
+    if kind not in ("fwd_train", "fwd_infer_last") or not wave_fits(C, H, L, x.dtype):
+        raise ValueError(f"the wavefront forward does not run {kind} at C={C}, H={H}, L={L}, "
+                         f"{x.dtype}")
+    w_ih0, w_ihr, w_hh, b = _packed(layers, H)
+    _cuda_checks(1, x, w_ih0, w_ihr, w_hh, b)
+    if x.data_ptr() % 16:  # layer 0 copies x 16 bytes at a time
+        x = x.clone()
+    train, sd, dev = kind == "fwd_train", x.dtype, x.device
+    h_all = prefac = qf = out = None
+    if train:
+        h_all = torch.empty(L, T, B, H, dtype=sd, device=dev)
+        prefac = torch.empty(L, T, B, 4 * H, dtype=sd, device=dev)
+        qf = torch.empty(L, T, B, 2 * H, dtype=sd, device=dev)
+    else:
+        out = torch.empty(B, H, dtype=sd, device=dev)
+    lib = _lib()
+    rc = lib.cerebra_fwd_wave(
+        int(train), x.data_ptr(), w_ih0.data_ptr(), w_ihr.data_ptr() or None, w_hh.data_ptr(),
+        b.data_ptr(), ptr(h_all), ptr(prefac), ptr(qf), ptr(out), T, B, C, H, L, stream_of(x))
+    check_rc(lib, rc, "fwd_wave")
+    LAUNCHES["fwd_wave"] += 1
+    LAUNCHES[kind] += 1
+    return (h_all, prefac, qf) if train else out
+
+
+def wave_clusters(C: int, H: int, L: int) -> int:
+    """Clusters of the wavefront forward the card holds at once at (C, H, L)
+    (cudaOccupancyMaxActiveClusters): a batch of more 16-row tiles runs in
+    more than one wave."""
+    lib = _lib()
+    n = lib.cerebra_fwd_wave_clusters(C, H, L)
+    if n < 0:
+        check_rc(lib, -n, "fwd_wave occupancy")
+    return n
+
+
 def _fwd_dispatch(x, layers, kind: str, tile):
-    """K1 or K4 on the card by `pick_fwd`'s rule: the layer-by-layer path, or
-    `lstm_fwd_kernel` with `tile` rows a block (default `pick_tile`)."""
+    """K1, K3 or K4 on the card by `fwd_path`'s rule: the wavefront path, the
+    layer-by-layer path or `lstm_fwd_kernel` with `tile` rows a block
+    (default `pick_tile`)."""
     T, B, C, H, L = _dims(x, layers)
     if tile is not None and tile not in _TILES:
         raise ValueError(f"tile must be one of {_TILES}, got {tile}")
-    n = pick_fwd(B, C, H, L, x.dtype)
-    if n:
-        return _fwd_cluster_cuda(x, layers, kind, n)
+    path = fwd_path(B, C, H, L, x.dtype, kind)
+    if path == "wave":
+        return _fwd_wave_cuda(x, layers, kind)
+    if path == "cluster":
+        return _fwd_cluster_cuda(x, layers, kind, pick_fwd(B, C, H, L, x.dtype))
     return _fwd_cuda(x, layers, kind, tile)
 
 
@@ -1158,7 +1320,7 @@ def _weights(layers: Layers):
 
 def fwd_train(x: torch.Tensor, layers: Layers, tile=None):
     """K1 on CUDA, its plain version on the CPU → (h_all, prefac, qf). On the
-    card `pick_fwd` chooses the path; `tile` is `lstm_fwd_kernel`'s rows a
+    card `fwd_path` chooses the path; `tile` is `lstm_fwd_kernel`'s rows a
     block where that path runs."""
     if on_cuda(x, *_weights(layers)):
         return _fwd_dispatch(x, layers, "fwd_train", tile)
@@ -1166,15 +1328,16 @@ def fwd_train(x: torch.Tensor, layers: Layers, tile=None):
 
 
 def fwd_infer_last(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
-    """K3 on CUDA, its plain version on the CPU → h[T−1] of the top layer."""
+    """K3 on CUDA, its plain version on the CPU → h[T−1] of the top layer.
+    On the card `fwd_path` chooses the path, as for `fwd_train`."""
     if on_cuda(x, *_weights(layers)):
-        return _fwd_cuda(x, layers, "fwd_infer_last", tile)
+        return _fwd_dispatch(x, layers, "fwd_infer_last", tile)
     return _fwd_infer_last_ref(x, layers)
 
 
 def fwd_infer(x: torch.Tensor, layers: Layers, tile=None) -> torch.Tensor:
     """K4 on CUDA, its plain version on the CPU → the top layer's h (T, B, H).
-    On the card `pick_fwd` chooses the path, as for `fwd_train`."""
+    On the card `fwd_path` chooses the path, as for `fwd_train`."""
     if on_cuda(x, *_weights(layers)):
         return _fwd_dispatch(x, layers, "fwd_infer", tile)
     return _fwd_infer_ref(x, layers)

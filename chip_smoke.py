@@ -10,13 +10,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  vit_mlp}.cu, all started together, seconds each
   3. parity      K3, K1, K2 and K2's two pieces (each layer's reverse scan
                  and its products) against their plain versions, f32 and
-                 bf16, at B = 1024, 16 and 13 (T = 460, C = H = 96, L = 2)
+                 bf16, at B = 1024, 16 and 13 (T = 460, C = H = 96, L = 2),
+                 K3 at B = 960 in bf16, and K2 on K1's own residuals; in
+                 bf16 K1 and K3 run the wavefront forward (`fwd_wave`
+                 launches counted)
   4. main        `cerebra_torch.cli.lstm_distill_from_dinov2_train.main` on
                  the synthetic corpus (40 classes x 30 trials of (96, 512)),
-                 bf16, batch 16, 6 epochs; launch counts cover every step
+                 bf16, batch 16, 6 epochs; launch counts cover every step,
+                 K1 and the validation's K3 through the wavefront forward
   5. timing      each LSTM kernel against its plain version and the cuDNN
                  call that computes the same function at the main path's
-                 shapes (K2 also split into its scans and its products), the
+                 shapes (K2 also split into its scans and its products; K1
+                 and K3 beside `lstm_fwd_kernel` at the same shape), the
                  reverse scan's rows per block, and bench.py's step (filter,
                  crop, LSTM fwd/bwd, RMSprop) at B = 1024, kernels and plain
                  versions
@@ -65,11 +70,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  recurrence on a thread-block cluster) at the autoencoder's
                  widths, B = 16 and 13, f32 and bf16: K1 against its plain
                  version, and each piece alone at every cluster size the
-                 width fits; `[fwd paths]`: K1 and K4 through
-                 `lstm_fwd_kernel` and through the layer-by-layer path at
-                 each cluster size, at the four shapes that set `pick_fwd`
-                 (both autoencoder widths and the CLI's B = 16, bf16 and
-                 f32, and the bench step's B = 1024, bf16); the two pieces
+                 width fits; `[fwd paths]`: K1, K3 and K4 through
+                 `lstm_fwd_kernel`, through the layer-by-layer path at
+                 each cluster size and, for K1 and K3, through the
+                 wavefront forward where it fits, at the shapes that set
+                 `fwd_path` (both autoencoder widths and the CLI's B = 16,
+                 bf16 and f32, and the bench step's B = 1024 and the
+                 validation's B = 960, bf16); the two pieces
                  alone against plain and the
                  library call at the encoder's width
  12. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) against
@@ -192,11 +199,14 @@ REPLACES.update({
     # (h·W_hh and the cell) of the bodies at :121 and :196
     "fwd_in_product": "cerebra/models/pallas_lstm_stack.py:140",
     "fwd_cluster_scan": "cerebra/models/pallas_lstm_stack.py:141",
+    # the wavefront forward: K1's body (:121) and, without residuals, K3's
+    # (:755, the fwd_infer_last entry)
+    "fwd_wave": "cerebra/models/pallas_lstm_stack.py:121",
 })
-# The shapes whose timings set pick_fwd, (B, C, H, L): both autoencoder
-# widths, the LSTM CLI's step and bench.py's step.
+# The shapes whose timings set fwd_path, (B, C, H, L): both autoencoder
+# widths, the LSTM CLI's step, bench.py's step and the CLI's validation.
 FWD_SHAPES = ((B_AE, *AE_SHAPES["encoder"], 1), (B_AE, *AE_SHAPES["decoder"], 1), (16, C, H, L),
-              (1024, C, H, L))
+              (1024, C, H, L), (960, C, H, L))
 
 # The recompute-backward stack (K10, K11) at the headline Perils widths and
 # at the DINO-LSTM backbone's depth and width (lstm_distillation's
@@ -327,7 +337,8 @@ def phase_parity() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[parity] allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    errs = {}
+    errs, e_wave = {}, 0.0
+    ls.reset_launches()
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1024, 16, 13):
             tag = f"{str(dtype).split('.')[-1]} B={B}"
@@ -345,12 +356,32 @@ def phase_parity() -> dict:
             e2 = max(compare(f"K2 {name}[{l}] {tag}", a, b, dtype, True)
                      for l in range(L)
                      for name, a, b in zip(("dW_ih", "dW_hh", "db"), got_g[l], want_g[l]))
+            # and on K1's own residuals, against the plain K2 on the plain ones
+            _, own_g = ls.bwd(g, x, layers, *got)
+            for l in range(L):
+                for name, a, b in zip(("dW_ih", "dW_hh", "db"), own_g[l], want_g[l]):
+                    compare(f"K2 on K1's residuals {name}[{l}] {tag}", a, b, dtype, True)
             es, ep = check_bwd_pieces(g, x, layers, want, tag, dtype)
+            if dtype == torch.bfloat16:
+                e_wave = max(e_wave, e1, e3)
             if dtype == torch.bfloat16 and B == 16:
                 errs = {"fwd_train": e1, "bwd": e2, "fwd_infer_last": e3,
                         "stack_bwd_scan": es, "stack_bwd_products": ep}
-            del x, layers, g, want, got, got_g, want_g
+            del x, layers, g, want, got, got_g, want_g, own_g
+    x, layers, _ = make_stack(960, torch.bfloat16, seed=960)
+    e_wave = max(e_wave, compare("K3 h[T-1] bfloat16 B=960", ls.fwd_infer_last(x, layers),
+                                 ls._fwd_infer_last_ref(x, layers), torch.bfloat16, False))
     torch.cuda.synchronize()
+    # the bf16 K1 and K3 calls above (3 batches, and K3 at 960) run the
+    # wavefront forward, one launch each; f32 keeps lstm_fwd_kernel
+    want_wave = sum(2 for B in (1024, 16, 13)
+                    if ls.fwd_path(B, C, H, L, torch.bfloat16, "fwd_train") == "wave") + 1
+    log(f"[parity] fwd_wave launches {ls.LAUNCHES['fwd_wave']} (expected {want_wave}); "
+        f"wavefront clusters the card holds at once at C = H = {H}, L = {L}: "
+        f"{ls.wave_clusters(C, H, L)}")
+    if ls.LAUNCHES["fwd_wave"] != want_wave:
+        raise AssertionError(f"bf16 K1/K3 bypassed the wavefront forward: {ls.LAUNCHES}")
+    errs["fwd_wave"] = e_wave
     return errs
 
 
@@ -390,9 +421,14 @@ def phase_main() -> dict:
         raise AssertionError(f"train steps bypassed the kernels: {launches} for {steps} steps")
     if launches["fwd_infer_last"] == 0:
         raise AssertionError("kernel fwd_infer_last never launched on the main path")
-    if ls.pick_fwd(16, C, H, L, torch.bfloat16) and min(
+    path = ls.fwd_path(16, C, H, L, torch.bfloat16, "fwd_train")
+    if path == "cluster" and min(
             launches["fwd_in_product"], launches["fwd_cluster_scan"]) < L * steps:
         raise AssertionError(f"K1 bypassed its layer-by-layer pieces: {launches}")
+    # K1 at every step and K3 at every validation run the wavefront forward
+    if (path == "wave" and ls.fwd_path(960, C, H, L, torch.bfloat16, "fwd_infer_last") == "wave"
+            and launches["fwd_wave"] < launches["fwd_train"] + launches["fwd_infer_last"]):
+        raise AssertionError(f"K1/K3 bypassed the wavefront forward: {launches}")
     return launches
 
 
@@ -610,9 +646,16 @@ def phase_kernel_timing() -> dict:
             row = timing_row(kern, plain, inputs, flops, dt, 5, 2, lib)
             split = (f"; its {L} scans {pieces['scan']['ms']:.3f} ms, its products "
                      f"{pieces['products']['ms']:.3f} ms" if name == "bwd" else "")
+            if name != "bwd":  # K1 and K3: the path taken, and lstm_fwd_kernel alone
+                xs, ws = (x, layers) if name == "fwd_train" else (xv, layers_v)
+                old = time_ms(lambda: ls._fwd_cuda(xs, ws, name), 5)
+                split = (f"; path {ls.fwd_path(B, C, H, L, bf16, name)}, lstm_fwd_kernel "
+                         f"{old:.3f} ms")
             log(f"[timing] {name} B={B} T={T} bf16: {fmt_row(row)}{split}")
             if B_train == 16:  # the CLI's shapes (train batch 16, gallery 960)
                 out[name] = row
+            elif name == "fwd_train":  # the bench step's K1 on the wavefront forward
+                out["fwd_wave"] = row
         for side, row in pieces.items():
             log(f"[timing] stack_bwd_{side} B={B_train} T={T} bf16 (K2's {L} layers): "
                 f"{fmt_row(row)}")
@@ -652,7 +695,7 @@ KERNEL_PARTS = (("scan_bwd_kernel", "K2/K2g scans"), ("cluster_scan", "K1/K4 clu
                 ("gemm_tc<false, false, vit::EpiF32>", "K1/K4 input products"),
                 ("gemm", "K2/K2g products"),
                 ("sum_partials", "K2/K2g products"), ("col_sum_part", "K2/K2g products"),
-                ("lstm_fwd_kernel", "K1 forward"))
+                ("lstm_fwd_kernel", "K1 forward"), ("wave_fwd_kernel", "K1 wavefront forward"))
 
 
 def device_kernels(call, n: int, check=None) -> tuple:
@@ -1322,7 +1365,7 @@ def phase_ae_train(gpu: str) -> tuple:
     want = {"fwd_train": 2 * steps, "bwd_general": steps, "stack_bwd_scan": steps,
             "stack_bwd_products": steps, "fwd_infer": 2, "bwd": 0, "fwd_infer_last": 0,
             "bwd_rc": 0, "rc_scan": 0, "fwd_in_product": 2 * steps + 2,
-            "fwd_cluster_scan": 2 * steps + 2}
+            "fwd_cluster_scan": 2 * steps + 2, "fwd_wave": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 
@@ -1428,16 +1471,21 @@ def phase_fwd_paths(gpu: str) -> tuple:
     # the cluster sizes' order differs between the bf16 (tensor-core) and
     # the f32 (FMA) step, so the small batches run in both
     for (B, c, h, l_), dtype in [(s, d) for s in FWD_SHAPES for d in (bf16, torch.float32)
-                                 if d == bf16 or s[0] < B_BIG]:
+                                 if d == bf16 or s[0] <= B_AE]:
         x, layers, _ = make_stack(B, dtype, seed=6, C=c, H=h, L=l_)
         ms = {}
-        for kind in ("fwd_train", "fwd_infer"):
+        for kind in ("fwd_train", "fwd_infer", "fwd_infer_last"):
             ms[f"{kind} lstm_fwd_kernel"] = round(time_ms(lambda: ls._fwd_cuda(x, layers, kind), 3), 3)
-            for n in ls.cluster_sizes(h, dtype):
-                ms[f"{kind} n={n}"] = round(
-                    time_ms(lambda: ls._fwd_cluster_cuda(x, layers, kind, n), 3), 3)
+            if kind != "fwd_infer_last":
+                for n in ls.cluster_sizes(h, dtype):
+                    ms[f"{kind} n={n}"] = round(
+                        time_ms(lambda: ls._fwd_cluster_cuda(x, layers, kind, n), 3), 3)
+            if kind != "fwd_infer" and ls.wave_fits(c, h, l_, dtype):
+                ms[f"{kind} wave"] = round(time_ms(lambda: ls._fwd_wave_cuda(x, layers, kind), 3), 3)
+        paths = {k: ls.fwd_path(B, c, h, l_, dtype, k)
+                 for k in ("fwd_train", "fwd_infer", "fwd_infer_last")}
         log(f"[fwd paths] B={B} C={c} H={h} L={l_} T={T} {str(dtype).split('.')[-1]}: ms {ms}; "
-            f"pick_fwd takes {ls.pick_fwd(B, c, h, l_, dtype) or 'lstm_fwd_kernel'} on {gpu}")
+            f"fwd_path takes {paths} (clusters of {ls.pick_fwd(B, c, h, l_, dtype)}) on {gpu}")
         del x, layers
 
     # the pieces alone at the encoder's width, as the AE step runs them (K1's
@@ -1688,11 +1736,19 @@ def phase_rc(gpu: str) -> tuple:
         res1 = ls.fwd_train(x, layers)
         pieces = {k: time_ms(v[0], 3)
                   for k, v in bwd_pieces(g, x, layers, res1, True).items()}
-        log(f"[rc timing] {tag}: K1 {time_ms(lambda: ls.fwd_train(x, layers), 3):.3f} ms, "
+        # K2g as lstm_stack's gradient runs it here, beside the cuDNN backward
+        # of a loss on the output with dx at the same shape (the bwd_rc row's)
+        k2g = timing_row(lambda: ls.bwd(g, x, layers, *res1, need_dx=True),
+                         lambda: ls._bwd_ref(g, x, layers, *res1, need_dx=True),
+                         (g, x, layers, res1),
+                         stack_flops(T_, B_BIG, C_, H_, L_, fwd=False, bwd=True, need_dx=True),
+                         bf16, 3, 1, rows["bwd_rc"][4])
+        log(f"[rc timing] {tag}: K1 {time_ms(lambda: ls.fwd_train(x, layers), 3):.3f} ms "
+            f"({ls.fwd_path(B_BIG, C_, H_, L_, bf16, 'fwd_train')}), "
             f"K10 {time_ms(lambda: ls.fwd_train_rc(x, layers), 3):.3f} ms; g at T-1 only: "
-            f"K2g with dx {time_ms(lambda: ls.bwd(g, x, layers, *res1, need_dx=True), 3):.3f}"
-            f" ms (its {L_} scans {pieces['scan']:.3f} ms, its products "
-            f"{pieces['products']:.3f} ms), K11 {time_ms(lambda: ls.bwd_rc(g, x, layers, *res), 3):.3f} ms")
+            f"K2g with dx {fmt_row(k2g)} (its {L_} scans {pieces['scan']:.3f} ms, its "
+            f"products {pieces['products']:.3f} ms), K11 "
+            f"{time_ms(lambda: ls.bwd_rc(g, x, layers, *res), 3):.3f} ms")
         del x, layers, res, res1, g, piece_rows
 
     T_, C_, H_, L_ = RC_SHAPES["headline"]
@@ -1707,7 +1763,8 @@ def phase_rc(gpu: str) -> tuple:
     log(f"[rc] one grad and one no-grad call of lstm_stack_rc: launches {launches}")
     per_piece = -(-T_ // ls.rc_chunk(T_, B_BIG, ls.rc_group(B_BIG))) * L_
     want = {"fwd_train_rc": 1, "bwd_rc": 1, "fwd_infer": 1, "fwd_train": 0, "bwd_general": 0,
-            "stack_bwd_scan": 0, "fwd_cluster_scan": 0, **dict.fromkeys(RC_PIECES, per_piece)}
+            "stack_bwd_scan": 0, "fwd_cluster_scan": 0, "fwd_wave": 0,
+            **dict.fromkeys(RC_PIECES, per_piece)}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     if tuple(h.shape) != (T, B_BIG, H) or not all(torch.isfinite(t).all() for t in (h, *grads)):
@@ -1869,7 +1926,7 @@ def main() -> None:
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
          **times[name]}
         for name in ("fwd_train", "bwd", "stack_bwd_scan", "stack_bwd_products",
-                     "fwd_infer_last", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
+                     "fwd_infer_last", "fwd_wave", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
                      "fwd_cluster_scan", "bwd_general", "fwd_train_rc",
                      "bwd_rc", *RC_PIECES, "scan_fwd_infer", "scan_fwd_train", "scan_bwd")
     ]

@@ -1,6 +1,7 @@
 """The port's CUDA LSTM kernels (the stack's K1, K2/K2g and their two pieces,
 each layer's reverse scan and products, K3, K4, K1/K4's layer-by-layer path
-and its two pieces, the input product and the cluster scan, K10, K11 and its
+and its two pieces, the input product and the cluster scan, K1/K3's
+wavefront forward, K10, K11 and its
 pieces per
 time chunk; the scan's K12-K14) and the ViT kernels (K5-K8) against
 their plain PyTorch versions on the card (K7/K8 also piece by piece: the
@@ -333,19 +334,24 @@ def test_fwd_layerwise_stacks(cuda, dtype, L):
 
 
 def test_fwd_old_path_keeps_the_shapes_pick_fwd_leaves_it(cuda):
-    """At B = 1024 (the bench step's K1) `fwd_train` and `fwd_infer` run
-    `lstm_fwd_kernel`: bit for bit its outputs, no layer-by-layer launch;
-    and at the CLI's B = 16 the old kernel still holds to the plain K1 and
+    """At B = 1024 K4 (`fwd_infer`) and K10 (`fwd_train_rc`) run
+    `lstm_fwd_kernel`: bit for bit `_fwd_cuda`'s outputs, no layer-by-layer
+    or wavefront launch, while K1 and K3 there take the wavefront path; and
+    at the CLI's B = 16 the old kernel still holds to the plain K1 and
     repeats bit for bit."""
     x, layers, _ = make_stack((8, 1024, 96, 96, 2), torch.bfloat16, cuda, seed=3)
     assert ls.pick_fwd(1024, 96, 96, 2, torch.bfloat16) == 0
     ls.reset_launches()
-    got = ls.fwd_train(x, layers)
     top = ls.fwd_infer(x, layers)
+    rc = ls.fwd_train_rc(x, layers)
     assert ls.LAUNCHES["fwd_in_product"] == ls.LAUNCHES["fwd_cluster_scan"] == 0
-    for a, b in zip(got, ls._fwd_cuda(x, layers, "fwd_train")):
-        assert torch.equal(a, b)
+    assert ls.LAUNCHES["fwd_wave"] == 0
     assert torch.equal(top, ls._fwd_cuda(x, layers, "fwd_infer"))
+    for a, b in zip(rc, ls._fwd_cuda(x, layers, "fwd_train_rc")):
+        assert torch.equal(a, b)
+    ls.fwd_train(x, layers)
+    ls.fwd_infer_last(x, layers)
+    assert ls.LAUNCHES["fwd_wave"] == 2
     x, layers, _ = make_stack((8, 16, 96, 96, 2), torch.bfloat16, cuda, seed=4)
     old = ls._fwd_cuda(x, layers, "fwd_train")
     for a, b, c in zip(old, ls._fwd_train_ref(x, layers), ls._fwd_cuda(x, layers, "fwd_train")):
@@ -378,6 +384,85 @@ def test_fwd_layerwise_calls_no_library_product(cuda):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         ls.fwd_train(x, layers)
         ls.fwd_infer(x, layers)
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::mm", "aten::matmul", "aten::bmm", "aten::addmm", "aten::linear",
+                      "aten::_cudnn_rnn"}, ops
+
+
+# ------------------------------------------- K1/K3's wavefront forward
+# bf16 at the widths `wave_fits` takes: the bench step's and the CLI's
+# batches (1024, its validation's 960), a ragged 13 and a single row, L of 1
+# to 3, and two widths with C != H; in f32 `fwd_path` keeps
+# `lstm_fwd_kernel`, which the same test holds to the plain versions.
+WAVE_SHAPES = [(40, 1024, 96, 96, 2), (40, 960, 96, 96, 2), (33, 13, 96, 96, 1),
+               (25, 1, 96, 96, 3), (19, 40, 32, 64, 3), (11, 17, 128, 48, 2)]
+
+
+@pytest.mark.parametrize("shape", WAVE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fwd_wave_matches_plain_and_repeats(cuda, dtype, shape):
+    """K1 and K3 through `fwd_path`'s path (the wavefront one in bf16, one
+    launch each) against the per-step plain versions, bit for bit the same
+    on a second run; and K2 on the new K1's residuals against the plain K2
+    on the plain residuals."""
+    T, B, C, H, L = shape
+    x, layers, g = make_stack(shape, dtype, cuda, seed=B + L)
+    wave = dtype == torch.bfloat16
+    assert (ls.fwd_path(B, C, H, L, dtype, "fwd_train") == "wave") == wave
+    ls.reset_launches()
+    got = ls.fwd_train(x, layers)
+    top = ls.fwd_infer_last(x, layers)
+    assert ls.LAUNCHES["fwd_wave"] == (2 if wave else 0)
+    assert ls.LAUNCHES["fwd_train"] == ls.LAUNCHES["fwd_infer_last"] == 1
+    want = ls._fwd_train_ref(x, layers)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert_close(a, b, dtype)
+    assert_close(top, ls._fwd_infer_last_ref(x, layers), dtype)
+    for a, b in zip(got, ls.fwd_train(x, layers)):
+        assert torch.equal(a, b)
+    assert torch.equal(top, ls.fwd_infer_last(x, layers))
+    _, got_g = ls.bwd(g, x, layers, *got)
+    for got_l, want_l in zip(got_g, ls._bwd_ref(g, x, layers, *want)[1]):
+        for a, b in zip(got_l, want_l):
+            assert_close(a, b, dtype, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_fwd_wave_takes_unaligned_inputs_and_refuses_other_shapes(cuda):
+    """x at an offset that is not a multiple of 16 bytes (layer 0 copies it
+    16 bytes at a time) gives the same bits as an aligned copy; f32, a
+    width the kernel does not take and K4 raise instead of running another
+    path; the occupancy query answers for the CLI's stack."""
+    x, layers, _ = make_stack((9, 21, 96, 96, 2), torch.bfloat16, cuda, seed=6)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    for a, b in zip(ls.fwd_train(shifted, layers), ls.fwd_train(x, layers)):
+        assert torch.equal(a, b)
+    assert ls.wave_clusters(96, 96, 2) >= 1
+    ls.reset_launches()
+    with pytest.raises(ValueError):
+        ls._fwd_wave_cuda(x.float(), [tuple(w.float() for w in l) for l in layers], "fwd_train")
+    xa, la, _ = make_stack((9, 21, 40, 96, 2), torch.bfloat16, cuda, seed=7)
+    with pytest.raises(ValueError):
+        ls._fwd_wave_cuda(xa, la, "fwd_infer_last")
+    with pytest.raises(ValueError):
+        ls._fwd_wave_cuda(x, layers, "fwd_infer")
+    assert ls.LAUNCHES["fwd_wave"] == 0
+
+
+def test_fwd_wave_calls_no_library_product(cuda):
+    """The wavefront K1 and K3 run only the port's kernel: no cuBLAS or cuDNN
+    product appears among the operators."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, layers, _ = make_stack((9, 40, 96, 96, 2), torch.bfloat16, cuda, seed=8)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ls.fwd_train(x, layers)
+        ls.fwd_infer_last(x, layers)
         torch.cuda.synchronize()
     ops = {e.key for e in prof.key_averages()}
     assert not ops & {"aten::mm", "aten::matmul", "aten::bmm", "aten::addmm", "aten::linear",

@@ -116,7 +116,9 @@ def test_pick_fwd_choices(dtype):
     """Both autoencoder widths at B = 16 and 13 take the layer-by-layer
     path at a cluster size whose CTAs fit in shared memory (f32 at H = 384
     only with 16 CTAs); B = 1024 at the CLI's widths, and a width whose
-    W_hh slice fits no CTA, take `lstm_fwd_kernel` (0)."""
+    W_hh slice fits no CTA, get no cluster size (0). Under `fwd_path` K1 at
+    the CLI's widths takes the wavefront path in bf16 at every batch, and
+    otherwise `pick_fwd`'s cluster or `lstm_fwd_kernel`."""
     for C, H in ((96, 384), (384, 96)):
         for B in (16, 13):
             n = ls.pick_fwd(B, C, H, 1, dtype)
@@ -128,9 +130,13 @@ def test_pick_fwd_choices(dtype):
     assert ls.pick_fwd(16, 96, 384, 1, dtype) == 16
     assert ls.pick_fwd(16, 384, 96, 1, dtype) == (8 if dtype == torch.bfloat16 else 16)
     assert ls.pick_fwd(1024, 96, 96, 2, dtype) == 0
+    bf16 = dtype == torch.bfloat16
+    assert ls.fwd_path(1024, 96, 96, 2, dtype, "fwd_train") == ("wave" if bf16 else "stack")
+    assert ls.fwd_path(16, 96, 96, 2, dtype, "fwd_train") == ("wave" if bf16 else "cluster")
     assert ls.pick_fwd(1024, 96, 384, 1, dtype) == 0
     assert ls.cluster_sizes(2048, dtype) == () and ls.pick_fwd(16, 96, 2048, 1, dtype) == 0
-    # the CLI's shape (B = 16, C = H = 96, L = 2): the path the card timed faster
+    # the CLI's shape (B = 16, C = H = 96, L = 2), which K4 and the f32 K1 run
+    # on the cluster path: the size the card timed fastest
     assert ls.pick_fwd(16, 96, 96, 2, dtype) == ls.pick_fwd(16, 384, 96, 1, dtype)
 
 
