@@ -12,12 +12,16 @@
 //                                      the tensor cores, then the recurrence
 //                                      on a thread-block cluster that keeps
 //                                      W_hh in shared memory
-//   cerebra_fwd_wave                   replaces _fwd_train_kernel (K1) and
-//                                      _fwd_infer_last_kernel (K3) in bf16 at
-//                                      the widths lstm_stack.py wave_fits
-//                                      takes: a cluster a batch tile, a CTA a
-//                                      layer holding [W_ih; W_hh] in shared
-//                                      memory, the layers one step apart
+//   cerebra_fwd_wave                   replaces _fwd_train_kernel (K1),
+//                                      _fwd_infer_last_kernel (K3),
+//                                      _fwd_train_rc_kernel (K10) and
+//                                      _fwd_infer_kernel (K4) in bf16 at the
+//                                      widths lstm_stack.py wave_fits and
+//                                      wave_split_fits take: a cluster a batch
+//                                      tile, a CTA (split: two) a layer
+//                                      holding [W_ih; W_hh] (its units'
+//                                      columns) in shared memory, the layers
+//                                      one step apart
 //   cerebra_stack_scan_bwd +           replace _bwd_kernel: K2 (need_dx=False,
 //   cerebra_stack_bwd_products         g_last_only=True) and K2g (need_dx=True
 //                                      and/or a full (Tn, B, H) cotangent), as
@@ -52,8 +56,9 @@
 // ([k][row]) so one vector load fetches a value for every row. The wrapper
 // picks BT from timings on the card (lstm_stack.py pick_tile). At small
 // batches K1 and K4 take the layer-by-layer path instead ("the
-// layer-by-layer forward" below), and in bf16 at the CLI's widths K1 and K3
-// take the wavefront path ("the wavefront forward").
+// layer-by-layer forward" below), and in bf16 at the CLI's widths all four
+// take the wavefront path ("the wavefront forward"), K10 and K4 at the
+// DINO-LSTM's H = 128 its split layer.
 //
 // K2/K2g keep only what is serial in the serial loop: the dh/dc carries of
 // one layer (the reverse scan). Everything else is a function of a layer's
@@ -629,54 +634,81 @@ int launch_cluster_scan(int N, const float* P, const __nv_bfloat16* w_hh,
 }
 
 // ------------------------------------------------- the wavefront forward
-// Replaces _fwd_train_kernel (K1) and _fwd_infer_last_kernel (K3) in bf16 at
-// the widths lstm_stack.py wave_fits takes (the CLI's C = H = 96, L = 2, at
-// every batch): the whole stack in one launch, with no input product in
-// device memory. One thread-block cluster of L CTAs a batch tile of 16
-// rows; CTA l is layer l and holds its [W_ih; W_hh] ((in + H) x 4H bf16,
-// 150 KiB at C = H = 96) in shared memory for the whole sequence, column by
-// column, and runs the steps t = 0 .. T-1 of its layer: the step's product
+// Replaces _fwd_train_kernel (K1), _fwd_infer_last_kernel (K3),
+// _fwd_train_rc_kernel (K10) and _fwd_infer_kernel (K4) in bf16 at the
+// widths lstm_stack.py wave_fits and wave_split_fits take: the whole stack
+// in one launch, with no input product in device memory. One thread-block
+// cluster a batch tile of 16 MT rows (MT = 1, split 1 to 3), NS CTAs a
+// layer: NS = 1 where one CTA holds a layer's weights (the CLI's C = H =
+// 96), NS = 2 ("the split layer") where only half fit (the DINO-LSTM's
+// C 96, H 128: 289.5 KiB a layer). CTA s of layer l (cluster rank NS l + s) owns the U = H/NS hidden
+// units [s U, (s+1) U) and their four gates, holds those 4U columns of
+// [W_ih; W_hh] ((in + H) x 4U bf16: 150 KiB at C = H = 96, 132 KiB split at
+// C 96, H 128) in shared memory for the whole sequence, column by column,
+// and runs the steps t = 0 .. T-1 of its units: the step's product
 // [inp_t | h_{t-1}]·[W_ih; W_hh] on mma.sync (m16n8k16, bf16 operands, f32
 // sums; inp·W_ih and h·W_hh in two accumulators, then (ax + ah) + b, the
-// Pallas body's order), the f32 cell in registers straight from the
-// accumulators, h_t rounded to bf16 into the CTA's own h buffer and into
-// CTA l+1's input ring, and one __syncthreads. Layer 0 copies x_t into its
-// ring with cp.async, kWaveRing - 1 steps ahead. The layers meet only at
-// the ring (a wavefront: layer l runs behind layer l-1, at most
-// kWaveRing - 1 steps): layer l writes h_t into slot t % kWaveRing of layer
-// l+1 with st.async, whose bytes complete on that slot's "full" mbarrier
-// there, and layer l+1, once it has read a slot, arrives on the slot's
-// "empty" mbarrier in layer l, which waits for it before it refills the
-// slot. So no barrier spans the cluster in the loop, and no barrier waits
-// for the residuals' stores to device memory.
-// Warp w owns hidden units [8w, 8w + 8) and their four gates: its n8 tiles
-// are the columns q H + 8w .. of gate q, so each lane's accumulators hold
-// all four pre-activations of its 2 rows x 2 units and the cell needs no
-// exchange: H/8 warps, c in registers.
+// Pallas bodies' order), the f32 cell in registers straight from the
+// accumulators, h_t rounded to bf16 into the CTA's own h buffer, into its
+// sibling's (split) and into the input ring of each CTA of layer l+1, and
+// one __syncthreads. What a step stores to device memory is the mode's:
+// K1 (TRAIN) h_all, prefac and qf; K10 (TRAIN_RC) h_all and c_all, c
+// rounded to bf16 from the f32 register carry, which stays unrounded; K3
+// (INFER_LAST) the top layer's h at T-1; K4 (INFER_SEQ) the top layer's h
+// at every t.
+// Layer 0 copies x_t into its ring with cp.async, kWaveRing - 1 steps
+// ahead. The layers meet only at the ring (a wavefront: layer l runs behind
+// layer l-1, at most kWaveRing - 1 steps): each CTA of layer l writes its
+// units of h_t into slot t % kWaveRing of every CTA of layer l+1 with
+// st.async, whose bytes complete on that slot's "full" mbarrier there (a
+// slot's phase wants all H units, from the NS producers), and each CTA of
+// layer l+1, once it has read a slot, arrives on the slot's "empty"
+// mbarrier in every CTA of layer l (NS arrivals a phase), which waits for
+// it before it refills the slot. So no barrier spans the cluster in the
+// loop, and no barrier waits for the stores to device memory.
+// The split's sibling exchange: a CTA's W_hh product needs all of h_{t-1},
+// half of it its sibling's. Each CTA writes its half of h_t into its own h
+// buffer (t+1) % 2 and by st.async into the same place of its sibling's,
+// completing on the sibling's "hfull" mbarrier of that buffer; the sibling
+// waits on it between its W_ih product (which needs no h) and its W_hh
+// product. No "empty" barrier guards that buffer: a CTA writes into it at
+// step t only once the sibling's whole h_{t-1} has landed, and every warp
+// of the sibling computed its part of h_{t-1} from its own reads of that
+// buffer at step t-1, so those reads are done.
+// Warp w owns local units [8w, 8w + 8) and their four gates: its n8 tiles
+// are the columns q U + 8w .. of gate q, so each lane's accumulators hold
+// all four pre-activations of its 2 rows x 2 units of each row tile and the
+// cell needs no exchange: U/8 warps, c in registers. With MT row tiles a
+// warp applies each B fragment of the weights to MT A fragments: the
+// split's 15 clusters of 8 CTAs a card (one CTA an SM) then take B = 1024
+// in 2 waves of 48 rows in place of 5 of 16, at a step that costs far
+// less than MT times one tile's (lstm_stack.py split_tiles).
 // What bounds it on an H100: T serial steps of a few µs, not the bytes (K1
 // at B = 1024 writes 1.27 GB, 0.38 ms at 3.35 TB/s) or the operations (0.07
 // ms). In a step a CTA's product reads 222 KiB of fragments from shared
 // memory (the weights' 150 KiB and every warp's copy of A: ~1,700 cycles at
 // 128 bytes a cycle), then its cell runs ten MUFU operations a value on
-// 16 x H values (~1,000 cycles at 16 a cycle), one after the other. A
+// 16 x U values (~1,000 cycles at 16 a cycle), one after the other. A
 // barrier across the cluster at every step, which this kernel first used,
 // cost more than the handshake that replaced it and waited for K1's stores
 // to device memory (PERF.md §6).
-// Buffers, the same offsets in every CTA (the ring is written across the
-// cluster): bf16 w_s (4H, KW) | in_s (kWaveRing, 16, IW) | h_s (2, 16,
-// H + 8), KW = max(C, H) + H + 8, IW = max(C, H) + 8 (rows padded by 8
+// Buffers, the same offsets in every CTA (the ring and h are written across
+// the cluster): bf16 w_s (4U, KW) | in_s (kWaveRing, 16 MT, IW) | h_s (2,
+// 16 MT, H + 8), KW = max(C, H) + H + 8, IW = max(C, H) + 8 (rows padded by 8
 // values, so a warp's fragment loads hit 32 banks); then the mbarriers
-// full[kWaveRing] and empty[kWaveRing].
+// full[kWaveRing], empty[kWaveRing] and, split, hfull[2].
 
-constexpr int kWaveRows = 16;  // batch rows of one cluster's tile
+constexpr int kWaveRows = 16;  // batch rows of one row tile (an mma.sync's m16)
 constexpr int kWaveRing = 4;   // slots of a layer's input ring
-constexpr int kWaveThreads = 384;  // H/8 warps, H <= 96: at most 170 registers a thread
+constexpr int kWaveThreads = 384;  // U/8 warps, U <= 96: at most 170 registers a thread
+constexpr int kWaveSplitTiles = 3;  // row tiles of 16 a cluster of the split layer, at most
 
-inline size_t wave_smem(int C, int H) {
-  const size_t in = C > H ? C : H;
-  return 2 * (4 * (size_t)H * (in + H + 8) + kWaveRing * kWaveRows * (in + 8) +
-              2 * kWaveRows * ((size_t)H + 8)) +
-         2 * kWaveRing * sizeof(uint64_t);
+// bytes of shared memory of one CTA of the wavefront forward, NS CTAs a
+// layer, MT row tiles of 16 a cluster
+inline size_t wave_smem(int C, int H, int NS, int MT) {
+  const size_t in = C > H ? C : H, U = H / NS, rows = (size_t)kWaveRows * MT;
+  return 2 * (4 * U * (in + H + 8) + kWaveRing * rows * (in + 8) + 2 * rows * ((size_t)H + 8)) +
+         (2 * kWaveRing + (NS > 1 ? 2 : 0)) * sizeof(uint64_t);
 }
 
 // ---- the handshake between neighbouring layers (mbarriers in shared memory)
@@ -704,19 +736,30 @@ __device__ __forceinline__ void wave_arrive_peer(uint64_t* b, int rank) {
                :: "r"(peer_addr(b, rank)) : "memory");
 }
 
-// wait (acquire at cluster scope) until the phase of parity `parity` of
-// local barrier b has completed
-__device__ __forceinline__ void wave_wait(uint64_t* b, int parity) {
+// whether the phase of parity `parity` of local barrier b has completed
+// (acquire at cluster scope), after a wait of the hardware's own length
+__device__ __forceinline__ bool wave_try(uint64_t* b, int parity) {
   uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(tc::smem_addr(b)), "r"(parity) : "memory");
-  } while (!done);
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(tc::smem_addr(b)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// cycles after which a wait traps (~10 s at 1.98 GHz): a handshake that
+// never completes ends the launch with an error instead of holding the card
+constexpr long long kWaveWatchdog = 20000000000LL;
+
+// wait until the phase of parity `parity` of local barrier b has completed
+__device__ __forceinline__ void wave_wait(uint64_t* b, int parity) {
+  if (wave_try(b, parity)) return;
+  const long long t0 = clock64();
+  while (!wave_try(b, parity))
+    if (clock64() - t0 > kWaveWatchdog) __trap();
 }
 
 // v into CTA rank's shared memory at p's offset, its 4 bytes completing on
@@ -726,55 +769,66 @@ __device__ __forceinline__ void wave_store_peer(void* p, uint32_t v, uint64_t* b
                :: "r"(peer_addr(p, rank)), "r"(v), "r"(peer_addr(b, rank)) : "memory");
 }
 
-template <bool TRAIN>
+template <int MODE, int NS, int MT>
 __global__ void __launch_bounds__(kWaveThreads, 1)
     wave_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_ih0,
                     const __nv_bfloat16* __restrict__ w_ihr,
                     const __nv_bfloat16* __restrict__ w_hh,
                     const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ h_all,
                     __nv_bfloat16* __restrict__ prefac, __nv_bfloat16* __restrict__ qf,
-                    __nv_bfloat16* __restrict__ h_out, int Tn, int B, int C, int H) {
+                    __nv_bfloat16* __restrict__ c_all, __nv_bfloat16* __restrict__ h_out, int Tn,
+                    int B, int C, int H) {
   using bf = __nv_bfloat16;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
-  const int L = (int)cluster.num_blocks(), l = (int)cluster.block_rank();
-  const int G = 4 * H, in = l == 0 ? C : H, wide = C > H ? C : H;
+  const int rank = (int)cluster.block_rank(), L = (int)cluster.num_blocks() / NS;
+  const int l = rank / NS, ub = (rank % NS) * (H / NS);  // layer, first unit of this CTA
+  const int G = 4 * H, U = H / NS, NC = 4 * U, in = l == 0 ? C : H, wide = C > H ? C : H;
   const int KW = wide + H + 8, IW = wide + 8, HW = H + 8;
-  const int b0 = (int)(blockIdx.x / L) * kWaveRows;
+  constexpr int R = kWaveRows * MT;  // rows of the cluster's tile
+  const int b0 = (int)(blockIdx.x / (NS * L)) * R;
   extern __shared__ __align__(16) float smem[];
-  bf* w_s = reinterpret_cast<bf*>(smem);          // [column][k]: W_ih rows, then W_hh's
-  bf* in_s = w_s + (size_t)G * KW;                 // [slot][row][k]
-  bf* h_s = in_s + (size_t)kWaveRing * kWaveRows * IW;  // [buf][row][unit]
+  bf* w_s = reinterpret_cast<bf*>(smem);          // [local column][k]: W_ih rows, then W_hh's
+  bf* in_s = w_s + (size_t)NC * KW;                // [slot][row][k]
+  bf* h_s = in_s + (size_t)kWaveRing * R * IW;     // [buf][row][unit]
   // full[k]: the layer below's h has filled slot k; empty[k]: the layer
-  // above has read its slot k
-  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + 2 * kWaveRows * HW);
+  // above has read its slot k; hfull[buf]: the sibling's half of h is in
+  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + 2 * R * HW);
   uint64_t* empty = full + kWaveRing;
+  uint64_t* hfull = empty + kWaveRing;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int slot_bytes = kWaveRows * H * (int)sizeof(bf);
+  const int slot_bytes = R * H * (int)sizeof(bf), half_bytes = R * U * (int)sizeof(bf);
 
   const bf* wi = l == 0 ? w_ih0 : w_ihr + (size_t)(l - 1) * H * G;
   const bf* wh = w_hh + (size_t)l * H * G;
-  for (int i = tid; i < (in + H) * G; i += nthr) {
-    const int k = i / G, j = i - k * G;
-    w_s[(size_t)j * KW + k] = k < in ? wi[(size_t)k * G + j] : wh[(size_t)(k - in) * G + j];
+  // local column j = q U + u is gate q of unit ub + u: global column q H + ub + u
+  for (int i = tid; i < (in + H) * NC; i += nthr) {
+    const int k = i / NC, j = i - k * NC, q = j / U, col = q * H + ub + (j - q * U);
+    w_s[(size_t)j * KW + k] = k < in ? wi[(size_t)k * G + col] : wh[(size_t)(k - in) * G + col];
   }
-  for (int i = tid; i < 2 * kWaveRows * HW; i += nthr) h_s[i] = __float2bfloat16_rn(0.0f);
+  for (int i = tid; i < 2 * R * HW; i += nthr) h_s[i] = __float2bfloat16_rn(0.0f);
   if (tid == 0) {
     for (int k = 0; k < kWaveRing; ++k) {
       wave_init(full + k, 1);
-      wave_init(empty + k, 1);
+      wave_init(empty + k, NS);  // every CTA of the layer above frees the slot
       if (l > 0) wave_expect(full + k, slot_bytes);  // the first use of each slot
+    }
+    if constexpr (NS > 1) {
+      for (int k = 0; k < 2; ++k) {  // first uses: buffer 1 at t = 1, buffer 0 at t = 2
+        wave_init(hfull + k, 1);
+        wave_expect(hfull + k, half_bytes);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  // layer 0: x_t's 16 rows into ring slot t % kWaveRing, 16 bytes a copy,
+  // layer 0: x_t's R rows into ring slot t % kWaveRing, 16 bytes a copy,
   // zeros for rows past B; one commit group a step (empty past Tn)
   auto load_x = [&](int t) {
     if (l == 0 && t < Tn) {
-      bf* dst = in_s + (size_t)(t % kWaveRing) * kWaveRows * IW;
+      bf* dst = in_s + (size_t)(t % kWaveRing) * R * IW;
       const int chunks = C / 8;
-      for (int i = tid; i < kWaveRows * chunks; i += nthr) {
+      for (int i = tid; i < R * chunks; i += nthr) {
         const int r = i / chunks, e = i - r * chunks, b = b0 + r;
         tc::cp_async<16>(dst + r * IW + e * 8,
                          x + ((size_t)t * B + (b < B ? b : 0)) * C + e * 8, b < B);
@@ -785,120 +839,189 @@ __global__ void __launch_bounds__(kWaveThreads, 1)
   for (int t = 0; t < kWaveRing - 1; ++t) load_x(t);
 
   const int lane = tid % 32, warp = tid / 32, g = lane / 4, tg = lane % 4;
-  const int u0 = 8 * warp + 2 * tg;  // this lane's units u0, u0 + 1
+  const int u0 = ub + 8 * warp + 2 * tg;  // this lane's units u0, u0 + 1
   float bv[4][2];
 #pragma unroll
   for (int q = 0; q < 4; ++q)
 #pragma unroll
     for (int e = 0; e < 2; ++e) bv[q][e] = to_f<bf>(bias[(size_t)l * G + q * H + u0 + e]);
-  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // [2 rr + e]: row g + 8 rr, unit u0 + e
+  float c[MT][4] = {};  // [m][2 rr + e]: row 16 m + g + 8 rr, unit u0 + e
 
   tc::cp_async_wait<kWaveRing - 2>();  // x_0 is in
   cluster.sync();  // weights, zero h, x_0 and the barriers in place; every CTA has started
 
-  // this lane's h_t (bf16 pairs) and, for K1, its residuals, [rr]: h,
-  // the four prefactors, q, f
-  uint32_t out[2][7];
+  // this lane's h_t (bf16 pairs) and, for K1, its residuals, [m][rr]: h,
+  // the four prefactors, q, f; for K10 [m][rr][1] is c_t
+  uint32_t out[MT][2][7];
   for (int t = 0; t < Tn; ++t) {
     const int k = t % kWaveRing, phase = (t / kWaveRing) & 1;
-    bf* slot = in_s + (size_t)k * kWaveRows * IW;
+    bf* slot = in_s + (size_t)k * R * IW;
     if (l == 0)
       load_x(t + kWaveRing - 1);  // into the slot step t - 1 read
     else
       wave_wait(full + k, phase);  // h_t of the layer below is in slot k
     // fragments by ldmatrix.x4 (lane i gives a row of matrix i / 8): A's
     // rows i % 8 + 8 ((i / 8) & 1) at k + 8 (i / 16), the mma's a[0..3]; B's
-    // column 8 warp + i % 8 of gate q + i / 16 at k + 8 ((i / 8) & 1), the
-    // b0 and b1 of gates q and q + 1
+    // local column 8 warp + i % 8 of gate q + i / 16 at k + 8 ((i / 8) & 1),
+    // the b0 and b1 of gates q and q + 1
     const int ar = (lane % 8) + 8 * ((lane / 8) & 1), ak = 8 * (lane / 16);
     const bf* xa = slot + ar * IW + ak;
-    const bf* ha = h_s + (size_t)(t & 1) * kWaveRows * HW + ar * HW + ak;
+    const bf* ha = h_s + (size_t)(t & 1) * R * HW + ar * HW + ak;
     const bf* wl =
-        w_s + (size_t)(8 * warp + lane % 8 + (lane / 16) * H) * KW + 8 * ((lane / 8) & 1);
-    float ax[4][4], ah[4][4];
+        w_s + (size_t)(8 * warp + lane % 8 + (lane / 16) * U) * KW + 8 * ((lane / 8) & 1);
+    // [m][q]: row tile m, gate q; a B fragment serves every row tile
+    float ax[MT][4][4], ah[MT][4][4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ax[q][e] = ah[q][e] = 0.0f;
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ax[m][q][e] = ah[m][q][e] = 0.0f;
 #pragma unroll 3
     for (int kb = 0; kb < in; kb += 16) {
-      uint32_t a[4], b[4];
-      tc::ldmatrix_x4(a, xa + kb);
+      uint32_t a[MT][4], b[4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) tc::ldmatrix_x4(a[m], xa + m * kWaveRows * IW + kb);
 #pragma unroll
       for (int q = 0; q < 4; q += 2) {
-        tc::ldmatrix_x4(b, wl + (size_t)q * H * KW + kb);
-        mma_bf16(ax[q], a, b[0], b[1]);
-        mma_bf16(ax[q + 1], a, b[2], b[3]);
+        tc::ldmatrix_x4(b, wl + (size_t)q * U * KW + kb);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_bf16(ax[m][q], a[m], b[0], b[1]);
+          mma_bf16(ax[m][q + 1], a[m], b[2], b[3]);
+        }
       }
+    }
+    if constexpr (NS > 1) {  // the sibling's half of h_{t-1} is in buffer t % 2
+      if (t > 0) wave_wait(hfull + (t & 1), ((t - 1) >> 1) & 1);
     }
 #pragma unroll 3
     for (int kb = 0; kb < H; kb += 16) {
-      uint32_t a[4], b[4];
-      tc::ldmatrix_x4(a, ha + kb);
+      uint32_t a[MT][4], b[4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) tc::ldmatrix_x4(a[m], ha + m * kWaveRows * HW + kb);
 #pragma unroll
       for (int q = 0; q < 4; q += 2) {
-        tc::ldmatrix_x4(b, wl + (size_t)q * H * KW + in + kb);
-        mma_bf16(ah[q], a, b[0], b[1]);
-        mma_bf16(ah[q + 1], a, b[2], b[3]);
+        tc::ldmatrix_x4(b, wl + (size_t)q * U * KW + in + kb);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          mma_bf16(ah[m][q], a[m], b[0], b[1]);
+          mma_bf16(ah[m][q + 1], a[m], b[2], b[3]);
+        }
       }
     }
 
     const bool up = l + 1 < L;
     // the layer above reads h_t from its slot k, once it has read step t - 4
     if (up && t >= kWaveRing) wave_wait(empty + k, phase ^ 1);
-    bf* hn = h_s + (size_t)((t + 1) & 1) * kWaveRows * HW;
+    bf* hn = h_s + (size_t)((t + 1) & 1) * R * HW;
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = g + 8 * rr;
-      float hv[2], res[2][6];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float gv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) gv[q] = (ax[q][2 * rr + e] + ah[q][2 * rr + e]) + bv[q][e];
-        hv[e] = cell_update<TRAIN>(gv, 1, c[2 * rr + e], res[e]);
-      }
-      out[rr][0] = tc::pack_bf16(hv[0], hv[1]);
-      *reinterpret_cast<uint32_t*>(hn + r * HW + u0) = out[rr][0];
-      if (up) wave_store_peer(slot + r * IW + u0, out[rr][0], full + k, l + 1);
-      if constexpr (TRAIN) {
-#pragma unroll
-        for (int j = 0; j < 6; ++j) out[rr][j + 1] = tc::pack_bf16(res[0][j], res[1][j]);
-      }
-    }
-    if (l == 0) tc::cp_async_wait<kWaveRing - 2>();  // x_{t+1} is in
-    __syncthreads();  // h_t in place; every warp has read slot k
-    if (tid == 0 && l > 0) {
-      wave_expect(full + k, slot_bytes);  // slot k's next use, step t + 4
-      wave_arrive_peer(empty + k, l - 1);  // the layer below may refill slot k
-    }
-    if (TRAIN || (l == L - 1 && t == Tn - 1)) {
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
-        const int b = b0 + g + 8 * rr;
-        if (b >= B) continue;
-        const size_t row = ((size_t)l * Tn + t) * B + b;
-        if constexpr (TRAIN) {
-          *reinterpret_cast<uint32_t*>(h_all + row * H + u0) = out[rr][0];
-          bf* pf = prefac + row * G + u0;
+        const int r = kWaveRows * m + g + 8 * rr;
+        float hv[2], res[2][6];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) *reinterpret_cast<uint32_t*>(pf + q * H) = out[rr][q + 1];
-          bf* qr = qf + row * 2 * H + u0;
-          *reinterpret_cast<uint32_t*>(qr) = out[rr][5];
-          *reinterpret_cast<uint32_t*>(qr + H) = out[rr][6];
-        } else {
-          *reinterpret_cast<uint32_t*>(h_out + (size_t)b * H + u0) = out[rr][0];
+        for (int e = 0; e < 2; ++e) {
+          float gv[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            gv[q] = (ax[m][q][2 * rr + e] + ah[m][q][2 * rr + e]) + bv[q][e];
+          hv[e] = cell_update<MODE == TRAIN>(gv, 1, c[m][2 * rr + e], res[e]);
         }
+        uint32_t* o = out[m][rr];
+        o[0] = tc::pack_bf16(hv[0], hv[1]);
+        *reinterpret_cast<uint32_t*>(hn + r * HW + u0) = o[0];
+        if constexpr (NS > 1) {  // the sibling reads h_t at step t + 1
+          if (t + 1 < Tn) wave_store_peer(hn + r * HW + u0, o[0], hfull + ((t + 1) & 1), rank ^ 1);
+        }
+        if (up) {
+#pragma unroll
+          for (int p = 0; p < NS; ++p)
+            wave_store_peer(slot + r * IW + u0, o[0], full + k, (l + 1) * NS + p);
+        }
+        if constexpr (MODE == TRAIN) {
+#pragma unroll
+          for (int j = 0; j < 6; ++j) o[j + 1] = tc::pack_bf16(res[0][j], res[1][j]);
+        }
+        if constexpr (MODE == TRAIN_RC) o[1] = tc::pack_bf16(c[m][2 * rr], c[m][2 * rr + 1]);
       }
+    if (l == 0) tc::cp_async_wait<kWaveRing - 2>();  // x_{t+1} is in
+    __syncthreads();  // h_t in place; every warp has read slot k and h buffer t % 2
+    if (tid == 0) {
+      if (l > 0) {
+        wave_expect(full + k, slot_bytes);  // slot k's next use, step t + 4
+#pragma unroll
+        for (int p = 0; p < NS; ++p)
+          wave_arrive_peer(empty + k, (l - 1) * NS + p);  // the layer below may refill slot k
+      }
+      if constexpr (NS > 1) {
+        if (t > 0) wave_expect(hfull + (t & 1), half_bytes);  // buffer t % 2's next use, t + 2
+      }
+    }
+    const bool top = l == L - 1;
+    if (MODE == TRAIN || MODE == TRAIN_RC || (top && (MODE == INFER_SEQ || t == Tn - 1))) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int b = b0 + kWaveRows * m + g + 8 * rr;
+          if (b >= B) continue;
+          const size_t row = ((size_t)l * Tn + t) * B + b;
+          const uint32_t* o = out[m][rr];
+          if constexpr (MODE == TRAIN) {
+            *reinterpret_cast<uint32_t*>(h_all + row * H + u0) = o[0];
+            bf* pf = prefac + row * G + u0;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) *reinterpret_cast<uint32_t*>(pf + q * H) = o[q + 1];
+            bf* qr = qf + row * 2 * H + u0;
+            *reinterpret_cast<uint32_t*>(qr) = o[5];
+            *reinterpret_cast<uint32_t*>(qr + H) = o[6];
+          } else if constexpr (MODE == TRAIN_RC) {
+            *reinterpret_cast<uint32_t*>(h_all + row * H + u0) = o[0];
+            *reinterpret_cast<uint32_t*>(c_all + row * H + u0) = o[1];
+          } else {
+            const size_t at = MODE == INFER_SEQ ? (size_t)t * B + b : (size_t)b;
+            *reinterpret_cast<uint32_t*>(h_out + at * H + u0) = o[0];
+          }
+        }
     }
   }
   cluster.sync();  // no CTA leaves while a neighbour may still signal it
 }
 
-inline bool wave_shape_ok(int C, int H, int L) {
-  return C > 0 && H > 0 && C % 16 == 0 && H % 16 == 0 && 4 * H <= kWaveThreads && L >= 1 &&
-         L <= 8 &&
-         wave_smem(C, H) <= 232448;
+// C and H multiples of 16 (H of 32 split: U of 16), 4U threads within the
+// kernel's bound, at most 8 CTAs a cluster (portable), MT row tiles of 16
+// (more than one only split) and a CTA's shared memory within one block's
+inline bool wave_shape_ok(int C, int H, int L, int NS, int MT) {
+  return C > 0 && H > 0 && C % 16 == 0 && H % (16 * NS) == 0 && 4 * H / NS <= kWaveThreads &&
+         L >= 1 && NS * L <= 8 && MT >= 1 && MT <= (NS > 1 ? kWaveSplitTiles : 1) &&
+         wave_smem(C, H, NS, MT) <= 232448;
+}
+
+// the launch of the wavefront forward in mode `mode` with NS CTAs a layer
+// and MT row tiles a cluster
+template <int NS, int MT>
+int launch_wave(int mode, const void* x, const void* w_ih0, const void* w_ihr, const void* w_hh,
+                const void* bias, void* h_all, void* prefac, void* qf, void* c_all, void* h_out,
+                int Tn, int B, int C, int H, int L, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const size_t smem = wave_smem(C, H, NS, MT);
+  const int tiles = (B + kWaveRows * MT - 1) / (kWaveRows * MT);
+#define CEREBRA_MODE(M)                                                                          \
+  case M:                                                                                        \
+    return launch_clusters(wave_fwd_kernel<M, NS, MT>, NS * L, tiles, 4 * H / NS, smem, s,       \
+                           (const bf*)x, (const bf*)w_ih0, (const bf*)w_ihr, (const bf*)w_hh,    \
+                           (const bf*)bias, (bf*)h_all, (bf*)prefac, (bf*)qf, (bf*)c_all,        \
+                           (bf*)h_out, Tn, B, C, H);
+  switch (mode) {
+    CEREBRA_MODE(INFER_LAST)
+    CEREBRA_MODE(TRAIN)
+    CEREBRA_MODE(INFER_SEQ)
+    CEREBRA_MODE(TRAIN_RC)
+  }
+#undef CEREBRA_MODE
+  return (int)cudaErrorInvalidValue;
 }
 
 // -------------------------------------------------- K2/K2g's layer products
@@ -1141,32 +1264,45 @@ int cerebra_fwd_cluster_scan(int bf16, int res, int n, const void* P, const void
                                           (T*)nullptr, (T*)nullptr, Tn, B, H, s);
 }
 
-// K1 (train != 0: h_all, prefac, qf) or K3 (h_out (B, H)) on the wavefront
-// path, bf16 streams: one cluster of L CTAs a 16-row batch tile. C and H
-// multiples of 16, 4H <= 512 threads, L <= 8, the weights within one CTA's
-// shared memory (wave_shape_ok; lstm_stack.py wave_fits), else
+// K1 (mode TRAIN: h_all, prefac, qf), K3 (INFER_LAST: h_out (B, H)), K10
+// (TRAIN_RC: h_all, c_all) or K4 (INFER_SEQ: h_out (Tn, B, H)) on the
+// wavefront path, bf16 streams: one cluster of L CTAs (split != 0: 2L, two
+// a layer) a batch tile of 16 mt rows (mt > 1 only split). The shape within
+// wave_shape_ok (lstm_stack.py wave_fits, wave_split_fits), else
 // cudaErrorInvalidValue.
-int cerebra_fwd_wave(int train, const void* x, const void* w_ih0, const void* w_ihr,
-                     const void* w_hh, const void* bias, void* h_all, void* prefac, void* qf,
-                     void* h_out, int Tn, int B, int C, int H, int L, void* stream) {
-  if (!wave_shape_ok(C, H, L)) return (int)cudaErrorInvalidValue;
-  using bf = __nv_bfloat16;
+int cerebra_fwd_wave(int mode, int split, int mt, const void* x, const void* w_ih0,
+                     const void* w_ihr, const void* w_hh, const void* bias, void* h_all,
+                     void* prefac, void* qf, void* c_all, void* h_out, int Tn, int B, int C, int H,
+                     int L, void* stream) {
+  const int NS = split ? 2 : 1;
+  if (!wave_shape_ok(C, H, L, NS, mt)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = wave_smem(C, H);
-  const int tiles = (B + kWaveRows - 1) / kWaveRows;
-  return launch_clusters(train ? wave_fwd_kernel<true> : wave_fwd_kernel<false>, L, tiles, 4 * H,
-                         smem, s, (const bf*)x, (const bf*)w_ih0, (const bf*)w_ihr,
-                         (const bf*)w_hh, (const bf*)bias, (bf*)h_all, (bf*)prefac, (bf*)qf,
-                         (bf*)h_out, Tn, B, C, H);
+#define CEREBRA_WAVE(S, M)                                                                     \
+  if (NS == S && mt == M)                                                                      \
+    return launch_wave<S, M>(mode, x, w_ih0, w_ihr, w_hh, bias, h_all, prefac, qf, c_all, h_out, \
+                             Tn, B, C, H, L, s);
+  CEREBRA_WAVE(1, 1)
+  CEREBRA_WAVE(2, 1)
+  CEREBRA_WAVE(2, 2)
+  CEREBRA_WAVE(2, 3)
+#undef CEREBRA_WAVE
+  return (int)cudaErrorInvalidValue;
 }
 
-// clusters of the wavefront forward the card holds at once at (C, H, L), or
-// minus a CUDA error code
-int cerebra_fwd_wave_clusters(int C, int H, int L) {
-  if (!wave_shape_ok(C, H, L)) return -(int)cudaErrorInvalidValue;
+// clusters of the wavefront forward (split != 0: two CTAs a layer; mt row
+// tiles a cluster) the card holds at once at (C, H, L), or minus a CUDA
+// error code
+int cerebra_fwd_wave_clusters(int split, int mt, int C, int H, int L) {
+  const int NS = split ? 2 : 1;
+  if (!wave_shape_ok(C, H, L, NS, mt)) return -(int)cudaErrorInvalidValue;
   int clusters = 0;
-  const cudaError_t e = cluster_occupancy(wave_fwd_kernel<true>, L, 4 * H, wave_smem(C, H),
-                                          &clusters);
+  auto occupancy = [&](auto kern) {
+    return cluster_occupancy(kern, NS * L, 4 * H / NS, wave_smem(C, H, NS, mt), &clusters);
+  };
+  const cudaError_t e = NS == 1   ? occupancy(wave_fwd_kernel<TRAIN, 1, 1>)
+                        : mt == 1 ? occupancy(wave_fwd_kernel<TRAIN, 2, 1>)
+                        : mt == 2 ? occupancy(wave_fwd_kernel<TRAIN, 2, 2>)
+                                  : occupancy(wave_fwd_kernel<TRAIN, 2, 3>);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 

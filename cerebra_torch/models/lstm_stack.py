@@ -17,12 +17,16 @@ and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
   h[T−1] (B, H).
 - K4 `fwd_infer`: forward with no residuals, returning the top layer's h at
   every t (T, B, H).
-- K1 and K3 in bf16 at the widths `wave_fits` takes (the CLI's C = H =
-  96, L = 2, at every batch) run the wavefront forward (`_fwd_wave`, its
-  plain composition `_fwd_wave_ref`): one launch, a thread-block cluster a
-  16-row batch tile, a CTA a layer that holds [W_ih; W_hh] in shared
-  memory, the layers one step apart, each step's product on the tensor
-  cores and the cell in registers.
+- K1, K3, K4 and K10 in bf16 at the widths `wave_fits` takes (the CLI's
+  C = H = 96, L = 2, at every batch) run the wavefront forward
+  (`_fwd_wave`, its plain composition `_fwd_wave_ref`): one launch, a
+  thread-block cluster a 16-row batch tile, a CTA a layer that holds
+  [W_ih; W_hh] in shared memory, the layers one step apart, each step's
+  product on the tensor cores and the cell in registers. K4 and K10 where
+  only half a layer's weights fit a CTA (`wave_split_fits`: the DINO-LSTM's
+  C 96, H 128, L 4) run it with the split layer: two CTAs a layer, each
+  holding the columns of half the units, which hand each other their half
+  of h every step (`_split_step_ref` is its plain layer-step).
 - K1 and K4 at the small batches `pick_fwd` takes (the recurrent
   autoencoder's B = 16) run layer by layer, bottom first
   (`_fwd_layerwise`): the layer's input product over all T·B rows
@@ -57,8 +61,9 @@ Dispatch: a tensor on the CPU takes the plain version (`_fwd_train_ref`,
 tensor launches the kernel, built at first use, or raises. `LAUNCHES` counts
 kernel launches so a run can show that it went through the kernels
 (`fwd_train`, `fwd_infer`, `bwd` for K2, `bwd_general` for K2g, `bwd_rc` for
-K11, one a call; `fwd_wave` one a launch of the wavefront forward (K1 or
-K3); `fwd_in_product` and `fwd_cluster_scan` one a layer of K1/K4's
+K11, one a call; `fwd_wave` one a launch of the wavefront forward (K1, K3,
+K4 or K10), `fwd_wave_split` one a launch of it with the split layer (K4 or
+K10); `fwd_in_product` and `fwd_cluster_scan` one a layer of K1/K4's
 layer-by-layer path; `stack_bwd_scan` and `stack_bwd_products` one
 a layer of K2/K2g; `rc_gates`, `rc_scan` and `rc_products` one a chunk and
 layer of K11).
@@ -71,6 +76,7 @@ kernels mask a ragged batch tile themselves.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
@@ -89,7 +95,8 @@ Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, fwd_infer=0, bwd_general=0,
                 fwd_train_rc=0, bwd_rc=0, fwd_in_product=0, fwd_cluster_scan=0, fwd_wave=0,
-                stack_bwd_scan=0, stack_bwd_products=0, rc_gates=0, rc_scan=0, rc_products=0)
+                fwd_wave_split=0, stack_bwd_scan=0, stack_bwd_products=0, rc_gates=0, rc_scan=0,
+                rc_products=0)
 _FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2, "fwd_train_rc": 3}  # FwdMode
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
@@ -272,16 +279,18 @@ def _fwd_layerwise_ref(x: torch.Tensor, layers: Layers, train: bool):
     return tuple(torch.stack([o[k] for o in outs]) for k in range(3))
 
 
-_WAVE_ROWS = 16  # batch rows of one cluster's tile (csrc/lstm_stack.cu kWaveRows)
+_WAVE_ROWS = 16  # batch rows of one row tile (csrc/lstm_stack.cu kWaveRows)
 _WAVE_RING = 4  # slots of a layer's input ring (kWaveRing)
+_WAVE_SPLIT_TILES = 3  # row tiles a cluster of the split layer takes, at most (kWaveSplitTiles)
 
 
 def _wave_step_ref(inp, h, c, w_ih, w_hh, b, res: bool):
     """Plain layer-step of the wavefront path over a tile's rows: gates =
     (inp·W_ih + h·W_hh) + b with stream-dtype operands and f32 sums, K1's
     f32 cell → (h_t in the stream dtype, c_t f32, and with `res` K1's
-    prefac and qf of the step, else None, None)."""
-    H, sd = w_hh.shape[0], w_hh.dtype
+    prefac and qf of the step, else None, None). The gates' width is
+    w_hh's columns, all 4H or, for a CTA of the split layer, its 4U."""
+    H, sd = w_hh.shape[1] // 4, w_hh.dtype
     gates = _gates(inp, h, w_ih, w_hh, b, sd)
     i = torch.sigmoid(gates[:, :H])
     f = torch.sigmoid(gates[:, H:2 * H])
@@ -293,51 +302,90 @@ def _wave_step_ref(inp, h, c, w_ih, w_hh, b, res: bool):
     return (o * tanh_c).to(sd), c_new, prefac, qf
 
 
-def _fwd_wave(x: torch.Tensor, layers: Layers, train: bool, step):
-    """K1 (`train`: (h_all, prefac, qf)) or K3 (the top layer's h at T−1,
-    (B, H)) as the wavefront CUDA path composes them, through `step(l, inp,
-    h, c, res)` → (h_t, c_t, prefac_t, qf_t) of layer l. The batch runs in
-    tiles of 16 rows, zero rows past B. In a tile, at iteration s = 0 ..
-    T + L − 2 each layer l, bottom first, runs its step t = s − l on the
-    input its ring holds in slot t % 4 (x_t for layer 0; h_t of the layer
-    below, put there an iteration before) and its own h_{t−1}, then puts
-    h_t into the ring of the layer above."""
+def _split_step_ref(inp, h, c, w_ih, w_hh, b, res: bool):
+    """Plain layer-step of the split layer: each of the two CTAs of a layer
+    owns half the units, [0, H/2) and [H/2, H), and computes their four
+    gates from its own columns of W_ih, W_hh and b (columns q H + u of gate
+    q for its units u) on the whole inp and h, then the cell on its half
+    of c; the halves are concatenated, as the CTAs hand each other their
+    half of h_t. The same values as `_wave_step_ref`'s step."""
+    H = w_hh.shape[0]
+    U = H // 2
+    halves = []
+    for s in range(2):
+        cols = torch.cat([torch.arange(q * H + s * U, q * H + (s + 1) * U) for q in range(4)])
+        halves.append(_wave_step_ref(inp, h, c[:, s * U:(s + 1) * U], w_ih[:, cols],
+                                     w_hh[:, cols], b[cols], res))
+
+    def merge(k, blocks):
+        """Output k of the step from the halves' blocks of U units: h and c
+        are one block, prefac four (a gate each), qf two (q, f)."""
+        if halves[0][k] is None:
+            return None
+        return torch.cat([hv[k][:, j * U:(j + 1) * U] for j in range(blocks) for hv in halves], -1)
+
+    return merge(0, 1), merge(1, 1), merge(2, 4), merge(3, 2)
+
+
+_WAVE_KINDS = ("fwd_train", "fwd_infer_last", "fwd_train_rc", "fwd_infer")
+
+
+def _fwd_wave(x: torch.Tensor, layers: Layers, kind: str, step, mt: int = 1):
+    """K1 (`kind` fwd_train: (h_all, prefac, qf)), K3 (fwd_infer_last: the
+    top layer's h at T−1, (B, H)), K10 (fwd_train_rc: (h_all, c_all), c_t
+    rounded to the stream dtype from its f32 carry) or K4 (fwd_infer: the
+    top layer's h at every t, (T, B, H)) as the wavefront CUDA path composes
+    them, through `step(l, inp, h, c, res)` → (h_t, c_t, prefac_t, qf_t) of
+    layer l (`res` for K1 only). The batch runs in tiles of 16 `mt` rows (a
+    cluster's, `split_tiles`), zero rows past B. In a tile, at iteration
+    s = 0 .. T + L − 2 each layer l, bottom first, runs its step t = s − l
+    on the input its ring holds in slot t % 4 (x_t for layer 0; h_t of the
+    layer below, put there an iteration before) and its own h_{t−1}, then
+    puts h_t into the ring of the layer above."""
+    if kind not in _WAVE_KINDS:
+        raise ValueError(f"the wavefront forward does not run {kind}")
     T, B, C, H, L = _dims(x, layers)
     sd, dev, R = x.dtype, x.device, _WAVE_RING
-    if train:
-        h_all = torch.empty(L, T, B, H, dtype=sd, device=dev)
-        prefac = torch.empty(L, T, B, 4 * H, dtype=sd, device=dev)
-        qf = torch.empty(L, T, B, 2 * H, dtype=sd, device=dev)
+    res, seqs = kind == "fwd_train", ()
+    if kind in ("fwd_train", "fwd_train_rc"):
+        seqs = tuple(torch.empty(L, T, B, w, dtype=sd, device=dev)
+                     for w in ((H, 4 * H, 2 * H) if res else (H, H)))
     else:
-        out = torch.empty(B, H, dtype=sd, device=dev)
-    for b0 in range(0, B, _WAVE_ROWS):
-        n = min(_WAVE_ROWS, B - b0)
+        out = torch.empty((B, H) if kind == "fwd_infer_last" else (T, B, H), dtype=sd, device=dev)
+    tile = _WAVE_ROWS * mt
+    for b0 in range(0, B, tile):
+        n = min(tile, B - b0)
         rows = slice(b0, b0 + n)
         ring = [[None] * R for _ in range(L)]
-        h = [torch.zeros(_WAVE_ROWS, H, dtype=sd, device=dev) for _ in range(L)]
-        c = [torch.zeros(_WAVE_ROWS, H, device=dev) for _ in range(L)]
+        h = [torch.zeros(tile, H, dtype=sd, device=dev) for _ in range(L)]
+        c = [torch.zeros(tile, H, device=dev) for _ in range(L)]
         for s in range(T + L - 1):
             for l in range(L):
                 t = s - l
                 if not 0 <= t < T:
                     continue
                 if l == 0:
-                    ring[0][t % R] = x.new_zeros(_WAVE_ROWS, C)
+                    ring[0][t % R] = x.new_zeros(tile, C)
                     ring[0][t % R][:n] = x[t, rows]
-                h[l], c[l], pf, q = step(l, ring[l][t % R], h[l], c[l], train)
+                h[l], c[l], pf, q = step(l, ring[l][t % R], h[l], c[l], res)
                 if l + 1 < L:
                     ring[l + 1][t % R] = h[l]
-                if train:
-                    h_all[l, t, rows], prefac[l, t, rows], qf[l, t, rows] = h[l][:n], pf[:n], q[:n]
+                if seqs:  # K1's residuals, or K10's h and c rounded to the stream dtype
+                    for seq, v in zip(seqs, (h[l], pf, q) if res else (h[l], c[l].to(sd))):
+                        seq[l, t, rows] = v[:n]
+                elif l == L - 1 and kind == "fwd_infer":
+                    out[t, rows] = h[l][:n]
                 elif l == L - 1 and t == T - 1:
                     out[rows] = h[l][:n]
-    return (h_all, prefac, qf) if train else out
+    return seqs or out
 
 
-def _fwd_wave_ref(x: torch.Tensor, layers: Layers, train: bool):
-    """`_fwd_wave` through the plain layer-step, on any device."""
-    return _fwd_wave(x, layers, train,
-                     lambda l, inp, h, c, res: _wave_step_ref(inp, h, c, *layers[l], res))
+def _fwd_wave_ref(x: torch.Tensor, layers: Layers, kind: str, split: bool = False, mt: int = 1):
+    """`_fwd_wave` through the plain layer-step, or with `split` the split
+    layer's (`_split_step_ref`), in tiles of 16 `mt` rows, on any device."""
+    step = _split_step_ref if split else _wave_step_ref
+    return _fwd_wave(x, layers, kind, lambda l, inp, h, c, res: step(inp, h, c, *layers[l], res),
+                     mt)
 
 
 def _bwd_ref(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False):
@@ -700,9 +748,9 @@ def _typed(lib) -> None:
     lib.cerebra_fwd_in_product.restype = i
     lib.cerebra_fwd_cluster_scan.argtypes = [i, i, i] + [vp] * 6 + [i] * 3 + [vp]
     lib.cerebra_fwd_cluster_scan.restype = i
-    lib.cerebra_fwd_wave.argtypes = [i] + [vp] * 9 + [i] * 5 + [vp]
+    lib.cerebra_fwd_wave.argtypes = [i, i, i] + [vp] * 10 + [i] * 5 + [vp]
     lib.cerebra_fwd_wave.restype = i
-    lib.cerebra_fwd_wave_clusters.argtypes = [i, i, i]
+    lib.cerebra_fwd_wave_clusters.argtypes = [i] * 5
     lib.cerebra_fwd_wave_clusters.restype = i
     lib.cerebra_stack_scan_bwd.argtypes = [i] * 4 + [vp] * 5 + [i] * 3 + [vp]
     lib.cerebra_stack_scan_bwd.restype = i
@@ -790,39 +838,94 @@ def pick_fwd(B: int, C: int, H: int, L: int, dtype: torch.dtype) -> int:
     return fits[0]
 
 
+def _wave_cta_smem(C: int, H: int, ns: int, mt: int = 1) -> int:
+    """Bytes of shared memory of one CTA of the wavefront forward with `ns`
+    CTAs a layer and `mt` row tiles of 16 a cluster (csrc/lstm_stack.cu
+    wave_smem)."""
+    w, U, R = max(C, H), H // ns, _WAVE_ROWS * mt
+    return (2 * (4 * U * (w + H + 8) + _WAVE_RING * R * (w + 8) + 2 * R * (H + 8))
+            + 8 * (2 * _WAVE_RING + (2 if ns > 1 else 0)))
+
+
 def wave_smem(C: int, H: int) -> int:
-    """Bytes of shared memory of one CTA of the wavefront forward
-    (csrc/lstm_stack.cu wave_smem): in bf16 a layer's [W_ih; W_hh] column by
-    column, each of the 4H columns padded to max(C, H) + H + 8 values, its
-    input ring (4, 16, max(C, H) + 8) and h (2, 16, H + 8); then a "full"
-    and an "empty" mbarrier (8 bytes) a ring slot."""
-    w = max(C, H)
-    return (2 * (4 * H * (w + H + 8) + _WAVE_RING * _WAVE_ROWS * (w + 8) + 2 * _WAVE_ROWS * (H + 8))
-            + 2 * 8 * _WAVE_RING)
+    """Bytes of shared memory of one CTA of the wavefront forward with a CTA
+    a layer (csrc/lstm_stack.cu wave_smem): in bf16 a layer's [W_ih; W_hh]
+    column by column, each of the 4H columns padded to max(C, H) + H + 8
+    values, its input ring (4, 16, max(C, H) + 8) and h (2, 16, H + 8);
+    then a "full" and an "empty" mbarrier (8 bytes) a ring slot."""
+    return _wave_cta_smem(C, H, 1)
+
+
+def wave_split_smem(C: int, H: int, mt: int = 1) -> int:
+    """Bytes of shared memory of one CTA of the split layer with `mt` row
+    tiles of 16 a cluster (csrc/lstm_stack.cu wave_smem): `wave_smem`'s
+    buffers with the 2H columns of half the units in place of all 4H, the
+    ring and h for 16 `mt` rows, and two more mbarriers, one an h buffer,
+    on which the sibling's half of h lands. At the DINO-LSTM's C 96, H 128:
+    157.6 KiB with one tile, 208.6 KiB with three; one CTA an SM."""
+    return _wave_cta_smem(C, H, 2, mt)
 
 
 def wave_fits(C: int, H: int, L: int, dtype: torch.dtype) -> bool:
-    """Whether the wavefront forward can run a stack: bf16 streams (its
-    products are bf16 mma.sync; f32 keeps the FMA kernels), C and H
-    multiples of 16 (the products' k-steps), H/8 warps within the kernel's
-    384 threads (H <= 96), at most 8 layers (a portable cluster) and one
-    layer's weights within a CTA's shared memory: 169.5 KiB at the CLI's
-    C = H = 96. Not the DINO-LSTM's H = 128 (289.5 KiB) or the
-    autoencoder's widths (C 384, H 96: 421.5 KiB; H = 384)."""
+    """Whether the wavefront forward can run a stack with a CTA a layer:
+    bf16 streams (its products are bf16 mma.sync; f32 keeps the FMA
+    kernels), C and H multiples of 16 (the products' k-steps), H/8 warps
+    within the kernel's 384 threads (H <= 96), at most 8 layers (a portable
+    cluster) and one layer's weights within a CTA's shared memory: 169.6
+    KiB at the CLI's C = H = 96. Not the DINO-LSTM's H = 128 (289.5 KiB:
+    `wave_split_fits`) or the autoencoder's widths (C 384, H 96: 421.5 KiB;
+    H = 384)."""
     return (dtype == torch.bfloat16 and C % 16 == 0 and H % 16 == 0 and 4 * H <= 384
             and 1 <= L <= 8 and wave_smem(C, H) <= _MAX_SMEM)
 
 
+def wave_split_fits(C: int, H: int, L: int, dtype: torch.dtype) -> bool:
+    """Whether the wavefront forward can run a stack with the split layer,
+    two CTAs a layer: bf16, C a multiple of 16 and H of 32 (each CTA's H/2
+    units in warps of 8 and k-steps of 16), 2H threads within 384 (H <=
+    192), at most 4 layers (8 CTAs, a portable cluster) and half a layer's
+    weights within a CTA's shared memory (`wave_split_smem`). The
+    DINO-LSTM's C 96, H 128, L 4; not the autoencoder's widths (C 384,
+    H 96: 238.6 KiB; H = 384)."""
+    return (dtype == torch.bfloat16 and C % 16 == 0 and H % 32 == 0 and 2 * H <= 384
+            and 1 <= L <= 4 and wave_split_smem(C, H) <= _MAX_SMEM)
+
+
+def split_tiles(B: int, clusters: Sequence[int]) -> int:
+    """Row tiles of 16 a cluster of the split layer takes at batch B, given
+    the clusters the card holds at once with 1, 2, ... tiles a cluster
+    (`wave_clusters`; 0 where that many do not fit a CTA's shared memory):
+    the fewest waves of clusters, then the fewest rows. A cluster's step
+    costs more with more rows, but much less than in proportion: on an H100
+    at the DINO-LSTM's widths (C 96, H 128, L 4, T = 300; 15 clusters of 8
+    CTAs at once), one wave of K4 (B = 16) took 0.98-1.06 ms at 16 rows a
+    cluster, 1.46-1.56 at 32 and 1.91-1.96 at 48, and B = 1024 (64 tiles
+    of 16) 4.86-5.01 ms in 5 waves of 16 rows, 4.31-4.49 in 3 of 32 and
+    3.81-3.99 in 2 of 48 (chip_smoke.py `[fwd paths]`, PERF.md §6)."""
+    best = (0, 0)
+    for mt, q in enumerate(clusters, 1):
+        if q > 0:
+            waves = -(-(-(-B // (_WAVE_ROWS * mt))) // q)
+            if not best[1] or waves < best[0]:
+                best = (waves, mt)
+    if not best[1]:
+        raise ValueError("no tile of the split layer fits the card")
+    return best[1]
+
+
 def fwd_path(B: int, C: int, H: int, L: int, dtype: torch.dtype, kind: str) -> str:
     """Which forward `kind` runs on the card: "wave" (the wavefront path, one
-    launch), "cluster" (the layer-by-layer path, clusters of `pick_fwd`'s
-    size) or "stack" (`lstm_fwd_kernel`). K1 (fwd_train) and K3
-    (fwd_infer_last) take the wavefront path where `wave_fits`; K1 and K4
-    (fwd_infer) then the layer-by-layer path where `pick_fwd` gives a
-    cluster size; the rest, and K10 (fwd_train_rc) always,
-    `lstm_fwd_kernel`."""
-    if kind in ("fwd_train", "fwd_infer_last") and wave_fits(C, H, L, dtype):
+    launch, a CTA a layer), "split" (the wavefront path with two CTAs a
+    layer), "cluster" (the layer-by-layer path, clusters of `pick_fwd`'s
+    size) or "stack" (`lstm_fwd_kernel`). Every forward (K1 fwd_train, K3
+    fwd_infer_last, K4 fwd_infer, K10 fwd_train_rc) takes the wavefront path
+    where `wave_fits`, at every batch; K4 and K10 then the split layer where
+    `wave_split_fits`; K1 and K4 then the layer-by-layer path where
+    `pick_fwd` gives a cluster size; the rest `lstm_fwd_kernel`."""
+    if kind in _WAVE_KINDS and wave_fits(C, H, L, dtype):
         return "wave"
+    if kind in ("fwd_infer", "fwd_train_rc") and wave_split_fits(C, H, L, dtype):
+        return "split"
     if kind in ("fwd_train", "fwd_infer") and pick_fwd(B, C, H, L, dtype):
         return "cluster"
     return "stack"
@@ -991,56 +1094,83 @@ def _fwd_cluster_cuda(x, layers, kind: str, n: int):
     return (h_all, prefac, qf) if train else top
 
 
-def _fwd_wave_cuda(x, layers, kind: str):
-    """K1 (`kind` fwd_train) or K3 (fwd_infer_last) on the card on the
-    wavefront path (`fwd_wave`): one launch, no input product in memory."""
+def _fwd_wave_cuda(x, layers, kind: str, split: bool = False, mt=None):
+    """K1 (`kind` fwd_train), K3 (fwd_infer_last), K10 (fwd_train_rc) or K4
+    (fwd_infer) on the card on the wavefront path (`fwd_wave`), with
+    `split` on its split layer (`fwd_wave_split`) in clusters of `mt` row
+    tiles (default `split_tiles`'s): one launch, no input product in
+    memory."""
     T, B, C, H, L = _dims(x, layers)
-    if kind not in ("fwd_train", "fwd_infer_last") or not wave_fits(C, H, L, x.dtype):
-        raise ValueError(f"the wavefront forward does not run {kind} at C={C}, H={H}, L={L}, "
-                         f"{x.dtype}")
+    fits = wave_split_fits if split else wave_fits
+    if kind not in _WAVE_KINDS or not fits(C, H, L, x.dtype):
+        raise ValueError(f"the wavefront forward{' (split)' if split else ''} does not run {kind} "
+                         f"at C={C}, H={H}, L={L}, {x.dtype}")
+    if mt is None:
+        mt = wave_split_tiles(B, C, H, L) if split else 1
+    if mt not in range(1, (_WAVE_SPLIT_TILES if split else 1) + 1) or (
+            split and wave_split_smem(C, H, mt) > _MAX_SMEM):
+        raise ValueError(f"the wavefront forward does not take {mt} row tiles a cluster here")
     w_ih0, w_ihr, w_hh, b = _packed(layers, H)
     _cuda_checks(1, x, w_ih0, w_ihr, w_hh, b)
     if x.data_ptr() % 16:  # layer 0 copies x 16 bytes at a time
         x = x.clone()
-    train, sd, dev = kind == "fwd_train", x.dtype, x.device
-    h_all = prefac = qf = out = None
-    if train:
+    sd, dev = x.dtype, x.device
+    h_all = prefac = qf = c_all = out = None
+    if kind in ("fwd_train", "fwd_train_rc"):
         h_all = torch.empty(L, T, B, H, dtype=sd, device=dev)
-        prefac = torch.empty(L, T, B, 4 * H, dtype=sd, device=dev)
-        qf = torch.empty(L, T, B, 2 * H, dtype=sd, device=dev)
+        if kind == "fwd_train":
+            prefac = torch.empty(L, T, B, 4 * H, dtype=sd, device=dev)
+            qf = torch.empty(L, T, B, 2 * H, dtype=sd, device=dev)
+        else:
+            c_all = torch.empty_like(h_all)
     else:
-        out = torch.empty(B, H, dtype=sd, device=dev)
+        out = torch.empty((B, H) if kind == "fwd_infer_last" else (T, B, H), dtype=sd, device=dev)
     lib = _lib()
     rc = lib.cerebra_fwd_wave(
-        int(train), x.data_ptr(), w_ih0.data_ptr(), w_ihr.data_ptr() or None, w_hh.data_ptr(),
-        b.data_ptr(), ptr(h_all), ptr(prefac), ptr(qf), ptr(out), T, B, C, H, L, stream_of(x))
-    check_rc(lib, rc, "fwd_wave")
-    LAUNCHES["fwd_wave"] += 1
+        _FWD_MODES[kind], int(split), mt, x.data_ptr(), w_ih0.data_ptr(), w_ihr.data_ptr() or None,
+        w_hh.data_ptr(), b.data_ptr(), ptr(h_all), ptr(prefac), ptr(qf), ptr(c_all), ptr(out),
+        T, B, C, H, L, stream_of(x))
+    name = "fwd_wave_split" if split else "fwd_wave"
+    check_rc(lib, rc, name)
+    LAUNCHES[name] += 1
     LAUNCHES[kind] += 1
-    return (h_all, prefac, qf) if train else out
+    if kind == "fwd_train":
+        return h_all, prefac, qf
+    return (h_all, c_all) if kind == "fwd_train_rc" else out
 
 
-def wave_clusters(C: int, H: int, L: int) -> int:
-    """Clusters of the wavefront forward the card holds at once at (C, H, L)
-    (cudaOccupancyMaxActiveClusters): a batch of more 16-row tiles runs in
-    more than one wave."""
+@functools.lru_cache(maxsize=None)
+def wave_clusters(C: int, H: int, L: int, split: bool = False, mt: int = 1) -> int:
+    """Clusters of the wavefront forward (with `split`, its split layer, `mt`
+    row tiles a cluster) the card holds at once at (C, H, L)
+    (cudaOccupancyMaxActiveClusters, asked once a process): a batch of more
+    tiles runs in more than one wave."""
     lib = _lib()
-    n = lib.cerebra_fwd_wave_clusters(C, H, L)
+    n = lib.cerebra_fwd_wave_clusters(int(split), mt, C, H, L)
     if n < 0:
         check_rc(lib, -n, "fwd_wave occupancy")
     return n
 
 
+def wave_split_tiles(B: int, C: int, H: int, L: int) -> int:
+    """`split_tiles` at batch B on this card: the row tiles a cluster of the
+    split layer takes at (C, H, L), from the clusters the card holds at
+    once with each tile count whose shared memory fits."""
+    return split_tiles(B, [wave_clusters(C, H, L, True, m)
+                           if wave_split_smem(C, H, m) <= _MAX_SMEM else 0
+                           for m in range(1, _WAVE_SPLIT_TILES + 1)])
+
+
 def _fwd_dispatch(x, layers, kind: str, tile):
-    """K1, K3 or K4 on the card by `fwd_path`'s rule: the wavefront path, the
-    layer-by-layer path or `lstm_fwd_kernel` with `tile` rows a block
-    (default `pick_tile`)."""
+    """K1, K3, K4 or K10 on the card by `fwd_path`'s rule: the wavefront
+    path (a CTA or two a layer), the layer-by-layer path or
+    `lstm_fwd_kernel` with `tile` rows a block (default `pick_tile`)."""
     T, B, C, H, L = _dims(x, layers)
     if tile is not None and tile not in _TILES:
         raise ValueError(f"tile must be one of {_TILES}, got {tile}")
     path = fwd_path(B, C, H, L, x.dtype, kind)
-    if path == "wave":
-        return _fwd_wave_cuda(x, layers, kind)
+    if path in ("wave", "split"):
+        return _fwd_wave_cuda(x, layers, kind, path == "split")
     if path == "cluster":
         return _fwd_cluster_cuda(x, layers, kind, pick_fwd(B, C, H, L, x.dtype))
     return _fwd_cuda(x, layers, kind, tile)
@@ -1395,9 +1525,10 @@ def bwd_products(dgates, inp, h, w_ih, chain=None):
 
 
 def fwd_train_rc(x: torch.Tensor, layers: Layers, tile=None):
-    """K10 on CUDA, its plain version on the CPU → (h_all, c_all)."""
+    """K10 on CUDA, its plain version on the CPU → (h_all, c_all). On the
+    card `fwd_path` chooses the path, as for `fwd_train`."""
     if on_cuda(x, *_weights(layers)):
-        return _fwd_cuda(x, layers, "fwd_train_rc", tile)
+        return _fwd_dispatch(x, layers, "fwd_train_rc", tile)
     return _fwd_train_rc_ref(x, layers)
 
 

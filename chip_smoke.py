@@ -70,19 +70,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  recurrence on a thread-block cluster) at the autoencoder's
                  widths, B = 16 and 13, f32 and bf16: K1 against its plain
                  version, and each piece alone at every cluster size the
-                 width fits; `[fwd paths]`: K1, K3 and K4 through
-                 `lstm_fwd_kernel`, through the layer-by-layer path at
-                 each cluster size and, for K1 and K3, through the
-                 wavefront forward where it fits, at the shapes that set
-                 `fwd_path` (both autoencoder widths and the CLI's B = 16,
-                 bf16 and f32, and the bench step's B = 1024 and the
-                 validation's B = 960, bf16); the two pieces
+                 width fits; `[fwd paths]`: K1, K3, K4 and K10 through
+                 `lstm_fwd_kernel`, K1 and K4 through the layer-by-layer
+                 path at each cluster size, and all four through the
+                 wavefront forward and its split layer where they fit (K1
+                 and K3 on the split: a record, not routed), at the shapes
+                 that set `fwd_path` (both autoencoder widths and the CLI's
+                 B = 16, bf16 and f32, the bench step's B = 1024 and the
+                 validation's B = 960, bf16, and the DINO-LSTM's widths at
+                 B = 1024 and 16, T = 300); the two pieces
                  alone against plain and the
                  library call at the encoder's width
- 12. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) against
-                 their plain versions, f32 and bf16, every output, at C = H
-                 = 96, L = 2, T = 460 (B = 1024 and 13) and the DINO-LSTM
-                 backbone's C 96, H 128, L 4, T = 300 (B = 16); K11's three
+ 12. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) and K4
+                 against their plain versions, f32 and bf16, every output,
+                 at C = H = 96, L = 2, T = 460 (B = 1024 and 13; in bf16
+                 K10 and K4 on the wavefront forward) and the DINO-LSTM
+                 backbone's C 96, H 128, L 4, T = 300 (B = 1024, 16 and 13;
+                 in bf16 K10 and K4 on its split layer); K11's three
                  pieces (gate products, scans that form the residuals and
                  hand on carries, products) alone against their plain
                  versions over every
@@ -92,9 +96,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  the shipped stack (K1 + K2g, K2g's scans and products
                  apart), the recompute stack and cuDNN; K10, K11 and K11's
                  pieces alone against plain and cuDNN; K11's ms and peak at
-                 each time chunk (`[rc chunks]`); one grad call launches K10
-                 and K11 once (each piece once a chunk and layer), a no-grad
-                 call K4
+                 each time chunk (`[rc chunks]`); K10 and K4 beside
+                 `lstm_fwd_kernel`; at both widths one grad call launches
+                 K10 and K11 once (each piece once a chunk and layer), a
+                 no-grad call K4, K10 and K4 on the wavefront forward
+                 (`fwd_wave`, headline) or its split layer
+                 (`fwd_wave_split`, DINO)
  13. scan        K12-K14 (`lstm_scan`, one layer over a precomputed x_proj)
                  and its two gradients against the plain versions at T =
                  460, H = 96, B = 1024 and 13, f32 and bf16, and the library
@@ -203,10 +210,13 @@ REPLACES.update({
     # (:755, the fwd_infer_last entry)
     "fwd_wave": "cerebra/models/pallas_lstm_stack.py:121",
 })
-# The shapes whose timings set fwd_path, (B, C, H, L): both autoencoder
-# widths, the LSTM CLI's step, bench.py's step and the CLI's validation.
-FWD_SHAPES = ((B_AE, *AE_SHAPES["encoder"], 1), (B_AE, *AE_SHAPES["decoder"], 1), (16, C, H, L),
-              (1024, C, H, L), (960, C, H, L))
+# The shapes whose timings set fwd_path, (B, C, H, L, T): both autoencoder
+# widths, the LSTM CLI's step, bench.py's step and the CLI's validation, and
+# the DINO-LSTM backbone's widths (C 96, H 128, L 4) over its 300-sample
+# crops at the bench batch and the CLI's 16.
+FWD_SHAPES = ((B_AE, *AE_SHAPES["encoder"], 1, T), (B_AE, *AE_SHAPES["decoder"], 1, T),
+              (16, C, H, L, T), (1024, C, H, L, T), (960, C, H, L, T), (1024, 96, 128, 4, 300),
+              (16, 96, 128, 4, 300))
 
 # The recompute-backward stack (K10, K11) at the headline Perils widths and
 # at the DINO-LSTM backbone's depth and width (lstm_distillation's
@@ -222,6 +232,11 @@ SCAN_SOURCE = "cerebra_torch/csrc/lstm_scan.cu"
 TOL_CUDNN_SCAN = (1e-4, 1e-4, TOL_BF16_REL)
 REPLACES.update({
     "fwd_train_rc": "cerebra/models/pallas_lstm_stack.py:154",
+    # K10 and K4 on the wavefront forward (K4 at the headline widths) and
+    # its split layer (both at the DINO widths)
+    "fwd_infer_wave": "cerebra/models/pallas_lstm_stack.py:196",
+    "fwd_train_rc_split": "cerebra/models/pallas_lstm_stack.py:154",
+    "fwd_infer_split": "cerebra/models/pallas_lstm_stack.py:196",
     "bwd_rc": "cerebra/models/pallas_lstm_stack.py:318",
     "rc_gates": "cerebra/models/pallas_lstm_stack.py:361",
     "rc_scan": "cerebra/models/pallas_lstm_stack.py:366",
@@ -1365,7 +1380,7 @@ def phase_ae_train(gpu: str) -> tuple:
     want = {"fwd_train": 2 * steps, "bwd_general": steps, "stack_bwd_scan": steps,
             "stack_bwd_products": steps, "fwd_infer": 2, "bwd": 0, "fwd_infer_last": 0,
             "bwd_rc": 0, "rc_scan": 0, "fwd_in_product": 2 * steps + 2,
-            "fwd_cluster_scan": 2 * steps + 2, "fwd_wave": 0}
+            "fwd_cluster_scan": 2 * steps + 2, "fwd_wave": 0, "fwd_wave_split": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launches {launches}, expected {want}")
 
@@ -1468,24 +1483,38 @@ def phase_fwd_paths(gpu: str) -> tuple:
     torch.cuda.synchronize()
 
     bf16 = torch.bfloat16
+    kinds = ("fwd_train", "fwd_infer", "fwd_infer_last", "fwd_train_rc")
     # the cluster sizes' order differs between the bf16 (tensor-core) and
-    # the f32 (FMA) step, so the small batches run in both
-    for (B, c, h, l_), dtype in [(s, d) for s in FWD_SHAPES for d in (bf16, torch.float32)
-                                 if d == bf16 or s[0] <= B_AE]:
-        x, layers, _ = make_stack(B, dtype, seed=6, C=c, H=h, L=l_)
+    # the f32 (FMA) step, so the small batches run in both; every forward
+    # through every path it can take, the split layer also for K1 and K3
+    # (which fwd_path does not send there: a record)
+    for (B, c, h, l_, t_), dtype in [(s, d) for s in FWD_SHAPES for d in (bf16, torch.float32)
+                                     if d == bf16 or s[0] <= B_AE]:
+        x, layers, _ = make_stack(B, dtype, seed=6, C=c, H=h, L=l_, T=t_)
         ms = {}
-        for kind in ("fwd_train", "fwd_infer", "fwd_infer_last"):
+        for kind in kinds:
             ms[f"{kind} lstm_fwd_kernel"] = round(time_ms(lambda: ls._fwd_cuda(x, layers, kind), 3), 3)
-            if kind != "fwd_infer_last":
+            if kind in ("fwd_train", "fwd_infer"):
                 for n in ls.cluster_sizes(h, dtype):
                     ms[f"{kind} n={n}"] = round(
                         time_ms(lambda: ls._fwd_cluster_cuda(x, layers, kind, n), 3), 3)
-            if kind != "fwd_infer" and ls.wave_fits(c, h, l_, dtype):
-                ms[f"{kind} wave"] = round(time_ms(lambda: ls._fwd_wave_cuda(x, layers, kind), 3), 3)
-        paths = {k: ls.fwd_path(B, c, h, l_, dtype, k)
-                 for k in ("fwd_train", "fwd_infer", "fwd_infer_last")}
-        log(f"[fwd paths] B={B} C={c} H={h} L={l_} T={T} {str(dtype).split('.')[-1]}: ms {ms}; "
-            f"fwd_path takes {paths} (clusters of {ls.pick_fwd(B, c, h, l_, dtype)}) on {gpu}")
+            if ls.wave_fits(c, h, l_, dtype):
+                ms[f"{kind} wave"] = round(
+                    time_ms(lambda: ls._fwd_wave_cuda(x, layers, kind), 3), 3)
+            if ls.wave_split_fits(c, h, l_, dtype):  # at each tile that fits
+                for mt in range(1, ls._WAVE_SPLIT_TILES + 1):
+                    if ls.wave_split_smem(c, h, mt) <= ls._MAX_SMEM:
+                        ms[f"{kind} split mt={mt}"] = round(
+                            time_ms(lambda: ls._fwd_wave_cuda(x, layers, kind, True, mt), 3), 3)
+        paths = {k: ls.fwd_path(B, c, h, l_, dtype, k) for k in kinds}
+        tiles = ""
+        if ls.wave_split_fits(c, h, l_, dtype):
+            q = [ls.wave_clusters(c, h, l_, True, mt) for mt in range(1, ls._WAVE_SPLIT_TILES + 1)
+                 if ls.wave_split_smem(c, h, mt) <= ls._MAX_SMEM]
+            tiles = (f", split clusters at once by row tiles {q}, split_tiles picks "
+                     f"{ls.wave_split_tiles(B, c, h, l_)}")
+        log(f"[fwd paths] B={B} C={c} H={h} L={l_} T={t_} {str(dtype).split('.')[-1]}: ms {ms}; "
+            f"fwd_path takes {paths} (clusters of {ls.pick_fwd(B, c, h, l_, dtype)}{tiles}) on {gpu}")
         del x, layers
 
     # the pieces alone at the encoder's width, as the AE step runs them (K1's
@@ -1650,37 +1679,51 @@ def rc_piece_rows(calls: dict, dtype, plain_reps: int = 1) -> dict:
 
 
 def phase_rc(gpu: str) -> tuple:
-    """Phase 11: K10/K11 against their plain versions; K11's pieces alone
-    against theirs; the lab's rcstack comparison (ms and peak memory of the
-    shipped stack, the recompute stack and cuDNN); each kernel and piece
-    alone; K11 at each time chunk; the launch check."""
+    """Phase 12: K10/K11 and K4 against their plain versions (in bf16 K10
+    and K4 on the wavefront forward at the headline widths, on its split
+    layer at the DINO widths); K11's pieces alone against theirs; the lab's
+    rcstack comparison (ms and peak memory of the shipped stack, the
+    recompute stack and cuDNN); each kernel and piece alone; K11 at each
+    time chunk; the launch checks at both widths."""
     from cerebra_torch.kernels import LAUNCHES, reset_launches
     from cerebra_torch.models import lstm_stack as ls
 
     bf16 = torch.bfloat16
     errs = {}
+    # the JSON line's name of K10's and K4's row at each width (bf16, B_BIG)
+    rows_of = {"headline": ("fwd_train_rc", "fwd_infer_wave"),
+               "dino": ("fwd_train_rc_split", "fwd_infer_split")}
     for dtype in (torch.float32, bf16):
-        for shape, B in (("headline", B_BIG), ("headline", 13), ("dino", 16)):
+        for shape, B in (("headline", B_BIG), ("headline", 13), ("dino", B_BIG), ("dino", 16),
+                         ("dino", 13)):
             T_, C_, H_, L_ = RC_SHAPES[shape]
             tag = f"{str(dtype).split('.')[-1]} {shape} C={C_} H={H_} L={L_} T={T_} B={B}"
             x, layers, _ = make_stack(B, dtype, seed=B, C=C_, H=H_, L=L_, T=T_)
             g = torch.randn(T_, B, H_, generator=torch.Generator().manual_seed(B)).to(
                 "cuda", dtype)
             want = ls._fwd_train_rc_ref(x, layers)
-            e10 = max(compare(f"K10 {n} {tag}", a, b, dtype, False)
+            path = {k: ls.fwd_path(B, C_, H_, L_, dtype, k) for k in ("fwd_train_rc", "fwd_infer")}
+            e10 = max(compare(f"K10 {n} {tag} ({path['fwd_train_rc']})", a, b, dtype, False)
                       for n, a, b in zip(("h_all", "c_all"), ls.fwd_train_rc(x, layers), want))
+            e4 = compare(f"K4 h {tag} ({path['fwd_infer']})", ls.fwd_infer(x, layers),
+                         ls._fwd_infer_ref(x, layers), dtype, False)
             dx, got = ls.bwd_rc(g, x, layers, *want)  # on the plain residuals: K11 alone
             want_dx, want_g = ls._bwd_rc_ref(g, x, layers, *want)
             pairs = [("dx", dx, want_dx)] + [
                 (f"{n}[{l}]", a, b) for l in range(L_)
                 for n, a, b in zip(("dW_ih", "dW_hh", "db"), got[l], want_g[l])]
             e11 = max(compare(f"K11 {n} {tag}", a, b, dtype, True) for n, a, b in pairs)
-            if B == B_BIG:
+            if B == B_BIG and shape == "headline":
                 pieces = check_rc_pieces(rc_piece_calls(g, x, layers, want), tag, dtype)
-            if dtype == bf16 and shape == "headline" and B == B_BIG:
-                errs = {"fwd_train_rc": e10, "bwd_rc": e11, **pieces}
+            if dtype == bf16 and B == B_BIG:
+                errs.update(dict(zip(rows_of[shape], (e10, e4))))
+                if shape == "headline":
+                    errs.update({"bwd_rc": e11, **pieces})
             del x, layers, g, want, dx, got, want_dx, want_g, pairs
     torch.cuda.synchronize()
+    log(f"[rc] clusters the card holds at once: the wavefront forward at the headline widths "
+        f"{ls.wave_clusters(96, 96, 2)}, its split layer at the DINO widths "
+        f"{ls.wave_clusters(96, 128, 4, split=True)}")
 
     times = {}
     for shape, (T_, C_, H_, L_) in RC_SHAPES.items():
@@ -1703,6 +1746,9 @@ def phase_rc(gpu: str) -> tuple:
                              lambda: ls._fwd_train_rc_ref(x, layers), (x, layers),
                              stack_flops(T_, B_BIG, C_, H_, L_),
                              cudnn_ms(T_, B_BIG, C_, H_, L_, "train", 3)),
+            "fwd_infer": (lambda: ls.fwd_infer(x, layers), lambda: ls._fwd_infer_ref(x, layers),
+                          (x, layers), stack_flops(T_, B_BIG, C_, H_, L_),
+                          cudnn_ms(T_, B_BIG, C_, H_, L_, "infer", 3)),
             "bwd_rc": (lambda: ls.bwd_rc(g, x, layers, *res),
                        lambda: ls._bwd_rc_ref(g, x, layers, *res), (g, x, layers, res),
                        stack_flops(T_, B_BIG, C_, H_, L_, fwd=True, bwd=True, need_dx=True),
@@ -1710,12 +1756,22 @@ def phase_rc(gpu: str) -> tuple:
         }
         group = ls.rc_group(B_BIG)
         chunk = ls.rc_chunk(T_, B_BIG, group)
-        setting = (f"tile fwd {ls.pick_tile(B_BIG, C_, H_, L_)}, scan "
-                   f"{ls.scan_tile(B_BIG, H_, bf16)}, chunk {chunk}, dW group {group}")
+        setting = (f"scan tile {ls.scan_tile(B_BIG, H_, bf16)}, chunk {chunk}, dW group {group}")
+        names = dict(zip(("fwd_train_rc", "fwd_infer"), rows_of[shape]))
         for name, (kern, plain, inputs, flops, lib) in rows.items():
             row = timing_row(kern, plain, inputs, flops, bf16, 3, 1, lib)
-            log(f"[rc timing] {name} {tag} ({setting}): {fmt_row(row)}")
-            if shape == "headline":
+            split = ""
+            if name in names:  # K10 and K4: the path taken, and lstm_fwd_kernel alone
+                old = time_ms(lambda: ls._fwd_cuda(x, layers, name), 3)
+                path = ls.fwd_path(B_BIG, C_, H_, L_, bf16, name)
+                if path == "split":
+                    path += f" ({ls.wave_split_tiles(B_BIG, C_, H_, L_)} row tiles a cluster)"
+                split = (f"; path {path}, lstm_fwd_kernel {old:.3f} ms (tile "
+                         f"{ls.pick_tile(B_BIG, C_, H_, L_)})")
+            log(f"[rc timing] {name} {tag} ({setting}): {fmt_row(row)}{split}")
+            if name in names:
+                times[names[name]] = row
+            elif shape == "headline":
                 times[name] = row
         piece_rows = rc_piece_rows(rc_piece_calls(g, x, layers, res), bf16)
         for name, row in piece_rows.items():
@@ -1751,24 +1807,35 @@ def phase_rc(gpu: str) -> tuple:
             f"{time_ms(lambda: ls.bwd_rc(g, x, layers, *res), 3):.3f} ms")
         del x, layers, res, res1, g, piece_rows
 
-    T_, C_, H_, L_ = RC_SHAPES["headline"]
-    x, layers, _ = make_stack(B_BIG, bf16, seed=11, C=C_, H=H_, L=L_)
-    call = stack_grad_call(ls.lstm_stack_rc, x, layers)
-    reset_launches()
-    grads = call()
-    with torch.no_grad():
-        h = ls.lstm_stack_rc(x, layers)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    log(f"[rc] one grad and one no-grad call of lstm_stack_rc: launches {launches}")
-    per_piece = -(-T_ // ls.rc_chunk(T_, B_BIG, ls.rc_group(B_BIG))) * L_
-    want = {"fwd_train_rc": 1, "bwd_rc": 1, "fwd_infer": 1, "fwd_train": 0, "bwd_general": 0,
-            "stack_bwd_scan": 0, "fwd_cluster_scan": 0, "fwd_wave": 0,
-            **dict.fromkeys(RC_PIECES, per_piece)}
-    if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
-    if tuple(h.shape) != (T, B_BIG, H) or not all(torch.isfinite(t).all() for t in (h, *grads)):
-        raise AssertionError("lstm_stack_rc gave a wrong shape or non-finite values")
+    # the main path at both widths: one grad and one no-grad call, K10 and K4
+    # on the wavefront forward (headline) or its split layer (DINO)
+    launches = {}
+    for shape, wave in (("headline", "fwd_wave"), ("dino", "fwd_wave_split")):
+        T_, C_, H_, L_ = RC_SHAPES[shape]
+        x, layers, _ = make_stack(B_BIG, bf16, seed=11, C=C_, H=H_, L=L_, T=T_)
+        call = stack_grad_call(ls.lstm_stack_rc, x, layers)
+        reset_launches()
+        grads = call()
+        with torch.no_grad():
+            h = ls.lstm_stack_rc(x, layers)
+        torch.cuda.synchronize()
+        n = dict(LAUNCHES)
+        log(f"[rc] one grad and one no-grad call of lstm_stack_rc, {shape} B={B_BIG}: "
+            f"launches {n}")
+        per_piece = -(-T_ // ls.rc_chunk(T_, B_BIG, ls.rc_group(B_BIG))) * L_
+        want = {"fwd_train_rc": 1, "bwd_rc": 1, "fwd_infer": 1, "fwd_train": 0, "bwd_general": 0,
+                "stack_bwd_scan": 0, "fwd_cluster_scan": 0, "fwd_wave": 0, "fwd_wave_split": 0,
+                wave: 2, **dict.fromkeys(RC_PIECES, per_piece)}
+        if {k: n[k] for k in want} != want:
+            raise AssertionError(f"launches {n}, expected {want}")
+        if tuple(h.shape) != (T_, B_BIG, H_) or not all(torch.isfinite(t).all()
+                                                        for t in (h, *grads)):
+            raise AssertionError("lstm_stack_rc gave a wrong shape or non-finite values")
+        k10, k4 = rows_of[shape]
+        launches.update({k10: n["fwd_train_rc"], k4: n["fwd_infer"]})
+        if shape == "headline":
+            launches.update({k: n[k] for k in ("bwd_rc", *RC_PIECES)})
+        del x, layers, call, grads, h
     return errs, times, launches
 
 
@@ -1927,7 +1994,8 @@ def main() -> None:
          **times[name]}
         for name in ("fwd_train", "bwd", "stack_bwd_scan", "stack_bwd_products",
                      "fwd_infer_last", "fwd_wave", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
-                     "fwd_cluster_scan", "bwd_general", "fwd_train_rc",
+                     "fwd_cluster_scan", "bwd_general", "fwd_train_rc", "fwd_infer_wave",
+                     "fwd_train_rc_split", "fwd_infer_split",
                      "bwd_rc", *RC_PIECES, "scan_fwd_infer", "scan_fwd_train", "scan_bwd")
     ]
     log(gpu)

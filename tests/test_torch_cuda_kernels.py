@@ -1,7 +1,8 @@
 """The port's CUDA LSTM kernels (the stack's K1, K2/K2g and their two pieces,
 each layer's reverse scan and products, K3, K4, K1/K4's layer-by-layer path
 and its two pieces, the input product and the cluster scan, K1/K3's
-wavefront forward, K10, K11 and its
+wavefront forward (K1, K3, K4, K10; K4 and K10 also on its split
+layer), K10, K11 and its
 pieces per
 time chunk; the scan's K12-K14) and the ViT kernels (K5-K8) against
 their plain PyTorch versions on the card (K7/K8 also piece by piece: the
@@ -334,24 +335,25 @@ def test_fwd_layerwise_stacks(cuda, dtype, L):
 
 
 def test_fwd_old_path_keeps_the_shapes_pick_fwd_leaves_it(cuda):
-    """At B = 1024 K4 (`fwd_infer`) and K10 (`fwd_train_rc`) run
+    """At B = 1024 in f32 K4 (`fwd_infer`) and K10 (`fwd_train_rc`) run
     `lstm_fwd_kernel`: bit for bit `_fwd_cuda`'s outputs, no layer-by-layer
-    or wavefront launch, while K1 and K3 there take the wavefront path; and
-    at the CLI's B = 16 the old kernel still holds to the plain K1 and
-    repeats bit for bit."""
-    x, layers, _ = make_stack((8, 1024, 96, 96, 2), torch.bfloat16, cuda, seed=3)
-    assert ls.pick_fwd(1024, 96, 96, 2, torch.bfloat16) == 0
+    or wavefront launch; in bf16 all four forwards there take the wavefront
+    path, one launch each; and at the CLI's B = 16 the old kernel still
+    holds to the plain K1 and repeats bit for bit."""
+    x, layers, _ = make_stack((8, 1024, 96, 96, 2), torch.float32, cuda, seed=3)
+    assert ls.pick_fwd(1024, 96, 96, 2, torch.float32) == 0
     ls.reset_launches()
     top = ls.fwd_infer(x, layers)
     rc = ls.fwd_train_rc(x, layers)
     assert ls.LAUNCHES["fwd_in_product"] == ls.LAUNCHES["fwd_cluster_scan"] == 0
-    assert ls.LAUNCHES["fwd_wave"] == 0
+    assert ls.LAUNCHES["fwd_wave"] == ls.LAUNCHES["fwd_wave_split"] == 0
     assert torch.equal(top, ls._fwd_cuda(x, layers, "fwd_infer"))
     for a, b in zip(rc, ls._fwd_cuda(x, layers, "fwd_train_rc")):
         assert torch.equal(a, b)
-    ls.fwd_train(x, layers)
-    ls.fwd_infer_last(x, layers)
-    assert ls.LAUNCHES["fwd_wave"] == 2
+    xb, lb = x.to(torch.bfloat16), [tuple(w.to(torch.bfloat16) for w in l) for l in layers]
+    for kind in ("fwd_train", "fwd_infer_last", "fwd_infer", "fwd_train_rc"):
+        getattr(ls, kind)(xb, lb)
+    assert ls.LAUNCHES["fwd_wave"] == 4 and ls.LAUNCHES["fwd_wave_split"] == 0
     x, layers, _ = make_stack((8, 16, 96, 96, 2), torch.bfloat16, cuda, seed=4)
     old = ls._fwd_cuda(x, layers, "fwd_train")
     for a, b, c in zip(old, ls._fwd_train_ref(x, layers), ls._fwd_cuda(x, layers, "fwd_train")):
@@ -443,6 +445,7 @@ def test_fwd_wave_takes_unaligned_inputs_and_refuses_other_shapes(cuda):
     for a, b in zip(ls.fwd_train(shifted, layers), ls.fwd_train(x, layers)):
         assert torch.equal(a, b)
     assert ls.wave_clusters(96, 96, 2) >= 1
+    assert ls.wave_clusters(96, 128, 4, split=True) >= 1
     ls.reset_launches()
     with pytest.raises(ValueError):
         ls._fwd_wave_cuda(x.float(), [tuple(w.float() for w in l) for l in layers], "fwd_train")
@@ -450,23 +453,156 @@ def test_fwd_wave_takes_unaligned_inputs_and_refuses_other_shapes(cuda):
     with pytest.raises(ValueError):
         ls._fwd_wave_cuda(xa, la, "fwd_infer_last")
     with pytest.raises(ValueError):
-        ls._fwd_wave_cuda(x, layers, "fwd_infer")
-    assert ls.LAUNCHES["fwd_wave"] == 0
+        ls._fwd_wave_cuda(x, layers, "bwd")
+    xd, ld, _ = make_stack((9, 21, 96, 128, 5), torch.bfloat16, cuda, seed=7)
+    with pytest.raises(ValueError):  # 10 CTAs a cluster
+        ls._fwd_wave_cuda(xd, ld, "fwd_train_rc", split=True)
+    with pytest.raises(ValueError):  # H = 128 needs the split layer
+        ls._fwd_wave_cuda(xd, ld[:4], "fwd_infer")
+    assert ls.LAUNCHES["fwd_wave"] == ls.LAUNCHES["fwd_wave_split"] == 0
 
 
 def test_fwd_wave_calls_no_library_product(cuda):
-    """The wavefront K1 and K3 run only the port's kernel: no cuBLAS or cuDNN
-    product appears among the operators."""
+    """The wavefront K1, K3, K4 and K10, and the split K4 and K10, run only
+    the port's kernel: no cuBLAS or cuDNN product appears among the
+    operators."""
     from torch.profiler import ProfilerActivity, profile
 
     x, layers, _ = make_stack((9, 40, 96, 96, 2), torch.bfloat16, cuda, seed=8)
+    xd, ld, _ = make_stack((9, 40, 96, 128, 4), torch.bfloat16, cuda, seed=8)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        ls.fwd_train(x, layers)
-        ls.fwd_infer_last(x, layers)
+        for kind in ("fwd_train", "fwd_infer_last", "fwd_infer", "fwd_train_rc"):
+            getattr(ls, kind)(x, layers)
+        ls.fwd_infer(xd, ld)
+        ls.fwd_train_rc(xd, ld)
         torch.cuda.synchronize()
     ops = {e.key for e in prof.key_averages()}
     assert not ops & {"aten::mm", "aten::matmul", "aten::bmm", "aten::addmm", "aten::linear",
                       "aten::_cudnn_rnn"}, ops
+
+
+# -------------------------------- K10/K4 on the wavefront forward and its split
+# K10 and K4 through `fwd_path`'s path: the wavefront one at the CLI's
+# widths (and two with C != H), the split layer at the DINO-LSTM's C 96,
+# H 128 (L 4, and 2), at the bench batch, a ragged 13, the CLI's 16 and one
+# row; f32 keeps `lstm_fwd_kernel`.
+MODE_SHAPES = [(40, 1024, 96, 96, 2), (33, 13, 96, 96, 1), (19, 40, 32, 64, 3),
+               (30, 1024, 96, 128, 4), (33, 13, 96, 128, 4), (25, 16, 96, 128, 2),
+               (11, 1, 96, 128, 3)]
+
+
+@pytest.mark.parametrize("kind", ["fwd_train_rc", "fwd_infer"])
+@pytest.mark.parametrize("shape", MODE_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fwd_wave_modes_match_plain_and_repeats(cuda, dtype, shape, kind):
+    """K10 (h_all, c_all) or K4 (the top h at every t) through `fwd_path`'s
+    path (in bf16 the wavefront forward or its split layer, one launch)
+    against the per-step plain versions, bit for bit the same on a second
+    run; K10 feeds K11, which gives the plain K11's gradients on it."""
+    T, B, C, H, L = shape
+    x, layers, _ = make_stack(shape, dtype, cuda, seed=B + L)
+    path = ls.fwd_path(B, C, H, L, dtype, kind)
+    if dtype == torch.bfloat16:
+        assert path == ("split" if H == 128 else "wave")
+    ls.reset_launches()
+    got = getattr(ls, kind)(x, layers)
+    assert ls.LAUNCHES[kind] == 1
+    assert ls.LAUNCHES["fwd_wave"] == (path == "wave")
+    assert ls.LAUNCHES["fwd_wave_split"] == (path == "split")
+    if kind == "fwd_train_rc":
+        want = ls._fwd_train_rc_ref(x, layers)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype
+            assert_close(a, b, dtype)
+        for a, b in zip(got, ls.fwd_train_rc(x, layers)):
+            assert torch.equal(a, b)
+        g = torch.randn(T, B, H, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+        dx, got_g = ls.bwd_rc(g, x, layers, *got)
+        want_dx, want_g = ls._bwd_rc_ref(g, x, layers, *want)
+        assert_close(dx, want_dx, dtype, grad=True)
+        for got_l, want_l in zip(got_g, want_g):
+            for a, b in zip(got_l, want_l):
+                assert_close(a, b, dtype, grad=True)
+    else:
+        assert got.dtype == dtype and got.shape == (T, B, H)
+        assert_close(got, ls._fwd_infer_ref(x, layers), dtype)
+        assert torch.equal(got, ls.fwd_infer(x, layers))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(19, 40, 32, 64, 3), (11, 17, 96, 96, 2), (9, 33, 48, 32, 4)],
+                         ids=str)
+def test_fwd_wave_split_is_the_unsplit_kernel(cuda, shape):
+    """Where a layer fits one CTA, the split layer (two CTAs a layer, the
+    halves of h exchanged every step) gives the unsplit kernel's bits in
+    every mode: each CTA computes its units' columns over the same k-steps."""
+    x, layers, _ = make_stack(shape, torch.bfloat16, cuda, seed=5)
+    for kind in ("fwd_train", "fwd_infer_last", "fwd_infer", "fwd_train_rc"):
+        one, two = (ls._fwd_wave_cuda(x, layers, kind, split) for split in (False, True))
+        for a, b in zip(*((one, two) if isinstance(one, tuple) else ((one,), (two,)))):
+            assert torch.equal(a, b), kind
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(17, 70, 96, 128, 4), (9, 1024, 96, 128, 3), (7, 13, 48, 32, 2)],
+                         ids=str)
+def test_fwd_wave_split_tiles_give_the_same_bits(cuda, shape):
+    """The split layer in clusters of 1, 2 and 3 row tiles of 16 (the
+    batch then ragged against 32 and 48 rows) gives the same bits in every
+    mode; the card holds at least one cluster of each, and `split_tiles`
+    picks one of them at this batch."""
+    T, B, C, H, L = shape
+    x, layers, _ = make_stack(shape, torch.bfloat16, cuda, seed=10)
+    clusters = [ls.wave_clusters(C, H, L, True, mt) for mt in (1, 2, 3)]
+    assert min(clusters) >= 1, clusters
+    assert ls.split_tiles(B, clusters) in (1, 2, 3)
+    for kind in ("fwd_train", "fwd_infer_last", "fwd_infer", "fwd_train_rc"):
+        outs = [ls._fwd_wave_cuda(x, layers, kind, True, mt) for mt in (1, 2, 3)]
+        for other in outs[1:]:
+            for a, b in zip(*((outs[0], other) if isinstance(other, tuple)
+                              else ((outs[0],), (other,)))):
+                assert torch.equal(a, b), kind
+    with pytest.raises(ValueError):
+        ls._fwd_wave_cuda(x, layers, "fwd_infer", True, 4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [1024, 13])
+def test_fwd_wave_split_runs_k1_and_k3(cuda, B):
+    """K1 and K3 through the split layer at the DINO-LSTM's widths, which
+    `fwd_path` does not route there (chip_smoke.py times them as a record):
+    against the plain versions, and K2 on the split K1's residuals."""
+    x, layers, g = make_stack((30, B, 96, 128, 4), torch.bfloat16, cuda, seed=9)
+    got = ls._fwd_wave_cuda(x, layers, "fwd_train", split=True)
+    want = ls._fwd_train_ref(x, layers)
+    for a, b in zip(got, want):
+        assert_close(a, b, torch.bfloat16)
+    assert_close(ls._fwd_wave_cuda(x, layers, "fwd_infer_last", split=True),
+                 ls._fwd_infer_last_ref(x, layers), torch.bfloat16)
+    _, got_g = ls.bwd(g, x, layers, *got)
+    for got_l, want_l in zip(got_g, ls._bwd_ref(g, x, layers, *want)[1]):
+        for a, b in zip(got_l, want_l):
+            assert_close(a, b, torch.bfloat16, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_rc_stack_launches_the_wavefront_forward(cuda):
+    """lstm_stack_rc in bf16 at the headline and DINO widths: a grad call
+    launches K10 and K11 once, K10 on the wavefront forward (its split layer
+    at H = 128), and a no-grad call K4 on the same path."""
+    for shape, name in (((12, 20, 96, 96, 2), "fwd_wave"),
+                        ((12, 20, 96, 128, 4), "fwd_wave_split")):
+        x, layers, _ = make_stack(shape, torch.bfloat16, cuda, seed=6)
+        ls.reset_launches()
+        xs = x.clone().requires_grad_(True)
+        ls.lstm_stack_rc(xs, layers).float().sum().backward()
+        with torch.no_grad():
+            top = ls.lstm_stack_rc(x, layers)
+        assert {k: ls.LAUNCHES[k] for k in ("fwd_train_rc", "bwd_rc", "fwd_infer", name)} == {
+            "fwd_train_rc": 1, "bwd_rc": 1, "fwd_infer": 1, name: 2}, ls.LAUNCHES
+        assert ls.LAUNCHES["fwd_train"] == ls.LAUNCHES["fwd_in_product"] == 0
+        assert_close(top, ls._fwd_infer_ref(x, layers), torch.bfloat16)
+        assert torch.isfinite(xs.grad.float()).all()
 
 
 # ------------------------------------- recompute stack K10/K11, scan K12–K14

@@ -47,8 +47,8 @@ def test_wave_matches_refs_and_pallas(dt, L, B):
     jdt, tdt, atol = DTYPES[dt]
     x, layers = make_case(T=6, B=B, C=32, H=16, L=L, seed=400 + 10 * L + B)
     xt, lt = to_torch(x, layers, tdt)
-    got = ls._fwd_wave_ref(xt, lt, train=True)
-    got_top = ls._fwd_wave_ref(xt, lt, train=False)
+    got = ls._fwd_wave_ref(xt, lt, "fwd_train")
+    got_top = ls._fwd_wave_ref(xt, lt, "fwd_infer_last")
     want, want_top = pallas_forwards(x, layers, jdt)
     for name, a, b, r in zip(("h_all", "prefac", "qf"), got, want, ls._fwd_train_ref(xt, lt)):
         assert a.dtype == tdt and a.shape == r.shape
@@ -109,26 +109,27 @@ def test_wave_runs_each_step_once_behind_the_layer_below(L):
         hs[l, t] = out[0]
         return out
 
-    got = ls._fwd_wave(xt, lt, True, step)
+    got = ls._fwd_wave(xt, lt, "fwd_train", step)
     assert calls == [(l, s - l) for s in range(T + L - 1) for l in range(L) if 0 <= s - l < T]
     for a, r in zip(got, ls._fwd_train_ref(xt, lt)):
         torch.testing.assert_close(a, r, rtol=0, atol=0)
 
 
 def test_fwd_path_rule():
-    """K1 and K3 in bf16 at the CLI's widths (C = H = 96, L = 2) take the
-    wavefront path at every batch: the bench step's 1024, the CLI's
-    validation 960 and 240, its train batch 16, a ragged 13 and 1; K4 keeps
-    the layer-by-layer path at B = 16 and `lstm_fwd_kernel` at 1024, K10
-    `lstm_fwd_kernel`. f32 and the widths whose weights overflow a CTA (the
-    DINO-LSTM's H = 128, the autoencoder's) keep the earlier paths."""
+    """K1, K3, K4 and K10 in bf16 at the CLI's widths (C = H = 96, L = 2)
+    take the wavefront path at every batch: the bench step's 1024, the
+    CLI's validation 960 and 240, its train batch 16, a ragged 13 and 1.
+    f32 and the widths whose weights overflow a CTA (the DINO-LSTM's H =
+    128, the autoencoder's) keep the earlier paths for K1 and K3; K4 and K10
+    at H = 128 take the split layer (tests/test_torch_lstm_fwd_wave_modes.py
+    holds the rest of the rule there)."""
     for B in (1024, 960, 240, 16, 13, 1):
-        for kind in ("fwd_train", "fwd_infer_last"):
+        for kind in ("fwd_train", "fwd_infer_last", "fwd_infer", "fwd_train_rc"):
             assert ls.fwd_path(B, 96, 96, 2, BF16, kind) == "wave", (B, kind)
-        assert ls.fwd_path(B, 96, 96, 2, BF16, "fwd_train_rc") == "stack"
         assert ls.fwd_path(B, 96, 96, 2, F32, "fwd_infer_last") == "stack"
-    assert ls.fwd_path(16, 96, 96, 2, BF16, "fwd_infer") == "cluster"
-    assert ls.fwd_path(1024, 96, 96, 2, BF16, "fwd_infer") == "stack"
+        assert ls.fwd_path(B, 96, 96, 2, F32, "fwd_train_rc") == "stack"
+    assert ls.fwd_path(16, 96, 96, 2, F32, "fwd_infer") == "cluster"
+    assert ls.fwd_path(1024, 96, 96, 2, F32, "fwd_infer") == "stack"
     assert ls.fwd_path(16, 96, 96, 2, F32, "fwd_train") == "cluster"
     assert ls.fwd_path(1024, 96, 96, 2, F32, "fwd_train") == "stack"
     assert ls.fwd_path(1024, 96, 128, 4, BF16, "fwd_train") == "stack"
