@@ -104,12 +104,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  (`fwd_wave_split`, DINO)
  13. scan        K12-K14 (`lstm_scan`, one layer over a precomputed x_proj)
                  and its two gradients against the plain versions at T =
-                 460, H = 96, B = 1024 and 13, f32 and bf16, and the library
-                 call (cuDNN nn.LSTM(4H, H) with weight_ih = I over x_proj)
-                 against them in f32; the lab's baseline (forward, forward +
-                 backward of sum h_all) through kernels and plain versions;
-                 each kernel alone against plain and cuDNN; one grad call
-                 launches K13 and K14 once, a no-grad call K12
+                 460, H = 96, B = 1024, 16 and 13, f32 and bf16 (in bf16 K12
+                 and K13 on the scan's wavefront forward, in f32 on
+                 scan_fwd_kernel), and the library call (cuDNN nn.LSTM(4H,
+                 H) with weight_ih = I over x_proj) against them in f32; in
+                 bf16 the wavefront forward with one and with two CTAs a
+                 tile against its plain composition (`_scan_wave_ref`) and
+                 the plain versions, and K14 on its residuals; the lab's
+                 baseline (forward, forward + backward of sum h_all) through
+                 kernels and plain versions; each kernel alone against plain
+                 and cuDNN; `[scan paths]`: K12 and K13 through
+                 scan_fwd_kernel and the wavefront forward with one and two
+                 CTAs a tile at B = 1024, 16 and 2048, bf16; in bf16 and in f32
+                 one grad call launches K13 and K14 once, a no-grad call
+                 K12, in bf16 both on the wavefront forward
+                 (`scan_fwd_wave` or `scan_fwd_wave_split`)
 Every timing line gives the kernel's ms, its plain version's, its bound (the
 larger of its matrix-product operations over the H100's peak and its bytes,
 each input read and each output written once, over 3.35 TB/s) and the ms of
@@ -244,7 +253,13 @@ REPLACES.update({
     "scan_fwd_infer": "cerebra/models/pallas_lstm.py:99",
     "scan_fwd_train": "cerebra/models/pallas_lstm.py:126",
     "scan_bwd": "cerebra/models/pallas_lstm.py:167",
+    # K12 and K13 on the scan's wavefront forward (bf16); the rows above are
+    # scan_fwd_kernel's (f32)
+    "scan_fwd_infer_wave": "cerebra/models/pallas_lstm.py:99",
+    "scan_fwd_train_wave": "cerebra/models/pallas_lstm.py:126",
 })
+SCAN_KERNELS = ("scan_fwd_infer", "scan_fwd_train", "scan_bwd", "scan_fwd_infer_wave",
+                "scan_fwd_train_wave")
 
 # The least time the card could take for a kernel's work: the larger of its
 # operations over the H100 SXM's published peak (989 TFLOP/s on the bf16
@@ -1840,13 +1855,19 @@ def phase_rc(gpu: str) -> tuple:
 
 
 def phase_scan(gpu: str) -> tuple:
-    """Phase 12: K12-K14 and lstm_scan's two gradients against the plain
-    versions; the lab's baseline (forward alone, forward + backward of
-    Σ h_all) through the kernels and the plain versions; each kernel alone;
-    the launch check."""
+    """Phase 13: K12-K14 and lstm_scan's two gradients against the plain
+    versions; in bf16 K12 and K13 on the scan's wavefront forward with one
+    and with two CTAs a tile against its plain composition and the plain
+    versions, and K14 on its residuals; the lab's baseline (forward alone,
+    forward + backward of Σ h_all) through the kernels and the plain
+    versions; each kernel alone; `[scan paths]`: K12 and K13 through
+    scan_fwd_kernel and the wavefront forward at each CTA count; the launch
+    check in bf16 (the wavefront forward) and in f32 (scan_fwd_kernel)."""
     from cerebra_torch.kernels import LAUNCHES, reset_launches
     from cerebra_torch.models import lstm_scan as sc
     from cerebra_torch.models import lstm_stack as ls
+
+    bf16 = torch.bfloat16
 
     def case(B, dtype, seed):
         gen = torch.Generator().manual_seed(seed)
@@ -1862,14 +1883,15 @@ def phase_scan(gpu: str) -> tuple:
         return torch.autograd.grad(h.float().sum() if g is None else (h * g).sum(), (xs, ws))
 
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for B in (B_BIG, 13):
+    for dtype in (torch.float32, bf16):
+        for B in (B_BIG, 16, 13):
             tag = f"{str(dtype).split('.')[-1]} H={H_SCAN} T={T} B={B}"
             x_proj, w_hh, g = case(B, dtype, B)
-            e12 = compare(f"K12 h_all {tag}", sc.scan_fwd_infer(x_proj, w_hh),
+            route = f"ns {sc.scan_ns(B, H_SCAN, dtype)}"
+            e12 = compare(f"K12 h_all {tag} ({route})", sc.scan_fwd_infer(x_proj, w_hh),
                           sc._scan_fwd_infer_ref(x_proj, w_hh), dtype, False)
             want = sc._scan_fwd_train_ref(x_proj, w_hh)
-            e13 = max(compare(f"K13 {n} {tag}", a, b, dtype, False) for n, a, b in
+            e13 = max(compare(f"K13 {n} {tag} ({route})", a, b, dtype, False) for n, a, b in
                       zip(("h_all", "prefac", "qf"), sc.scan_fwd_train(x_proj, w_hh), want))
             e14 = compare(f"K14 dgates {tag}", sc.scan_bwd(g, *want[1:], w_hh),
                           sc._scan_bwd_ref(g, *want[1:], w_hh), dtype, True)
@@ -1877,6 +1899,22 @@ def phase_scan(gpu: str) -> tuple:
             for n, a, b in zip(("d x_proj", "d w_hh"), grads(sc.lstm_scan, x_proj, w_hh, g),
                                want_d):
                 compare(f"lstm_scan {n} {tag}", a, b, dtype, True)
+            if dtype == bf16:
+                # the wavefront forward at each CTA count: against its plain
+                # composition and the plain versions, and K14 on its residuals
+                for ns in (1, 2):
+                    wtag = f"{tag} (wavefront, {ns} CTA{'s' if ns > 1 else ''} a tile)"
+                    comp = sc._scan_wave_ref(x_proj, w_hh, True, ns)
+                    got = sc._fwd_cuda(x_proj, w_hh, False, ns=ns)
+                    for ref, against in ((comp[0], "its composition"), (want[0], "plain")):
+                        compare(f"K12 h_all {wtag} vs {against}", got, ref, dtype, False)
+                    got = sc._fwd_cuda(x_proj, w_hh, True, ns=ns)
+                    for ref, against in ((comp, "its composition"), (want, "plain")):
+                        for n, a, b in zip(("h_all", "prefac", "qf"), got, ref):
+                            compare(f"K13 {n} {wtag} vs {against}", a, b, dtype, False)
+                    compare(f"K14 dgates on K13's residuals, {wtag}", sc.scan_bwd(g, *got[1:], w_hh),
+                            sc._scan_bwd_ref(g, *got[1:], w_hh), dtype, True)
+                    del comp, got
             if dtype == torch.float32 and B == 13:
                 # the library column's call computes lstm_scan's function
                 lstm = cudnn_lstm(4 * H_SCAN, H_SCAN, 1, dtype, scan=True)
@@ -1890,14 +1928,17 @@ def phase_scan(gpu: str) -> tuple:
                     compare(f"cuDNN LSTM(4H, H) with weight_ih = I: {n} {tag}", a, b, dtype,
                             n != "h_all", TOL_CUDNN_SCAN)
                 del lstm, xs, h, d_x, d_wT
-            if dtype == torch.bfloat16 and B == B_BIG:
-                errs = {"scan_fwd_infer": e12, "scan_fwd_train": e13, "scan_bwd": e14}
+            if B == B_BIG:  # bf16: the wavefront forward's rows; f32: scan_fwd_kernel's
+                wave = "_wave" if dtype == bf16 else ""
+                errs.update({f"scan_fwd_infer{wave}": e12, f"scan_fwd_train{wave}": e13})
+                if dtype == bf16:
+                    errs["scan_bwd"] = e14
             del x_proj, w_hh, g, want, want_d
     torch.cuda.synchronize()
 
     times = {}
     cudnn_call = {"scan_fwd_infer": "infer", "scan_fwd_train": "train", "scan_bwd": "bwd_seq"}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, bf16):
         tag = f"{str(dtype).split('.')[-1]} H={H_SCAN} T={T} B={B_BIG}"
         x_proj, w_hh, g = case(B_BIG, dtype, 5)
         for what, kern, plain in (
@@ -1918,32 +1959,68 @@ def phase_scan(gpu: str) -> tuple:
             "scan_bwd": (lambda: sc.scan_bwd(g, *res[1:], w_hh),
                          lambda: sc._scan_bwd_ref(g, *res[1:], w_hh), (g, res[1:], w_hh)),
         }
+        ns = sc.scan_ns(B_BIG, H_SCAN, dtype)
         for name, (kern, plain, inputs) in rows.items():
             # library: nn.LSTM(4H, H) with weight_ih = I over x_proj, in this
             # row's dtype where cuDNN takes it
             lib = cudnn_ms(T, B_BIG, 4 * H_SCAN, H_SCAN, 1, cudnn_call[name], scan=True,
                            dtype=torch.float32 if dtype == torch.float32 else None)
             row = timing_row(kern, plain, inputs, mm, dtype, 5, 2, lib)
-            tile = (ls.scan_tile(B_BIG, H_SCAN, dtype) if name == "scan_bwd"
-                    else sc.pick_tile(B_BIG, H_SCAN))
-            log(f"[scan timing] {name} {tag} (tile {tile}): {fmt_row(row)}")
-            if dtype == torch.bfloat16:
-                times[name] = row
+            if name == "scan_bwd":
+                setting = f"tile {ls.scan_tile(B_BIG, H_SCAN, dtype)}"
+            elif ns:
+                setting = f"the wavefront forward, {ns} CTA{'s' if ns > 1 else ''} a tile"
+            else:
+                setting = f"scan_fwd_kernel, tile {sc.pick_tile(B_BIG, H_SCAN)}"
+            log(f"[scan timing] {name} {tag} ({setting}): {fmt_row(row)}")
+            if name == "scan_bwd":
+                if dtype == bf16:
+                    times[name] = row
+            else:  # bf16: the wavefront forward's rows; f32: scan_fwd_kernel's
+                times[name + ("_wave" if dtype == bf16 else "")] = row
         del x_proj, w_hh, g, res
 
-    x_proj, w_hh, _ = case(B_BIG, torch.bfloat16, 6)
-    reset_launches()
-    d = grads(sc.lstm_scan, x_proj, w_hh)
-    with torch.no_grad():
-        h = sc.lstm_scan(x_proj, w_hh)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    log(f"[scan] one grad and one no-grad call of lstm_scan: launches {launches}")
-    want = {"scan_fwd_train": 1, "scan_bwd": 1, "scan_fwd_infer": 1}
-    if {k: launches[k] for k in want} != want:
-        raise AssertionError(f"launches {launches}, expected {want}")
-    if tuple(h.shape) != (T, B_BIG, H_SCAN) or not all(torch.isfinite(t).all() for t in (h, *d)):
-        raise AssertionError("lstm_scan gave a wrong shape or non-finite values")
+    # K12 and K13 through each kernel at the batches that set scan_path: the
+    # bench batch, the CLI's, and 128 tiles (two CTAs of the split an SM)
+    for B in (B_BIG, 16, 2 * B_BIG):
+        x_proj, w_hh, _ = case(B, bf16, 9)
+        ms = {(kind, ns): time_ms(functools.partial(sc._fwd_cuda, x_proj, w_hh, train, ns=ns), 5)
+              for kind, train in (("K12", False), ("K13", True)) for ns in (0, 1, 2)}
+        line = "; ".join(f"{kind} " + ", ".join(
+            f"{'scan_fwd_kernel' if ns == 0 else f'wavefront {ns} CTA' + ('s' if ns > 1 else '')}"
+            f" {ms[(kind, ns)]:.3f}" for ns in (0, 1, 2)) + " ms" for kind in ("K12", "K13"))
+        log(f"[scan paths] bf16 H={H_SCAN} T={T} B={B}: {line}; scan_path takes "
+            f"{sc.scan_ns(B, H_SCAN, bf16)} CTAs a tile (clusters at once "
+            f"{sc.scan_wave_clusters(H_SCAN, 1)} / {sc.scan_wave_clusters(H_SCAN, 2)}) on {gpu}")
+        del x_proj, w_hh
+
+    # the main path: one grad and one no-grad call in bf16 (the wavefront
+    # forward) and in f32 (scan_fwd_kernel), the counts zeroed before each
+    launches = {}
+    for dtype in (bf16, torch.float32):
+        x_proj, w_hh, _ = case(B_BIG, dtype, 6)
+        ns = sc.scan_ns(B_BIG, H_SCAN, dtype)
+        reset_launches()
+        d = grads(sc.lstm_scan, x_proj, w_hh)
+        with torch.no_grad():
+            h = sc.lstm_scan(x_proj, w_hh)
+        torch.cuda.synchronize()
+        n = dict(LAUNCHES)
+        log(f"[scan] one grad and one no-grad call of lstm_scan, {str(dtype).split('.')[-1]} "
+            f"B={B_BIG}: launches {n}")
+        want = {"scan_fwd_train": 1, "scan_bwd": 1, "scan_fwd_infer": 1,
+                "scan_fwd_wave": 2 if ns == 1 else 0, "scan_fwd_wave_split": 2 if ns == 2 else 0}
+        if {k: n[k] for k in want} != want:
+            raise AssertionError(f"launches {n}, expected {want}")
+        if tuple(h.shape) != (T, B_BIG, H_SCAN) or not all(torch.isfinite(t).all()
+                                                           for t in (h, *d)):
+            raise AssertionError("lstm_scan gave a wrong shape or non-finite values")
+        if dtype == bf16:
+            launches.update({"scan_fwd_infer_wave": n["scan_fwd_infer"],
+                             "scan_fwd_train_wave": n["scan_fwd_train"], "scan_bwd": n["scan_bwd"]})
+        else:
+            launches.update({k: n[k] for k in ("scan_fwd_infer", "scan_fwd_train")})
+        del x_proj, w_hh, d, h
     return errs, times, launches
 
 
@@ -1986,8 +2063,7 @@ def main() -> None:
         times.update(t)
         launches.update({k: n[k] for k in t})
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
-    sources = dict(VIT_SOURCES, **dict.fromkeys(("scan_fwd_infer", "scan_fwd_train", "scan_bwd"),
-                                                SCAN_SOURCE))
+    sources = dict(VIT_SOURCES, **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
     kernels = [
         {"name": name, "route": "cuda", "source": sources.get(name, SOURCE),
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -1996,7 +2072,7 @@ def main() -> None:
                      "fwd_infer_last", "fwd_wave", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
                      "fwd_cluster_scan", "bwd_general", "fwd_train_rc", "fwd_infer_wave",
                      "fwd_train_rc_split", "fwd_infer_split",
-                     "bwd_rc", *RC_PIECES, "scan_fwd_infer", "scan_fwd_train", "scan_bwd")
+                     "bwd_rc", *RC_PIECES, *SCAN_KERNELS)
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,8 @@ and its two pieces, the input product and the cluster scan, K1/K3's
 wavefront forward (K1, K3, K4, K10; K4 and K10 also on its split
 layer), K10, K11 and its
 pieces per
-time chunk; the scan's K12-K14) and the ViT kernels (K5-K8) against
+time chunk; the scan's K12-K14, K12/K13 also on its wavefront forward) and
+the ViT kernels (K5-K8) against
 their plain PyTorch versions on the card (K7/K8 also piece by piece: the
 fused dh kernel and each product alone), over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
@@ -904,6 +905,90 @@ def test_rc_and_scan_wrappers_raise_instead_of_falling_back(cuda):
         sc.scan_fwd_train(x_proj, w_hh, tile=3)
     with pytest.raises(ValueError):
         sc.scan_bwd(g[:, :, :-1].contiguous(), *sc.scan_fwd_train(x_proj, w_hh)[1:], w_hh)
+
+
+
+# The scan's wavefront forward (K12/K13 in bf16): (T, B, H) at the bench
+# batch, the CLI's and a ragged one at the Perils width, the DINO-LSTM's H =
+# 128 (two CTAs a tile only) and H = 48 (one only), each with every CTA
+# count the width takes.
+WAVE_SCAN_SHAPES = [(20, 1024, 96), (20, 16, 96), (20, 13, 96), (9, 13, 128), (7, 40, 48)]
+WAVE_SCAN_CASES = [(shape, ns) for shape in WAVE_SCAN_SHAPES for ns in (1, 2)
+                   if shape[2] % (16 * ns) == 0 and 4 * shape[2] // ns <= 384]
+
+
+@pytest.mark.parametrize("shape, ns", WAVE_SCAN_CASES, ids=str)
+def test_scan_wave_matches_its_composition_and_plain(cuda, shape, ns):
+    """K12 and K13 on the scan's wavefront forward with `ns` CTAs a tile
+    against its plain composition and the plain versions, every output; K14
+    on its residuals; a second run gives the same bits."""
+    from cerebra_torch.models import lstm_scan as sc
+
+    bf = torch.bfloat16
+    x_proj, w_hh, g = scan_case(shape, bf, cuda, seed=ns)
+    ls.reset_launches()
+    h = sc._fwd_cuda(x_proj, w_hh, False, ns=ns)
+    res = sc._fwd_cuda(x_proj, w_hh, True, ns=ns)
+    name = "scan_fwd_wave_split" if ns == 2 else "scan_fwd_wave"
+    assert ls.LAUNCHES[name] == 2 and ls.LAUNCHES["scan_fwd_wave" if ns == 2 else
+                                                   "scan_fwd_wave_split"] == 0
+    comp = sc._scan_wave_ref(x_proj, w_hh, True, ns)
+    plain = sc._scan_fwd_train_ref(x_proj, w_hh)
+    for want in (comp, plain):
+        assert_close(h, want[0], bf)
+        for a, b in zip(res, want):
+            assert_close(a, b, bf)
+    assert_close(sc.scan_bwd(g, *res[1:], w_hh), sc._scan_bwd_ref(g, *res[1:], w_hh), bf,
+                 grad=True)
+    assert torch.equal(h, sc._fwd_cuda(x_proj, w_hh, False, ns=ns))
+    assert all(torch.equal(a, b) for a, b in zip(res, sc._fwd_cuda(x_proj, w_hh, True, ns=ns)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("B", [1024, 13])
+def test_scan_wave_routes_and_gives_the_plain_gradients(cuda, B):
+    """lstm_scan in bf16 at H = 96: K13 on the wavefront forward with the
+    CTAs a tile `scan_ns` picks, then K14, both gradients as through the
+    plain versions; without grad K12 on it."""
+    from cerebra_torch.models import lstm_scan as sc
+
+    x_proj, w_hh, g = scan_case((30, B, 96), torch.bfloat16, cuda, seed=B)
+    ns = sc.scan_ns(B, 96, torch.bfloat16)
+    assert ns in (1, 2)
+    grads = []
+    ls.reset_launches()
+    for fn in (sc.lstm_scan, sc.lstm_scan_ref):
+        xs, ws = x_proj.clone().requires_grad_(True), w_hh.clone().requires_grad_(True)
+        (fn(xs, ws) * g).sum().backward()
+        grads.append((xs.grad, ws.grad))
+    for a, b in zip(*grads):
+        assert_close(a, b, torch.bfloat16, grad=True)
+    with torch.no_grad():
+        assert_close(sc.lstm_scan(x_proj, w_hh), sc._scan_fwd_infer_ref(x_proj, w_hh),
+                     torch.bfloat16)
+    name = "scan_fwd_wave_split" if ns == 2 else "scan_fwd_wave"
+    want = {"scan_fwd_train": 1, "scan_bwd": 1, "scan_fwd_infer": 1, name: 2}
+    assert {k: ls.LAUNCHES[k] for k in want} == want, ls.LAUNCHES
+
+
+def test_scan_wave_layout_and_refusals(cuda):
+    """The kernel's shared memory is `scan_wave_smem`'s at every width it
+    takes; a width it does not take raises before any launch."""
+    from cerebra_torch.models import lstm_scan as sc
+
+    lib = sc._lib()
+    for H in range(16, 129, 16):
+        for ns in (1, 2):
+            if sc.scan_wave_fits(H, torch.bfloat16, ns):
+                assert lib.cerebra_scan_wave_smem(H, ns) == sc.scan_wave_smem(H, ns)
+                assert sc.scan_wave_clusters(H, ns) > 0
+    x_proj, w_hh, _ = scan_case((3, 5, 128), torch.bfloat16, cuda)
+    ls.reset_launches()
+    with pytest.raises(ValueError):
+        sc._fwd_cuda(x_proj, w_hh, False, ns=1)  # 512 threads
+    with pytest.raises(ValueError):
+        sc._fwd_cuda(x_proj.float(), w_hh.float(), False, ns=2)  # f32
+    assert ls.LAUNCHES["scan_fwd_wave"] == ls.LAUNCHES["scan_fwd_wave_split"] == 0
 
 
 # ------------------------------------------------ fused ViT half-blocks K5–K8
