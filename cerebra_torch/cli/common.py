@@ -1,5 +1,6 @@
-"""Shared CLI plumbing: the reference flag set, the device, and corpus /
-teacher-feature loading (port of cerebra/cli/common.py)."""
+"""Shared CLI plumbing: the reference flag set, the device, corpus /
+teacher-feature loading (port of cerebra/cli/common.py), and the body the
+two KD/cosine trainers share."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import numpy as np
 import torch
 
 from cerebra_torch.data import EEGCorpus, make_synthetic_corpus, random_split_indices
-from cerebra_torch.utils.config import bool_flag, parse_hyperparams
+from cerebra_torch.train.recipes import FeatureDistillConfig, feature_distill_train
+from cerebra_torch.utils.config import bool_flag, is_main_process, parse_hyperparams
 
 
 def reference_argparser(description: str) -> argparse.ArgumentParser:
@@ -134,3 +136,29 @@ def split_train_val(FLAGS, corpus: EEGCorpus) -> Tuple[np.ndarray, np.ndarray]:
 
 def parsed_hyperparams(FLAGS) -> dict:
     return parse_hyperparams(FLAGS.hyperprams)
+
+
+def run_feature_distill(FLAGS, cfg_kwargs: dict, weights_name: str):
+    """The shared body of the KD/cosine trainers: corpus, teacher features,
+    the 80/20 split, the recipe, and the best-loss weights written as
+    `weights_name` in `--log_dir` (rank 0) → (model, history)."""
+    device = resolve_device(FLAGS)
+    os.makedirs(FLAGS.log_dir, exist_ok=True)
+    corpus = load_corpus(FLAGS)
+    feats = load_teacher_features(FLAGS, corpus)
+    train_idx, val_idx = split_train_val(FLAGS, corpus)
+    cfg = FeatureDistillConfig(
+        num_epochs=FLAGS.num_epochs, batch_size=FLAGS.batch_size,
+        learning_rate=FLAGS.learning_rate, lstm_size=corpus.n_channels, lstm_layers=4,
+        top_k=FLAGS.topK, seed=FLAGS.seed,
+        dtype=torch.bfloat16 if FLAGS.use_bf16 else None, **cfg_kwargs,
+    )
+    model, hist = feature_distill_train(
+        corpus.eeg[train_idx], feats[train_idx], corpus.labels[train_idx],
+        corpus.eeg[val_idx], feats[val_idx], corpus.labels[val_idx],
+        device=device, config=cfg, n_classes=corpus.catalog.n_classes,
+    )
+    best_params = hist["best_params"][0]
+    if best_params is not None and is_main_process():
+        torch.save(best_params, os.path.join(FLAGS.log_dir, weights_name))
+    return model, hist

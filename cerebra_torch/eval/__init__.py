@@ -1,1 +1,2 @@
-"""Retrieval evaluation."""
+"""Retrieval evaluation: exact L2 top-k, recall/precision and the score
+artifacts."""

@@ -4,21 +4,32 @@ kernel.
 
 Each wrapper module adds its kernels' names to `LAUNCHES` when it is
 imported and adds one to a name where it launches that kernel, and nowhere
-else, so a run can show that its main path went through the kernels."""
+else, so a run can show that its main path went through the kernels.
+`LAUNCH_SHAPES` counts the same launches by (kernel, shape) where a
+wrapper passes a launch's shape to `count_shape`, so a run can show which
+shapes its launches took."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 LAUNCHES: Dict[str, int] = {}
+LAUNCH_SHAPES: Dict[Tuple, int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def count_shape(name: str, *shape: int) -> None:
+    """One launch of `name` at `shape`, beside the `LAUNCHES[name]` bump."""
+    key = (name, *shape)
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
 def on_cuda(*tensors: Optional[torch.Tensor]) -> bool:

@@ -1,4 +1,5 @@
-"""FeatureDistributionLoss v1 (port of cerebra/losses/feature_dist.py:18-39)."""
+"""FeatureDistributionLoss v1, v2 and v3 (port of
+cerebra/losses/feature_dist.py)."""
 
 from __future__ import annotations
 
@@ -38,3 +39,28 @@ def feature_distribution_loss_v1(
     student_soft = F.softmax(student_outputs.float() / temperature, dim=-1)
     term2 = beta * _softmax_ce_with_prob_targets(teacher_soft, student_soft)
     return term1.float() + term2
+
+
+def feature_distribution_loss_v2(student_outputs: torch.Tensor,
+                                 teacher_outputs: torch.Tensor) -> torch.Tensor:
+    """LstmDistillation.py:161-172 (mean/std matching), port of
+    cerebra/losses/feature_dist.py:46-54:
+    0.4·MSE(σ_s,σ_t) + 0.4·MSE(μ_s,μ_t) + 0.2·MSE(s,t), the mean and std
+    scalars over ALL elements, std unbiased (ddof = 1)."""
+    s_mean, s_std = student_outputs.mean(), student_outputs.std(correction=1)
+    t_mean, t_std = teacher_outputs.mean(), teacher_outputs.std(correction=1)
+    mse = torch.mean((student_outputs - teacher_outputs) ** 2)
+    return 0.4 * (s_std - t_std) ** 2 + 0.4 * (s_mean - t_mean) ** 2 + 0.2 * mse
+
+
+def feature_distribution_loss_v3(student_outputs: torch.Tensor, teacher_outputs: torch.Tensor,
+                                 temperature: float) -> torch.Tensor:
+    """LstmDistillFromDinoV2Eval.py:106-146 (soft-target KL · T²), port of
+    cerebra/losses/feature_dist.py:57-71: sum(p_T·(log p_T − log q_T))/B·T².
+    p is clipped at 1e-30 before its log, the JAX package's deliberate
+    deviation: a teacher class that underflows to 0 adds 0, not NaN."""
+    T = temperature
+    p = F.softmax(teacher_outputs / T, dim=-1)
+    log_q = F.log_softmax(student_outputs / T, dim=-1)
+    B = student_outputs.shape[0]
+    return torch.sum(p * (torch.log(torch.clamp(p, min=1e-30)) - log_q)) / B * (T ** 2)

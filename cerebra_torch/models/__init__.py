@@ -6,4 +6,10 @@ from cerebra_torch.models.autoencoders import (  # noqa: F401
     RecurrentAutoencoder,
     feature_matching_loss,
 )
-from cerebra_torch.models.lstm import InlineLSTM, LSTMStack, Model, params_from_jax  # noqa: F401
+from cerebra_torch.models.lstm import (  # noqa: F401
+    InlineLSTM,
+    LSTMStack,
+    Model,
+    model_from_state_dict,
+    params_from_jax,
+)

@@ -13,7 +13,7 @@ checkpoint is `state_dict()`, the layout that
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,19 +97,24 @@ class Model(nn.Module):
       features_only=True → h[T−1] (B, lstm_size);
       include_top=False  → features (B, output_size);
       include_top=True   → (features, class logits (B, n_classes)).
-    """
 
-    def __init__(self, input_size: int, lstm_size: int, lstm_layers: int, output_size: int,
-                 include_top: bool = True, n_classes: int = 40,
+    `output_size=None` builds the stack alone, under `lstm.*`, and forward
+    returns h[T−1]: the DINO-LSTM backbone, whose flax params hold only
+    `lstm` because the JAX recipe initialises `Model` with
+    features_only=True (cerebra/train/recipes.py:331-341)."""
+
+    def __init__(self, input_size: int, lstm_size: int, lstm_layers: int,
+                 output_size: Optional[int], include_top: bool = True, n_classes: int = 40,
                  dtype: Optional[torch.dtype] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.include_top = include_top
+        self.include_top = include_top and output_size is not None
         self.dtype = dtype
         self.lstm = LSTMStack(input_size, lstm_size, lstm_layers, dtype, device, generator,
                               last_state_only=True)
-        self.fc = _linear(lstm_size, output_size, generator, device)
-        if include_top:
+        if output_size is not None:
+            self.fc = _linear(lstm_size, output_size, generator, device)
+        if self.include_top:
             self.head = _linear(output_size, n_classes, generator, device)
 
     def top(self, h_last: torch.Tensor):
@@ -121,7 +126,7 @@ class Model(nn.Module):
 
     def forward(self, x: torch.Tensor, features_only: bool = False):
         h_last = self.lstm(x)
-        if features_only:
+        if features_only or not hasattr(self, "fc"):
             return h_last
         return self.top(h_last)
 
@@ -187,3 +192,39 @@ def params_from_jax(params) -> dict:
 
     walk("", p)
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def strip_prefixes(state_dict, prefixes: Sequence[str] = ("module.", "backbone.")) -> dict:
+    """{key: tensor} with each listed prefix a key starts with removed, in
+    order, once each (cerebra/models/lstm.py::import_torch_state_dict;
+    utils/utils.py:71-109, LstmDistillFromDinoV2Eval.py:309-313), as f32
+    CPU tensors."""
+    out = {}
+    for k, v in state_dict.items():
+        for pref in prefixes:
+            if k.startswith(pref):
+                k = k[len(pref):]
+        out[k] = (v.detach().to("cpu", torch.float32) if torch.is_tensor(v)
+                  else torch.as_tensor(np.asarray(v, dtype=np.float32)))
+    return out
+
+
+def model_from_state_dict(state_dict, input_size: int, dtype: Optional[torch.dtype] = None,
+                          device=None) -> Model:
+    """A `Model` loaded from a `.pth` state dict in the reference layout
+    (port of load_model_params, cerebra/cli/lstm_distill_from_dinov2_eval.py:
+    33-74), its shape read from the weights: the LSTM size from
+    `lstm.weight_hh_l0`, the depth from the highest layer index, the
+    feature width from `fc.weight` and the class count from `head.weight`.
+    A state dict without `fc` (a DINO backbone) gives the stack alone
+    (`output_size=None`); without `head`, no top. `module.` and `backbone.`
+    prefixes are stripped first."""
+    sd = strip_prefixes(state_dict)
+    lstm_size = int(sd["lstm.weight_hh_l0"].shape[1])
+    layers = 1 + max(int(k.rsplit("_l", 1)[1]) for k in sd if k.startswith("lstm.weight_hh_l"))
+    output_size = int(sd["fc.weight"].shape[0]) if "fc.weight" in sd else None
+    n_classes = int(sd["head.weight"].shape[0]) if "head.weight" in sd else 40
+    model = Model(input_size, lstm_size, layers, output_size, include_top="head.weight" in sd,
+                  n_classes=n_classes, dtype=dtype, device=device)
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -84,6 +84,7 @@ import torch
 from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exported)
     LAUNCHES,
     check_rc,
+    count_shape,
     load_lib,
     on_cuda,
     ptr,
@@ -1014,6 +1015,7 @@ def _fwd_cuda(x, layers, kind: str, tile=None):
     )
     check_rc(lib, rc, kind)
     LAUNCHES[kind] += 1
+    count_shape(kind, B, T)
     if kind == "fwd_train":
         return h_all, prefac, qf
     return (h_all, c_all) if kind == "fwd_train_rc" else out
@@ -1091,6 +1093,7 @@ def _fwd_cluster_cuda(x, layers, kind: str, n: int):
 
     top = _fwd_layerwise(x, layers, lambda inp, w_ih: _in_product_cuda(inp, w_ih, P), scan)
     LAUNCHES[kind] += 1
+    count_shape(kind, B, T)
     return (h_all, prefac, qf) if train else top
 
 
@@ -1134,6 +1137,7 @@ def _fwd_wave_cuda(x, layers, kind: str, split: bool = False, mt=None):
     check_rc(lib, rc, name)
     LAUNCHES[name] += 1
     LAUNCHES[kind] += 1
+    count_shape(kind, B, T)
     if kind == "fwd_train":
         return h_all, prefac, qf
     return (h_all, c_all) if kind == "fwd_train_rc" else out
@@ -1274,7 +1278,9 @@ def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
                               scratch)
 
     result = _bwd_layerwise(g, x, layers, h_all, prefac, qf, need_dx, scan, products)
-    LAUNCHES["bwd_general" if g_full or need_dx else "bwd"] += 1
+    kind = "bwd_general" if g_full or need_dx else "bwd"
+    LAUNCHES[kind] += 1
+    count_shape(kind, B, T)
     return result
 
 

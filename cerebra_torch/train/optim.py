@@ -1,8 +1,8 @@
 """Optimizers (port of cerebra/train/optim.py and
-cerebra/train/steps.py::make_scheduled_optimizer): RMSprop for the
-LSTM→DINOv2 trainer, and the DINO recipe's AdamW with per-step lr and weight
-decay, the reference's param groups, per-parameter clipping and the
-last-layer cancel."""
+cerebra/train/steps.py::make_scheduled_optimizer): the reference zoo
+{adamw, adam, sgd, rmsprop, lars} with its param groups and per-parameter
+clipping, and the DINO recipes' AdamW with per-step lr and weight decay and
+the last-layer cancel."""
 
 from __future__ import annotations
 
@@ -13,14 +13,101 @@ import torch
 from torch import nn
 
 
+def decay_groups(params: Iterable[torch.nn.Parameter], weight_decay: float,
+                 masked: bool) -> list:
+    """The reference's two param groups (utils/utils.py:636-647): weight
+    decay on the parameters with ndim > 1, none on biases and other 1-D
+    parameters (`no_weight_decay_mask`), each group marked `decayed`. Not
+    `masked`: one group of every parameter, with the decay. Empty groups
+    are left out."""
+    params = list(params)
+    decayed = (lambda p: p.dim() > 1) if masked else (lambda p: True)
+    groups = [{"params": [p for p in params if decayed(p)], "weight_decay": weight_decay,
+               "decayed": True},
+              {"params": [p for p in params if not decayed(p)], "weight_decay": 0.0,
+               "decayed": False}]
+    return [g for g in groups if g["params"]]
+
+
+class Lars(torch.optim.Optimizer):
+    """optax.lars in optax's order (cerebra/train/optim.py:98-105): the
+    decayed weights (g + wd·p), then the trust ratio
+    coefficient·‖p‖/(‖u‖ + eps), 1 where either norm is 0, then the
+    learning rate (−lr·u), then momentum as a trace (t = u + m·t₋₁, the
+    step adds t). A group's `trust_ratio` False skips the ratio (optax's
+    `trust_ratio_mask`). torch has no LARS."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, momentum: float = 0.9,
+                 trust_coefficient: float = 1e-3, eps: float = 0.0, trust_ratio: bool = True):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, momentum=momentum,
+                                      trust_coefficient=trust_coefficient, eps=eps,
+                                      trust_ratio=trust_ratio))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                if group["trust_ratio"]:
+                    p_norm, u_norm = torch.linalg.norm(p), torch.linalg.norm(u)
+                    ratio = group["trust_coefficient"] * p_norm / (u_norm + group["eps"])
+                    u = u * torch.where((p_norm == 0) | (u_norm == 0),
+                                        torch.ones_like(ratio), ratio)
+                u = -group["lr"] * u
+                state = self.state[p]
+                if "trace" in state:
+                    u = u + group["momentum"] * state["trace"]
+                state["trace"] = u
+                p.add_(u)
+        return loss
+
+
 def make_optimizer(name: str, params: Iterable[torch.nn.Parameter],
-                   learning_rate: float = 1e-3) -> torch.optim.Optimizer:
-    """`rmsprop` is torch.optim.RMSprop with alpha 0.99 and eps 1e-8 added
-    outside the sqrt — the rule the JAX package's optax chain was pinned to
-    (cerebra/train/optim.py:86-91). Other optimizers are not ported yet."""
-    if name == "rmsprop":
-        return torch.optim.RMSprop(params, lr=learning_rate, alpha=0.99, eps=1e-8)
-    raise NotImplementedError(f"optimizer {name!r} is not ported yet (rmsprop only)")
+                   learning_rate: float = 1e-3, weight_decay: float = 0.0,
+                   clip_grad: Optional[float] = None, momentum: float = 0.9,
+                   masked: bool = False) -> torch.optim.Optimizer:
+    """The reference optimizer zoo (port of cerebra/train/optim.py:61-110),
+    name in {adamw, adam, sgd, rmsprop, lars}. `masked` is the port of the
+    JAX function's `params_mask_source`: True masks the decay (and LARS's
+    trust ratio) to ndim > 1; the default applies them to every parameter,
+    as the JAX function does without a mask source (its recipes call it
+    so, with no decay).
+
+    - adamw: decoupled decay, torch.optim.AdamW (optax.adamw's order).
+    - adam, sgd (momentum), rmsprop: decay *coupled* into the gradient
+      before the moments, as optax chains `add_decayed_weights` ahead of the
+      inner transform; torch's `weight_decay=` on these does the same.
+      rmsprop is alpha 0.99, eps 1e-8 outside the sqrt.
+    - lars: `Lars`, coefficient 1e-3, eps 0, the trust ratio masked like
+      the decay, momentum `momentum`.
+    With `clip_grad`, each parameter's gradient is clipped on its own
+    (`per_param_clip`) ahead of every step, by a step pre-hook."""
+    params = [p for p in params if p.requires_grad]
+    groups = decay_groups(params, weight_decay, masked)
+    if name == "adamw":
+        opt = torch.optim.AdamW(groups, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "adam":
+        opt = torch.optim.Adam(groups, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "sgd":
+        opt = torch.optim.SGD(groups, lr=learning_rate, momentum=momentum)
+    elif name == "rmsprop":
+        opt = torch.optim.RMSprop(groups, lr=learning_rate, alpha=0.99, eps=1e-8)
+    elif name == "lars":
+        opt = Lars([dict(g, trust_ratio=g["decayed"]) for g in groups], lr=learning_rate,
+                   momentum=momentum)
+    else:
+        raise ValueError(f"unknown optimizer: {name}")
+    if clip_grad is not None:
+        opt.register_step_pre_hook(lambda *_: per_param_clip(params, clip_grad))
+    return opt
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -95,3 +182,10 @@ class ScheduledAdamW:
                 if group["decay"] else 0.0
         self.inner.step()
         self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        self.count = int(state["count"])

@@ -119,6 +119,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  one grad call launches K13 and K14 once, a no-grad call
                  K12, in bf16 both on the wavefront forward
                  (`scan_fwd_wave` or `scan_fwd_wave_split`)
+ 14. lstm family K1, K2 and K3 against their plain versions, f32 and bf16, at
+                 the LSTM CLI family's shapes: the DINO-LSTM backbone (C 96,
+                 H 128, L 4) over its crops, B = 16, T = 300 and B = 32,
+                 T = 200; `lstm_distill`'s C = H = 96, L = 4 and the
+                 Spampinato rig's C = H = 128, L = 4, B = 16, T = 460; K3
+                 also at the eval's gallery (B = 320, C 96, H 128) and at
+                 `lstm_distill`'s validation gallery; `lstm_distillation.main`
+                 at its full-width defaults (Model(96, 128, 4) + DINOHead
+                 128 -> 384, 2 x 300 + 4 x 200 crops, batch 8, bf16) on 40
+                 classes x 10 trials for 2 epochs: finite losses,
+                 checkpoint.pth, log.txt, and every step 2 K1, 2 K2 and 1 K3;
+                 the eval CLI on that checkpoint (its teacher's backbone, K3
+                 on h[T-1]) and on phase 4's weights: the three score files,
+                 finite R/P, K3 for the gallery and the query; `lstm_distill`
+                 and the Spampinato trainer for 2 epochs; `[lstm dino step]`
+                 (ms/step, windows/s), `[lstm dino profile]` (device time by
+                 part, the teacher's K3 apart, the idle share) and `[lstm
+                 family timing]` (each kernel at each shape against plain,
+                 bound and cuDNN)
 Every timing line gives the kernel's ms, its plain version's, its bound (the
 larger of its matrix-product operations over the H100's peak and its bytes,
 each input read and each output written once, over 3.35 TB/s) and the ms of
@@ -2024,6 +2043,360 @@ def phase_scan(gpu: str) -> tuple:
     return errs, times, launches
 
 
+# Phase 14: the LSTM CLI family's shapes, (B, T, C, H, L): the DINO-LSTM
+# backbone Model(96, 128, 4) over its 2 x 300 global and 4 x 200 local crops
+# at batch 8 (`lstm_distillation`: K1/K2 at B = 16 and 32, the teacher's K3
+# at 16), `lstm_distill`'s 4-layer stack at the Perils width and the
+# Spampinato rig's (`lstm_distill_from_dinov2_train_spampinato`), each at the
+# CLI's batch 16 over T = 460.
+FAMILY_SHAPES = {"dino_global": (16, 300, 96, 128, 4), "dino_local": (32, 200, 96, 128, 4),
+                 "distill": (16, T, 96, 96, 4), "spampinato": (16, T, 128, 128, 4)}
+# K3 alone, at the galleries of 40 classes x 10 trials (80 %: B = 320) and in
+# the dtype its main path runs: the eval CLI over a DINO checkpoint's backbone
+# (f32, as the eval runs) and `lstm_distill`'s validation (bf16)
+FAMILY_K3_SHAPES = {"eval": ((320, T, 96, 128, 4), torch.float32),
+                    "distill_val": ((320, T, 96, 96, 4), torch.bfloat16)}
+FAMILY_CLASSES, FAMILY_TRIALS = 40, 10
+# the kernels line's entries of phase 14: name -> (kernel, shape, dtype)
+FAMILY_KERNELS = {
+    "fwd_train_dino_global": ("fwd_train", "dino_global", torch.bfloat16),
+    "bwd_dino_global": ("bwd", "dino_global", torch.bfloat16),
+    "fwd_infer_last_dino_global": ("fwd_infer_last", "dino_global", torch.bfloat16),
+    "fwd_train_dino_local": ("fwd_train", "dino_local", torch.bfloat16),
+    "bwd_dino_local": ("bwd", "dino_local", torch.bfloat16),
+    "fwd_infer_last_eval": ("fwd_infer_last", "eval", torch.float32),
+    "fwd_train_distill": ("fwd_train", "distill", torch.bfloat16),
+    "bwd_distill": ("bwd", "distill", torch.bfloat16),
+    "fwd_infer_last_distill": ("fwd_infer_last", "distill_val", torch.bfloat16),
+    "fwd_train_spampinato": ("fwd_train", "spampinato", torch.bfloat16),
+    "bwd_spampinato": ("bwd", "spampinato", torch.bfloat16),
+}
+REPLACES.update({name: REPLACES[k] for name, (k, _, _) in FAMILY_KERNELS.items()})
+# the run of family_clis that drives each shape
+FAMILY_RUNS = {"dino_global": "dino", "dino_local": "dino", "eval": "eval_dino",
+               "distill": "distill", "distill_val": "distill", "spampinato": "spampinato"}
+# the DINO-LSTM step's kernels by name fragment (first match wins): K1 runs
+# the cluster path there, so `lstm_fwd_kernel` is the teacher's K3 alone;
+# the port's own products are in namespace vit (cuBLAS's, the head's, are not)
+DINO_LSTM_PARTS = (("lstm_fwd_kernel", "K3 teacher forward"),
+                   ("cluster_scan", "K1 cluster scans"),
+                   ("gemm_tc<false, false, vit::EpiF32>", "K1 input products"),
+                   ("scan_bwd_kernel", "K2 scans"), ("vit::", "K2 products"),
+                   ("col_sum_groups", "K2 products"), ("fold_groups", "K2 products"))
+
+
+def family_case(label: str, dtype: torch.dtype, seed: int):
+    shape = FAMILY_SHAPES[label] if label in FAMILY_SHAPES else FAMILY_K3_SHAPES[label][0]
+    B, T_, C_, H_, L_ = shape
+    return make_stack(B, dtype, seed, C=C_, H=H_, L=L_, T=T_), shape
+
+
+def family_parity() -> dict:
+    """(a) K1, K2 and K3 against their plain versions at every shape of the
+    family, f32 and bf16 (K2 on the plain forward's residuals), and K3 at
+    the galleries → the largest error by (kernel, shape, dtype)."""
+    from cerebra_torch.models import lstm_stack as ls
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        for i, label in enumerate((*FAMILY_SHAPES, *FAMILY_K3_SHAPES)):
+            (x, layers, g), (B, T_, C_, H_, L_) = family_case(label, dtype, 40 + i)
+            tag = f"{label} B={B} T={T_} C={C_} H={H_} L={L_} {dt}"
+            errs[("fwd_infer_last", label, dtype)] = compare(
+                f"K3 h[T-1] {tag}", ls.fwd_infer_last(x, layers),
+                ls._fwd_infer_last_ref(x, layers), dtype, False)
+            if label in FAMILY_SHAPES:
+                want = ls._fwd_train_ref(x, layers)
+                errs[("fwd_train", label, dtype)] = max(
+                    compare(f"K1 {n} {tag} ({ls.fwd_path(B, C_, H_, L_, dtype, 'fwd_train')})",
+                            a, b, dtype, False)
+                    for n, a, b in zip(("h_all", "prefac", "qf"), ls.fwd_train(x, layers), want))
+                _, got_g = ls.bwd(g, x, layers, *want)
+                _, want_g = ls._bwd_ref(g, x, layers, *want)
+                errs[("bwd", label, dtype)] = max(
+                    compare(f"K2 {n}[{l}] {tag}", a, b, dtype, True)
+                    for l in range(L_) for n, a, b in zip(("dW_ih", "dW_hh", "db"), got_g[l],
+                                                          want_g[l]))
+                del want, got_g, want_g
+            torch.cuda.synchronize()
+            del x, layers, g
+    return errs
+
+
+def family_run(what: str, fn, argv, check) -> tuple:
+    """One CLI's `main(argv)` with the launch counts zeroed just before and
+    read just after → (its result, the counts, seconds): the counts by
+    kernel name and, under (kernel, B, T) keys, by shape; `check(result,
+    launches)` raises on a wrong result or a path that missed its kernels."""
+    from cerebra_torch.kernels import LAUNCH_SHAPES, LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {**LAUNCHES, **LAUNCH_SHAPES}
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"[lstm family] {what}: {seconds:.1f} s, launches {ran}")
+    check(out, launches)
+    return out, launches, seconds
+
+
+def check_eval_loaded(argv, weights: str, scores_path: str, device: str = "cuda") -> None:
+    """The eval CLI scored the model in `weights`: its top-k distances equal
+    those of the model read here on its own (a DINO checkpoint's teacher
+    backbone, or a flat `Model` state dict) over the same split; a random
+    init, the CLI's fallback, gives other distances."""
+    from cerebra_torch.cli.common import load_corpus, reference_argparser, split_train_val
+    from cerebra_torch.cli.lstm_distill_from_dinov2_eval import features
+    from cerebra_torch.eval.scores import evaluate
+    from cerebra_torch.models.lstm import model_from_state_dict
+
+    flags, _ = reference_argparser("eval check").parse_known_args(argv)
+    corpus = load_corpus(flags)
+    sd = torch.load(weights, map_location="cpu", weights_only=False)
+    if "teacher" in sd:
+        sd = {k[len("backbone."):]: v for k, v in sd["teacher"].items()
+              if k.startswith("backbone.")}
+    model = model_from_state_dict(sd, corpus.n_channels, device=device)
+    g_idx, q_idx = split_train_val(flags, corpus)
+    _, _, want = evaluate(features(model, corpus.eeg[g_idx], device),
+                          features(model, corpus.eeg[q_idx], device),
+                          list(corpus.labels[g_idx]), list(corpus.labels[q_idx]),
+                          corpus.catalog, top_k=flags.topK)
+    got = torch.load(scores_path, weights_only=False)["data"]
+    for cname, entry in want["data"].items():
+        if got[cname]["Topk"]["labels"] != entry["Topk"]["labels"] or not np.allclose(
+                got[cname]["Topk"]["scores"], entry["Topk"]["scores"], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"the eval of {weights} scored another model ({cname})")
+
+
+def family_clis(gpu: str) -> dict:
+    """(b)-(d): lstm_distillation at full width, the eval CLI on two
+    checkpoint layouts, and the two KD/cosine trainers → launch counts by
+    run."""
+    import shutil
+
+    from cerebra_torch.cli import (
+        lstm_distill,
+        lstm_distill_from_dinov2_eval,
+        lstm_distill_from_dinov2_train_spampinato,
+        lstm_distillation,
+    )
+    from cerebra_torch.models import lstm_stack as ls
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "family")
+    shutil.rmtree(root, ignore_errors=True)  # no auto-resume from an earlier run
+    corpus = ["--synthetic", "--synthetic_classes", str(FAMILY_CLASSES),
+              "--synthetic_per_class", str(FAMILY_TRIALS), "--device", "cuda"]
+    n_train = int(FAMILY_CLASSES * FAMILY_TRIALS * 0.8)
+    runs = {}
+
+    # (b) the DINO-LSTM at the CLI's defaults for 2 epochs
+    dino_dir = os.path.join(root, "dino")
+    dino_steps = 2 * (n_train // 8)
+
+    def check_dino(out, n):
+        _, hist = out
+        if len(hist["loss"]) != 2 or not all(math.isfinite(v) for v in hist["loss"]):
+            raise AssertionError(f"lstm_distillation losses {hist['loss']}")
+        for name in ("checkpoint.pth", "checkpoint0000.pth", "log.txt"):
+            if not os.path.exists(os.path.join(dino_dir, name)):
+                raise AssertionError(f"lstm_distillation wrote no {name}")
+        want = {"fwd_train": 2 * dino_steps, "bwd": 2 * dino_steps,
+                "fwd_infer_last": dino_steps, "bwd_general": 0}
+        for label in ("dino_global", "dino_local"):  # K1 and K2 once at each crop shape
+            B_, T_ = FAMILY_SHAPES[label][:2]
+            want.update({("fwd_train", B_, T_): dino_steps, ("bwd", B_, T_): dino_steps})
+        B_, T_ = FAMILY_SHAPES["dino_global"][:2]
+        want[("fwd_infer_last", B_, T_)] = dino_steps  # the teacher on the global crops
+        if {k: n.get(k, 0) for k in want} != want:
+            raise AssertionError(f"a DINO-LSTM step is K1 and K2 at each crop shape and K3 at "
+                                 f"the global one: launches {n}, expected {want} over "
+                                 f"{dino_steps} steps")
+
+    (_, hist), runs["dino"], seconds = family_run(
+        "lstm_distillation (Model(96, 128, 4) + DINOHead(128 -> 384), 2 x 300 + 4 x 200 "
+        "crops, batch 8, bf16, 2 epochs)", lstm_distillation.main,
+        corpus + ["--epochs", "2", "--saveckp_freq", "20", "--log_dir", dino_dir], check_dino)
+    log(f"[lstm family] lstm_distillation: {dino_steps} steps in {seconds:.1f} s, losses "
+        f"{[round(v, 5) for v in hist['loss']]}, windows/s per epoch "
+        f"{[round(w, 1) for w in hist['windows_per_s']]} on {gpu}")
+
+    # (c) the eval CLI on (b)'s DINO checkpoint and on phase 4's Model weights
+    for key, weights in (("eval_dino", os.path.join(dino_dir, "checkpoint.pth")),
+                         ("eval_model", os.path.join(ROOT, "build", "chip_smoke", "cli",
+                                                     "lstm_dinov2_best_loss.pth"))):
+        eval_dir = os.path.join(root, key)
+        argv = corpus + ["--custom_model_weights", weights, "--log_dir", eval_dir]
+        if not os.path.exists(weights):  # the CLI would score a random-init model
+            raise AssertionError(f"no {weights} to evaluate")
+
+        def check_eval(out, n, eval_dir=eval_dir, weights=weights, argv=argv):
+            if not all(math.isfinite(v) for v in out):
+                raise AssertionError(f"eval recall/precision {out}")
+            for name in ("synthetic_Scores.pth", "synthetic_Scores.txt", "synthetic_.csv"):
+                if not os.path.exists(os.path.join(eval_dir, name)):
+                    raise AssertionError(f"the eval wrote no {name}")
+            if n["fwd_infer_last"] != 2:  # the gallery's and the query's features
+                raise AssertionError(f"the eval's features bypassed K3: {n}")
+            check_eval_loaded(argv, weights, os.path.join(eval_dir, "synthetic_Scores.pth"))
+
+        out, runs[key], _ = family_run(
+            f"lstm_distill_from_dinov2_eval on {os.path.relpath(weights, ROOT)}",
+            lstm_distill_from_dinov2_eval.main, argv, check_eval)
+        log(f"[lstm family] eval on {os.path.basename(weights)}: R {out[0]:.2f} P {out[1]:.2f}")
+
+    # (d) the KD/cosine trainers for 2 epochs at their defaults
+    steps = 2 * -(-n_train // 16)
+    for key, fn, extra, path in (
+            ("distill", lstm_distill.main, [], "wave"),
+            ("spampinato", lstm_distill_from_dinov2_train_spampinato.main,
+             ["--synthetic_channels", "128", "--synthetic_samples", "500"], "cluster")):
+        C_, H_ = (96, 96) if key == "distill" else (128, 128)
+
+        def check_trainer(out, n, key=key, path=path, C_=C_, H_=H_):
+            _, hist = out
+            if len(hist["train_loss"]) != 2 or not all(
+                    math.isfinite(v) for v in hist["train_loss"]):
+                raise AssertionError(f"{key} losses {hist['train_loss']}")
+            taken = ls.fwd_path(16, C_, H_, 4, torch.bfloat16, "fwd_train")
+            if taken != path:
+                raise AssertionError(f"{key}: K1 takes {taken}, not {path}")
+            if n["fwd_train"] < steps or n["bwd"] < steps:
+                raise AssertionError(f"{key} bypassed K1/K2: {n} over {steps} steps")
+            if path == "wave" and n["fwd_wave"] < n["fwd_train"] + n["fwd_infer_last"]:
+                raise AssertionError(f"{key}: K1/K3 bypassed the wavefront forward: {n}")
+            if path == "cluster" and min(n["fwd_in_product"], n["fwd_cluster_scan"]) < 4 * steps:
+                raise AssertionError(f"{key}: K1 bypassed its layer-by-layer pieces: {n}")
+
+        (_, hist), runs[key], _ = family_run(
+            f"{fn.__module__.split('.')[-1]} (C = H = {H_}, L = 4, batch 16, bf16, 2 epochs)",
+            fn, corpus + extra + ["--num_epochs", "2", "--log_dir", os.path.join(root, key)],
+            check_trainer)
+        log(f"[lstm family] {key}: losses {[round(v, 5) for v in hist['train_loss']]}, "
+            f"windows/s per epoch {[round(w, 1) for w in hist['windows_per_s']]} on {gpu}")
+    if runs["distill"]["fwd_infer_last"] != 2:  # the epoch-1 validation's gallery and query
+        raise AssertionError(f"lstm_distill's validation bypassed K3: {runs['distill']}")
+    return runs
+
+
+def family_step_timing(gpu: str) -> None:
+    """(e) `[lstm dino step]`: ms/step and windows/s of the DINO-LSTM step at
+    the CLI's defaults (host clock, the median of three windows of three
+    steps, each ended by reading the loss); `[lstm dino profile]`: its device
+    time by part, K3 apart from K1 and K2, and the device's idle share."""
+    from cerebra_torch.train.recipes import DinoSelfDistillConfig, make_dino_lstm, step_generator
+
+    cfg = DinoSelfDistillConfig(dtype=torch.bfloat16, epochs=2, warmup_epochs=1)
+    B = cfg.batch_size_per_device
+    rng = np.random.default_rng(0)
+    eeg = torch.from_numpy(rng.normal(size=(B, 495, 96)).astype(np.float32)).to("cuda")
+    state, step, _ = make_dino_lstm(cfg, 320, 96, torch.device("cuda"))
+    gen = step_generator(0, 0)
+    box = [state]
+
+    def one_step():
+        box[0], metrics = step(box[0], eeg, gen)
+        return metrics
+
+    one_step()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            metrics = one_step()
+        loss = metrics["loss"].item()
+        windows.append((time.perf_counter() - t0) / 3)
+        if not math.isfinite(loss):
+            raise AssertionError(f"DINO-LSTM step loss is {loss}")
+    windows.sort()
+    dt = windows[1]
+    log(f"[lstm dino step] {dt * 1e3:.2f} ms/step (median of 3 windows of 3 steps; "
+        f"{windows[0] * 1e3:.2f}-{windows[-1] * 1e3:.2f}), {B / dt:.1f} windows/s "
+        f"(Model(96, 128, 4) + DINOHead(128 -> 384), 2 x 300 + 4 x 200 crops, batch {B}, "
+        f"bf16) on {gpu}")
+    kernels, wall_ms, host = device_kernels(one_step, 3)
+    parts = {}
+    for name, ms in kernels:
+        part = next((p for frag, p in DINO_LSTM_PARTS if frag in name),
+                    "rest (head, loss, AdamW, EMA, crops)")
+        parts[part] = parts.get(part, 0.0) + ms / 3
+    busy = sum(parts.values())
+    log(f"[lstm dino profile] {wall_ms:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms (idle {max(0.0, 1 - busy / wall_ms) * 100:.1f} %); by part "
+        f"{ {k: round(v, 3) for k, v in sorted(parts.items(), key=lambda kv: -kv[1])} }; "
+        f"host ms per step by op (top 5 of {sum(ms for _, ms in host):.1f}): "
+        f"{[(k[:40], round(ms, 2)) for k, ms in host[:5]]} on {gpu}")
+    del state, box
+
+
+def family_kernel_timing(gpu: str) -> dict:
+    """(e) K1, K2 and K3 at every shape of the family, and K3 at the
+    galleries, each against its plain version, its bound and cuDNN → rows
+    by (kernel, shape)."""
+    from cerebra_torch.models import lstm_stack as ls
+
+    rows = {}
+    cases = ([(label, torch.bfloat16) for label in FAMILY_SHAPES]
+             + [(label, dtype) for label, (_, dtype) in FAMILY_K3_SHAPES.items()])
+    for label, dtype in cases:
+        (x, layers, g), (B, T_, C_, H_, L_) = family_case(label, dtype, 7)
+        dt = str(dtype).split(".")[-1]
+        kinds = ("fwd_train", "bwd", "fwd_infer_last") if label in FAMILY_SHAPES else (
+            "fwd_infer_last",)
+        res = ls._fwd_train_ref(x, layers) if "bwd" in kinds else None
+        for kind in kinds:
+            if kind == "fwd_train":
+                kern = lambda: ls.fwd_train(x, layers)  # noqa: E731
+                plain = lambda: ls._fwd_train_ref(x, layers)  # noqa: E731
+                inputs, flops, lib = (x, layers), stack_flops(T_, B, C_, H_, L_), "train"
+            elif kind == "bwd":
+                kern = lambda: ls.bwd(g, x, layers, *res)  # noqa: E731
+                plain = lambda: ls._bwd_ref(g, x, layers, *res)  # noqa: E731
+                inputs = (g, x, layers, res)
+                flops, lib = stack_flops(T_, B, C_, H_, L_, fwd=False, bwd=True), "bwd_last"
+            else:
+                kern = lambda: ls.fwd_infer_last(x, layers)  # noqa: E731
+                plain = lambda: ls._fwd_infer_last_ref(x, layers)  # noqa: E731
+                inputs, flops, lib = (x, layers), stack_flops(T_, B, C_, H_, L_), "infer"
+            row = timing_row(kern, plain, inputs, flops, dtype, 5, 1,
+                             cudnn_ms(T_, B, C_, H_, L_, lib,
+                                      dtype=torch.float32 if dtype == torch.float32 else None))
+            path = ls.fwd_path(B, C_, H_, L_, dtype, kind) if kind != "bwd" else "scans + products"
+            log(f"[lstm family timing] {kind} {label} B={B} T={T_} C={C_} H={H_} L={L_} {dt} "
+                f"({path}): {fmt_row(row)} on {gpu}")
+            rows[(kind, label)] = row
+        del x, layers, g, res
+    return rows
+
+
+def phase_lstm_family(gpu: str) -> tuple:
+    """Phase 14 → (errors, timing rows, launches) of FAMILY_KERNELS."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = family_parity()
+    runs = family_clis(gpu)
+    family_step_timing(gpu)
+    rows = family_kernel_timing(gpu)
+    # launches by entry: the count at its own kernel and shape (checked per
+    # step above for the DINO-LSTM) in the run that drives that shape
+    shapes = dict(FAMILY_SHAPES, **{k: v for k, (v, _) in FAMILY_K3_SHAPES.items()})
+    launches = {}
+    for name, (kind, label, _) in FAMILY_KERNELS.items():
+        B_, T_ = shapes[label][:2]
+        n = runs[FAMILY_RUNS[label]].get((kind, B_, T_), 0)
+        if n == 0:
+            raise AssertionError(f"{name}: no {kind} launch at B={B_} T={T_} in the "
+                                 f"{FAMILY_RUNS[label]} run")
+        launches[name] = n
+    out_errs = {name: errs[(k, label, dtype)] for name, (k, label, dtype) in FAMILY_KERNELS.items()}
+    times = {name: rows[(k, label)] for name, (k, label, _) in FAMILY_KERNELS.items()}
+    return out_errs, times, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2057,7 +2430,7 @@ def main() -> None:
     e, t = run(phase_fwd_paths, gpu)
     errs.update(e)
     times.update(t)
-    for phase in (phase_rc, phase_scan):
+    for phase in (phase_rc, phase_scan, phase_lstm_family):
         e, t, n = run(phase, gpu)
         errs.update(e)
         times.update(t)
@@ -2072,7 +2445,7 @@ def main() -> None:
                      "fwd_infer_last", "fwd_wave", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
                      "fwd_cluster_scan", "bwd_general", "fwd_train_rc", "fwd_infer_wave",
                      "fwd_train_rc_split", "fwd_infer_split",
-                     "bwd_rc", *RC_PIECES, *SCAN_KERNELS)
+                     "bwd_rc", *RC_PIECES, *SCAN_KERNELS, *FAMILY_KERNELS)
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))
