@@ -1,1 +1,5 @@
-"""Command-line entry points (`python -m cerebra_torch.cli.<name>`)."""
+"""Command-line entry points (`python -m cerebra_torch.cli.<name>`): the LSTM
+family and `main_dino`; retrieval analysis (`discover_channels`,
+`save_channelwise_outputs`, `brain_map`); the EEG-side DINO CLIs
+(`eeg_retrieval_dino`, `visualize_attention`). Each takes the JAX CLI's
+flags plus `--device` (cuda by default, cpu on request)."""

@@ -52,8 +52,8 @@ def main(argv=None):
     parser.add_argument("--norm_last_layer", type=bool_flag, default=True)
     parser.add_argument("--use_bn_in_head", type=bool_flag, default=False)
     parser.add_argument("--use_flash", type=bool_flag, default=False,
-                        help="F.scaled_dot_product_attention in the unfused attention for "
-                             "sequences of 512 tokens or more")
+                        help="the flash attention (K15, K5/K6's attention cores) in the "
+                             "unfused attention for sequences of 512 tokens or more")
     parser.add_argument("--remat", type=bool_flag, default=False,
                         help="torch.utils.checkpoint around each ViT block")
     parser.add_argument("--use_fused_mlp", type=_auto_flag, default=None,

@@ -143,3 +143,10 @@ class EEGCorpus:
     def window(self, time_low: int, time_high: int) -> "EEGCorpus":
         """Time slice `[time_low:time_high)` (utils/PerilsEEGDataset.py:568)."""
         return self.with_eeg(self.eeg[:, time_low:time_high, :])
+
+
+def image_path(corpus: EEGCorpus, idx: int, images_root: str) -> str:
+    """Stimulus JPEG path for a trial (getImagePath/getOriginalImage,
+    utils/PerilsEEGDataset.py:157-166): {root}/{wnid}/{name}.JPEG."""
+    name = corpus.image_names[int(corpus.image_idx[idx])]
+    return f"{images_root}/{name.split('_')[0]}/{name}.JPEG"

@@ -36,10 +36,10 @@ def make_synthetic_corpus(
     freqs = rng.uniform(5.0, 45.0, size=n_classes)
     phases = rng.uniform(0.0, 2 * np.pi, size=(n_classes, n_channels))
     eeg = rng.normal(0.0, 1.0, size=(n, n_channels, n_samples)).astype(np.float32)
-    for i in range(n):
-        c = labels[i]
-        sig = np.sin(2 * np.pi * freqs[c] * t[None, :] + phases[c][:, None])
-        eeg[i] += class_signal_scale * sig.astype(np.float32)
+    # each class's signature once, added to its trials: the same f32 sums as
+    # the JAX package's loop over trials
+    sig = np.sin(2 * np.pi * freqs[:, None, None] * t[None, None, :] + phases[:, :, None])
+    eeg += class_signal_scale * sig.astype(np.float32)[labels]
 
     wnids = [f"n{10000000 + c:08d}" for c in range(n_classes)]
     image_names = [f"{wnids[labels[i]]}_{i:05d}" for i in range(n)]

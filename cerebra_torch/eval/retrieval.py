@@ -9,6 +9,13 @@ import numpy as np
 import torch
 
 
+def total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 → int32 keys in IEEE total order (−0 below +0), the order in
+    which XLA's TopK ranks equal-comparing values."""
+    i = x.float().view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
 def l2_topk(gallery: torch.Tensor, query: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN under squared L2: (distances (Nq, k), indices (Nq, k)),
     ascending by distance, ties to the lower gallery index.

@@ -1,4 +1,5 @@
-"""Models: the LSTM encoders, the autoencoders and the LSTM-stack kernels."""
+"""Models: the LSTM encoders, the autoencoders, the LSTM-stack kernels and the
+DINO ViT inference wrapper."""
 
 from cerebra_torch.models.autoencoders import (  # noqa: F401
     EEGAutoencoderConv,
@@ -6,6 +7,7 @@ from cerebra_torch.models.autoencoders import (  # noqa: F401
     RecurrentAutoencoder,
     feature_matching_loss,
 )
+from cerebra_torch.models.dino_model import DinoArgs, DinoModel, dino_image_transform  # noqa: F401
 from cerebra_torch.models.lstm import (  # noqa: F401
     InlineLSTM,
     LSTMStack,

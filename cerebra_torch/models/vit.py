@@ -34,7 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cerebra_torch.models._torch_interop import trunc_normal_init
-from cerebra_torch.models.vit_attn import fused_attn_residual
+from cerebra_torch.models.vit_attn import flash_mha, fused_attn_residual
 from cerebra_torch.models.vit_mlp import LN_EPS, fused_mlp_residual
 
 _LECUN_STD_CORRECTION = 0.87962566103423978  # std of a unit normal truncated at ±2
@@ -82,14 +82,15 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, need_weights: bool = True):
         """(out, attn) like the reference Attention (:68-92); attn is None on
-        the library flash path (`use_flash`, N ≥ flash_min_seq, no map)."""
+        the flash path (`use_flash`, N ≥ flash_min_seq, no map asked for):
+        K15, `vit_attn.flash_mha`, on K5/K6's attention cores."""
         B, N, D = x.shape
         H = self.num_heads
         qkv = dense(x, self.qkv, self.dtype).reshape(B, N, 3, H, D // H)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (B, H, N, dh)
         scale = (D // H) ** -0.5
         if self.use_flash and not need_weights and N >= self.flash_min_seq:
-            out, attn = F.scaled_dot_product_attention(q, k, v, scale=scale), None
+            out, attn = flash_mha(q, k, v, scale), None
         else:
             attn = torch.softmax((q * scale) @ k.transpose(-2, -1), dim=-1)
             out = attn @ v

@@ -9,6 +9,9 @@ PyTorch versions (port of cerebra/models/pallas_vit_attn.py).
   them).
 - K6 `vit_attn_bwd` (`_bwd_kernel`): dx = dout + the LN backward, and f32
   dγ, dβ, dWqkv, dbqkv, dWp, dbp.
+- K15 `flash_mha`: the same cores as plain multi-head attention over
+  (B, H, N, dh) q, k, v, the port of `_flash_mha` (the Pallas TPU flash
+  attention) that `Attention(use_flash=True)` takes.
 - Their attention cores alone, the launches between the products:
   `attn_core_fwd` (o and each query row's softmax max and sum) and
   `attn_core_bwd` (dq, then dk and dv), with plain pieces
@@ -330,6 +333,39 @@ def attn_core_bwd(qkv, dob, stats, B: int, N: int, H: int):
     if on_cuda(qkv, dob, stats):
         return _core_bwd_cuda(qkv, dob, stats, B, N, H)
     return attn_core_bwd_ref(qkv, dob, stats, B, N, H)
+
+
+class _FlashMHA(torch.autograd.Function):
+    """K15: softmax(q·kᵀ·scale)·v through K5/K6's attention cores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        B, H, N, _ = q.shape
+        # the scale folded into q in q's dtype, as `(q * scale) @ kᵀ` rounds it
+        qkv = torch.cat([_rows(t, B, N) for t in (q * scale, k, v)], 1)
+        o, stats = attn_core_fwd(qkv, B, N, H)
+        ctx.save_for_backward(qkv, stats)
+        ctx.scale = scale
+        return _heads(o.reshape(B, N, -1), B, N, H)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, stats = ctx.saved_tensors
+        B, H, N, _ = do.shape
+        dqkv32, _, _ = attn_core_bwd(qkv, _rows(do, B, N).to(qkv.dtype), stats, B, N, H)
+        dq, dk, dv = _qkv_heads(dqkv32, B, N, H)
+        # chain rule through q·scale
+        return (dq * ctx.scale).to(qkv.dtype), dk.to(qkv.dtype), dv.to(qkv.dtype), None
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q·kᵀ·scale)·v over (B, H, N, dh) q, k, v of one dtype (f32 or
+    bf16) → (B, H, N, dh), the function of the JAX package's `_flash_mha`
+    (cerebra/models/vit.py:75). On CUDA the forward is K5's attention core
+    (`vit_attn_core_fwd`) and the backward K6's (`vit_attn_core_bwd`, from
+    the forward's row statistics); a head dim above MAX_HEAD_DIM raises. On
+    the CPU both are their plain versions."""
+    return _FlashMHA.apply(q, k, v, scale)
 
 
 class _FusedAttn(torch.autograd.Function):

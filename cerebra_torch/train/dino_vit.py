@@ -61,8 +61,8 @@ class DinoVitConfig:
     use_bn_in_head: bool = False
     seed: int = 0
     dtype: Optional[torch.dtype] = None
-    # F.scaled_dot_product_attention in the unfused Attention for sequences
-    # of 512 tokens or more (the JAX package's library flash kernel)
+    # the flash attention (K15, vit_attn.flash_mha) in the unfused Attention
+    # for sequences of 512 tokens or more (the JAX package's library flash kernel)
     use_flash: bool = False
     # torch.utils.checkpoint around each ViT block
     remat: bool = False

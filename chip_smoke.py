@@ -138,6 +138,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  part, the teacher's K3 apart, the idle share) and `[lstm
                  family timing]` (each kernel at each shape against plain,
                  bound and cuDNN)
+ 15. analysis    `[analysis greedy]`: discover_channels at the Spampinato
+                 scale (40 x 300 trials of 128 channels, 460 samples: 9600
+                 gallery and 2400 query trials, D 11.8 GB), 4 channels, D
+                 resident and in 16-channel chunks: the same channels and
+                 recalls, seconds per iteration, peak memory; `[analysis
+                 sweep]`: the best-window sweep (width 1) at the Perils size
+                 (40 x 50 trials, 96 channels), brain_map and
+                 save_channelwise_outputs on it; `[dino retrieval]`: K5 and
+                 K7 against plain at ViT-Ti/16's shapes, DinoModel on the
+                 card against the CPU, eeg_retrieval_dino at its defaults
+                 (ViT-Ti/16, DINOHead to 65536, 40 x 10 trials) with random
+                 weights and a vit_small/8 checkpoint, 24 K5 and 24 K7 each;
+                 `[attention maps]`: visualize_attention --threshold 0.6;
+                 `[flash]`: K15 (`flash_mha` on K5/K6's attention cores)
+                 against plain and `Attention`'s softmax path at main_dino's
+                 globals, f32 and bf16, its time against SDPA's flash
+                 kernels and by device time, and two main_dino steps with
+                 --use_flash true --use_fused_attn false (12 core launches
+                 a global view forward)
 Every timing line gives the kernel's ms, its plain version's, its bound (the
 larger of its matrix-product operations over the H100's peak and its bytes,
 each input read and each output written once, over 3.35 TB/s) and the ms of
@@ -2397,6 +2416,398 @@ def phase_lstm_family(gpu: str) -> tuple:
     return out_errs, times, launches
 
 
+# Phase 15: retrieval analysis and the EEG-side DINO CLIs at full width, and
+# K15 (`flash_mha`, the flash attention of `Attention(use_flash=True)`) on
+# K5/K6's attention cores. The corpora: the Spampinato scale (40 classes x
+# 300 trials of 128 channels x 500 samples, windowed to 460: 9600 gallery and
+# 2400 query trials, D = 128 x 2400 x 9600 f32 = 11.8 GB) and the Perils
+# size (40 x 50 trials of 96 channels x 512 samples).
+SPAMPINATO = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "300",
+              "--synthetic_channels", "128", "--synthetic_samples", "500"]
+PERILS = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "50",
+          "--synthetic_channels", "96", "--synthetic_samples", "512"]
+FLASH_SOURCES = dict.fromkeys(("vit_attn_flash_fwd", "vit_attn_flash_bwd"),
+                              "cerebra_torch/csrc/vit_attn.cu")
+# K15 replaces the JAX package's `_flash_mha`, which reaches pl.pallas_call
+# through the library kernel jax.experimental.pallas.ops.tpu.flash_attention
+REPLACES.update(dict.fromkeys(FLASH_SOURCES, "cerebra/models/vit.py:75"))
+# ViT-Ti/16 at 224 px over 64 images: eeg_retrieval_dino's defaults (B, N, D,
+# heads, F)
+VIT_TI = (64, 197, 192, 3, 768)
+
+
+def analysis_dir(name: str) -> str:
+    import shutil
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "analysis", name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+@contextlib.contextmanager
+def one_corpus_per_flags(*cli_modules):
+    """Each CLI module's `load_corpus` builds a flag set's synthetic corpus
+    once (a numpy draw on the host, ~10^9 values at the Spampinato scale)
+    and hands the same corpus to the next CLI run with those flags."""
+    from unittest import mock
+
+    from cerebra_torch.cli import common
+
+    built = {}
+
+    def load(FLAGS, *args, **kw):
+        key = (FLAGS.synthetic_classes, FLAGS.synthetic_per_class, FLAGS.synthetic_channels,
+               FLAGS.synthetic_samples, FLAGS.seed, FLAGS.time_low, FLAGS.time_high)
+        if key not in built:
+            t0 = time.perf_counter()
+            built[key] = common.load_corpus(FLAGS, *args, **kw)
+            log(f"[analysis] corpus {built[key].eeg.shape} built on the host in "
+                f"{time.perf_counter() - t0:.1f} s")
+        return built[key]
+
+    with contextlib.ExitStack() as stack:
+        for module in cli_modules:
+            stack.enter_context(mock.patch.object(module, "load_corpus", load))
+        yield
+
+
+def analysis_greedy(gpu: str) -> None:
+    """`[analysis greedy]`: discover_channels at the Spampinato scale, 4
+    channels, with D resident and with 16-channel chunks: the same channels
+    and the same recalls."""
+    from cerebra_torch.cli import discover_channels as dc
+
+    runs = {}
+    with one_corpus_per_flags(dc):
+        for mode, extra in (("resident", []), ("chunked", ["--channel_chunk", "16"])):
+            log_dir = analysis_dir(f"greedy_{mode}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = dc.main(SPAMPINATO + ["--max_channels", "4", "--device", "cuda", "--log_dir",
+                                        log_dir] + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with open(os.path.join(log_dir, "channel_discovery.json")) as f:
+                out = json.load(f)
+            if out["selected_channels"] != res.selected or not res.selected or not all(
+                    0.0 <= r <= 100.0 for r in res.recalls):
+                raise AssertionError(f"discover_channels {mode}: {out}")
+            log(f"[analysis greedy] {mode}: selected {res.selected}, recalls {res.recalls}; "
+                f"{len(res.iteration_s)} iterations of {[round(s, 4) for s in res.iteration_s]} "
+                f"s, the whole sweep {out['elapsed_s']:.2f} s (with D's build when resident), "
+                f"the CLI {seconds:.1f} s (with the corpus); peak {peak:.2f} GiB allocated on "
+                f"{gpu}")
+            runs[mode] = res
+    a, b = runs["resident"], runs["chunked"]
+    if a.selected != b.selected or a.recalls != b.recalls:
+        raise AssertionError(f"resident {a.selected} {a.recalls} != chunked {b.selected} "
+                             f"{b.recalls}")
+    log(f"[analysis greedy] resident and chunked select the same channels with the same "
+        f"recalls at 9600 x 2400 x 128")
+
+
+def analysis_sweep(gpu: str) -> None:
+    """`[analysis sweep]`: the best-window sweep (width 1) at the Perils size,
+    then brain_map and save_channelwise_outputs on the same corpus; the
+    files each writes."""
+    from cerebra_torch.cli import brain_map
+    from cerebra_torch.cli import discover_channels as dc
+    from cerebra_torch.cli import save_channelwise_outputs as cw
+
+    with one_corpus_per_flags(dc, brain_map, cw):
+        log_dir = analysis_dir("sweep")
+        t0 = time.perf_counter()
+        res = dc.main(PERILS + ["--best_window_sweep", "--window_width", "1", "--device", "cuda",
+                                "--log_dir", log_dir])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(log_dir, "best_window_log.txt")) as f:
+            lines = f.read().splitlines()
+        with open(os.path.join(log_dir, "best_window_sweep.json")) as f:
+            out = json.load(f)
+        if len(lines) != 96 or len(out["best_start"]) != 96 or res.recalls.shape != (96, 460):
+            raise AssertionError(f"best-window sweep: {len(lines)} log lines, "
+                                 f"{res.recalls.shape} recalls")
+        log(f"[analysis sweep] best windows of 96 channels x 460 starts (400 queries, 1600 "
+            f"gallery trials) in {out['elapsed_s']:.2f} s (the CLI {seconds:.1f} s); best "
+            f"recall {float(res.best_recall.max()):.2f} at channel "
+            f"{int(res.best_recall.argmax())} on {gpu}")
+        bm_dir = analysis_dir("brain_map")
+        t0 = time.perf_counter()
+        grid = brain_map.main(PERILS + ["--device", "cuda", "--log_dir", bm_dir])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(bm_dir, "brain_map.json")) as f:
+            clusters = np.asarray(json.load(f)["clusters"])
+        if clusters.shape != (96, 20) or not os.path.getsize(os.path.join(bm_dir,
+                                                                          "brain_map.png")):
+            raise AssertionError(f"brain_map wrote clusters {clusters.shape}")
+        cw_dir = analysis_dir("channelwise")
+        paths = cw.main(PERILS + ["--max_plots", "4", "--device", "cuda", "--log_dir", cw_dir])
+        if [os.path.basename(p) for p in paths] != [f"ch_{c}_the_perils.png" for c in range(4)]:
+            raise AssertionError(f"save_channelwise_outputs wrote {paths}")
+        log(f"[analysis sweep] brain_map {seconds:.1f} s ({len(np.unique(grid))} clusters over "
+            f"96 x 20); save_channelwise_outputs wrote {len(paths)} PNGs")
+
+
+def dino_retrieval(gpu: str) -> None:
+    """`[dino retrieval]`: eeg_retrieval_dino at the CLI's defaults (ViT-Ti/16
+    at 224 px, DINOHead to 65536, eeg2eeg both sides) over 40 x 10 trials,
+    with random weights and with a vit_small/8 checkpoint written by
+    export_dino_pth; K5 and K7 in every block of both forwards; K5 and K7
+    against their plain versions at ViT-Ti/16's shapes; the model's CUDA
+    features against the same model's on the CPU."""
+    from cerebra_torch.cli import eeg_retrieval_dino as erd
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+    from cerebra_torch.models.dino_model import DinoArgs, DinoModel
+    from cerebra_torch.models.multicrop import MultiCropWrapper
+    from cerebra_torch.train.checkpoints import export_dino_pth
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, N, D, Hh, Fv = VIT_TI
+    gen = torch.Generator().manual_seed(15)
+
+    def r(*shape, sc=0.05, base=0.0):
+        return (torch.randn(*shape, generator=gen) * sc + base).to("cuda")
+
+    x = r(B, N, D, sc=1.0)
+    f32 = torch.float32
+    pa = va._prep(r(D, base=1.0), r(D), r(D, 3 * D), r(3 * D), r(D, D), r(D), Hh, f32)
+    pm = vm._prep(r(D, base=1.0), r(D), r(D, Fv), r(Fv), r(Fv, D), r(D), f32)
+    tag = f"ViT-Ti/16 B={B} N={N} D={D} f32"
+    compare(f"K5 out {tag}", va.attn_fwd(x, None, pa, Hh)[0],
+            va._attn_fwd_ref(x, None, pa, Hh)[0], f32, False, TOL_VIT)
+    xm = x.reshape(B * N, D)
+    compare(f"K7 out {tag}", vm.mlp_fwd(xm, None, pm)[0], vm._mlp_fwd_ref(xm, None, pm)[0], f32,
+            False, TOL_VIT)
+    del x, xm, pa, pm
+    # the model end to end: fused kernels on the card, the unfused formulas
+    # on the CPU, the same seeded weights and window starts
+    args = DinoArgs(arch="vit_tiny", patch_size=16, image_size=224, out_dim=65536)
+    eeg = torch.randn(4, 460, 96, generator=gen)
+    starts = torch.arange(4)
+    got = DinoModel(args, seed=43, device="cuda").features_from_eeg(eeg, starts=starts)
+    want = DinoModel(args, seed=43).features_from_eeg(eeg, starts=starts)
+    # through 12 blocks and the head: 1e-4 relative, the f32 value limit
+    compare("DinoModel features, CUDA (K5/K7) against the CPU's unfused path, f32", got.cpu(),
+            want, f32, True, (TOL_VIT[0], TOL_VIT[0], TOL_VIT[2]))
+
+    ckpt = os.path.join(analysis_dir("dino_ckpt"), "checkpoint.pth")
+    small = DinoModel(DinoArgs(arch="vit_small", patch_size=8), seed=7)
+    wrapped = MultiCropWrapper(small.backbone, small.head)
+    export_dino_pth(ckpt, wrapped, wrapped, torch.zeros(1, 65536), epoch=0)
+    del small, wrapped
+    corpus = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "10"]
+    for what, extra in (("random ViT-Ti/16", []),
+                        ("vit_small/8 checkpoint", ["--custom_model_weights", ckpt, "--arch",
+                                                    "vit_small", "--patch_size", "8"])):
+        log_dir = analysis_dir("dino_retrieval")
+        reset_launches()
+        t0 = time.perf_counter()
+        recall, precision = erd.main(corpus + extra + ["--device", "cuda", "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ran = {k: v for k, v in LAUNCHES.items() if v}
+        # 12 blocks x (the gallery's forward + the query's)
+        if ran != {"vit_attn_fwd": 24, "vit_mlp_fwd": 24}:
+            raise AssertionError(f"eeg_retrieval_dino ({what}) launched {ran}")
+        files = ("commandline_args.txt", "synthetic_Scores.pth", "synthetic_Scores.txt",
+                 "synthetic_.csv")
+        if not (math.isfinite(recall) and math.isfinite(precision)) or not all(
+                os.path.exists(os.path.join(log_dir, f)) for f in files):
+            raise AssertionError(f"eeg_retrieval_dino ({what}): R {recall} P {precision}")
+        log(f"[dino retrieval] {what}: {seconds:.1f} s (320 gallery + 80 query trials, the "
+            f"models' init and the checkpoint's load included), R {recall:.2f} P "
+            f"{precision:.2f}, launches {ran} on {gpu}")
+
+
+def attention_maps(gpu: str) -> None:
+    """`[attention maps]`: visualize_attention --threshold 0.6 at its defaults
+    (ViT-Ti/16 at 224 px: 3 heads, a map and a mask each)."""
+    from cerebra_torch.cli import visualize_attention as vis
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+
+    log_dir = analysis_dir("attention")
+    reset_launches()
+    t0 = time.perf_counter()
+    paths = vis.main(["--synthetic", "--threshold", "0.6", "--device", "cuda", "--log_dir",
+                      log_dir])
+    seconds = time.perf_counter() - t0
+    want = [n for h in range(3) for n in (f"attn-head{h}.png", f"mask_th0.6_head{h}.png")]
+    if [os.path.basename(p) for p in paths] != want or not all(os.path.getsize(p) for p in paths):
+        raise AssertionError(f"visualize_attention wrote {paths}")
+    # 11 blocks through K5/K7; the last one returns its map from the softmax
+    if (LAUNCHES["vit_attn_fwd"], LAUNCHES["vit_mlp_fwd"]) != (11, 11):
+        raise AssertionError(f"visualize_attention launched {dict(LAUNCHES)}")
+    log(f"[attention maps] {len(paths)} PNGs in {seconds:.1f} s on {gpu}")
+
+
+def flash_plain(q, k, v, do, scale: float):
+    """K15's plain version: the attention cores' plain pieces in the
+    wrapper's layout → (out, dq, dk, dv), or (out,) without `do`."""
+    from cerebra_torch.models import vit_attn as va
+
+    B, H_, N, _ = q.shape
+    qkv = torch.cat([va._rows(t, B, N) for t in (q * scale, k, v)], 1)
+    o, stats = va.attn_core_fwd_ref(qkv, B, N, H_)
+    if do is None:
+        return (va._heads(o.reshape(B, N, -1), B, N, H_),)
+    dqkv32, _, _ = va.attn_core_bwd_ref(qkv, va._rows(do, B, N).to(qkv.dtype), stats, B, N, H_)
+    dq, dk, dv = va._qkv_heads(dqkv32, B, N, H_)
+    return (va._heads(o.reshape(B, N, -1), B, N, H_), (dq * scale).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
+
+
+def flash_kernel(q, k, v, do, scale: float):
+    from cerebra_torch.models.vit_attn import flash_mha
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = flash_mha(qg, kg, vg, scale)
+    return (out, *torch.autograd.grad(out, (qg, kg, vg), do))
+
+
+def flash_parity(gpu: str) -> dict:
+    """K15 at main_dino's globals: `Attention(use_flash=True)` against its
+    softmax path (the value and every gradient), and flash_mha against its
+    plain version, bf16 and f32 → the bf16 errors of the forward and the
+    backward for the kernels line."""
+    from cerebra_torch.models import vit as tv
+
+    B, N, D, Hh = 16, 785, D_VIT, H_VIT
+    errs = {}
+    for cdt in (torch.float32, torch.bfloat16):
+        name = str(cdt).split(".")[-1]
+        gen = torch.Generator().manual_seed(785)
+        attn = tv.Attention(D, Hh, dtype=None if cdt == torch.float32 else cdt, use_flash=True)
+        attn = attn.to("cuda")
+        x = torch.randn(B, N, D, generator=gen).to("cuda")
+        cot = torch.randn(B, N, D, generator=gen).to("cuda")
+        outs = []
+        for flash in (True, False):
+            attn.use_flash = flash
+            xg = x.clone().requires_grad_(True)
+            out, _ = attn(xg, need_weights=False)
+            grads = torch.autograd.grad(out, (xg, *attn.parameters()), cot.to(out.dtype))
+            outs.append((out, *grads))
+        names = ("out", "dx", "dWqkv", "dbqkv", "dWproj", "dbproj")
+        for i, (a, b) in enumerate(zip(*outs)):
+            compare(f"K15 Attention(use_flash) {names[i]} B={B} N={N} {name}", a, b, cdt, i > 0,
+                    TOL_VIT)
+        dh = D // Hh
+        q, k, v, do = (torch.randn(B, Hh, N, dh, generator=gen).to("cuda", cdt)
+                       for _ in range(4))
+        got, want = flash_kernel(q, k, v, do, dh ** -0.5), flash_plain(q, k, v, do, dh ** -0.5)
+        e_fwd = compare(f"K15 flash_mha out B={B} H={Hh} N={N} {name}", got[0], want[0], cdt,
+                        False, TOL_VIT)
+        e_bwd = max(compare(f"K15 flash_mha {n} B={B} H={Hh} N={N} {name}", a, b, cdt, True,
+                            TOL_VIT) for n, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]))
+        if cdt == torch.bfloat16:
+            errs = {"vit_attn_flash_fwd": e_fwd, "vit_attn_flash_bwd": e_bwd}
+    return errs
+
+
+def flash_timing(gpu: str) -> dict:
+    """`[flash]`: K15's forward and backward at main_dino's globals, bf16,
+    against the plain version, the bound and SDPA's flash kernels on the same
+    q, k, v (the yardstick the port no longer calls) → kernels-line rows."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from cerebra_torch.models.vit_attn import flash_mha
+
+    B, N, Hh, dh = 16, 785, H_VIT, D_VIT // H_VIT
+    scale, bf = dh ** -0.5, torch.bfloat16
+    gen = torch.Generator().manual_seed(16)
+    q, k, v, do = (torch.randn(B, Hh, N, dh, generator=gen).to("cuda", bf) for _ in range(4))
+    out = flash_mha(q, k, v, scale)
+
+    def sdpa_both():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        torch.autograd.grad(sdpa(qg, kg, vg, scale=scale), (qg, kg, vg), do)
+
+    with torch.no_grad():
+        fwd = {"ms": time_windows(lambda: flash_mha(q, k, v, scale), 10, 3, 2)[0],
+               "plain_ms": time_windows(lambda: flash_plain(q, k, v, None, scale), 3, 1, 1)[0]}
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            fwd["library_ms"] = time_windows(lambda: sdpa(q, k, v, scale=scale), 10, 3, 2)[0]
+    both = {"ms": time_windows(lambda: flash_kernel(q, k, v, do, scale), 10, 3, 2)[0],
+            "plain_ms": time_windows(lambda: flash_plain(q, k, v, do, scale), 3, 1, 1)[0]}
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        both["library_ms"] = time_windows(sdpa_both, 10, 3, 2)[0]
+    n = 5
+    kernels, wall_ms, _ = device_kernels(lambda: flash_kernel(q, k, v, do, scale), n)
+    device = sum(ms for _, ms in kernels) / n
+    cores = sum(ms for name, ms in kernels if "attn_fwd" in name or "attn_bwd" in name) / n
+    log(f"[flash] K15 forward + backward by device time: {device:.4f} ms a call, the attention "
+        f"cores {cores:.4f}, the layout copies, casts and scaling {device - cores:.4f}; "
+        f"{wall_ms:.4f} ms a call on the host clock under the profiler on {gpu}")
+    both.update(fwd_bwd_device_ms=device, fwd_bwd_cores_ms=cores)
+    # the forward's products: QKᵀ and PV, 4·B·H·N²·dh; the backward's S
+    # again, dV, dP, dQ and dK, 2.5 times that; bytes: q, k, v in and o
+    # out, then q, k, v, o and do in and dq, dk, dv out
+    ops = 4 * B * Hh * N * N * dh
+    rows = {}
+    for name, row, flops, moved in (
+            ("vit_attn_flash_fwd", fwd, ops, nbytes(q, k, v, out)),
+            ("vit_attn_flash_bwd", {k_: both[k_] - fwd.get(k_, 0.0) for k_ in both}, 2.5 * ops,
+             nbytes(q, k, v, out, do) + 3 * nbytes(q))):
+        t_ops, t_mem = flops / PEAK_FLOPS[bf], moved / HBM_BYTES_PER_S
+        rows[name] = dict(row, bound_ms=max(t_ops, t_mem) * 1e3,
+                          bound_by="operations" if t_ops > t_mem else "bytes")
+        log(f"[flash] {name} B={B} H={Hh} N={N} dh={dh} bf16: {fmt_row(rows[name])} (SDPA "
+            f"flash; the backward rows are forward + backward less the forward) on {gpu}")
+    return rows
+
+
+def flash_main_dino(gpu: str) -> dict:
+    """Two main_dino steps at full width with --use_flash true
+    --use_fused_attn false: every global view forward (the student's and
+    the teacher's, N = 785) runs K15's forward core in all 12 blocks, every
+    student backward its backward cores; the locals (N = 145 < 512) take the
+    softmax path → the launches."""
+    from cerebra_torch.cli.main_dino import main
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+
+    log_dir = analysis_dir("main_dino_flash")
+    steps = 2  # 2 classes x 8 trials at batch 8, one epoch
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = main(["--synthetic", "--synthetic_classes", "2", "--synthetic_per_class", "8",
+                        "--epochs", "1", "--warmup_epochs", "0", "--use_flash", "true",
+                        "--use_fused_attn", "false", "--device", "cuda", "--log_dir", log_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if state.step != steps or not all(math.isfinite(v) for v in hist["loss"]):
+        raise AssertionError(f"main_dino --use_flash: {state.step} steps, losses {hist['loss']}")
+    want = {"vit_attn_core_fwd": 24 * steps, "vit_attn_core_bwd": 12 * steps,
+            "vit_attn_fwd": 0, "vit_attn_bwd": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"main_dino --use_flash launched {launches}, not {want}")
+    log(f"[flash] main_dino --use_flash true --use_fused_attn false: {steps} steps in "
+        f"{seconds:.1f} s (the model's init included), losses {hist['loss']}; K15 forward "
+        f"{launches['vit_attn_core_fwd']} launches (12 a global view forward, 2 a step), "
+        f"backward {launches['vit_attn_core_bwd']} on {gpu}")
+    del state
+    torch.cuda.empty_cache()
+    return {"vit_attn_flash_fwd": launches["vit_attn_core_fwd"],
+            "vit_attn_flash_bwd": launches["vit_attn_core_bwd"]}
+
+
+def phase_analysis(gpu: str) -> tuple:
+    """Phase 15 → (errors, timing rows, launches) of K15."""
+    analysis_greedy(gpu)
+    analysis_sweep(gpu)
+    dino_retrieval(gpu)
+    attention_maps(gpu)
+    errs = flash_parity(gpu)
+    rows = flash_timing(gpu)
+    return errs, rows, flash_main_dino(gpu)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2430,13 +2841,13 @@ def main() -> None:
     e, t = run(phase_fwd_paths, gpu)
     errs.update(e)
     times.update(t)
-    for phase in (phase_rc, phase_scan, phase_lstm_family):
+    for phase in (phase_rc, phase_scan, phase_lstm_family, phase_analysis):
         e, t, n = run(phase, gpu)
         errs.update(e)
         times.update(t)
         launches.update({k: n[k] for k in t})
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
-    sources = dict(VIT_SOURCES, **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
+    sources = dict(VIT_SOURCES, **FLASH_SOURCES, **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
     kernels = [
         {"name": name, "route": "cuda", "source": sources.get(name, SOURCE),
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -2445,7 +2856,7 @@ def main() -> None:
                      "fwd_infer_last", "fwd_wave", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
                      "fwd_cluster_scan", "bwd_general", "fwd_train_rc", "fwd_infer_wave",
                      "fwd_train_rc_split", "fwd_infer_split",
-                     "bwd_rc", *RC_PIECES, *SCAN_KERNELS, *FAMILY_KERNELS)
+                     "bwd_rc", *RC_PIECES, *SCAN_KERNELS, *FAMILY_KERNELS, *FLASH_SOURCES)
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -1262,3 +1262,41 @@ def test_vit_attn_backward_recomputes_the_forward_scores(cuda, N, dh):
     vit_close(S, q.float() @ k.float().transpose(-1, -2), torch.float32, grad=False)
     _, stats = va.attn_core_fwd(qkv, B, N, H)
     assert torch.equal(stats[..., 0], S.amax(-1))
+
+
+# K15, the flash attention of `Attention(use_flash=True)`, on the attention
+# cores: the value and the q, k, v gradients against the softmax formula, at
+# main_dino's globals (N 785, dh 64) and around the 512-token gate, f32 and
+# bf16; a head dim the cores do not take raises rather than falling back.
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("N,dh", [(512, 64), (785, 64), (600, 32)])
+def test_flash_mha_matches_plain(cuda, N, dh, dt):
+    from cerebra_torch.kernels import LAUNCHES
+    from cerebra_torch.models.vit_attn import flash_mha
+
+    cdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    gen = torch.Generator().manual_seed(N)
+    q, k, v, do = (torch.randn(2, 3, N, dh, generator=gen).to(cuda, cdt) for _ in range(4))
+    scale = dh ** -0.5
+    before = LAUNCHES["vit_attn_core_fwd"], LAUNCHES["vit_attn_core_bwd"]
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_mha(qg, kg, vg, scale)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert (LAUNCHES["vit_attn_core_fwd"], LAUNCHES["vit_attn_core_bwd"]) == (
+        before[0] + 1, before[1] + 1)
+    qr, kr, vr = (t.float().requires_grad_(True) for t in (q, k, v))
+    want = torch.softmax((qr * scale).to(cdt).float() @ kr.transpose(-1, -2), -1) @ vr
+    want_g = torch.autograd.grad(want, (qr, kr, vr), do.float())
+    vit_close(out, want, cdt, grad=False)
+    for a, b in zip(got, want_g):
+        assert a.dtype == cdt
+        vit_close(a, b, cdt, grad=True)
+    torch.cuda.synchronize()
+
+
+def test_flash_mha_refuses_a_wide_head(cuda):
+    from cerebra_torch.models.vit_attn import flash_mha
+
+    q = torch.randn(1, 2, 600, 96, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_mha(q, q, q, 96 ** -0.5)

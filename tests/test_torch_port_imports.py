@@ -1,5 +1,6 @@
 """The port imports on a machine without JAX: importing `cerebra_torch` and
-every one of its modules pulls in neither `jax` nor the `cerebra` package."""
+every one of its modules pulls in neither `jax` nor the `cerebra` package,
+and among them are the ported CLIs."""
 
 import os
 import subprocess
@@ -20,6 +21,9 @@ assert "cerebra_torch.cli.lstm_distill_from_dinov2_train" in names
 assert "cerebra_torch.cli.main_dino" in names
 assert "cerebra_torch.models.autoencoders" in names
 assert "cerebra_torch.models.lstm_scan" in names
+for cli in ("discover_channels", "save_channelwise_outputs", "brain_map", "eeg_retrieval_dino",
+            "visualize_attention"):
+    assert "cerebra_torch.cli." + cli in names, cli
 print(len(names))
 """
 
