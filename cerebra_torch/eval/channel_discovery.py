@@ -93,16 +93,44 @@ def topk_lower_index(d: torch.Tensor, k: int) -> torch.Tensor:
     return idx
 
 
+# XLA:CPU's tree-reduction rewrite turns a sum over more than this many
+# elements into a reduce-window of this size over the symmetrically
+# zero-padded axis, then a sum over the windows.
+_XLA_CPU_REDUCE_WINDOW = 32
+
+
+def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(x.shape[:-1], device=x.device)
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def _xla_cpu_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis in the f32 order of the JAX package's compiled
+    `jnp.sum` on the CPU. Above _XLA_CPU_REDUCE_WINDOW elements the axis is
+    padded to a multiple of the window, ⌊pad/2⌋ in front; each window is
+    summed one element after the other from 0, skipping the padding, and
+    the window sums are summed the same way (recursively past the window
+    size). At 40 classes: (x0 + … + x19) + (x20 + … + x39). Up to 22
+    elements XLA's loop is sequential too; from 23 to 32 LLVM vectorises it
+    into lanes that depend on n and the host, and the last bit may differ."""
+    n = x.shape[-1]
+    w = _XLA_CPU_REDUCE_WINDOW
+    if n <= w:
+        return _sequential_sum(x)
+    padded = -(-n // w) * w
+    lo = (padded - n) // 2
+    parts = [_sequential_sum(x[..., max(0, s - lo):min(n, s - lo + w)])
+             for s in range(0, padded, w)]
+    return _xla_cpu_sum(torch.stack(parts, -1))
+
+
 def _class_mean(per_class: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
-    """Σ over the present classes / their count, the f32 sum taken one class
-    after the other: the order in which XLA:CPU sums up to 22 classes for
-    the JAX package, so candidates whose recalls differ only by the order of
-    their terms compare alike in both packages there (XLA vectorises the
-    sum of more classes; the last bit may then differ)."""
-    acc = torch.zeros(per_class.shape[:-1], device=per_class.device)
-    for c in range(per_class.shape[-1]):
-        acc = acc + torch.where(present[c], per_class[..., c], 0.0)
-    return acc / present.sum()
+    """Σ over the present classes / their count, the f32 sum in XLA:CPU's
+    order (`_xla_cpu_sum`), so candidates whose recalls differ only by the
+    order of their terms compare alike in both packages."""
+    return _xla_cpu_sum(torch.where(present, per_class, 0.0)) / present.sum()
 
 
 def recall_precision_for_distances(d: torch.Tensor, gallery_labels, query_labels, k: int,

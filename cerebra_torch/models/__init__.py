@@ -1,5 +1,6 @@
-"""Models: the LSTM encoders, the autoencoders, the LSTM-stack kernels and the
-DINO ViT inference wrapper."""
+"""Models: the LSTM encoders, the autoencoders, the LSTM-stack kernels, the
+DINO ViT inference wrapper, and the hub's image backbones (the DINO and
+DINOv2 ViTs, XCiT, ResNet-50)."""
 
 from cerebra_torch.models.autoencoders import (  # noqa: F401
     EEGAutoencoderConv,
@@ -15,3 +16,6 @@ from cerebra_torch.models.lstm import (  # noqa: F401
     model_from_state_dict,
     params_from_jax,
 )
+from cerebra_torch.models.resnet import ResNet, resnet50  # noqa: F401
+from cerebra_torch.models.vit import VisionTransformer, vit_small_dinov2  # noqa: F401
+from cerebra_torch.models.xcit import XCIT_CONSTRUCTORS, XCiT  # noqa: F401

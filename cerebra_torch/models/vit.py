@@ -4,12 +4,15 @@ dino/vision_transformer.py:134-254).
 timm-style ViT with the DINO extras: attention maps of the last block,
 normalised outputs of the last n blocks, bicubic positional-embedding
 interpolation for off-grid input sizes, per-block stochastic depth,
-LayerScale (DINOv2 blocks), and the vit_tiny/small/base constructors.
+LayerScale (DINOv2 blocks), and the vit_tiny/small/base and DINOv2
+ViT-S/14 constructors.
 
 Parameters are held under the reference timm names (`patch_embed.proj.*`,
 `cls_token`, `pos_embed`, `blocks.{i}.norm1.*`, `blocks.{i}.attn.qkv.*`,
 `blocks.{i}.attn.proj.*`, `blocks.{i}.mlp.fc1.*`, `blocks.{i}.ls1.gamma`,
-`norm.*`); `params_from_jax` maps the JAX package's flax tree onto them.
+`norm.*`); `params_from_jax` maps the JAX package's flax tree onto them,
+and `import_vit_torch` / `import_dinov2_vit_torch` check torch-layout
+checkpoints (DINO v1, torch.hub dinov2_vits14) against them.
 
 Numerics follow flax's `dtype=` semantics: with a compute dtype each dense
 layer casts its input, weight and bias to it, LayerNorm computes in f32
@@ -33,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from cerebra_torch.models._torch_interop import trunc_normal_init
+from cerebra_torch.models._torch_interop import strip_torch_prefixes, trunc_normal_init
 from cerebra_torch.models.vit_attn import flash_mha, fused_attn_residual
 from cerebra_torch.models.vit_mlp import LN_EPS, fused_mlp_residual
 
@@ -298,6 +301,56 @@ def vit_small(patch_size: int = 16, **kw) -> VisionTransformer:
 
 def vit_base(patch_size: int = 16, **kw) -> VisionTransformer:
     return VisionTransformer(patch_size=patch_size, embed_dim=768, depth=12, num_heads=12, **kw)
+
+
+def vit_small_dinov2(img_size: int = 518, **kw) -> VisionTransformer:
+    """DINOv2 ViT-S/14, the reference's frozen teacher
+    (LstmDistillFromDinoV2Train.py:144-146: torch.hub dinov2_vits14): patch
+    14, LayerScale blocks, a 37×37 pos grid at the 518-px training size;
+    other input sizes (224 px: 16×16) interpolate it as upstream does."""
+    return VisionTransformer(img_size=img_size, patch_size=14, embed_dim=384, depth=12,
+                             num_heads=6, layer_scale=True, **kw)
+
+
+_BLOCK_KEYS = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+               "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
+               "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
+
+
+def import_vit_torch(state_dict, depth: int = 12, layer_scale: bool = False) -> dict:
+    """A timm-layout torch ViT state dict → this module's state dict (the
+    port keeps the timm names, so this selects and checks keys). One importer
+    for both reference teacher families: DINO v1
+    (dino/vision_transformer.py:134-254) and, with `layer_scale`, the
+    torch.hub dinov2_vits14 layout, which adds `blocks.{i}.ls{1,2}.gamma`
+    and an inference-unused `mask_token` (skipped). `module.`, `teacher.`
+    and `backbone.` prefixes are stripped (utils/DinoModel.py:60-78); keys
+    the model does not have are ignored. Raises KeyError for a missing key
+    and ValueError where the gammas are present without `layer_scale`."""
+    sd = strip_torch_prefixes(state_dict)
+    has_gamma = any(k.endswith(("ls1.gamma", "ls2.gamma")) for k in sd)
+    if has_gamma and not layer_scale:
+        raise ValueError("LayerScale gammas (ls1/ls2.gamma) in a state dict imported "
+                         "without layer_scale: a DINOv2 checkpoint needs "
+                         "import_dinov2_vit_torch")
+    keys = ["cls_token", "pos_embed", "patch_embed.proj.weight", "patch_embed.proj.bias",
+            "norm.weight", "norm.bias"]
+    block_keys = _BLOCK_KEYS + (("ls1.gamma", "ls2.gamma") if layer_scale else ())
+    keys += [f"blocks.{i}.{k}" for i in range(depth) for k in block_keys]
+    missing = [k for k in keys if k not in sd]
+    if missing:
+        raise KeyError(f"ViT state dict lacks {missing[:4]} ({len(missing)} keys)")
+    return {k: torch.from_numpy(sd[k]) for k in keys}
+
+
+def import_dino_vit_torch(state_dict, depth: int = 12) -> dict:
+    """The DINO v1 layout (no LayerScale); see import_vit_torch."""
+    return import_vit_torch(state_dict, depth=depth, layer_scale=False)
+
+
+def import_dinov2_vit_torch(state_dict, depth: int = 12) -> dict:
+    """The DINOv2 torch.hub layout (LayerScale); see import_vit_torch."""
+    return import_vit_torch(state_dict, depth=depth, layer_scale=True)
 
 
 def _t(a) -> torch.Tensor:

@@ -3,9 +3,9 @@ cerebra/train/dino_vit.py; dino/main_dino.py), on one device.
 
 The reference's DataAugmentationDINO (:484-550) replaces both global crops
 with EEG rendered as a 224×224×3 image (tile-repeat and a random time
-window, utils/EEGDataset.py:248-303). Without stimulus images the local
-crops are EEG-image crops too, a variant the reference ships commented in
-(:535-549); stimulus-image locals (signal/image_aug.py) are not ported.
+window, utils/EEGDataset.py:248-303). The local crops are augmented
+stimulus-image crops (signal/image_aug.py) when images are given, else
+EEG-image crops, a variant the reference ships commented in (:535-549).
 Student and teacher are DINO ViTs: EMA teacher, centering, temperature
 warmup, cosine schedules, AdamW, bf16 compute over an f32 token stream.
 
@@ -28,6 +28,7 @@ from cerebra_torch.losses import teacher_temp_schedule
 from cerebra_torch.models.heads import DINOHead
 from cerebra_torch.models.multicrop import MultiCropWrapper
 from cerebra_torch.models.vit import VisionTransformer, vit_base, vit_small, vit_tiny
+from cerebra_torch.signal.image_aug import dino_local_crop, draw_crop
 from cerebra_torch.signal.windows import tile_eeg_views, window_starts
 from cerebra_torch.train.resume import check_finite_loss
 from cerebra_torch.train.schedules import cosine_scheduler
@@ -94,31 +95,38 @@ def build_vit(cfg: DinoVitConfig, drop_path_rate: float = 0.0,
 
 def make_eeg_image_view_fn(n_global: int, n_local: int, global_size: int, local_size: int,
                            has_images: bool = False):
-    """(generator, eeg (B, T, C)) → [globals (n_global, B, S, S, 3),
-    locals (n_local, B, s, s, 3)], NHWC: tiled EEG images, each view and
-    sample with its own random time window (dino/main_dino.py:526-531), fed
-    raw like the reference. The window starts are drawn on the host from
-    `generator`."""
-    if has_images:
-        raise NotImplementedError("stimulus-image local crops (signal/image_aug.py) are not "
-                                  "ported yet; run without images")
+    """(generator, batch) → [globals (n_global, B, S, S, 3), locals
+    (n_local, B, s, s, 3)], NHWC. `batch` is eeg (B, T, C), or with
+    `has_images` the pair (eeg, images (B, H, W, 3) in [0, 1]). Globals are
+    tiled EEG images, each view and sample with its own random time window
+    (dino/main_dino.py:526-531), fed raw like the reference (their scale
+    differs from the normalised image crops, as in the reference recipe).
+    Locals are augmented stimulus-image crops (`dino_local_crop`) with
+    images, else EEG-image crops. The windows and crop draws come from
+    `generator` on the host; the crops run batched on the images' device."""
 
-    def view_fn(generator, eeg):
+    def view_fn(generator, batch):
+        eeg, images = batch if has_images else (batch, None)
         B, T, C = eeg.shape
-        views = []
-        for n_views, size in ((n_global, global_size), (n_local, local_size)):
-            starts = window_starts((n_views, B), C, T, size, generator)
-            views.append(tile_eeg_views(eeg, starts, size))
+        starts = window_starts((n_global, B), C, T, global_size, generator)
+        views = [tile_eeg_views(eeg, starts, global_size)]
+        if has_images:
+            draws = draw_crop(generator, (n_local, B), *images.shape[1:3], scale=(0.05, 0.4),
+                              blur_p=0.5)
+            views.append(dino_local_crop(images, draws, local_size))
+        else:
+            starts = window_starts((n_local, B), C, T, local_size, generator)
+            views.append(tile_eeg_views(eeg, starts, local_size))
         return views
 
     return view_fn
 
 
-def make_dino_vit(cfg: DinoVitConfig, n: int, device: torch.device):
+def make_dino_vit(cfg: DinoVitConfig, n: int, device: torch.device, has_images: bool = False):
     """The recipe's pieces for a corpus of n trials → (state, step,
     generator, niter_per_ep): student and teacher initialised from
     `cfg.seed`, the schedules, the optimizer and the step with the
-    EEG-image views."""
+    EEG-image views (stimulus-image locals with `has_images`)."""
     global_batch = cfg.batch_size_per_device
     niter_per_ep = max(n // global_batch, 1)
 
@@ -155,7 +163,7 @@ def make_dino_vit(cfg: DinoVitConfig, n: int, device: torch.device):
     step = make_dino_step(
         lr_schedule, wd_schedule, momentum_schedule, temps, niter_per_ep,
         view_fn=make_eeg_image_view_fn(2, cfg.local_crops_number, cfg.global_size,
-                                       cfg.local_size),
+                                       cfg.local_size, has_images),
         freeze_last_layer=cfg.freeze_last_layer,
     )
     return state, step, gen, niter_per_ep
@@ -169,24 +177,25 @@ def dino_vit_train(
     log_fn: Callable[[str], None] = print,
     checkpoint_cb: Optional[Callable[[int, DinoTrainState], None]] = None,
 ) -> Tuple[DinoTrainState, Dict[str, List]]:
-    """Single-device DINO training over `eeg`. Returns (state, history) with
-    per-epoch loss, seconds and windows/s."""
+    """Single-device DINO training over `eeg`, with local crops from
+    `images` (N, H, W, 3) in [0, 1] (the stimulus of each trial) when given.
+    Returns (state, history) with per-epoch loss, seconds and windows/s."""
     cfg = config
-    if images is not None:
-        raise NotImplementedError("stimulus-image local crops (signal/image_aug.py) are not "
-                                  "ported yet; run without images")
     n = len(eeg)
-    state, step, gen, niter_per_ep = make_dino_vit(cfg, n, device)
+    state, step, gen, niter_per_ep = make_dino_vit(cfg, n, device, images is not None)
     global_batch = cfg.batch_size_per_device
 
     eeg_d = torch.as_tensor(np.asarray(eeg, dtype=np.float32)).to(device)
+    imgs_d = None if images is None else torch.as_tensor(
+        np.asarray(images, dtype=np.float32)).to(device)
     history: Dict[str, List] = {"loss": [], "epoch_time_s": [], "windows_per_s": []}
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
         batches, _ = epoch_batches(n, global_batch, seed=cfg.seed, epoch=epoch)
         losses = []
         for idx in batches[:niter_per_ep]:
-            batch = eeg_d[torch.as_tensor(idx, device=device)]
+            idx = torch.as_tensor(idx, device=device)
+            batch = eeg_d[idx] if imgs_d is None else (eeg_d[idx], imgs_d[idx])
             state, metrics = step(state, batch, gen)
             losses.append(metrics["loss"])
         loss = float(torch.stack(losses).float().mean())  # one sync per epoch

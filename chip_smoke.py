@@ -157,6 +157,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  kernels and by device time, and two main_dino steps with
                  --use_flash true --use_fused_attn false (12 core launches
                  a global view forward)
+ 16. teacher     `[teacher kernels]`: K5 and K7 with LayerScale (gammas
+                 U(0.5, 1.5) folded into proj and fc2), f32, against their
+                 plain versions and timed at the DINOv2 ViT-S/14's shapes
+                 (B 64, N 257 at 224 px; B 40, N 1370 at 518 px) and at
+                 noise_probe's ViT-Ti/16 (B 16, N 17); `[teacher features]`:
+                 extract_features --teacher dinov2_jax from a random hub dict
+                 written to a local .pth, 40 x 8 images at 224 px (5 batches
+                 of 64) and 40 x 1 at 518 px: finite (N, 384) features in
+                 label order, 12 K5 and 12 K7 a batch, one batch at each size
+                 against the unfused model on the card; --teacher dino_ckpt
+                 (vit_small/8, export_dino_pth) and random_vit; `[noise
+                 probe]`: noise_probe at its defaults, a finite JSON, 24 K5
+                 and 24 K7; `[hub]`: every hub name with random weights on 8
+                 images at 224 px (the feature widths; the 5 ViTs through
+                 K5/K7), a ViT and an XCiT from the local cache directory
+                 equal to the model of the same dict, XCiT-S12/16 and
+                 DINOv2 ViT-S/14 timed at B = 64; `[dino images]`: two
+                 dino_vit_train steps with stimulus-image local crops at
+                 main_dino's defaults (36 K5/K7 and 24 K6/K8 a step), the
+                 crops on the card against the CPU
 Every timing line gives the kernel's ms, its plain version's, its bound (the
 larger of its matrix-product operations over the H100's peak and its bytes,
 each input read and each output written once, over 3.35 TB/s) and the ms of
@@ -2808,6 +2828,337 @@ def phase_analysis(gpu: str) -> tuple:
     return errs, rows, flash_main_dino(gpu)
 
 
+# Phase 16: the teacher-feature and image-backbone slice. The DINOv2
+# ViT-S/14 teacher (D 384, 6 heads, F 1536, LayerScale) in f32 at the
+# extract_features batch: 224 px (N = 257) over 5 batches of 64, 518 px
+# (N = 1370, the model's own grid) over one batch of 40; noise_probe's
+# ViT-Ti/16 at 64 px (16 images, N = 17). name -> (kernel, B, N, D, heads, F)
+TEACHER_KERNELS = {
+    "vit_attn_fwd_dinov2_224": ("vit_attn_fwd", 64, 257, 384, 6, 1536),
+    "vit_mlp_fwd_dinov2_224": ("vit_mlp_fwd", 64, 257, 384, 6, 1536),
+    "vit_attn_fwd_dinov2_518": ("vit_attn_fwd", 40, 1370, 384, 6, 1536),
+    "vit_mlp_fwd_dinov2_518": ("vit_mlp_fwd", 40, 1370, 384, 6, 1536),
+    "vit_attn_fwd_noise_probe": ("vit_attn_fwd", 16, 17, 192, 3, 768),
+    "vit_mlp_fwd_noise_probe": ("vit_mlp_fwd", 16, 17, 192, 3, 768),
+}
+REPLACES.update({name: REPLACES[k] for name, (k, *_) in TEACHER_KERNELS.items()})
+TEACHER_SOURCES = {name: VIT_SOURCES[k] for name, (k, *_) in TEACHER_KERNELS.items()}
+# the hub's names and the width of each one's features
+HUB_WIDTHS = {"dino_vits16": 384, "dino_vits8": 384, "dino_vitb16": 768, "dino_vitb8": 768,
+              "dino_resnet50": 2048, "dino_xcit_small_12_p16": 384,
+              "dino_xcit_small_12_p8": 384, "dino_xcit_medium_24_p16": 512,
+              "dino_xcit_medium_24_p8": 512, "dinov2_vits14": 384}
+HUB_VITS = ("dino_vits16", "dino_vits8", "dino_vitb16", "dino_vitb8", "dinov2_vits14")
+
+
+def teacher_dir(name: str) -> str:
+    import shutil
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "teacher", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def dinov2_hub_state_dict(seed: int) -> dict:
+    """A random DINOv2 ViT-S/14 in the torch.hub dinov2_vits14 layout: the
+    port's seeded init, a 37 x 37 pos grid, LayerScale gammas U(0.5, 1.5)
+    (at their 1e-5 init a wrong branch would hide), an unused mask_token."""
+    from cerebra_torch.models.vit import vit_small_dinov2
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = vit_small_dinov2(generator=gen).state_dict()
+    for k in sd:
+        if k.endswith(("ls1.gamma", "ls2.gamma")):
+            sd[k] = 0.5 + torch.rand(sd[k].shape, generator=gen)
+    sd["mask_token"] = torch.zeros(1, 384)
+    return sd
+
+
+def layer_scale_half_blocks(B: int, N: int, D: int, Hh: int, Fv: int, seed: int):
+    """x (B, N, D) and the f32 parameters of K5 and K7 with LayerScale
+    gammas U(0.5, 1.5) folded into proj and fc2, as `Block` folds them."""
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape, sc=0.05, base=0.0):
+        return (torch.randn(*shape, generator=gen) * sc + base).to("cuda")
+
+    g1 = (0.5 + torch.rand(D, generator=gen)).to("cuda")
+    g2 = (0.5 + torch.rand(D, generator=gen)).to("cuda")
+    x = r(B, N, D, sc=1.0)
+    pa = va._prep(r(D, base=1.0), r(D), r(D, 3 * D), r(3 * D), r(D, D) * g1, r(D) * g1, Hh,
+                  torch.float32)
+    pm = vm._prep(r(D, base=1.0), r(D), r(D, Fv), r(Fv), r(Fv, D) * g2, r(D) * g2,
+                  torch.float32)
+    return x, pa, pm
+
+
+def teacher_kernels(gpu: str, which) -> tuple:
+    """K5 and K7 with LayerScale alone at `which` of TEACHER_KERNELS' shapes:
+    against their plain versions (the tail tiles of N = 257, 1370, 17) and
+    timed against the plain versions and their bound → (errors, rows)."""
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+
+    errs, rows = {}, {}
+    f32 = torch.float32
+    for attn_name, mlp_name in which:
+        _, B, N, D, Hh, Fv = TEACHER_KERNELS[attn_name]
+        x, pa, pm = layer_scale_half_blocks(B, N, D, Hh, Fv, seed=N)
+        xm = x.reshape(B * N, D)
+        tag = f"B={B} N={N} D={D} heads={Hh} LayerScale f32"
+        errs[attn_name] = compare(f"K5 out {tag}", va.attn_fwd(x, None, pa, Hh)[0],
+                                  va._attn_fwd_ref(x, None, pa, Hh)[0], f32, False, TOL_VIT)
+        errs[mlp_name] = compare(f"K7 out {tag}", vm.mlp_fwd(xm, None, pm)[0],
+                                 vm._mlp_fwd_ref(xm, None, pm)[0], f32, False, TOL_VIT)
+        M = B * N
+        # f32 products: qkv, proj and the two attention products; fc1 and fc2
+        for name, kern, plain, inputs, flops in (
+                (attn_name, lambda: va.attn_fwd(x, None, pa, Hh),
+                 lambda: va._attn_fwd_ref(x, None, pa, Hh), (x, pa),
+                 8 * M * D * D + 4 * B * N * N * D),
+                (mlp_name, lambda: vm.mlp_fwd(xm, None, pm), lambda: vm._mlp_fwd_ref(xm, None, pm),
+                 (xm, pm), 4 * M * D * Fv)):
+            # no one PyTorch call computes a fused half-block: library none
+            rows[name] = timing_row(kern, plain, inputs, flops, f32, 5, 2)
+            log(f"[teacher kernels] {name} ({tag}, {flops / 1e9:.1f} GFLOP): "
+                f"{fmt_row(rows[name])} on {gpu}")
+        del x, xm, pa, pm
+    torch.cuda.empty_cache()
+    return errs, rows
+
+
+def teacher_extract(argv, n: int, kernels: tuple, per_batch: int):
+    """One extract_features run → (features, seconds, launches); checks the
+    features (finite, (n, 384) or the CLI's width, aligned to the labels)
+    and that each of `kernels` launched `per_batch` times a batch of 64."""
+    from cerebra_torch.cli import extract_features as ef
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+
+    out = os.path.join(teacher_dir("out"), "features.npz")
+    reset_launches()
+    t0 = time.perf_counter()
+    ef.main(argv + ["--device", "cuda", "--out", out])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    saved = np.load(out)
+    feats, labels = saved["features"], saved["labels"]
+    classes = int(argv[argv.index("--synthetic_classes") + 1])
+    want_labels = np.repeat(np.arange(classes), n // classes)
+    batches = -(-n // 64)
+    if ran != dict.fromkeys(kernels, per_batch * batches):
+        raise AssertionError(f"extract_features {argv} launched {ran}")
+    if feats.shape[0] != n or not np.isfinite(feats).all() or not np.array_equal(labels,
+                                                                                 want_labels):
+        raise AssertionError(f"extract_features wrote {feats.shape}, labels {labels[:8]}")
+    return feats, seconds, ran
+
+
+def teacher_features(gpu: str) -> tuple:
+    """`[teacher features]` → (errors, rows, launches) of the kernels line's
+    DINOv2 entries: extract_features --teacher dinov2_jax from a random hub
+    dict at 224 px (40 x 8 images, 5 batches of 64) and 518 px (40 x 1), one
+    batch at each size held against the unfused model on the card, K5/K7
+    alone at both shapes; then --teacher dino_ckpt (a vit_small/8 checkpoint
+    by export_dino_pth, 224 px) and --teacher random_vit."""
+    from cerebra_torch.data.sources import synthetic_image_source
+    from cerebra_torch.models.dino_model import DinoArgs, DinoModel, dino_image_transform
+    from cerebra_torch.models.multicrop import MultiCropWrapper
+    from cerebra_torch.models.vit import import_dinov2_vit_torch, vit_small_dinov2
+    from cerebra_torch.train.checkpoints import export_dino_pth
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    weights = os.path.join(teacher_dir("weights"), "dinov2_vits14.pth")
+    sd = dinov2_hub_state_dict(16)
+    torch.save(sd, weights)
+    errs, rows = teacher_kernels(gpu, (("vit_attn_fwd_dinov2_224", "vit_mlp_fwd_dinov2_224"),
+                                       ("vit_attn_fwd_dinov2_518", "vit_mlp_fwd_dinov2_518")))
+    launches = {}
+    vit_fwd = ("vit_attn_fwd", "vit_mlp_fwd")
+    for size, per_class, suffix in ((224, 8, "224"), (518, 1, "518")):
+        n = 40 * per_class
+        argv = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class",
+                str(per_class), "--image_size", str(size), "--teacher", "dinov2_jax",
+                "--teacher_weights", weights]
+        feats, seconds, ran = teacher_extract(argv, n, vit_fwd, 12)
+        if feats.shape[1] != 384:
+            raise AssertionError(f"DINOv2 features {feats.shape}")
+        for k in vit_fwd:
+            launches[f"{k}_dinov2_{suffix}"] = ran[k]
+        # one batch through the fused model and the same model unfused
+        src = synthetic_image_source(40, per_class, size, seed=43)
+        batch = torch.from_numpy(np.stack([dino_image_transform(src.images[i], size)
+                                           for i in range(min(64, n))])).cuda()
+        fused, unfused = vit_small_dinov2(), vit_small_dinov2(use_fused_attn=False,
+                                                              use_fused_mlp=False)
+        for m in (fused, unfused):
+            m.load_state_dict(import_dinov2_vit_torch(sd))
+            m.cuda().eval()
+        with torch.inference_mode():
+            got, want = fused(batch), unfused(batch)
+        compare(f"DINOv2 ViT-S/14 features at {size} px (N = {(size // 14) ** 2 + 1}), "
+                f"B = {len(batch)}: K5/K7 against the unfused model, f32", got, want,
+                torch.float32, False, TOL_VIT)
+        if not torch.allclose(got.cpu(), torch.from_numpy(feats[:len(batch)]), atol=TOL_VIT[0]):
+            raise AssertionError(f"extract_features' first batch at {size} px differs from "
+                                 "the model's")
+        del fused, unfused, batch, got, want
+        a, m = rows[f"vit_attn_fwd_dinov2_{suffix}"], rows[f"vit_mlp_fwd_dinov2_{suffix}"]
+        log(f"[teacher features] dinov2_jax at {size} px: {n} images in {seconds:.2f} s "
+            f"({n / seconds:.1f} images/s, host preprocessing and the model's load "
+            f"included), launches {ran}; K5 {a['ms']:.3f} ms a launch (bound "
+            f"{a['bound_ms']:.3f}), K7 {m['ms']:.3f} ms (bound {m['bound_ms']:.3f}) on {gpu}")
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(teacher_dir("dino_ckpt"), "checkpoint.pth")
+    small = DinoModel(DinoArgs(arch="vit_small", patch_size=8), seed=7)
+    wrapped = MultiCropWrapper(small.backbone, small.head)
+    export_dino_pth(ckpt, wrapped, wrapped, torch.zeros(1, 65536), epoch=0)
+    del small, wrapped
+    for teacher, extra in (("dino_ckpt", ["--teacher_weights", ckpt]), ("random_vit", [])):
+        argv = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "2",
+                "--teacher", teacher, "--arch", "vit_small", "--patch_size", "8"] + extra
+        feats, seconds, ran = teacher_extract(argv, 80, vit_fwd, 12)
+        log(f"[teacher features] {teacher} (vit_small/8, 224 px, N = 785): 80 images in "
+            f"{seconds:.2f} s, features {feats.shape}, launches {ran}")
+    return errs, rows, launches
+
+
+def noise_probe_phase(gpu: str) -> tuple:
+    """`[noise probe]`: noise_probe at its defaults (ViT-Ti/16 at 64 px, 16
+    noise images on a synthetic prior): a finite JSON, 12 K5 and 12 K7 a
+    forward (real and noise); K5/K7 alone at N = 17."""
+    from cerebra_torch.cli import noise_probe
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+
+    errs, rows = teacher_kernels(gpu, (("vit_attn_fwd_noise_probe",
+                                        "vit_mlp_fwd_noise_probe"),))
+    log_dir = teacher_dir("noise_probe")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = noise_probe.main(["--device", "cuda", "--log_dir", log_dir, "--images_root",
+                            os.path.join(log_dir, "none")])
+    seconds = time.perf_counter() - t0
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    with open(os.path.join(log_dir, "noise_probe.json")) as f:
+        saved = json.load(f)
+    if ran != {"vit_attn_fwd": 24, "vit_mlp_fwd": 24} or saved != out or not all(
+            math.isfinite(v) for v in saved.values()) or saved["feature_dim"] != 192:
+        raise AssertionError(f"noise_probe: {saved}, launches {ran}")
+    log(f"[noise probe] {seconds:.2f} s, {saved}, launches {ran} on {gpu}")
+    return errs, rows, {f"{k}_noise_probe": ran[k] for k in ("vit_attn_fwd", "vit_mlp_fwd")}
+
+
+def hub_phase(gpu: str) -> None:
+    """`[hub]`: every hub name with pretrained=False forwards 8 images at 224
+    px on the card (the ViTs through K5/K7 in each block); one ViT and one
+    XCiT load weights the phase wrote into the local cache and forward as
+    the model built from the same dict; XCiT-S12/16 and DINOv2 ViT-S/14
+    timed at B = 64."""
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.models import hub
+    from cerebra_torch.models.vit import vit_small
+    from cerebra_torch.models.xcit import xcit_small_12_p16
+
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(8, 224, 224, 3, generator=gen).cuda()
+    reset_launches()
+    for name, width in HUB_WIDTHS.items():
+        t0 = time.perf_counter()
+        model = hub.load(name, pretrained=False).cuda()
+        with torch.inference_mode():
+            out = model(x)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (8, width) or not torch.isfinite(out).all():
+            raise AssertionError(f"hub {name}: features {tuple(out.shape)}")
+        log(f"[hub] {name}: (8, {width}) features in {time.perf_counter() - t0:.2f} s "
+            f"(build on the host included)")
+        del model, out
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    if ran != {"vit_attn_fwd": 12 * len(HUB_VITS), "vit_mlp_fwd": 12 * len(HUB_VITS)}:
+        raise AssertionError(f"hub forwards launched {ran}")
+    cache = teacher_dir("hub_cache")
+    os.environ["CEREBRA_HUB_CACHE"] = cache
+    for name, src, url in (
+            ("dino_vits16", vit_small(patch_size=16, generator=gen),
+             hub.PRETRAINED_URLS[("vit_small", 16)]),
+            ("dino_xcit_small_12_p16", xcit_small_12_p16(generator=gen),
+             hub.PRETRAINED_URLS[("xcit_small_12_p16", None)])):
+        torch.save(src.state_dict(), os.path.join(cache, url.rsplit("/", 1)[-1]))
+        loaded = hub.load(name).cuda()
+        src = src.cuda().eval()
+        with torch.inference_mode():
+            err = (loaded(x) - src(x)).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"hub {name} from the local cache: {err} off the model "
+                                 "built from the same dict")
+        log(f"[hub] {name} loaded from the local cache: forward equal to the model of the "
+            f"same dict")
+        del loaded, src
+    for name in ("dino_xcit_small_12_p16", "dinov2_vits14"):
+        model = hub.load(name, pretrained=False).cuda()
+        xb = torch.randn(64, 224, 224, 3, generator=gen).cuda()
+        with torch.inference_mode():
+            med, lo, hi = time_windows(lambda: model(xb), 3, 3, 1)
+        log(f"[hub timing] {name} forward at B = 64, 224 px, f32: {med:.2f} ms "
+            f"({64e3 / med:.0f} images/s; windows {lo:.2f}-{hi:.2f}) on {gpu}")
+        del model, xb
+    torch.cuda.empty_cache()
+
+
+def dino_images(gpu: str) -> None:
+    """`[dino images]`: two steps of dino_vit_train with stimulus-image locals
+    at main_dino's defaults (ViT-S/8, out_dim 65536, 2 x 224 px EEG globals,
+    4 x 96 px image crops, batch 8, bf16, drop path 0.1): a finite loss and
+    K5/K7 36 times, K6/K8 24 times a step; the crops on the card against
+    the CPU for the same draws."""
+    from cerebra_torch.data.sources import synthetic_image_source
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.signal.image_aug import dino_local_crop, draw_crop
+    from cerebra_torch.train.dino_vit import DinoVitConfig, dino_vit_train
+
+    gen = torch.Generator().manual_seed(16)
+    images = synthetic_image_source(8, 2, 224, seed=16).images.astype(np.float32) / 255.0
+    eeg = torch.randn(16, T, C, generator=gen).numpy()
+    draws = draw_crop(gen, (4, 8), 224, 224, scale=(0.05, 0.4), blur_p=0.5)
+    crops = torch.from_numpy(images[:8])
+    compare("stimulus-image local crops 4 x 8 at 96 px, CUDA against the CPU",
+            dino_local_crop(crops.cuda(), draws, 96).cpu(), dino_local_crop(crops, draws, 96),
+            torch.float32, False)
+    cfg = DinoVitConfig(epochs=1, batch_size_per_device=8, dtype=torch.bfloat16)
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = dino_vit_train(eeg, images=images, config=cfg, device=torch.device("cuda"),
+                                 log_fn=lambda m: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ran = {k: v for k, v in LAUNCHES.items() if v}
+    want = {"vit_attn_fwd": 72, "vit_mlp_fwd": 72, "vit_attn_bwd": 48, "vit_mlp_bwd": 48}
+    if state.step != 2 or ran != want or not all(math.isfinite(v) for v in hist["loss"]):
+        raise AssertionError(f"dino_vit_train with images: {state.step} steps, loss "
+                             f"{hist['loss']}, launches {ran}")
+    log(f"[dino images] 2 steps with image locals in {seconds:.1f} s (init included), loss "
+        f"{hist['loss'][0]:.4f}, launches {ran} on {gpu}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_teacher(gpu: str) -> tuple:
+    """Phase 16 → (errors, timing rows, launches) of TEACHER_KERNELS."""
+    errs, rows, launches = teacher_features(gpu)
+    e, r, n = noise_probe_phase(gpu)
+    errs.update(e)
+    rows.update(r)
+    launches.update(n)
+    hub_phase(gpu)
+    dino_images(gpu)
+    return errs, rows, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2841,13 +3192,14 @@ def main() -> None:
     e, t = run(phase_fwd_paths, gpu)
     errs.update(e)
     times.update(t)
-    for phase in (phase_rc, phase_scan, phase_lstm_family, phase_analysis):
+    for phase in (phase_rc, phase_scan, phase_lstm_family, phase_analysis, phase_teacher):
         e, t, n = run(phase, gpu)
         errs.update(e)
         times.update(t)
         launches.update({k: n[k] for k in t})
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
-    sources = dict(VIT_SOURCES, **FLASH_SOURCES, **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
+    sources = dict(VIT_SOURCES, **FLASH_SOURCES, **TEACHER_SOURCES,
+                   **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
     kernels = [
         {"name": name, "route": "cuda", "source": sources.get(name, SOURCE),
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -2856,7 +3208,8 @@ def main() -> None:
                      "fwd_infer_last", "fwd_wave", *VIT_SOURCES, "fwd_infer", "fwd_in_product",
                      "fwd_cluster_scan", "bwd_general", "fwd_train_rc", "fwd_infer_wave",
                      "fwd_train_rc_split", "fwd_infer_split",
-                     "bwd_rc", *RC_PIECES, *SCAN_KERNELS, *FAMILY_KERNELS, *FLASH_SOURCES)
+                     "bwd_rc", *RC_PIECES, *SCAN_KERNELS, *FAMILY_KERNELS, *FLASH_SOURCES,
+                     *TEACHER_KERNELS)
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -273,3 +273,97 @@ def test_new_clis_raise_without_a_card(tmp_path, cli):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--synthetic", "--synthetic_classes", "2", "--synthetic_per_class", "2",
               "--synthetic_channels", "4", "--log_dir", str(tmp_path)])
+
+
+def _tie_split(seed=11, n_classes=40, per_gallery=6, T=4, n_base=6, segments=False):
+    """A 40-class gallery/query pair with 55-64 queries a class, in which
+    every base channel (or, with `segments`, every even time segment of T
+    samples) has a twin whose trials are those of another class: class c's
+    k-th trial takes the data of the k-th trial of class π(c), π permuting
+    classes of equal query count. A candidate and its twin then have
+    per-class recalls that are permutations of each other, equal in exact
+    arithmetic and ordered by the bits of the f32 class sum alone."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(55, 65, n_classes)
+    q_lab = np.repeat(np.arange(n_classes), counts)
+    g_lab = np.repeat(np.arange(n_classes), per_gallery)
+    perm = np.arange(n_classes)
+    for n in np.unique(counts):
+        same = np.nonzero(counts == n)[0]
+        perm[same] = rng.permutation(same)
+
+    def remap(labels):  # trial i of class c → the same-rank trial of class perm[c]
+        first = np.concatenate([[0], np.cumsum(np.bincount(labels, minlength=n_classes))])
+        rank = np.arange(len(labels)) - first[labels]
+        return first[perm[labels]] + rank
+
+    sq, sg = remap(q_lab), remap(g_lab)
+    sig = rng.normal(size=(n_classes, T, n_base)) * np.linspace(0.5, 0.15, n_base)
+    g = sig[g_lab] + rng.normal(size=(len(g_lab), T, n_base))
+    q = sig[q_lab] + rng.normal(size=(len(q_lab), T, n_base))
+    if segments:  # (N, 2T, C): each channel's T samples, then their twin
+        g, q = np.concatenate([g, g[sg]], 1), np.concatenate([q, q[sq]], 1)
+    else:  # (N, T, 2C): channel b, then its twin
+        g, q = np.concatenate([g, g[sg]], 2), np.concatenate([q, q[sq]], 2)
+    return g.astype(np.float32), q.astype(np.float32), g_lab, q_lab
+
+
+def test_recall_at_40_classes_bit_equal_to_jax():
+    """At 40 classes XLA:CPU sums the classes as (x0 + … + x19) + (x20 + …
+    + x39); the port's recall and precision carry those bits, on the
+    greedy's compiled `_chunk_recall` and on the jitted function alone."""
+    rng = np.random.default_rng(12)
+    q_lab = np.repeat(np.arange(40), rng.integers(55, 65, 40))
+    g_lab = rng.integers(0, 40, 200)
+    d = rng.random((8, len(q_lab), 200)).astype(np.float32)
+    want = jcd._chunk_recall(jnp.asarray(d), jnp.zeros(d.shape[1:]), jnp.asarray(g_lab),
+                             jnp.asarray(q_lab), 5, 40)
+    jr, jp = jcd.recall_precision_for_distances(jnp.asarray(d), jnp.asarray(g_lab),
+                                                jnp.asarray(q_lab), 5, 40)
+    tr, tp = tcd.recall_precision_for_distances(torch.from_numpy(d), g_lab, q_lab, 5, 40)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+
+@pytest.mark.parametrize("n", [2, 5, 22, 33, 40, 64, 97])
+def test_xla_cpu_sum_order_matches_jnp_sum(n):
+    """The class sum alone against a jitted `jnp.sum` of the masked per-class
+    values, bit for bit (up to 22 elements and above 32; between them LLVM
+    vectorises the loop by the element count and the host)."""
+    rng = np.random.default_rng(n)
+    x = (np.round(rng.random((16, n)) * 1e4) * 0.01).astype(np.float32)
+    present = rng.random(n) > 0.1
+    want = jax.jit(lambda v, p: jnp.sum(jnp.where(p, v, 0.0), axis=-1) / jnp.sum(p))(
+        jnp.asarray(x), jnp.asarray(present))
+    got = tcd._class_mean(torch.from_numpy(x), torch.from_numpy(present))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("chunk", [None, 5])
+def test_greedy_at_40_classes_picks_jax_channels_among_tie_pairs(chunk, monkeypatch):
+    g, q, g_lab, q_lab = _tie_split()
+    kw = dict(top_k=5, n_classes=40, max_channels=4, channel_chunk=chunk)
+    want = jcd.greedy_channel_discovery(g, q, g_lab, q_lab, **kw)
+    got = tcd.greedy_channel_discovery(torch.from_numpy(g), torch.from_numpy(q), g_lab, q_lab,
+                                       **kw)
+    first = want.per_iteration[0]
+    assert (first[:6] != first[6:]).any()  # the tie pairs differ in their last bits
+    assert got.selected == want.selected and got.recalls == want.recalls
+    for a, b in zip(got.per_iteration, want.per_iteration):
+        np.testing.assert_array_equal(a, b)
+    # the sequential sum of the earlier port breaks a tie the other way
+    monkeypatch.setattr(tcd, "_xla_cpu_sum", tcd._sequential_sum)
+    seq = tcd.greedy_channel_discovery(g, q, g_lab, q_lab, **kw)
+    assert any((a != b).any() for a, b in zip(seq.per_iteration, want.per_iteration))
+
+
+def test_best_window_sweep_at_40_classes_picks_jax_starts_among_tie_pairs():
+    g, q, g_lab, q_lab = _tie_split(n_base=3, segments=True)
+    kw = dict(width=4, top_k=5, n_classes=40, stride=4)  # starts 0 and 4 tie
+    want = jcd.best_window_sweep(g, q, g_lab, q_lab, **kw)
+    got = tcd.best_window_sweep(torch.from_numpy(g), torch.from_numpy(q), g_lab, q_lab, **kw)
+    assert (want.recalls[:, 0] != want.recalls[:, 1]).any()
+    np.testing.assert_array_equal(got.recalls, want.recalls)
+    np.testing.assert_array_equal(got.precisions, want.precisions)
+    np.testing.assert_array_equal(got.best_start, want.best_start)

@@ -22,8 +22,13 @@ assert "cerebra_torch.cli.main_dino" in names
 assert "cerebra_torch.models.autoencoders" in names
 assert "cerebra_torch.models.lstm_scan" in names
 for cli in ("discover_channels", "save_channelwise_outputs", "brain_map", "eeg_retrieval_dino",
-            "visualize_attention"):
+            "visualize_attention", "extract_features", "noise_probe"):
     assert "cerebra_torch.cli." + cli in names, cli
+for mod in ("data.gauss_noise", "data.sources", "signal.image_aug", "models.xcit",
+            "models.resnet", "models.hub"):
+    assert "cerebra_torch." + mod in names, mod
+for lazy in ("PIL", "torchvision", "transformers", "sklearn"):
+    assert lazy not in sys.modules, lazy
 print(len(names))
 """
 
