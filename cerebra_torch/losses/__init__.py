@@ -1,4 +1,7 @@
-"""Losses of the LSTM distillation trainers and the DINO recipes."""
+"""Losses of the LSTM distillation trainers, the DINO recipes and Barlow
+Twins."""
+
+from cerebra_torch.losses.barlow import barlow_twins_loss  # noqa: F401
 
 from cerebra_torch.losses.cosine import (  # noqa: F401
     cosine_embedding_loss,

@@ -1,0 +1,91 @@
+"""BatchNorm as flax's `nn.BatchNorm(momentum=0.9)` computes it, under
+torch's module names and state-dict keys.
+
+In training mode both normalise with the batch's biased variance, but
+torch's `nn.BatchNorm{1,2}d` folds the *unbiased* one into `running_var`
+(n/(n-1) larger), flax the biased one. These modules fold the biased
+variance, at torch momentum 0.1 (flax's decay 0.9), and compute in f32 for a
+bf16 or f16 input (flax's statistics and normalisation are f32; the output
+takes the input's dtype). Eval mode uses the running statistics, as torch does.
+
+`update_once` runs a function (a checkpointed stage or block) so that only
+its first call moves the running statistics: a recompute of the same
+forward leaves them as the first pass left them, as flax's remat does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # flax's momentum 0.9 is the decay; torch's is the new batch's weight
+
+
+class _FlaxStats:
+    """The training-mode forward of flax's BatchNorm over a torch
+    `_BatchNorm`; `frozen` > 0 holds the running statistics (a recompute)."""
+
+    frozen = 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_input_dim(x)
+        dtype = x.dtype
+        xf = x.float() if dtype in (torch.float16, torch.bfloat16) else x
+        if not self.training:
+            y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+            return y.to(dtype)
+        y, mean, invstd = torch.native_batch_norm(xf, self.weight, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        if not self.frozen:
+            with torch.no_grad():
+                var = invstd.pow(-2) - self.eps  # the biased batch variance
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean * m)
+                self.running_var.mul_(1.0 - m).add_(var * m)
+                self.num_batches_tracked.add_(1)
+        return y.to(dtype)
+
+
+class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    def __init__(self, num_features: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    def __init__(self, num_features: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+
+@contextlib.contextmanager
+def stats_frozen(module: nn.Module):
+    """Hold the running statistics of every BatchNorm in `module`."""
+    bns = [m for m in module.modules() if isinstance(m, _FlaxStats)]
+    for m in bns:
+        m.frozen += 1
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen -= 1
+
+
+def update_once(fn: Callable, module: nn.Module) -> Callable:
+    """`fn` as checkpoint's function: its first call moves the running
+    statistics of `module`'s BatchNorms, every later call (checkpoint's
+    recompute, at any depth of nesting) leaves them. Make one per forward."""
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        with stats_frozen(module):
+            return fn(*args)
+
+    return run

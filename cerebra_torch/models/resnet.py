@@ -6,16 +6,17 @@ backbone, and the tower of ResnetFeatureRegressor
 A standard bottleneck ResNet under torchvision's names (`conv1`, `bn1`,
 `layer{1..4}.{j}.conv{1..3}`, `.bn{1..3}`, `.downsample.{0,1}`, `fc`), so
 `import_torchvision_resnet50` selects keys. Inputs are NHWC, as in the JAX
-package. BatchNorm follows the module's mode (batch statistics in training,
-running ones in eval). `remat` checkpoints each stage with
-torch.utils.checkpoint; the recompute leaves the running statistics as the
-first pass left them, as flax's remat does. Plain XLA in the JAX package,
-so stock PyTorch here.
+package. BatchNorm is flax's (`models/batchnorm.py`): batch statistics in
+training, with the biased variance folded into the running one; running
+statistics in eval. `remat` checkpoints as the JAX ResNet does: each
+stage, and inside a stage's recompute each block (torch.utils.checkpoint,
+non-reentrant, nested); every recompute leaves the running statistics as
+the first pass left them, as flax's remat does. Plain XLA in the JAX
+package, so stock PyTorch here.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -24,15 +25,17 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from cerebra_torch.models._torch_interop import trunc_normal_init
+from cerebra_torch.models._torch_interop import (
+    conv_from_flax,
+    dense_from_flax,
+    flax_default_init,
+    norm_from_flax,
+)
+from cerebra_torch.models.batchnorm import BatchNorm2d, update_once
 
-BN_EPS = 1e-5
-BN_MOMENTUM = 0.1  # flax's momentum 0.9 is the decay; torch's is the new batch's weight
-_LECUN_STD_CORRECTION = 0.87962566103423978  # std of a unit normal truncated at ±2
 
-
-def _bn(dim: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(dim, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(dim: int) -> BatchNorm2d:
+    return BatchNorm2d(dim)
 
 
 class BottleneckBlock(nn.Module):
@@ -61,27 +64,21 @@ class BottleneckBlock(nn.Module):
         return F.relu(y + residual)
 
 
-def _recompute_safe(stage: nn.Sequential):
-    """The stage as a function whose second call (checkpoint's recompute)
-    leaves the BatchNorms' running statistics untouched."""
-    calls = [0]
+def _checkpointed_stage(stage: nn.Sequential):
+    """The stage as checkpoint's function, each block checkpointed inside
+    it: the backward keeps the stage's input, and in the stage's recompute
+    each block's input. A block's forward starts up to three times (the
+    forward, the stage's recompute, its own recompute; a recompute stops
+    once it has the tensors it needs); only the first moves the running
+    statistics."""
+    blocks = [update_once(b, b) for b in stage]
 
     def run(y):
-        calls[0] += 1
-        if calls[0] == 1:
-            return stage(y)
-        bns = [m for m in stage.modules() if isinstance(m, nn.BatchNorm2d)]
-        saved = [(m.momentum, m.num_batches_tracked.clone()) for m in bns]
-        for m in bns:
-            m.momentum = 0.0
-        try:
-            return stage(y)
-        finally:
-            for m, (mom, n) in zip(bns, saved):
-                m.momentum = mom
-                m.num_batches_tracked.copy_(n)
+        for b in blocks:
+            y = checkpoint(b, y, use_reentrant=False)
+        return y
 
-    return run
+    return update_once(run, stage)
 
 
 class ResNet(nn.Module):
@@ -102,19 +99,7 @@ class ResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
         self.fc = nn.Linear(in_dim, num_classes) if num_classes else None
-        self._init(generator)
-
-    @torch.no_grad()
-    def _init(self, generator) -> None:
-        """flax's defaults: lecun_normal convolutions and dense kernel, zero
-        dense bias (BatchNorms keep unit gains and zero biases)."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
-                std = math.sqrt(1.0 / fan_in) / _LECUN_STD_CORRECTION
-                trunc_normal_init(m.weight, std, -2 * std, 2 * std, generator=generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+        flax_default_init(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, 3) NHWC → pooled (B, 2048) features (or logits)."""
@@ -123,7 +108,7 @@ class ResNet(nn.Module):
         for i in range(self.n_stages):
             stage = getattr(self, f"layer{i + 1}")
             if self.remat and torch.is_grad_enabled():
-                y = checkpoint(_recompute_safe(stage), y, use_reentrant=False)
+                y = checkpoint(_checkpointed_stage(stage), y, use_reentrant=False)
             else:
                 y = stage(y)
         y = y.mean(dim=(2, 3))  # global average pool
@@ -188,36 +173,60 @@ def params_from_jax(variables, stage_sizes: Sequence[int] = (3, 4, 6, 3),
     """A flax ResNet `{"params", "batch_stats"}` tree → this module's state
     dict (the inverse of `cerebra.models.resnet.import_torchvision_resnet50`)."""
     p, s = variables["params"], variables["batch_stats"]
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    def conv(d):  # HWIO → OIHW
-        return t(np.transpose(np.asarray(d["kernel"]), (3, 2, 0, 1)))
-
-    out: Dict[str, torch.Tensor] = {}
-
-    def bn(prefix, pd, sd_):
-        out.update({f"{prefix}.weight": t(pd["scale"]), f"{prefix}.bias": t(pd["bias"]),
-                    f"{prefix}.running_mean": t(sd_["mean"]),
-                    f"{prefix}.running_var": t(sd_["var"]),
-                    f"{prefix}.num_batches_tracked": torch.tensor(0, dtype=torch.int64)})
-
-    out["conv1.weight"] = conv(p["Conv_0"])
-    bn("bn1", p["BatchNorm_0"], s["BatchNorm_0"])
+    out = dict(conv_from_flax("conv1", p["Conv_0"]))
+    out.update(norm_from_flax("bn1", p["BatchNorm_0"], s["BatchNorm_0"]))
     k = 0
     for stage, n_blocks in enumerate(stage_sizes):
         for j in range(n_blocks):
             tp, bp, bs = f"layer{stage + 1}.{j}", p[f"BottleneckBlock_{k}"], \
                 s[f"BottleneckBlock_{k}"]
             for c in range(3):
-                out[f"{tp}.conv{c + 1}.weight"] = conv(bp[f"Conv_{c}"])
-                bn(f"{tp}.bn{c + 1}", bp[f"BatchNorm_{c}"], bs[f"BatchNorm_{c}"])
+                out.update(conv_from_flax(f"{tp}.conv{c + 1}", bp[f"Conv_{c}"]))
+                out.update(norm_from_flax(f"{tp}.bn{c + 1}", bp[f"BatchNorm_{c}"],
+                                          bs[f"BatchNorm_{c}"]))
             if "downsample_conv" in bp:
-                out[f"{tp}.downsample.0.weight"] = conv(bp["downsample_conv"])
-                bn(f"{tp}.downsample.1", bp["downsample_bn"], bs["downsample_bn"])
+                out.update(conv_from_flax(f"{tp}.downsample.0", bp["downsample_conv"]))
+                out.update(norm_from_flax(f"{tp}.downsample.1", bp["downsample_bn"],
+                                          bs["downsample_bn"]))
             k += 1
     if num_classes:
-        out["fc.weight"] = t(np.asarray(p["Dense_0"]["kernel"]).T)
-        out["fc.bias"] = t(p["Dense_0"]["bias"])
+        out.update(dense_from_flax("fc", p["Dense_0"]))
+    return out
+
+class ResnetFeatureRegressor(nn.Module):
+    """ResNet-50 (trainable) and a linear regression head
+    (utils/ResnetFeatureRegressor.py:6-35): NHWC images → (B, output_size)."""
+
+    def __init__(self, output_size: int, num_features: int = 2048,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = resnet50(generator=generator)
+        self.fc = nn.Linear(num_features, output_size)
+        flax_default_init(self.fc, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(self.backbone(x))
+
+
+def init_feature_regressor(output_size: int, pretrained_path: Optional[str] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> ResnetFeatureRegressor:
+    """A ResnetFeatureRegressor; with `pretrained_path` (a local torchvision
+    resnet50 .pth, the reference's `resnet50(weights=ResNet50_Weights.
+    DEFAULT)`, :11-12) the backbone takes its weights and running
+    statistics, and the head keeps its fresh init (the reference's new
+    nn.Linear, :22)."""
+    model = ResnetFeatureRegressor(output_size, generator=generator)
+    if pretrained_path:
+        model.backbone.load_state_dict(load_pretrained_resnet50(pretrained_path))
+    return model
+
+
+def regressor_params_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """A flax ResnetFeatureRegressor `{"params", "batch_stats"}` tree → this
+    module's state dict."""
+    p, s = variables["params"], variables["batch_stats"]
+    out = {f"backbone.{k}": v for k, v in
+           params_from_jax({"params": p["ResNet_0"], "batch_stats": s["ResNet_0"]}).items()}
+    out.update(dense_from_flax("fc", p["fc"]))
     return out

@@ -24,9 +24,10 @@ so `import_xcit_torch` checks keys rather than renaming them.
 - A final LayerNorm; the backbone returns the CLS feature.
 
 The JAX package computes all of this as plain XLA, so this is stock PyTorch
-(cuDNN convolutions, torch matmuls). BatchNorm follows the module's mode:
-running statistics in eval, batch statistics in training (flax's
-`use_running_average=not train`). Inputs are NHWC, as in the JAX package.
+(cuDNN convolutions, torch matmuls). BatchNorm is flax's
+(`models/batchnorm.py`): running statistics in eval, batch statistics in
+training (`use_running_average=not train`), the biased variance folded into
+the running one. Inputs are NHWC, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,12 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from cerebra_torch.models._torch_interop import strip_torch_prefixes, trunc_normal_init
+from cerebra_torch.models.batchnorm import BatchNorm2d
 
 LN_EPS = 1e-6
-BN_EPS = 1e-5
-# flax's BatchNorm momentum 0.9 is the decay of the running average; torch's
-# momentum is the weight of the new batch
-BN_MOMENTUM = 0.1
 _LECUN_STD_CORRECTION = 0.87962566103423978  # std of a unit normal truncated at ±2
 
 
@@ -72,8 +70,8 @@ def fourier_pos_encoding(gh: int, gw: int, hidden_dim: int = 32,
     return pos.reshape(gh * gw, 2 * hidden_dim)
 
 
-def _bn(dim: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(dim, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(dim: int) -> BatchNorm2d:
+    return BatchNorm2d(dim)
 
 
 class ConvPatchEmbed(nn.Module):

@@ -1,5 +1,6 @@
 """Precomputed schedule arrays (copy of cerebra/train/schedules.py::
-cosine_scheduler, numpy): the recipes index them by the step."""
+cosine_scheduler and barlow_learning_rate, numpy): the recipes index them
+by the step."""
 
 from __future__ import annotations
 
@@ -30,3 +31,22 @@ def cosine_scheduler(
     if len(out) != epochs * niter_per_ep:
         raise ValueError(f"schedule of {len(out)} steps for {epochs}x{niter_per_ep}")
     return out
+
+
+def barlow_learning_rate(
+    epochs: int, niter_per_ep: int, batch_size: int, warmup_epochs: int = 10
+) -> np.ndarray:
+    """EEG-BarlowNetworks/barlow_utils.py:8-21: base_lr = batch/256, a linear
+    warmup over `warmup_epochs`, then a cosine to 0.001·base. Returned
+    unscaled: the recipe multiplies it by each group's factor."""
+    max_steps = epochs * niter_per_ep
+    warmup_steps = warmup_epochs * niter_per_ep
+    base_lr = batch_size / 256.0
+    steps = np.arange(max_steps)
+    warm = base_lr * steps / max(warmup_steps, 1)
+    s = steps - warmup_steps
+    denom = max(max_steps - warmup_steps, 1)
+    q = 0.5 * (1 + np.cos(np.pi * s / denom))
+    end_lr = base_lr * 0.001
+    cos = base_lr * q + end_lr * (1 - q)
+    return np.where(steps < warmup_steps, warm, cos)

@@ -177,6 +177,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  dino_vit_train steps with stimulus-image local crops at
                  main_dino's defaults (36 K5/K7 and 24 K6/K8 a step), the
                  crops on the card against the CPU
+ 17. trainers    stock PyTorch, no kernel of this repo: `[barlow]`:
+                 `barlow_train.main` at its defaults (2 x ResNet-50,
+                 projector 8192-8192-8192, n_mels 224, 224 px, B 16, f32,
+                 cuDNN TF32 on) on 40 x 4 synthetic trials for 2 epochs of
+                 10 steps: finite losses, ms/step and pairs/s, the corpus
+                 spectrogram's seconds and peak, checkpoint.pt reloaded and
+                 forwarding as the trained model, one step on the card
+                 against the CPU (loss 1e-4, TF32 off; gradients against
+                 the CPU's f64 step no worse than twice the CPU's f32);
+                 `[barlow remat]`: one step at B = 64 with and without the
+                 nested remat (loss and statistics within 1e-5, the peaks);
+                 `[barlow profile]`: 5 steps under torch.profiler (device
+                 time by part, top kernels, idle share, host ops);
+                 `[conformer]`: `conformer_train.main --synthetic` at its
+                 defaults (emb 40, depth 6, out 384, batch 72, 22 x 1000,
+                 bf16) for 50 epochs: finite losses, best accuracy above
+                 chance, its three files, ms/epoch, one f32 step on the
+                 card against the CPU (likewise)
 Every timing line gives the kernel's ms, its plain version's, its bound (the
 larger of its matrix-product operations over the H100's peak and its bytes,
 each input read and each output written once, over 3.35 TB/s) and the ms of
@@ -3159,6 +3177,327 @@ def phase_teacher(gpu: str) -> tuple:
     return errs, rows, launches
 
 
+# Phase 17: the Barlow Twins and Conformer trainers. The JAX package computes
+# them in plain XLA, so the port runs stock PyTorch (cuDNN convolutions,
+# cuBLAS products, torch.stft): no kernel of this repo, no kernels-line entry.
+# Barlow at the CLI's defaults (2 x ResNet-50, projector 8192-8192-8192,
+# n_mels 224, 224 px, B 16, f32) on 40 x 4 synthetic (96, 512) trials: 10
+# steps an epoch. The Conformer at its CLI's defaults (emb 40, depth 6, out
+# 384, batch 72 + 72 S&R rows, 22 x 1000, bf16) on the synthetic BCI-IV
+# corpus, 50 epochs.
+BARLOW_ARGV = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "4",
+               "--epochs", "2"]
+CONFORMER_ARGV = ["--synthetic", "--n_epochs", "50", "--subjects", "1"]
+# device-time parts of a Barlow step, by kernel name (first match)
+BARLOW_PARTS = (("fprop", "convolution fwd"), ("dgrad", "convolution dgrad"),
+                ("wgrad", "convolution wgrad"), ("conv", "convolution other"),
+                ("batch_norm", "BatchNorm"), ("gemm", "matrix products"),
+                ("gemv", "matrix products"), ("reduce", "reductions"), ("norm", "reductions"),
+                ("elementwise", "elementwise"), ("vectorized", "elementwise"))
+
+
+@contextlib.contextmanager
+def conv_tf32(on: bool):
+    """cuDNN's TF32 for convolutions (torch's default: on) and cuBLAS's for
+    products (default: off) for the enclosed code; restored after."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = on, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def trainer_dir(name: str) -> str:
+    import shutil
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "trainers", name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def barlow_batch(B: int, seed: int):
+    """B pairs at the CLI's shapes: 224 px images and (224, 8, 96) mels."""
+    gen = torch.Generator().manual_seed(seed)
+    return (0.45 + 0.22 * torch.randn(B, 224, 224, 3, generator=gen),
+            5.0 * torch.rand(B, 224, 8, 96, generator=gen))
+
+
+def barlow_run(gpu: str) -> None:
+    """`[barlow]`: barlow_train.main at its defaults, 2 epochs of 10 steps:
+    finite losses, ms/step and pairs/s on the host clock after the first
+    epoch, the corpus spectrogram's seconds and peak, checkpoint.pt reloaded
+    and forwarding as the trained model; one step on the card against the
+    CPU from the same weights, TF32 off, and both against the CPU in f64."""
+    import copy
+
+    from cerebra_torch.cli import barlow_train
+    from cerebra_torch.cli.common import load_corpus, reference_argparser
+    from cerebra_torch.models.barlow import BarlowTwins
+    from cerebra_torch.train import barlow_recipe
+
+    log_dir = trainer_dir("barlow")
+    flags = reference_argparser("").parse_known_args(BARLOW_ARGV)[0]
+    eeg = load_corpus(flags).eeg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    spec = barlow_recipe.barlow_spectrogram(eeg, 224, 256.0, torch.device("cuda"))
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    spec_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    if tuple(spec.shape) != (len(eeg), 224, 8, 96) or not torch.isfinite(spec).all():
+        raise AssertionError(f"barlow spectrogram {tuple(spec.shape)}")
+    log(f"[barlow] corpus spectrogram ({len(eeg)}, 224, 8, 96) in {spec_s:.3f} s, peak "
+        f"{spec_gib:.3f} GiB above the corpus on {gpu}")
+    del spec
+    torch.cuda.reset_peak_memory_stats()
+    with conv_tf32(True):
+        t0 = time.perf_counter()
+        model, hist = barlow_train.main(BARLOW_ARGV + ["--device", "cuda", "--log_dir", log_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(hist["loss"]) != 2 or not all(math.isfinite(v) for v in hist["loss"]):
+        raise AssertionError(f"barlow losses {hist['loss']}")
+    ms = hist["epoch_time_s"][1] * 1e3 / 10
+    log(f"[barlow] barlow_train.main (2 x ResNet-50, projector 8192-8192-8192, B 16, f32, "
+        f"cuDNN TF32 on): {seconds:.1f} s in all, losses {[round(v, 2) for v in hist['loss']]}, "
+        f"epoch 1 {ms:.2f} ms/step ({16e3 / ms:.1f} pairs/s; epoch 0 "
+        f"{hist['epoch_time_s'][0] * 1e3 / 10:.2f} ms/step), peak {peak:.2f} GiB on {gpu}")
+    loaded = barlow_train.load_checkpoint(os.path.join(log_dir, barlow_train.CHECKPOINT),
+                                          device=torch.device("cuda"))
+    y1, y2 = (t.cuda() for t in barlow_batch(4, 17))
+    model.eval()
+    with torch.inference_mode():
+        want = model(y1, y2)
+        err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(loaded(y1, y2), want))
+    if not err <= 1e-6:
+        raise AssertionError(f"checkpoint.pt forwards {err} off the trained model")
+    log(f"[barlow] checkpoint.pt reloaded: eval forward on 4 pairs {err:.1e} (relative, limit "
+        f"1e-6) off the trained model's")
+    del model, loaded
+
+    # one step from the same weights and batch on the card (f32), on the CPU
+    # (f32) and on the CPU in f64. f32 itself carries ~5e-3 (relative
+    # Frobenius) in these gradients: the loss's batch-16 BatchNorm
+    # subtracts most of each column's gradient. So the card's gradients are
+    # held to the f64 ones no worse than twice the CPU's f32 ones are.
+    cfg = barlow_recipe.BarlowConfig(epochs=2, batch_size=16, warmup_epochs=0)  # lr > 0 at once
+    cpu = BarlowTwins(generator=torch.Generator().manual_seed(17))
+    runs = {"card": copy.deepcopy(cpu).cuda(), "cpu": cpu, "f64": copy.deepcopy(cpu).double()}
+    y1, y2 = barlow_batch(16, 18)
+    out = {}
+    with conv_tf32(False):
+        for name, m in runs.items():
+            p0 = next(m.parameters())
+            loss = barlow_recipe.barlow_step(m, barlow_recipe.barlow_optimizer(m, cfg, 10),
+                                             y1.to(p0.device, p0.dtype),
+                                             y2.to(p0.device, p0.dtype), 0, cfg.lambd).item()
+            out[name] = (loss, {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()},
+                         {k: v.cpu() for k, v in m.state_dict().items() if "running" in k})
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu), (_, g64, _) = (out[k] for k in runs)
+
+    def rel_frob(g):
+        return (sum(float((g[k] - g64[k]).square().sum()) for k in g64)
+                / sum(float(v.square().sum()) for v in g64.values())) ** 0.5
+
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    e_card, e_cpu = rel_frob(g_card), rel_frob(g_cpu)
+    stats = max(((s_card[k] - v).abs().max() / v.abs().max()).item() for k, v in s_cpu.items())
+    log(f"[barlow] one step on the card against the CPU from the same weights (TF32 off): "
+        f"loss {l_card:.6f} vs {l_cpu:.6f} (rel {rel:.2e}, limit 1e-4); running statistics rel "
+        f"{stats:.2e} (limit 1e-4); every gradient against the CPU's f64 step: card "
+        f"rel_frob {e_card:.2e}, CPU f32 {e_cpu:.2e} (limit: the card within 2x the CPU's)")
+    if not (rel <= 1e-4 and stats <= 1e-4 and e_card <= max(2 * e_cpu, 1e-5)):
+        raise AssertionError("Barlow step on the card disagrees with the CPU")
+    del runs
+    del cpu
+    torch.cuda.empty_cache()
+
+
+def barlow_remat(gpu: str) -> None:
+    """`[barlow remat]`: one step at B = 64 with remat off and on from the
+    same weights: the loss and every running statistic equal within 1e-5;
+    the peak memory of each."""
+    import copy
+
+    from cerebra_torch.models.barlow import BarlowTwins
+    from cerebra_torch.train import barlow_recipe
+
+    cfg = barlow_recipe.BarlowConfig(epochs=2, batch_size=64)
+    src = BarlowTwins(generator=torch.Generator().manual_seed(19))
+    y1, y2 = (t.cuda() for t in barlow_batch(64, 20))
+    out = {}
+    with conv_tf32(True):
+        for remat in (False, True):
+            m = copy.deepcopy(src)
+            for tower in (m.backbone_image, m.backbone_eeg):
+                tower.remat = remat
+            m.cuda()
+            opt = barlow_recipe.barlow_optimizer(m, cfg, 10)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss = barlow_recipe.barlow_step(m, opt, y1, y2, 0, cfg.lambd).item()
+            torch.cuda.synchronize()
+            out[remat] = (loss, (torch.cuda.max_memory_allocated() - base) / 2**30,
+                          time.perf_counter() - t0,
+                          {k: v.cpu() for k, v in m.state_dict().items() if "running" in k})
+            del m, opt
+            torch.cuda.empty_cache()
+    (l0, p0, s0, st0), (l1, p1, s1, st1) = out[False], out[True]
+    rel = abs(l0 - l1) / abs(l0)
+    stats = max(((st1[k] - v).abs().max() / v.abs().max()).item() for k, v in st0.items())
+    log(f"[barlow remat] one step at B = 64: loss {l0:.6f} / {l1:.6f} (rel {rel:.2e}), running "
+        f"statistics rel {stats:.2e} (limit 1e-5); peak above the weights {p0:.2f} GiB without "
+        f"remat, {p1:.2f} GiB with nested stage + block remat ({p1 / p0:.2f}x; first steps "
+        f"{s0:.2f} / {s1:.2f} s) on {gpu}")
+    if not (rel <= 1e-5 and stats <= 1e-5):
+        raise AssertionError("remat changed the Barlow step")
+
+
+def barlow_profile(gpu: str) -> None:
+    """`[barlow profile]`: torch.profiler over 5 Barlow steps at the CLI's
+    shapes: device ms by part and the top kernels, the idle share, the
+    host's ops."""
+    from cerebra_torch.models.barlow import BarlowTwins
+    from cerebra_torch.train import barlow_recipe
+
+    cfg = barlow_recipe.BarlowConfig(epochs=2, batch_size=16)
+    m = BarlowTwins(generator=torch.Generator().manual_seed(21)).cuda()
+    opt = barlow_recipe.barlow_optimizer(m, cfg, 10)
+    y1, y2 = (t.cuda() for t in barlow_batch(16, 22))
+    step = [0]
+
+    def one():
+        barlow_recipe.barlow_step(m, opt, y1, y2, step[0], cfg.lambd)
+        step[0] += 1
+
+    with conv_tf32(True):
+        one()
+        kernels, wall_ms, host = device_kernels(one, 5)
+    # record_function ranges (`Optimizer.step#Lars.step`) come back among the
+    # device events, spanning the kernels they hold: not kernels
+    kernels = [(name, ms) for name, ms in kernels if "#" not in name]
+    parts, names = {}, {}
+    for name, ms in kernels:
+        low = name.lower()
+        part = next((p for frag, p in BARLOW_PARTS if frag in low), "other")
+        parts[part] = parts.get(part, 0.0) + ms / 5
+        names[name[:70]] = names.get(name[:70], 0.0) + ms / 5
+    busy = sum(parts.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[barlow profile] {wall_ms:.2f} ms/step under the profiler, device busy {busy:.2f} ms "
+        f"(idle {max(0.0, 1 - busy / wall_ms) * 100:.1f} %), {len(kernels) // 5} kernels a step; "
+        f"by part { {k: round(v, 3) for k, v in sorted(parts.items(), key=lambda kv: -kv[1])} } "
+        f"on {gpu}")
+    log(f"[barlow profile] top kernels {[(k, round(v, 3)) for k, v in top]}")
+    log(f"[barlow profile] host ms per step by op, self time under the profiler (top 8 of "
+        f"{sum(ms for _, ms in host):.1f}): {[(k[:40], round(ms, 2)) for k, ms in host[:8]]}")
+    del m, opt
+    torch.cuda.empty_cache()
+
+
+def conformer_run(gpu: str) -> None:
+    """`[conformer]`: conformer_train.main --synthetic at its defaults for 50
+    epochs: finite losses (the recipe also raises on one), best accuracy
+    above chance, the three files, ms/epoch; one f32 step on the card
+    against the CPU from the same weights, batch and dropout masks, and
+    both against the CPU in f64."""
+    import copy
+    import io
+    import re
+    from unittest import mock
+
+    from cerebra_torch.cli import conformer_train
+    from cerebra_torch.models.conformer import Conformer
+    from cerebra_torch.train import conformer_recipe
+
+    log_dir = trainer_dir("conformer")
+    hists = []
+
+    def keep(*args, **kw):
+        model, hist = conformer_recipe.conformer_exp_train(*args, **kw)
+        hists.append(hist)
+        return model, hist
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(conformer_train, "conformer_exp_train", keep), \
+            contextlib.redirect_stdout(out):
+        results = conformer_train.main(CONFORMER_ARGV + ["--device", "cuda", "--log_dir",
+                                                         log_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    (subject, best, aver), = results
+    losses = [float(v) for v in re.findall(r"Train loss: (\S+)", out.getvalue())]
+    files = [f for f in ("log_subject1.txt", "sub_result.txt", "conformer_subject1.pt")
+             if os.path.exists(os.path.join(log_dir, f))]
+    if len(losses) != 50 or not all(map(math.isfinite, losses)) or best <= 0.25 or \
+            len(files) != 3:
+        raise AssertionError(f"conformer: losses {losses[-3:]}, best {best}, files {files}")
+    per_epoch = sorted(hists[0]["epoch_time_s"][1:])
+    log(f"[conformer] conformer_train.main (emb 40, depth 6, out 384, batch 72 + 72 S&R, "
+        f"22 x 1000, bf16), 50 epochs of 1 step in {seconds:.1f} s: train "
+        f"{per_epoch[len(per_epoch) // 2] * 1e3:.2f} ms/epoch (median of epochs 1-49, eval "
+        f"apart), last loss {losses[-1]:.4f}, best accuracy {best:.4f}, average {aver:.4f}, "
+        f"files {files} on {gpu}")
+
+    # the same batch and masks on the card (f32), the CPU (f32) and the CPU
+    # in f64: the losses, and every gradient against the f64 one
+    cpu = Conformer(generator=torch.Generator().manual_seed(23))
+    runs = {"card": copy.deepcopy(cpu).cuda(), "cpu": cpu, "f64": copy.deepcopy(cpu).double()}
+    gen = torch.Generator().manual_seed(24)
+    x = torch.randn(144, 1, 22, 1000, generator=gen)
+    y = torch.randint(0, 4, (144,), generator=gen)
+
+    def masks(seed):
+        g = torch.Generator().manual_seed(seed)
+
+        def drop(t, rate):
+            keep_ = (torch.rand(t.shape, generator=g) >= rate).to(t.device)
+            return torch.where(keep_, t / (1.0 - rate), torch.zeros((), dtype=t.dtype,
+                                                                    device=t.device))
+        return drop
+
+    out = {}
+    with conv_tf32(False):
+        for name, m in runs.items():
+            p0 = next(m.parameters())
+            opt = torch.optim.Adam(m.parameters(), lr=2e-4, betas=(0.5, 0.999), eps=1e-8)
+            loss = conformer_recipe.conformer_step(m, opt, x.to(p0.device, p0.dtype),
+                                                   y.to(p0.device), masks(25)).item()
+            out[name] = (loss, {k: p.grad.detach().double().cpu()
+                                for k, p in m.named_parameters()})
+    (l_card, g_card), (l_cpu, g_cpu), (_, g64) = (out[k] for k in runs)
+
+    def rel_frob(g):
+        return (sum(float((g[k] - g64[k]).square().sum()) for k in g64)
+                / sum(float(v.square().sum()) for v in g64.values())) ** 0.5
+
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    e_card, e_cpu = rel_frob(g_card), rel_frob(g_cpu)
+    log(f"[conformer] one f32 step on the card against the CPU (same weights, batch, masks; "
+        f"TF32 off): loss {l_card:.6f} vs {l_cpu:.6f} (rel {rel:.2e}, limit 1e-4); every "
+        f"gradient against the CPU's f64 step: card rel_frob {e_card:.2e}, CPU f32 "
+        f"{e_cpu:.2e} (limit: the card within 2x the CPU's)")
+    if not (rel <= 1e-4 and e_card <= max(2 * e_cpu, 1e-5)):
+        raise AssertionError("Conformer step on the card disagrees with the CPU")
+
+
+def phase_trainers(gpu: str) -> None:
+    """Phase 17: `[barlow]`, `[barlow remat]`, `[barlow profile]`,
+    `[conformer]`."""
+    barlow_run(gpu)
+    barlow_remat(gpu)
+    barlow_profile(gpu)
+    conformer_run(gpu)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3197,6 +3536,7 @@ def main() -> None:
         errs.update(e)
         times.update(t)
         launches.update({k: n[k] for k in t})
+    run(phase_trainers, gpu)
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
     sources = dict(VIT_SOURCES, **FLASH_SOURCES, **TEACHER_SOURCES,
                    **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
