@@ -10,7 +10,8 @@ of the JAX CLI's orbax directory); `load_checkpoint` reads it back.
 Without stimulus images pass --synthetic: the EEG is synthetic and the image
 branch receives Gaussian-noise images from the same numpy draw as the JAX
 CLI's (the reference's own control backend, utils/GaussNoise.py). Runs on
-`--device` (cuda by default; raises without one).
+`--device` (cuda by default; raises without one); `--devices N` over N
+ranks, the global `--batch_size` split over them (rank 0 writes).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from cerebra_torch.cli.common import load_corpus, reference_argparser, resolve_device
+from cerebra_torch.cli.common import load_corpus, reference_argparser, start_world
 from cerebra_torch.models.barlow import BarlowTwins
 from cerebra_torch.train.barlow_recipe import BarlowConfig, barlow_train
 from cerebra_torch.utils.config import bool_flag, is_main_process
@@ -60,7 +61,10 @@ def main(argv=None):
     )
     FLAGS, _ = parser.parse_known_args(argv)
     print(FLAGS)
-    device = resolve_device(FLAGS)
+    world = start_world(FLAGS, "cerebra_torch.cli.barlow_train", argv, FLAGS.batch_size)
+    if world is None:
+        return None
+    device, mesh = world
     os.makedirs(FLAGS.log_dir, exist_ok=True)
 
     corpus = load_corpus(FLAGS)
@@ -92,7 +96,8 @@ def main(argv=None):
             with open(stats_path, "a") as f:
                 f.write(json.dumps({"msg": msg}) + "\n")
 
-    model, hist = barlow_train(images, corpus.eeg, config=cfg, log_fn=log_fn, device=device)
+    model, hist = barlow_train(images, corpus.eeg, config=cfg, log_fn=log_fn, device=device,
+                               mesh=mesh)
     if is_main_process():
         torch.save(model.state_dict(), os.path.join(FLAGS.log_dir, CHECKPOINT))
     return model, hist

@@ -6,7 +6,8 @@ dict, in place of the JAX CLI's orbax directory) and `sub_result.txt`.
 
 `--synthetic` replaces the BCI-IV .mat files with the class-coded synthetic
 backend; `--subjects` runs the reference's 9-subject sweep (main, :425-470).
-Runs on `--device` (cuda by default; raises without one).
+Runs on `--device` (cuda by default; raises without one); `--devices N`
+over N ranks, the step batch (real + S&R) split over them (rank 0 writes).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import os
 import numpy as np
 import torch
 
-from cerebra_torch.cli.common import resolve_device
+from cerebra_torch.cli.common import DEVICES_HELP, start_world
 from cerebra_torch.train.conformer_recipe import (
     ExPConfig,
     conformer_exp_train,
@@ -45,9 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_dir", type=str, default="./results/")
     p.add_argument("--use_bf16", type=bool_flag, default=True)
-    p.add_argument("--devices", type=int, default=0,
-                   help="data-parallel device count; this port runs on one device "
-                        "(0 or 1), multi-GPU is not ported yet")
+    p.add_argument("--devices", type=int, default=0, help=DEVICES_HELP)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
     # synthetic backend
@@ -61,9 +60,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     FLAGS, _ = build_parser().parse_known_args(argv)
     print(FLAGS)
-    device = resolve_device(FLAGS)
-    os.makedirs(FLAGS.log_dir, exist_ok=True)
-
     cfg = ExPConfig(
         batch_size=FLAGS.batch_size, n_epochs=FLAGS.n_epochs, lr=FLAGS.lr,
         b1=FLAGS.b1, b2=FLAGS.b2, emb_size=FLAGS.emb_size, depth=FLAGS.depth,
@@ -71,6 +67,11 @@ def main(argv=None):
         eval_every=FLAGS.eval_every, seed=FLAGS.seed,
         dtype=torch.bfloat16 if FLAGS.use_bf16 else None,
     )
+    world = start_world(FLAGS, "cerebra_torch.cli.conformer_train", argv, cfg.step_batch)
+    if world is None:
+        return None
+    device, mesh = world
+    os.makedirs(FLAGS.log_dir, exist_ok=True)
     results = []
     for subject in FLAGS.subjects:
         if FLAGS.synthetic:
@@ -88,6 +89,7 @@ def main(argv=None):
         print(f"Subject {subject}: train {train_data.shape} test {test_data.shape}")
         model, hist = conformer_exp_train(
             train_data, train_labels, test_data, test_labels, config=cfg, device=device,
+            mesh=mesh,
             log_write_path=(os.path.join(FLAGS.log_dir, f"log_subject{subject}.txt")
                             if is_main_process() else None),
         )

@@ -20,7 +20,8 @@ def main(argv=None):
     # Adam (LSTMDistill.py:322), the inline 4-layer LSTMModel (:112-147),
     # validation every epoch (:340-378)
     return run_feature_distill(FLAGS, dict(optimizer="adam", loss="cosine",
-                                           validation_frequency=1), "lstm_best_loss.pth")
+                                           validation_frequency=1), "lstm_best_loss.pth",
+                               "cerebra_torch.cli.lstm_distill", argv)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,7 @@ import time
 import torch
 
 from cerebra_torch.cli.common import (
+    init_distributed,
     load_corpus,
     reference_argparser,
     resolve_device,
@@ -75,7 +76,8 @@ def main(argv=None):
     parser = reference_argparser("LSTM→DINOv2 retrieval evaluation (PyTorch/CUDA)")
     FLAGS, _ = parser.parse_known_args(argv)
     print(FLAGS)
-    device = resolve_device(FLAGS)
+    # in a launched world every rank scores the whole corpus; rank 0 writes
+    device = init_distributed(resolve_device(FLAGS))
     os.makedirs(FLAGS.log_dir, exist_ok=True)
 
     corpus = load_corpus(FLAGS)

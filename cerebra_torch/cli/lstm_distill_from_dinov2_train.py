@@ -12,7 +12,8 @@ the reference `.pth` layout).
 
 `--profile_dir DIR` writes a `torch.profiler` trace of the training loop
 into DIR (`train/resume.py::profile_trace`), as the JAX CLI writes its
-`jax.profiler` trace there.
+`jax.profiler` trace there. `--devices N` trains over N ranks (the global
+batch `--batch_size` split over them); only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ from cerebra_torch.cli.common import (
     load_teacher_features,
     parsed_hyperparams,
     reference_argparser,
-    resolve_device,
     split_train_val,
+    start_world,
 )
 from cerebra_torch.eval.retrieval import retrieval_recall_precision
 from cerebra_torch.train.recipes import FeatureDistillConfig, feature_distill_train
@@ -43,7 +44,11 @@ def main(argv=None):
                         "(Chrome trace JSON; TensorBoard's PyTorch plugin or Perfetto)")
     FLAGS, _ = parser.parse_known_args(argv)
     print(FLAGS)
-    device = resolve_device(FLAGS)
+    world = start_world(FLAGS, "cerebra_torch.cli.lstm_distill_from_dinov2_train", argv,
+                        FLAGS.batch_size)
+    if world is None:
+        return None
+    device, mesh = world
     os.makedirs(FLAGS.log_dir, exist_ok=True)
 
     hp = parsed_hyperparams(FLAGS)
@@ -76,7 +81,7 @@ def main(argv=None):
         model, hist = feature_distill_train(
             corpus.eeg[train_idx], feats[train_idx], corpus.labels[train_idx],
             corpus.eeg[val_idx], feats[val_idx], corpus.labels[val_idx],
-            device=device, config=cfg, n_classes=corpus.catalog.n_classes,
+            device=device, config=cfg, n_classes=corpus.catalog.n_classes, mesh=mesh,
         )
 
     best_params = hist["best_params"][0]

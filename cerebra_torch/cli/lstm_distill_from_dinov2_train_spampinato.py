@@ -22,7 +22,8 @@ def main(argv=None):
     return run_feature_distill(
         FLAGS, dict(optimizer="adamw", loss="hinton_kd", alpha=float(hp.get("alpha", 0.5)),
                     kd_temperature=float(hp.get("temperature", 2.0))),
-        "lstm_dinov2_best_loss.pth")
+        "lstm_dinov2_best_loss.pth", "cerebra_torch.cli.lstm_distill_from_dinov2_train_spampinato",
+        argv)
 
 
 if __name__ == "__main__":

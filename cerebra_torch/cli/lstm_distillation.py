@@ -13,6 +13,9 @@ restarts from the newest step file in `<log_dir>/resume` (torch.save files,
 checkpoint, its AdamW moments included.
 
     python -m cerebra_torch.cli.lstm_distillation --synthetic [--device cuda|cpu] ...
+
+`--devices N` trains over N ranks, `--batch_size_per_gpu` rows each; the
+checkpoints are written by rank 0.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import os
 
 import torch
 
-from cerebra_torch.cli.common import load_corpus, reference_argparser, resolve_device
+from cerebra_torch.cli.common import load_corpus, reference_argparser, start_world
 from cerebra_torch.data import random_split_indices
 from cerebra_torch.train.checkpoints import export_dino_pth
 from cerebra_torch.train.recipes import DinoSelfDistillConfig, dino_selfdistill_train
@@ -71,7 +74,10 @@ def main(argv=None):
     FLAGS, _ = parser.parse_known_args(argv)
     FLAGS.time_low, FLAGS.time_high = 0, 495  # LstmDistillation.py:383-385
     print(FLAGS)
-    device = resolve_device(FLAGS)
+    world = start_world(FLAGS, "cerebra_torch.cli.lstm_distillation", argv)
+    if world is None:
+        return None
+    device, mesh = world
     os.makedirs(FLAGS.log_dir, exist_ok=True)
 
     corpus = load_corpus(FLAGS)
@@ -108,7 +114,7 @@ def main(argv=None):
     resume = AutoResume(os.path.join(FLAGS.log_dir, "resume")) if FLAGS.auto_resume else None
     state, hist = dino_selfdistill_train(
         train_eeg, device, config=cfg, checkpoint_cb=checkpoint_cb, resume=resume,
-        resume_pth=FLAGS.resume_pth or None,
+        resume_pth=FLAGS.resume_pth or None, mesh=mesh,
     )
     start_epoch = FLAGS.epochs - len(hist["loss"])  # > 0 after a resume
     if is_main_process():

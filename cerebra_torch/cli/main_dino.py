@@ -7,8 +7,8 @@ flags follow the JAX CLI's, plus `--device`.
 `--use_fused_mlp` / `--use_fused_attn` default to auto: on for CUDA
 tensors (the hand-written kernels), off on the CPU; `true` on the CPU takes
 the kernels' plain versions. `--fused_attn_pad` and `--fused_mlp_tile_m` are
-accepted and change no result. More than one device raises
-NotImplementedError.
+accepted and change no result. `--devices N` trains over N ranks,
+`--batch_size_per_gpu` rows each; rank 0 writes log.txt.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import os
 
 import torch
 
-from cerebra_torch.cli.common import load_corpus, reference_argparser, resolve_device
+from cerebra_torch.cli.common import load_corpus, reference_argparser, start_world
 from cerebra_torch.train.dino_vit import DinoVitConfig, dino_vit_train
 from cerebra_torch.utils.config import bool_flag, is_main_process
 
@@ -73,7 +73,10 @@ def main(argv=None):
                              "this many tokens (0 = always)")
     FLAGS, _ = parser.parse_known_args(argv)
     print(FLAGS)
-    device = resolve_device(FLAGS)
+    world = start_world(FLAGS, "cerebra_torch.cli.main_dino", argv)
+    if world is None:
+        return None
+    device, mesh = world
     os.makedirs(FLAGS.log_dir, exist_ok=True)
 
     corpus = load_corpus(FLAGS)
@@ -97,7 +100,7 @@ def main(argv=None):
         fused_min_seq=FLAGS.fused_min_seq,
     )
     # stimulus images are not bundled: the local crops are EEG-image crops
-    state, hist = dino_vit_train(corpus.eeg, images=None, config=cfg, device=device)
+    state, hist = dino_vit_train(corpus.eeg, images=None, config=cfg, device=device, mesh=mesh)
     if is_main_process():
         with open(os.path.join(FLAGS.log_dir, "log.txt"), "a") as f:
             for e, loss in enumerate(hist["loss"]):

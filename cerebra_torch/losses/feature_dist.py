@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cerebra_torch.parallel.collectives import psum
+
 
 def _softmax_ce_with_prob_targets(logits: torch.Tensor, target_probs: torch.Tensor) -> torch.Tensor:
     """torch F.cross_entropy(input, probability-targets):
@@ -42,14 +44,26 @@ def feature_distribution_loss_v1(
 
 
 def feature_distribution_loss_v2(student_outputs: torch.Tensor,
-                                 teacher_outputs: torch.Tensor) -> torch.Tensor:
+                                 teacher_outputs: torch.Tensor, group=None) -> torch.Tensor:
     """LstmDistillation.py:161-172 (mean/std matching), port of
     cerebra/losses/feature_dist.py:46-54:
     0.4·MSE(σ_s,σ_t) + 0.4·MSE(μ_s,μ_t) + 0.2·MSE(s,t), the mean and std
-    scalars over ALL elements, std unbiased (ddof = 1)."""
-    s_mean, s_std = student_outputs.mean(), student_outputs.std(correction=1)
-    t_mean, t_std = teacher_outputs.mean(), teacher_outputs.std(correction=1)
-    mse = torch.mean((student_outputs - teacher_outputs) ** 2)
+    scalars over ALL elements, std unbiased (ddof = 1) in two passes as
+    jnp.std takes it. With a process `group` (rows of a global batch on
+    each rank) every statistic and the MSE are the global batch's, through
+    differentiable all-reduces."""
+    def total(x):  # the sum over the (global) batch
+        return x.sum() if group is None else psum(x.sum(), group)
+
+    n = total(torch.tensor(float(student_outputs.numel()), device=student_outputs.device))
+
+    def mean_std(x):
+        mean = total(x) / n
+        return mean, torch.sqrt(total((x - mean) ** 2) / (n - 1))
+
+    s_mean, s_std = mean_std(student_outputs)
+    t_mean, t_std = mean_std(teacher_outputs)
+    mse = total((student_outputs - teacher_outputs) ** 2) / n
     return 0.4 * (s_std - t_std) ** 2 + 0.4 * (s_mean - t_mean) ** 2 + 0.2 * mse
 
 

@@ -6,6 +6,13 @@ Parameters are held under the reference names: `mlp.{0,2,4}.weight/bias`
 (out, in), `last_layer.weight_g` (out, 1), the layout of
 `nn.utils.weight_norm(nn.Linear(..., bias=False))` and of the JAX package's
 `.pth` export (cerebra/train/checkpoints.py).
+
+Under a "model" axis (`parallel/tp.py::shard_dino_state`) the last layer
+holds a shard of the prototypes, `weight_v` and `weight_g` rows (JAX's v
+columns): each prototype's weight norm stays local, and the head's input
+goes through `copy_to_group`, the identity forward and a model-group sum
+of its gradient backward, so the replicated layers below get the gradient
+of every shard's logits.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from torch import nn
 
 from cerebra_torch.models._torch_interop import trunc_normal_init
 from cerebra_torch.models.vit import dense
+from cerebra_torch.parallel.collectives import copy_to_group
 
 
 class WeightNormDense(nn.Module):
@@ -70,11 +78,14 @@ class DINOHead(nn.Module):
                 trunc_normal_init(lin.weight, 0.02, generator=generator)
                 nn.init.zeros_(lin.bias)
         self.last_layer = WeightNormDense(bottleneck_dim, out_dim, norm_last_layer, generator)
+        self.model_group = None  # set when the last layer holds a shard of the prototypes
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.mlp:
             x = dense(x, layer, self.dtype) if isinstance(layer, nn.Linear) else layer(x)
         x = x / (x.norm(dim=-1, keepdim=True) + 1e-12)
+        if self.model_group is not None:
+            x = copy_to_group(x, self.model_group)
         return self.last_layer(x)
 
 

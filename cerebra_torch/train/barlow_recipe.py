@@ -1,5 +1,5 @@
 """Cross-modal Barlow Twins training (port of cerebra/train/barlow_recipe.py;
-EEG-BarlowNetworks/train.py:50-190), on one device.
+EEG-BarlowNetworks/train.py:50-190).
 
 Per step: y1 = an image, y2 = the mel spectrogram stack of its EEG trial.
 The reference computes librosa mels on the host per batch (train.py:
@@ -14,8 +14,14 @@ Python loop over steps (the JAX package scans it).
 The model computes in f32. Convolutions follow torch's
 `torch.backends.cudnn.allow_tf32` (True by default: TF32 on the tensor
 cores), matrix products `torch.backends.cuda.matmul.allow_tf32` (False by
-default). The JAX package's psum over a data axis waits for the multi-GPU
-port.
+default).
+
+With a `mesh` (cerebra/train/barlow_recipe.py:61-80, 164-218; the
+multi-process DDP world of train.py:71-99) each data rank spectrograms and
+holds its block of the corpus and trains on its rows of every global batch
+(`local_epoch_indices`), BatchNorm takes its statistics over the global
+batch (SyncBN, train.py:89-90), the loss sums c over the data group, and the
+model trains under DDP.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ import torch
 from cerebra_torch.data.sampling import epoch_batches
 from cerebra_torch.losses.barlow import barlow_twins_loss
 from cerebra_torch.models.barlow import BarlowTwins, graft_pretrained_towers
+from cerebra_torch.models.batchnorm import sync_batchnorm
+from cerebra_torch.parallel.dataflow import local_epoch_indices, put_replicated, shard_corpus
+from cerebra_torch.parallel.mesh import data_parallel
 from cerebra_torch.signal.spectro import mel_fft_size, mel_filterbank, melspectrogram
 from cerebra_torch.train.optim import Lars
 from cerebra_torch.train.resume import check_finite_loss
@@ -97,15 +106,17 @@ def barlow_optimizer(model: BarlowTwins, cfg: BarlowConfig, niter: int) -> Lars:
 
 
 def barlow_step(model: BarlowTwins, optimizer: Lars, y1: torch.Tensor, y2: torch.Tensor,
-                update: int, lambd: float = 0.0051) -> torch.Tensor:
+                update: int, lambd: float = 0.0051, group=None) -> torch.Tensor:
     """One training step, update number `update` (its learning rates are
-    `schedule[min(update, len - 1)]`) → the loss on the device."""
-    for group in optimizer.param_groups:
-        sched = group["schedule"]
-        group["lr"] = float(sched[min(update, len(sched) - 1)])
+    `schedule[min(update, len - 1)]`) → the loss on the device. Under a
+    data `group` y1, y2 are this rank's rows and the loss is the global
+    batch's."""
+    for param_group in optimizer.param_groups:
+        sched = param_group["schedule"]
+        param_group["lr"] = float(sched[min(update, len(sched) - 1)])
     model.train()
     z1, z2 = model(y1, y2)
-    loss = barlow_twins_loss(z1, z2, lambd=lambd, global_batch_size=y1.shape[0])
+    loss = barlow_twins_loss(z1, z2, lambd=lambd, group=group)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
@@ -119,12 +130,21 @@ def barlow_train(
     sample_rate: float = 256.0,
     log_fn: Callable[[str], None] = print,
     device: torch.device = torch.device("cuda"),
+    mesh=None,
 ) -> Tuple[BarlowTwins, Dict[str, List]]:
     """→ (the trained model, history: `loss` (each epoch's mean step loss)
-    and `epoch_time_s`)."""
+    and `epoch_time_s`), on one device or over a `mesh` (module
+    docstring)."""
     cfg = config
     n = len(images)
     niter = max(n // cfg.batch_size, 1)
+    n_data = mesh.size("data") if mesh else 1
+    if cfg.batch_size % n_data:
+        # the reference asserts batch divisibility too (train.py:129)
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by data-axis size {n_data}")
+    if mesh is not None:
+        images, n_local = shard_corpus(mesh, np.asarray(images, np.float32))
+        eeg = shard_corpus(mesh, np.asarray(eeg, np.float32))[0]
     y2_all = barlow_spectrogram(eeg, cfg.n_mels, sample_rate, device)
     y1_all = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device)
 
@@ -134,16 +154,27 @@ def barlow_train(
         graft_pretrained_towers(model, cfg.pretrained_backbone)
     model.to(device)
     optimizer = barlow_optimizer(model, cfg, niter)
+    group, train_model = None, model
+    if mesh is not None:
+        group = mesh.group("data")
+        put_replicated(model)
+        sync_batchnorm(model, group)
+        train_model = data_parallel(model, mesh)
+
+    def epoch_indices(epoch):
+        if mesh is None:
+            return epoch_batches(n, cfg.batch_size, seed=cfg.seed, epoch=epoch)[0][:niter]
+        return local_epoch_indices(n_local, n_data, cfg.batch_size // n_data, niter, cfg.seed,
+                                   epoch)[:, mesh.index("data")]
 
     history: Dict[str, List] = {"loss": [], "epoch_time_s": []}
     update = 0
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
-        batches, _ = epoch_batches(n, cfg.batch_size, seed=cfg.seed, epoch=epoch)
         losses = []
-        for idx in torch.from_numpy(batches[:niter]).to(device):
-            losses.append(barlow_step(model, optimizer, y1_all[idx], y2_all[idx], update,
-                                      cfg.lambd))
+        for idx in torch.from_numpy(np.asarray(epoch_indices(epoch))).to(device):
+            losses.append(barlow_step(train_model, optimizer, y1_all[idx], y2_all[idx], update,
+                                      cfg.lambd, group))
             update += 1
         loss = float(np.mean(torch.stack(losses).cpu().numpy()))  # one sync an epoch
         check_finite_loss(loss, epoch)

@@ -1,6 +1,5 @@
 """Conformer ExP trainer (port of cerebra/train/conformer_recipe.py; the
-reference's self-contained BCI-IV recipe, utils/Conformer.py:222-417), on
-one device.
+reference's self-contained BCI-IV recipe, utils/Conformer.py:222-417).
 
 - BCI-IV 2a `.mat` ingest (`get_source_data`, :281-320): A0{n}T / A0{n}E,
   (time, electrode, trial) → (trial, 1, 22, 1000), labels 1..4 → 0..3,
@@ -22,6 +21,13 @@ one device.
 Dropout and S&R draw from one torch.Generator on the device, seeded by
 `seed`; the JAX package's draws come from its PRNG keys, so the two runs
 see other masks and other augmented trials from the same seed.
+
+With a `mesh` (cerebra/train/conformer_recipe.py:240-265) the corpus stays
+replicated: every rank draws the same global batch and the same S&R batch
+from the same seed, keeps its rows of their concatenation, and trains
+under DDP over the data group with BatchNorm's statistics and the loss
+taken over the global batch. Dropout then draws from a stream of each
+rank's own.
 """
 
 from __future__ import annotations
@@ -36,8 +42,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cerebra_torch.models.batchnorm import sync_batchnorm
 from cerebra_torch.models.conformer import Conformer
 from cerebra_torch.models.dropout import Drop, dropout_from
+from cerebra_torch.parallel.collectives import pmean
+from cerebra_torch.parallel.dataflow import put_replicated, rank_seed
+from cerebra_torch.parallel.mesh import data_parallel
 from cerebra_torch.train.resume import check_finite_loss
 
 
@@ -158,12 +168,15 @@ def interaug_gather(data: torch.Tensor, table: torch.Tensor, idx: torch.Tensor,
 
 
 def conformer_step(model: Conformer, optimizer: torch.optim.Optimizer, x: torch.Tensor,
-                   y: torch.Tensor, drop: Optional[Drop] = None) -> torch.Tensor:
+                   y: torch.Tensor, drop: Optional[Drop] = None, group=None) -> torch.Tensor:
     """One Adam step on cross-entropy over the full output (f32) → the loss
-    on the device."""
+    on the device; under a data `group` x, y are this rank's rows and the
+    loss is the global batch's mean."""
     model.train()
     _, out = model(x, drop)
     loss = F.cross_entropy(out.float(), y)
+    if group is not None:
+        loss = pmean(loss, group)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     optimizer.step()
@@ -190,9 +203,11 @@ def conformer_exp_train(
     log_fn: Callable[[str], None] = print,
     log_write_path: Optional[str] = None,
     device: torch.device = torch.device("cuda"),
+    mesh=None,
 ) -> Tuple[Conformer, Dict[str, List]]:
     """The ExP.train() loop (utils/Conformer.py:322-417) → (the model,
-    history with best and average accuracy)."""
+    history with best and average accuracy), on one device or over a `mesh`
+    (module docstring)."""
     cfg = config
     n, _, C, T = train_data.shape
     model = Conformer(C, T, emb_size=cfg.emb_size, depth=cfg.depth,
@@ -202,6 +217,18 @@ def conformer_exp_train(
                                  eps=1e-8)
     gen = torch.Generator(device).manual_seed(cfg.seed)
     drop = dropout_from(gen)
+    group, train_model, rows = None, model, slice(None)
+    if mesh is not None:
+        group, n_data, d = mesh.group("data"), mesh.size("data"), mesh.index("data")
+        if cfg.step_batch % n_data:
+            raise ValueError(f"step batch {cfg.step_batch} (batch_size + S&R) not divisible "
+                             f"by data-axis size {n_data}")
+        b = cfg.step_batch // n_data
+        rows = slice(d * b, (d + 1) * b)
+        put_replicated(model)
+        sync_batchnorm(model, group)
+        train_model = data_parallel(model, mesh)
+        drop = dropout_from(torch.Generator(device).manual_seed(rank_seed(cfg.seed, d)))
 
     train_x = torch.from_numpy(np.ascontiguousarray(train_data, np.float32)).to(device)
     train_y = torch.from_numpy(train_labels.astype(np.int64)).to(device)
@@ -226,9 +253,9 @@ def conformer_exp_train(
                 aug_idx, perm = draw_interaug(gen, counts, cfg.n_aug_per_class,
                                               cfg.n_segments)
                 aug_x, aug_y = interaug_gather(train_x, table, aug_idx, perm)
-                x = torch.cat([train_x[idx], aug_x])
-                y = torch.cat([train_y[idx], aug_y])
-                loss_d = conformer_step(model, optimizer, x, y, drop)
+                x = torch.cat([train_x[idx], aug_x])[rows]
+                y = torch.cat([train_y[idx], aug_y])[rows]
+                loss_d = conformer_step(train_model, optimizer, x, y, drop, group)
             # the reference logs the last step's loss (utils/Conformer.py:380-386)
             loss = float(loss_d)
             check_finite_loss(loss, epoch)

@@ -10,6 +10,7 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -119,14 +120,25 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def per_param_clip(params: Sequence[torch.nn.Parameter], clip: float) -> None:
+def per_param_clip(params: Sequence[torch.nn.Parameter], clip: float,
+                   sharded=(), group=None) -> None:
     """Per-parameter L2-norm clip (utils/utils.py:132-141), in place: each
     gradient is scaled by min(1, clip/(‖g‖+1e-6)) on its own, not by a
-    global norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    global norm. A parameter in `sharded` holds a shard over the process
+    `group` (the DINO head's prototypes): its norm is the whole
+    parameter's, the squares summed over the group, as GSPMD takes it."""
+    with_grad = [p for p in params if p.grad is not None]
+    if not with_grad:
         return
-    norms = torch._foreach_norm([g.float() for g in grads])
+    grads = [p.grad for p in with_grad]
+    norms = list(torch._foreach_norm([g.float() for g in grads]))
+    shard_ids = {id(p) for p in sharded}
+    split = [i for i, p in enumerate(with_grad) if id(p) in shard_ids]
+    if split:
+        sq = torch.stack([norms[i] for i in split]) ** 2
+        dist.all_reduce(sq, group=group)
+        for i, n in zip(split, sq.sqrt()):
+            norms[i] = n
     coefs = [torch.clamp(clip / (n + 1e-6), max=1.0) for n in norms]
     torch._foreach_mul_(grads, coefs)
 
@@ -165,16 +177,22 @@ class ScheduledAdamW:
         self.lr = np.asarray(lr_schedule, dtype=np.float32)
         self.wd = np.asarray(wd_schedule, dtype=np.float32)
         self.clip = clip_grad
+        self.sharded, self.model_group = (), None
         self.count = 0
         self.inner = torch.optim.AdamW(groups, lr=float(self.lr[0]), betas=(0.9, 0.999),
                                        eps=1e-8, weight_decay=0.0)
+
+    def shard_group(self, group, params) -> None:
+        """`params` hold shards over `group`: their clip norms are the whole
+        parameters' (`per_param_clip`)."""
+        self.sharded, self.model_group = list(params), group
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
 
     def step(self) -> None:
         if self.clip is not None:
-            per_param_clip(self.params, self.clip)
+            per_param_clip(self.params, self.clip, self.sharded, self.model_group)
         i = min(self.count, len(self.lr) - 1)
         for group in self.inner.param_groups:
             group["lr"] = float(self.lr[i])

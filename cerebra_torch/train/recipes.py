@@ -1,5 +1,4 @@
-"""The LSTM training recipes (port of cerebra/train/recipes.py, the
-single-device branches).
+"""The LSTM training recipes (port of cerebra/train/recipes.py).
 
 - `feature_distill_train`: LstmDistillFromDinoV2Train.py:351-440 and its
   variants: the LSTM regresses EEG windows onto cached teacher (DINOv2)
@@ -12,6 +11,15 @@ single-device branches).
 
 Whole corpora live on the device; batches are index gathers there. The
 epoch loop is a Python loop over steps (the JAX package scans it).
+
+With a `mesh` (`parallel/mesh.py`) each data rank holds its block of the
+wrap-padded corpus and draws its rows of every global batch from
+`local_epoch_indices` (the JAX meshed branch's stream); the model is
+broadcast from rank 0 and wrapped in DDP over the data group; every loss is
+the global batch's (a differentiable all-reduce), so every rank logs the
+same loss stream and DDP's mean of the ranks' gradients is the global
+gradient. In the DINO recipe a "model" axis shards the head's prototypes
+(`parallel/tp.py`); checkpoints gather them on every rank first.
 """
 
 from __future__ import annotations
@@ -38,12 +46,17 @@ from cerebra_torch.losses import (
 from cerebra_torch.models.heads import DINOHead
 from cerebra_torch.models.lstm import Model
 from cerebra_torch.models.multicrop import MultiCropWrapper
+from cerebra_torch.parallel.collectives import pmean
+from cerebra_torch.parallel.dataflow import local_epoch_indices, put_replicated, shard_corpus
+from cerebra_torch.parallel.mesh import data_parallel
+from cerebra_torch.parallel.tp import gathered_dino_state
 from cerebra_torch.train.checkpoints import import_dino_pth
 from cerebra_torch.train.optim import make_optimizer
 from cerebra_torch.train.resume import PreemptionGuard, check_finite_loss
 from cerebra_torch.train.schedules import cosine_scheduler
 from cerebra_torch.train.steps import (
     DinoTrainState,
+    distribute_dino_state,
     feature_distill_step,
     make_dino_step,
     make_scheduled_optimizer,
@@ -82,12 +95,14 @@ class FeatureDistillConfig:
     dtype: Optional[torch.dtype] = None
 
 
-def distill_loss(cfg: FeatureDistillConfig, temps: np.ndarray) -> Callable:
+def distill_loss(cfg: FeatureDistillConfig, temps: np.ndarray, group=None) -> Callable:
     """The recipe's loss, loss_fn(feats, cls_pred, teacher_feats, labels,
     epoch), by `cfg.loss` (the switch of cerebra/train/recipes.py:127-142);
     `temps` the f32 teacher-temperature schedule by epoch. The losses past
     v1 take the features in f32 (the JAX package mixes a bf16 stream into
-    them; f32 runs are the same)."""
+    them; f32 runs are the same). With a data `group` the loss is the
+    global batch's: v2 takes its statistics over the group, the others
+    (batch means) are the group's mean of the ranks' losses."""
     if cfg.loss not in ("feature_dist_v1", "hinton_kd", "cosine", "feature_dist_v2",
                         "feature_dist_v3"):
         raise ValueError(f"unknown loss: {cfg.loss}")
@@ -106,10 +121,12 @@ def distill_loss(cfg: FeatureDistillConfig, temps: np.ndarray) -> Callable:
         if cfg.loss == "cosine":
             return cosine_similarity_loss(feats, teacher_feats)
         if cfg.loss == "feature_dist_v2":
-            return feature_distribution_loss_v2(feats, teacher_feats)
+            return feature_distribution_loss_v2(feats, teacher_feats, group)
         return feature_distribution_loss_v3(feats, teacher_feats, float(temps[epoch]))
 
-    return loss_fn
+    if group is None or cfg.loss == "feature_dist_v2":
+        return loss_fn
+    return lambda *args: pmean(loss_fn(*args), group)
 
 
 def feature_distill_train(
@@ -123,8 +140,11 @@ def feature_distill_train(
     config: FeatureDistillConfig = FeatureDistillConfig(),
     n_classes: Optional[int] = None,
     log_fn: Callable[[str], None] = print,
+    mesh=None,
 ) -> Tuple[Model, Dict[str, List]]:
-    """The README-blessed train() recipe. Returns (model, history)."""
+    """The README-blessed train() recipe. Returns (model, history). With a
+    `mesh` the batch splits over its data axis (module docstring): a step
+    over W ranks is the JAX meshed step over the global batch."""
     cfg = config
     if n_classes is None:
         n_classes = int(max(train_labels.max(), val_labels.max())) + 1
@@ -173,6 +193,11 @@ def feature_distill_train(
             ))
         return losses, n_train
 
+    if mesh is not None:
+        run_epoch = _meshed_distill_epochs(
+            mesh, model, optimizer, distill_loss(cfg, temps, mesh.group("data")), cfg,
+            train_eeg, train_feats, train_labels, on_device)
+
     history: Dict[str, List] = {"train_loss": [], "val_loss": [], "recall": [], "precision": [],
                                 "epoch_time_s": [], "windows_per_s": []}
     best_val, best_epoch, best_params = None, -1, None
@@ -212,6 +237,37 @@ def feature_distill_train(
     history["best"] = [(best_epoch, best_val)]
     history["best_params"] = [best_params]
     return model, history
+
+
+def _meshed_distill_epochs(mesh, model, optimizer, loss_fn, cfg, train_eeg, train_feats,
+                           train_labels, on_device) -> Callable:
+    """The JAX meshed branch's epochs (cerebra/train/recipes.py:151-193) →
+    run_epoch(epoch) → (losses, windows seen): this rank's block of each
+    wrap-padded corpus, ceil(n_local / b_local) steps of b_local draws from
+    `local_epoch_indices`, every row trained, the model under DDP."""
+    n_data, d = mesh.size("data"), mesh.index("data")
+    if cfg.batch_size % n_data:
+        # the reference asserts batch divisibility by the world size too
+        # (EEG-BarlowNetworks/train.py:129)
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by data-axis size {n_data}")
+    b_local = cfg.batch_size // n_data
+    eeg, n_local = shard_corpus(mesh, np.asarray(train_eeg, dtype=np.float32))
+    eeg = on_device(eeg, torch.float32)
+    feats = on_device(shard_corpus(mesh, np.asarray(train_feats, dtype=np.float32))[0])
+    labels = on_device(shard_corpus(mesh, np.asarray(train_labels))[0], torch.int64)
+    n_steps = -(-n_local // b_local)
+    put_replicated(model)
+    # only v1 reads the class head: the other losses leave it without a gradient
+    ddp = data_parallel(model, mesh, find_unused_parameters=cfg.loss != "feature_dist_v1")
+
+    def run_epoch(epoch):
+        idx = local_epoch_indices(n_local, n_data, b_local, n_steps, cfg.seed, epoch)[:, d]
+        losses = [feature_distill_step(ddp, optimizer, loss_fn, eeg[i], feats[i], labels[i],
+                                       epoch)
+                  for i in on_device(idx, torch.int64)]
+        return losses, n_steps * cfg.batch_size
+
+    return run_epoch
 
 
 # ------------------------------------------------------------------- DINO
@@ -261,13 +317,14 @@ def build_dino_models(n_channels: int, cfg: DinoSelfDistillConfig,
 
 
 def make_dino_lstm(cfg: DinoSelfDistillConfig, n: int, n_channels: int, device: torch.device,
-                   view_fn: Optional[Callable] = None):
+                   view_fn: Optional[Callable] = None, mesh=None):
     """The recipe's pieces for a corpus of n trials → (state, step,
     niter_per_ep): student and teacher from `cfg.seed` (the teacher a copy
     of the student, dino/main_dino.py:190), the schedules (the
-    linear-scaling rule, dino/main_dino.py:257-262), AdamW over the
+    linear-scaling rule, dino/main_dino.py:257-262, over the global batch
+    of batch_size_per_device × the mesh's data size), AdamW over the
     student and the DINO step (temporal multi-crop views unless `view_fn`)."""
-    global_batch = cfg.batch_size_per_device
+    global_batch = cfg.batch_size_per_device * (mesh.size("data") if mesh else 1)
     niter_per_ep = max(n // global_batch, 1)
     gen = torch.Generator().manual_seed(cfg.seed)
     student = MultiCropWrapper(*build_dino_models(n_channels, cfg, gen)).to(device).train()
@@ -293,6 +350,7 @@ def make_dino_lstm(cfg: DinoSelfDistillConfig, n: int, n_channels: int, device: 
         global_length=cfg.global_length, local_length=cfg.local_length, n_global=cfg.n_global,
         n_local=cfg.n_local, freeze_last_layer=cfg.freeze_last_layer,
         compat_reference_pairing=cfg.compat_reference_pairing,
+        data_group=mesh.group("data") if mesh else None,
     )
     return state, step, niter_per_ep
 
@@ -328,9 +386,11 @@ def dino_selfdistill_train(
     checkpoint_cb: Optional[Callable[[int, DinoTrainState], None]] = None,
     resume=None,  # cerebra_torch.train.resume.AutoResume
     resume_pth: Optional[str] = None,  # reference-layout checkpoint.pth
+    mesh=None,
 ) -> Tuple[DinoTrainState, Dict[str, List]]:
-    """LstmDistillation recipe (SURVEY.md §3.2), on one device → (state,
-    history).
+    """LstmDistillation recipe (SURVEY.md §3.2) → (state, history), on one
+    device or over a `mesh` (module docstring; `checkpoint_cb` and the
+    auto-resume saves then see the gathered state on every rank).
 
     `resume_pth` restarts from a reference-layout checkpoint: student,
     teacher, center, epoch and the torch-AdamW moments
@@ -342,8 +402,8 @@ def dino_selfdistill_train(
     remaining steps."""
     cfg = config
     n, n_channels = len(train_eeg), train_eeg.shape[-1]
-    global_batch = cfg.batch_size_per_device
-    state, step, niter_per_ep = make_dino_lstm(cfg, n, n_channels, device)
+    global_batch = cfg.batch_size_per_device * (mesh.size("data") if mesh else 1)
+    state, step, niter_per_ep = make_dino_lstm(cfg, n, n_channels, device, mesh=mesh)
 
     start_epoch = 0
     if resume_pth:
@@ -362,16 +422,30 @@ def dino_selfdistill_train(
             log_fn(f"auto-resume: restored step {saved_step} (epoch {start_epoch})")
 
     def save():
-        resume.save(state.step, dino_state_dict(state))
+        with gathered_dino_state(state):
+            resume.save(state.step, dino_state_dict(state))
 
-    eeg_d = torch.as_tensor(np.asarray(train_eeg, dtype=np.float32)).to(device)
+    eeg = np.asarray(train_eeg, dtype=np.float32)
+    if mesh is not None:
+        distribute_dino_state(mesh, state, cfg.out_dim)
+        eeg, n_local = shard_corpus(mesh, eeg)
+    eeg_d = torch.as_tensor(eeg).to(device)
+
+    def epoch_indices(epoch):
+        if mesh is None:
+            return epoch_batches(n, global_batch, seed=cfg.seed, epoch=epoch)[0][:niter_per_ep]
+        # niter_per_ep steps of batch_size_per_device draws from this rank's
+        # block: the reference's floor(n / global_batch) drop-tail epoch
+        return local_epoch_indices(n_local, mesh.size("data"), cfg.batch_size_per_device,
+                                   niter_per_ep, cfg.seed, epoch)[:, mesh.index("data")]
+
     history: Dict[str, List] = {"loss": [], "epoch_time_s": [], "windows_per_s": []}
-    with PreemptionGuard() if resume is not None else contextlib.nullcontext() as guard:
+    with (PreemptionGuard(device=device) if resume is not None
+          else contextlib.nullcontext()) as guard:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
-            batches, _ = epoch_batches(n, global_batch, seed=cfg.seed, epoch=epoch)
             losses = []
-            for it, idx in enumerate(batches[:niter_per_ep]):
+            for it, idx in enumerate(epoch_indices(epoch)):
                 if epoch * niter_per_ep + it < state.step:
                     continue  # taken before a preemption within this epoch
                 state, metrics = step(state, eeg_d[torch.as_tensor(idx, device=device)],
@@ -390,5 +464,6 @@ def dino_selfdistill_train(
             if resume is not None:
                 save()
             if checkpoint_cb is not None:
-                checkpoint_cb(epoch, state)
+                with gathered_dino_state(state):
+                    checkpoint_cb(epoch, state)
     return state, history

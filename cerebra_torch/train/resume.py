@@ -20,6 +20,7 @@ import sys
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from cerebra_torch.utils.config import is_main_process
 
@@ -74,11 +75,16 @@ class PreemptionGuard:
     exits. The JAX handler saves an immutable pytree wherever the signal
     lands; here a signal between the optimizer step and the teacher's EMA
     would save a student a step ahead of its teacher. The previous handlers
-    come back when the block ends."""
+    come back when the block ends. In a distributed world the ranks agree
+    at each boundary (a MAX all-reduce of the flag, a tensor on `device`),
+    so a signal to any rank saves and exits on all: the save may gather
+    sharded state, a collective every rank must enter."""
 
-    def __init__(self, signals=(signal.SIGTERM, signal.SIGUSR1)):
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGUSR1),
+                 device: Optional[torch.device] = None):
         self.signals = tuple(signals)
         self.signum: Optional[int] = None
+        self.device = device
         self._previous: dict = {}
 
     def _record(self, signum, frame):
@@ -94,6 +100,10 @@ class PreemptionGuard:
 
     def exit_if_requested(self, save_fn: Callable[[], None]) -> None:
         """After a recorded signal: `save_fn()`, then exit with code 0."""
+        if dist.is_available() and dist.is_initialized():
+            flag = torch.tensor([0 if self.signum is None else self.signum], device=self.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            self.signum = int(flag.item()) or None
         if self.signum is None:
             return
         print(f"[cerebra] signal {self.signum}: writing preemption checkpoint", file=sys.stderr)

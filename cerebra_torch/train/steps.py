@@ -10,6 +10,8 @@ import numpy as np
 import torch
 
 from cerebra_torch.losses.dino import dino_multicrop_loss
+from cerebra_torch.parallel.mesh import data_parallel
+from cerebra_torch.parallel.tp import shard_dino_state
 from cerebra_torch.signal.windows import multicrop_views
 from cerebra_torch.train.ema import ema_update
 from cerebra_torch.train.optim import ScheduledAdamW, cancel_last_layer_grads
@@ -42,13 +44,25 @@ def feature_distill_step(
 class DinoTrainState:
     """Student (with its optimizer), teacher and center — the reference
     checkpoint trio student/teacher/dino_loss (LstmDistillation.py:634-646).
-    `step` counts the iterations taken."""
+    `step` counts the iterations taken; `forward`, when set, is what the step
+    calls for the student (its DDP wrapper under a mesh)."""
 
     step: int
     student: torch.nn.Module
     teacher: torch.nn.Module
     optimizer: ScheduledAdamW
     center: torch.Tensor
+    forward: Optional[torch.nn.Module] = None
+
+
+def distribute_dino_state(mesh, state: DinoTrainState, out_dim: int) -> None:
+    """The meshed DINO state (cerebra/train/recipes.py:441-497): rank 0's
+    values everywhere, the head's prototypes sharded over a "model" axis
+    (`shard_dino_state`), and the student wrapped in DDP over the data group
+    as the step's `forward`. The teacher stays replicated because its
+    student does."""
+    shard_dino_state(mesh, state, out_dim=out_dim)
+    state.forward = data_parallel(state.student, mesh)
 
 
 def make_dino_step(
@@ -66,6 +80,7 @@ def make_dino_step(
     center_momentum: float = 0.9,
     freeze_last_layer: int = 1,
     compat_reference_pairing: bool = False,
+    data_group=None,
 ):
     """One DINO iteration (port of cerebra/train/steps.py::make_dino_step;
     SURVEY.md §3.2): views, the teacher on the first (global) group, the
@@ -76,7 +91,10 @@ def make_dino_step(
     The schedules are indexed by `state.step` (lr and wd by the optimizer's
     own count, which equals it). `view_fn` defaults to the temporal
     multi-crop. The student and teacher are MultiCropWrapper modules; the
-    student is in training mode (drop path active), the teacher in eval."""
+    student is in training mode (drop path active), the teacher in eval.
+    Under a mesh `batch` is this rank's rows, `data_group` the mesh's data
+    group, and a head sharded over "model" names its group itself
+    (`losses/dino.py`)."""
     lr_schedule = np.asarray(lr_schedule, dtype=np.float32)
     wd_schedule = np.asarray(wd_schedule, dtype=np.float32)
     momentum_schedule = np.asarray(momentum_schedule, dtype=np.float32)
@@ -98,11 +116,12 @@ def make_dino_step(
         # teacher: only the global group (LstmDistillation.py:584-586)
         with torch.no_grad():
             teacher_out = state.teacher([groups[0]]).reshape(n_teacher, B, -1).float()
-        student_out = state.student(groups).reshape(n_crops, B, -1).float()
+        student_out = (state.forward or state.student)(groups).reshape(n_crops, B, -1).float()
         loss, new_center = dino_multicrop_loss(
             student_out, teacher_out, state.center, teacher_temp=t_temp,
             student_temp=student_temp, center_momentum=center_momentum,
-            compat_reference_pairing=compat_reference_pairing,
+            compat_reference_pairing=compat_reference_pairing, data_group=data_group,
+            model_group=state.student.head.model_group,
         )
         state.optimizer.zero_grad()
         loss.backward()

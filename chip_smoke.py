@@ -3,6 +3,12 @@ each against its plain PyTorch version, drive the ported trainers at full
 width through the kernels, and time kernels and training steps.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi-gpu-only   # phases 1, 2, 4, 7 and 18 alone
+
+`--multi-gpu-only` is for a machine of several cards: the device, the
+build, the two one-rank CLI phases (main, main_dino: `--devices 1` keeps
+them in this process however many cards there are) and phase 18; it
+prints no kernels line.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device      nvidia-smi name and power limit, torch.version.cuda
@@ -195,6 +201,39 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  bf16) for 50 epochs: finite losses, best accuracy above
                  chance, its three files, ms/epoch, one f32 step on the
                  card against the CPU (likewise)
+ 18. multi-gpu   torch.distributed on the card. `[nccl]`: `cerebra_torch.cli.launch
+                 --nproc 1` of a script that brings up init_distributed's
+                 NCCL group (a world of one: this machine has one card),
+                 all-reduces, all-gathers and barriers CUDA tensors, then
+                 runs lstm_distill_from_dinov2_train's main for one epoch.
+                 One world of two ranks, gloo on cuda:0 for both (NCCL
+                 refuses two ranks on one GPU; on a machine of W > 1
+                 cards, W ranks over NCCL, one a card): `[mg trainer]`:
+                 lstm_distill_from_dinov2_train at full width (40 x 30
+                 trials of (96, 512), C = H = 96, L = 2, F = 384, global
+                 batch 16, bf16) for 6 epochs (the CLI validates at epoch
+                 5): K1/K2 at every step and K3 at the validation on both
+                 ranks, one loss stream, bit-identical weights, f32
+                 gradients; `[mg steps]`: one f32 step over the two ranks
+                 against one process on the same 16 rows, TF32 off, for
+                 the feature-distill step, the Barlow step (SyncBN) and the
+                 Conformer step (dropout masks replayed): the loss within
+                 1e-5 relative, every gradient within 1e-5 relative
+                 Frobenius (Barlow's f32 gradients within 1e-2, as f32
+                 rounds up to ~1e-2 of them on either side, and all within
+                 1e-5 in f64); `[mg main_dino]`: main_dino at its full-width
+                 defaults over the two ranks (4 a rank), 4 steps (2 at W =
+                 4): K5-K8 in
+                 all 12 blocks on both ranks, finite losses, one center;
+                 `[mg head]`: the DINO head (out_dim 65536, f32) sharded
+                 over a model axis of 2 (W) against the unsharded head: the
+                 loss, the replicated parameters' gradients and the
+                 gathered last-layer gradient within 1e-5 relative. On W >=
+                 4 cards (W even), `[mg tp+ddp]`: one DINO-LSTM step over a
+                 (2, W/2) mesh (DDP over data, prototypes over model)
+                 against one process, loss and gradients within 1e-5. Each
+                 part prints its ms/step; two ranks on one card are no
+                 scaling figure.
 Every timing line gives the kernel's ms, its plain version's, its bound (the
 larger of its matrix-product operations over the H100's peak and its bytes,
 each input read and each output written once, over 3.35 TB/s) and the ms of
@@ -207,7 +246,9 @@ object of per-kernel results; the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
+import hashlib
 import json
 import math
 import os
@@ -219,6 +260,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phases 1-17 run each training CLI as one rank on cuda:0: its --devices 0
+# default means every local card, and on a machine of several a CLI's main
+# would run itself as that many ranks and return None
+ONE_CARD = ["--devices", "1"]
 T_RAW, T_LO, T_HI, C, H, L, F, N_CLASSES = 512, 20, 480, 96, 96, 2, 384, 40
 T = T_HI - T_LO
 SOURCE = "cerebra_torch/csrc/lstm_stack.cu"
@@ -502,7 +547,7 @@ def phase_main() -> dict:
         os.remove(pth)
     argv = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "30",
             "--feature_dim", "384", "--num_epochs", "6", "--batch_size", "16",
-            "--device", "cuda", "--log_dir", log_dir]
+            "--device", "cuda", "--log_dir", log_dir] + ONE_CARD
     ls.reset_launches()
     t0 = time.perf_counter()
     _, hist = main(argv)
@@ -991,7 +1036,7 @@ def phase_main_dino() -> dict:
     epochs, steps_per_epoch = 2, 10  # 40 classes x 2 trials at batch 8
     argv = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "2",
             "--epochs", str(epochs), "--warmup_epochs", "1", "--device", "cuda",
-            "--log_dir", log_dir]
+            "--log_dir", log_dir] + ONE_CARD
     reset_launches()
     t0 = time.perf_counter()
     state, hist = main(argv)
@@ -2246,7 +2291,7 @@ def family_clis(gpu: str) -> dict:
     root = os.path.join(ROOT, "build", "chip_smoke", "family")
     shutil.rmtree(root, ignore_errors=True)  # no auto-resume from an earlier run
     corpus = ["--synthetic", "--synthetic_classes", str(FAMILY_CLASSES),
-              "--synthetic_per_class", str(FAMILY_TRIALS), "--device", "cuda"]
+              "--synthetic_per_class", str(FAMILY_TRIALS), "--device", "cuda"] + ONE_CARD
     n_train = int(FAMILY_CLASSES * FAMILY_TRIALS * 0.8)
     runs = {}
 
@@ -2815,7 +2860,8 @@ def flash_main_dino(gpu: str) -> dict:
     t0 = time.perf_counter()
     state, hist = main(["--synthetic", "--synthetic_classes", "2", "--synthetic_per_class", "8",
                         "--epochs", "1", "--warmup_epochs", "0", "--use_flash", "true",
-                        "--use_fused_attn", "false", "--device", "cuda", "--log_dir", log_dir])
+                        "--use_fused_attn", "false", "--device", "cuda", "--log_dir", log_dir]
+                       + ONE_CARD)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -3186,8 +3232,8 @@ def phase_teacher(gpu: str) -> tuple:
 # 384, batch 72 + 72 S&R rows, 22 x 1000, bf16) on the synthetic BCI-IV
 # corpus, 50 epochs.
 BARLOW_ARGV = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "4",
-               "--epochs", "2"]
-CONFORMER_ARGV = ["--synthetic", "--n_epochs", "50", "--subjects", "1"]
+               "--epochs", "2"] + ONE_CARD
+CONFORMER_ARGV = ["--synthetic", "--n_epochs", "50", "--subjects", "1"] + ONE_CARD
 # device-time parts of a Barlow step, by kernel name (first match)
 BARLOW_PARTS = (("fprop", "convolution fwd"), ("dgrad", "convolution dgrad"),
                 ("wgrad", "convolution wgrad"), ("conv", "convolution other"),
@@ -3498,7 +3544,550 @@ def phase_trainers(gpu: str) -> None:
     conformer_run(gpu)
 
 
-def main() -> None:
+# ------------------------------------------------------------------ phase 18
+# On one card the world is two ranks sharing it: both on cuda:0 over gloo
+# (NCCL refuses two ranks on one GPU, "Duplicate GPU detected"), and NCCL
+# runs at world size one; a machine of W > 1 cards runs W ranks over NCCL,
+# one a card. Each rank writes its results to MG_DIR/rank{r}.json.
+MG_DIR = os.path.join(ROOT, "build", "chip_smoke", "multi_gpu")
+MG_TRAINER = ["--synthetic", "--synthetic_classes", "40", "--synthetic_per_class", "30",
+              "--feature_dim", "384", "--batch_size", "16", "--device", "cuda"]
+MG_EPOCHS, MG_STEPS_PER_EPOCH = 6, 60  # 960 training trials over a global batch of 16
+MG_DINO_TRIALS, MG_DINO_EPOCHS = 16, 2  # 8 classes x 2 trials
+MG_DINO = ["--synthetic", "--synthetic_classes", "8", "--synthetic_per_class", "2",
+           "--batch_size_per_gpu", "4", "--epochs", str(MG_DINO_EPOCHS), "--warmup_epochs", "1",
+           "--device", "cuda"]
+MG_TOL = 1e-5
+MG_TOL_BARLOW_F32 = 1e-2  # 1.9e-3 at W = 2 and 5.3e-3 at W = 4 on the H100
+NCCL_CHECK = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+from cerebra_torch.cli.common import init_distributed
+from cerebra_torch.cli.lstm_distill_from_dinov2_train import main
+device = init_distributed(torch.device("cuda"))
+x = torch.arange(4.0, device=device) + 1
+dist.all_reduce(x)
+parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+dist.all_gather(parts, x)
+dist.barrier()
+t0 = time.perf_counter()
+model, hist = main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"backend": dist.get_backend(), "world": dist.get_world_size(),
+                  "device": str(device), "all_reduce": x.tolist(),
+                  "all_gather": torch.cat(parts).tolist(), "losses": hist["train_loss"],
+                  "seconds": time.perf_counter() - t0}))
+dist.destroy_process_group()
+"""
+
+
+def digest(tensors) -> str:
+    """sha256 of (name, bytes) over a state dict, in name order."""
+    h = hashlib.sha256()
+    for k, v in sorted(tensors.items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+
+def mg_trainer() -> dict:
+    """`[mg trainer]` on one rank: the full-width CLI, its launches, losses
+    and a digest of its weights."""
+    from cerebra_torch.cli.lstm_distill_from_dinov2_train import main
+    from cerebra_torch.models import lstm_stack as ls
+
+    ls.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, hist = main(MG_TRAINER + ["--num_epochs", str(MG_EPOCHS), "--log_dir",
+                                     os.path.join(MG_DIR, "trainer")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in ls.LAUNCHES.items() if v}
+    steps = MG_EPOCHS * MG_STEPS_PER_EPOCH
+    if (launches.get("fwd_train", 0) < steps or launches.get("bwd", 0) < steps
+            or launches.get("fwd_infer_last", 0) < 2):
+        raise AssertionError(f"the rank's steps or validation bypassed K1/K2/K3: {launches}")
+    grad_dtypes = sorted({str(p.grad.dtype) for p in model.parameters() if p.grad is not None})
+    if grad_dtypes != ["torch.float32"]:
+        raise AssertionError(f"gradients in {grad_dtypes}, not the f32 master gradients")
+    warm = hist["epoch_time_s"][1:]  # epoch 0 carries the kernels' first calls
+    return {"losses": hist["train_loss"], "launches": launches, "digest": digest(model.state_dict()),
+            "seconds": seconds, "windows_per_s": hist["windows_per_s"],
+            "ms_per_step": sum(warm) * 1e3 / (len(warm) * MG_STEPS_PER_EPOCH)}
+
+
+def opt_of(model, make):
+    """The optimizer a step pair keeps on its model, made at the first step."""
+    if "_opt" not in model.__dict__:
+        model.__dict__["_opt"] = make()
+    return model.__dict__["_opt"]
+
+
+def mg_grads(module) -> dict:
+    return {k: p.grad.detach().clone() for k, p in module.named_parameters() if p.grad is not None}
+
+
+def mg_pair(name, build, step, batch, mesh, zero_grad=(), timed=True, grad_tol=MG_TOL,
+            **ddp_kwargs) -> dict:
+    """One step of `build()` on the whole batch in this process, one on this
+    rank's rows under DDP (each the other's warm-up), then (`timed`) 2 timed
+    steps of each → errors, the gradients' limit and ms."""
+    from cerebra_torch.parallel.mesh import data_parallel, shard_batch
+
+    one = build()
+    world = copy.deepcopy(one)
+    loss_one = float(step(one, batch, None, True))
+    g_one = mg_grads(one)
+    ddp = data_parallel(world, mesh, **ddp_kwargs)
+    rows = shard_batch(mesh, batch)
+    loss_world = float(step(ddp, rows, mesh, True))
+    g_world = mg_grads(world)
+    errs = {k: rel_frob(g_world[k], g) for k, g in g_one.items() if k not in zero_grad}
+    ms = {}
+    runs = (("one", one, batch, None), ("world", ddp, rows, mesh)) if timed else ()
+    for what, model, b, m in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(model, b, m, False)
+        torch.cuda.synchronize()
+        ms[what] = (time.perf_counter() - t0) * 1e3 / 2
+    return {"name": name, "loss_one": loss_one, "loss_world": loss_world,
+            "loss_rel": abs(loss_world - loss_one) / abs(loss_one),
+            "grad_rel_max": max(errs.values()), "worst": max(errs, key=errs.get),
+            "zero_grad": sorted(zero_grad), "ms": ms, "grad_tol": grad_tol}
+
+
+class MaskTape:
+    """Dropout masks drawn for the whole batch in one process, replayed as
+    each rank's rows of them in the same order."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator("cuda").manual_seed(seed)
+        self.masks = []
+
+    def record(self, x, rate):
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=self.gen)
+        self.masks.append(mask.bool())
+        return torch.where(self.masks[-1], x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                                         device=x.device))
+
+    def replay(self, rows: slice):
+        it = iter(self.masks)
+
+        def drop(x, rate):
+            mask = next(it)[rows]
+            return torch.where(mask, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+        return drop
+
+
+def mg_steps() -> list:
+    """`[mg steps]` on one rank: the f32 step pairs, TF32 off."""
+    import torch.distributed as dist
+
+    from cerebra_torch.models import Model
+    from cerebra_torch.models.barlow import BarlowTwins
+    from cerebra_torch.models.batchnorm import sync_batchnorm
+    from cerebra_torch.models.conformer import Conformer
+    from cerebra_torch.models.dropout import dropout_from
+    from cerebra_torch.parallel.mesh import make_mesh
+    from cerebra_torch.train import barlow_recipe
+    from cerebra_torch.train.conformer_recipe import conformer_step
+    from cerebra_torch.train.optim import make_optimizer
+    from cerebra_torch.train.recipes import FeatureDistillConfig, distill_loss
+    from cerebra_torch.train.steps import feature_distill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(18)
+    out = []
+
+    # the feature-distill step: Model(96, 96, 2, 384) + v1 over 16 windows of 460
+    batch = (torch.randn(16, T, C, generator=gen).to(dev), torch.randn(16, F, generator=gen).to(dev),
+             torch.randint(0, N_CLASSES, (16,), generator=gen).to(dev))
+    temps = np.full(8, 0.5, np.float32)
+
+    def distill(model, b, m, _):
+        opt = opt_of(model, lambda: make_optimizer("rmsprop", model.parameters(), 1e-3))
+        loss_fn = distill_loss(FeatureDistillConfig(), temps, m and m.group("data"))
+        return feature_distill_step(model, opt, loss_fn, *b, 1)
+
+    out.append(mg_pair("feature distill", lambda: Model(C, H, L, F, n_classes=N_CLASSES,
+                                                        generator=torch.Generator().manual_seed(0),
+                                                        device=dev),
+                       distill, batch, mesh))
+
+    # the Barlow step: 2 x ResNet-50 + projector 8192-8192-8192, 16 pairs at 224 px
+    cfg = barlow_recipe.BarlowConfig(epochs=2, batch_size=16, warmup_epochs=0)
+    y1, y2 = (t.to(dev) for t in barlow_batch(16, 19))
+
+    def barlow(model, b, m, _):
+        inner = getattr(model, "module", model)
+        sync_batchnorm(inner, m and m.group("data"))
+        opt = opt_of(inner, lambda: barlow_recipe.barlow_optimizer(inner, cfg, 10))
+        return barlow_recipe.barlow_step(model, opt, b[0], b[1], 0, cfg.lambd,
+                                         m and m.group("data"))
+
+    def barlow_twins():
+        return BarlowTwins(generator=torch.Generator().manual_seed(17)).to(dev)
+
+    # f32 rounds up to ~1e-2 of these gradients on either side (the batch-16
+    # BatchNorms subtract most of each column's gradient; f64 references put
+    # one process as often as the ranks at fault), so the f32 pair's
+    # gradients are held at 1e-2 (a gradient off by a factor of the world
+    # size is 0.5 or more off) and all of them at 1e-5 in f64
+    out.append(mg_pair("barlow", barlow_twins, barlow, (y1, y2), mesh,
+                       grad_tol=MG_TOL_BARLOW_F32))
+    out.append(mg_pair("barlow f64", lambda: barlow_twins().double(), barlow,
+                       (y1.double(), y2.double()), mesh, timed=False))
+
+    # the Conformer step: emb 40, depth 6, out 384, 22 x 1000, 72 real + 72 S&R rows
+    x = torch.randn(144, 1, 22, 1000, generator=gen).to(dev)
+    y = torch.randint(0, 4, (144,), generator=gen).to(dev)
+    tape = MaskTape(20)
+    b = 144 // dist.get_world_size()
+    rows = slice(dist.get_rank() * b, (dist.get_rank() + 1) * b)
+    timing_drop = dropout_from(torch.Generator("cuda").manual_seed(21))
+
+    def conformer(model, b, m, compare):
+        inner = getattr(model, "module", model)
+        sync_batchnorm(inner, m and m.group("data"))
+        opt = opt_of(inner, lambda: torch.optim.Adam(inner.parameters(), lr=2e-4,
+                                                     betas=(0.5, 0.999), eps=1e-8))
+        drop = (tape.record if m is None else tape.replay(rows)) if compare else timing_drop
+        return conformer_step(model, opt, b[0], b[1], drop, m and m.group("data"))
+
+    names = [k for k, _ in Conformer(22, 1000).named_parameters()]
+    zero = [k for k in names if k.endswith(("keys.bias", "conv_0.bias", "conv_1.bias"))]
+    out.append(mg_pair("conformer", lambda: Conformer(
+        22, 1000, generator=torch.Generator().manual_seed(22)).to(dev), conformer, (x, y), mesh,
+        zero_grad=zero))
+    torch.cuda.empty_cache()
+    return out
+
+
+def mg_main_dino() -> dict:
+    """`[mg main_dino]` on one rank: the CLI at its full-width defaults."""
+    import torch.distributed as dist
+
+    from cerebra_torch.cli.main_dino import main
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = main(MG_DINO + ["--log_dir", os.path.join(MG_DIR, "main_dino")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    steps = MG_DINO_EPOCHS * (MG_DINO_TRIALS // (4 * dist.get_world_size()))
+    for name, per_step in (("vit_attn_fwd", 36), ("vit_mlp_fwd", 36),
+                           ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24)):
+        if launches.get(name, 0) < per_step * steps:
+            raise AssertionError(f"{name} launched {launches.get(name, 0)} times in "
+                                 f"{steps} steps on this rank")
+    if not all(math.isfinite(v) for v in hist["loss"]) or state.step != steps:
+        raise AssertionError(f"main_dino: losses {hist['loss']}, {state.step} steps")
+    out = {"losses": hist["loss"], "launches": launches, "center": digest({"c": state.center}),
+           "seconds": seconds, "steps": steps,
+           "ms_per_step": hist["epoch_time_s"][1] * 1e3 * MG_DINO_EPOCHS / steps}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mg_head() -> dict:
+    """`[mg head]` on one rank: DINOHead(384 → 65536) f32, its last layer
+    sharded over a (1, W) mesh's model axis, against the whole head, on 6
+    crops of 4 samples: the loss, the input's and the replicated layers'
+    gradients, the gathered last-layer gradient and center."""
+    import torch.distributed as dist
+
+    from cerebra_torch.losses.dino import dino_multicrop_loss
+    from cerebra_torch.models.heads import DINOHead
+    from cerebra_torch.parallel.dataflow import put_global
+    from cerebra_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = dist.get_world_size()
+    mesh = make_mesh(("data", "model"), (1, world))
+    group = mesh.group("model")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(23)
+    head = DINOHead(384, 65536, norm_last_layer=False,
+                    generator=torch.Generator().manual_seed(24)).to(dev)
+    sharded = copy.deepcopy(head)
+    for p in sharded.last_layer.parameters():
+        p.data = put_global(mesh, p.data, 0, "model").clone()
+    sharded.model_group = group
+    x = torch.randn(24, 384, generator=gen).to(dev)
+    teacher = torch.randn(2, 4, 65536, generator=gen).to(dev)
+    center = 0.1 * torch.randn(1, 65536, generator=gen).to(dev)
+
+    def run(model, t, c, g):
+        xi = x.clone().requires_grad_(True)
+        loss, new_center = dino_multicrop_loss(model(xi).reshape(6, 4, -1), t, c, 0.04,
+                                               model_group=g)
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        return loss, new_center, xi.grad
+
+    t_mine = put_global(mesh, teacher, 2, "model")
+    c_mine = put_global(mesh, center, 1, "model")
+    loss1, c1, gx1 = run(head, teacher, center, None)
+    loss2, c2, gx2 = run(sharded, t_mine, c_mine, group)
+
+    def gather(t, dim):
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    errs = {"x": rel_frob(gx2, gx1), "center": rel_frob(gather(c2, 1), c1)}
+    for (k, p1), p2 in zip(head.named_parameters(), sharded.parameters()):
+        g2 = gather(p2.grad, 0) if k.startswith("last_layer") else p2.grad
+        errs[k] = rel_frob(g2, p1.grad)
+    ms = {}
+    for what, args in (("whole", (head, teacher, center, None)),
+                       ("sharded", (sharded, t_mine, c_mine, group))):
+        run(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run(*args)
+        torch.cuda.synchronize()
+        ms[what] = (time.perf_counter() - t0) * 1e3 / 5
+    loss1, loss2 = loss1.item(), loss2.item()
+    return {"loss_rel": abs(loss2 - loss1) / abs(loss1), "loss": loss1, "errs": errs, "ms": ms,
+            "shard": tuple(sharded.last_layer.weight_v.shape)}
+
+
+def mg_tp_ddp() -> dict:
+    """`[mg tp+ddp]` on one rank of W >= 4 cards: one DINO-LSTM step
+    (lstm_distillation's Model(96, 128, 4) + DINOHead(128 -> 65536), f32,
+    crops at fixed starts) over a (2, W/2) mesh, DDP over the data group
+    and the prototypes sharded over the model group, against one process on
+    the same 16 trials: the loss and every gradient after the per-parameter
+    clip (the last layer's gathered), then 2 timed steps of each."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from cerebra_torch.models import lstm_stack as ls
+    from cerebra_torch.parallel.mesh import make_mesh, shard_batch
+    from cerebra_torch.parallel.tp import dino_tp_dim
+    from cerebra_torch.train import recipes, steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(("data", "model"), (2, dist.get_world_size() // 2))
+    group = mesh.group("model")
+    dev = torch.device("cuda")
+    cfg = recipes.DinoSelfDistillConfig(out_dim=65536, epochs=3, warmup_epochs=0,
+                                        freeze_last_layer=0)
+    eeg = torch.randn(16, 512, 96, generator=torch.Generator().manual_seed(25)).to(dev)
+
+    def views(_, b):  # 2 x 300 + 4 x 200 crops, at the same starts in every row
+        return [torch.stack([b[:, s:s + 300] for s in (0, 212)]),
+                torch.stack([b[:, s:s + 200] for s in (0, 104, 208, 312)])]
+
+    one, one_step, _ = recipes.make_dino_lstm(
+        dataclasses.replace(cfg, batch_size_per_device=16), 16, 96, dev, view_fn=views)
+    mine, mine_step, _ = recipes.make_dino_lstm(
+        dataclasses.replace(cfg, batch_size_per_device=8), 16, 96, dev, view_fn=views, mesh=mesh)
+    steps.distribute_dino_state(mesh, mine, cfg.out_dim)
+    rows = shard_batch(mesh, eeg)
+    one, m_one = one_step(one, eeg)
+    ls.reset_launches()
+    mine, m_mine = mine_step(mine, rows)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ls.LAUNCHES.items() if v}
+    if not all(launches.get(k) for k in ("fwd_train", "bwd", "fwd_infer_last")):
+        raise AssertionError(f"the TP + DDP step bypassed K1/K2/K3: {launches}")
+
+    def grads(state, sharded):
+        out = {}
+        for k, p in state.student.named_parameters():
+            if p.grad is None:  # the fixed weight norm of norm_last_layer
+                continue
+            g = p.grad.detach()
+            if sharded and dino_tp_dim(k, g, 1) is not None:
+                parts = [torch.empty_like(g) for _ in range(mesh.size("model"))]
+                dist.all_gather(parts, g.contiguous(), group=group)
+                g = torch.cat(parts, dino_tp_dim(k, g, 1))
+            out[k] = g
+        return out
+
+    g_one, g_mine = grads(one, False), grads(mine, True)
+    errs = {k: rel_frob(g_mine[k], g) for k, g in g_one.items()}
+    ms = {}
+    for what, state, step, b in (("one", one, one_step, eeg), ("world", mine, mine_step, rows)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, b)
+        torch.cuda.synchronize()
+        ms[what] = (time.perf_counter() - t0) * 1e3 / 2
+    loss_one, loss_world = float(m_one["loss"]), float(m_mine["loss"])
+    out = {"mesh": list(mesh.ranks.shape), "loss_one": loss_one, "loss_world": loss_world,
+           "loss_rel": abs(loss_world - loss_one) / abs(loss_one),
+           "grad_rel_max": max(errs.values()), "worst": max(errs, key=errs.get),
+           "shard": list(mine.student.head.last_layer.weight_v.shape), "launches": launches,
+           "ms": ms}
+    del one, mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def mg_rank(rank: int, port: int, world: int, backend: str) -> None:
+    """One rank of phase 18's world (the spawned process's entry)."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from cerebra_torch.cli.common import init_distributed
+
+    device = init_distributed(torch.device("cuda"), backend=backend)
+    try:
+        out = {"device": str(device), "backend": dist.get_backend()}
+        parts = [("trainer", mg_trainer), ("steps", mg_steps), ("main_dino", mg_main_dino),
+                 ("head", mg_head)]
+        if world >= 4 and world % 2 == 0:  # a (2, W/2) mesh: DDP and TP together
+            parts.append(("tp_ddp", mg_tp_ddp))
+        for name, part in parts:
+            t0 = time.perf_counter()
+            out[name] = part()
+            out[name + "_s"] = time.perf_counter() - t0
+        with open(os.path.join(MG_DIR, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multi_gpu(gpu: str) -> None:
+    """Phase 18: `[nccl]`, then the two-rank world's `[mg trainer]`, `[mg
+    steps]`, `[mg main_dino]` and `[mg head]`; a rank's failure fails it."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from cerebra_torch.cli.launch import _free_port
+
+    shutil.rmtree(MG_DIR, ignore_errors=True)
+    os.makedirs(MG_DIR)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    argv = MG_TRAINER + ["--num_epochs", "1", "--log_dir", os.path.join(MG_DIR, "nccl")]
+    res = subprocess.run(
+        [sys.executable, "-m", "cerebra_torch.cli.launch", "--nproc", "1", "--", sys.executable,
+         "-c", NCCL_CHECK, *argv],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"launch --nproc 1 (NCCL) exited {res.returncode}: "
+                             f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    line = [ln for ln in res.stdout.splitlines() if '{"backend"' in ln][-1]
+    nccl = json.loads(line.split("] ", 1)[1])
+    if (nccl["backend"] != "nccl" or nccl["world"] != 1 or nccl["all_reduce"] != [1, 2, 3, 4]
+            or nccl["all_gather"] != [1, 2, 3, 4]
+            or not all(math.isfinite(v) for v in nccl["losses"])):
+        raise AssertionError(f"NCCL world of one: {nccl}")
+    log(f"[nccl] launch --nproc 1: init_distributed's {nccl['backend']} group (world "
+        f"{nccl['world']}, {nccl['device']}), all_reduce {nccl['all_reduce']}, all_gather "
+        f"{nccl['all_gather']}, barrier; lstm_distill_from_dinov2_train 1 epoch in "
+        f"{nccl['seconds']:.1f} s, loss {nccl['losses'][0]:.6f}; {time.perf_counter() - t0:.1f} s "
+        f"with the process's start, on {gpu}")
+
+    cards = torch.cuda.device_count()
+    world, backend = (cards, "nccl") if cards > 1 else (2, "gloo")
+    t0 = time.perf_counter()
+    mp.start_processes(mg_rank, args=(_free_port(), world, backend), nprocs=world,
+                       start_method="spawn", join=True)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(MG_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"[mg] {world} ranks ({backend}, on {sorted({rk['device'] for rk in ranks})}) in "
+        f"{time.perf_counter() - t0:.1f} s with their start"
+        + ("; two ranks sharing one card: no scaling figure, and NCCL across cards is not "
+           "checked on this machine" if cards == 1 else ""))
+
+    tr = [rk["trainer"] for rk in ranks]
+    if any(t["losses"] != tr[0]["losses"] or t["digest"] != tr[0]["digest"] for t in tr):
+        raise AssertionError(f"the ranks' loss streams or weights differ: "
+                             f"{[t['losses'] for t in tr]} {[t['digest'][:12] for t in tr]}")
+    for r, t in enumerate(tr):
+        log(f"[mg trainer] rank {r}: {t['seconds']:.1f} s with the corpus and validation, "
+            f"{t['ms_per_step']:.2f} ms/step over epochs 1-{MG_EPOCHS - 1} "
+            f"({MG_EPOCHS * MG_STEPS_PER_EPOCH} steps of {16 // world} rows), windows/s per epoch "
+            f"{[round(w, 1) for w in t['windows_per_s']]}, launches {t['launches']} on {gpu}")
+    log(f"[mg trainer] one loss stream {[round(v, 6) for v in tr[0]['losses']]}; weights "
+        f"bit-identical (sha256 {tr[0]['digest'][:16]}); f32 gradients under DDP")
+
+    for i in range(len(ranks[0]["steps"])):
+        for r, pr in enumerate(rk["steps"][i] for rk in ranks):
+            ok = pr["loss_rel"] <= MG_TOL and pr["grad_rel_max"] <= pr["grad_tol"]
+            rule = f"limit {pr['grad_tol']:g}" + (
+                "" if pr["grad_tol"] == MG_TOL else
+                ": f32 rounding on either side; held at 1e-5 in f64 below")
+            ms = (f"ms/step: {world} ranks {pr['ms']['world']:.2f}, one process "
+                  f"{pr['ms']['one']:.2f}" if pr["ms"] else "not timed")
+            log(f"[mg steps] {pr['name']} rank {r}: loss {pr['loss_world']:.7f} vs "
+                f"{pr['loss_one']:.7f} (rel {pr['loss_rel']:.2e}, limit 1e-5); gradients rel "
+                f"Frobenius max {pr['grad_rel_max']:.2e} ({pr['worst']}; {rule}); "
+                f"{len(pr['zero_grad'])} zero-gradient tensors aside; {ms} (TF32 off) on {gpu}")
+            if not ok:
+                raise AssertionError(f"{pr['name']}: {world} ranks disagree with one process")
+
+    md = [rk["main_dino"] for rk in ranks]
+    if any(m["losses"] != md[0]["losses"] or m["center"] != md[0]["center"] for m in md):
+        raise AssertionError(f"main_dino ranks differ: {md}")
+    for r, m in enumerate(md):
+        log(f"[mg main_dino] rank {r}: {m['seconds']:.1f} s, {m['steps']} steps, "
+            f"{m['ms_per_step']:.1f} ms/step (ViT-S/8, out_dim 65536, 2 x 224 + 4 x 96, 4 a "
+            f"rank, bf16), launches {m['launches']} on {gpu}")
+    log(f"[mg main_dino] losses {[round(v, 4) for v in md[0]['losses']]} on every rank; one "
+        f"center (sha256 {md[0]['center'][:16]})")
+
+    for r, rk in enumerate(ranks):
+        hd = rk["head"]
+        worst = max(hd["errs"].values())
+        log(f"[mg head] rank {r}: DINOHead 384 -> 65536 f32, last layer {hd['shard']} a rank "
+            f"(1 x {world} mesh) against the whole head: loss {hd['loss']:.6f} rel {hd['loss_rel']:.2e}, "
+            f"gradients and center rel Frobenius max {worst:.2e} (limit 1e-5; "
+            f"{ {k: float(f'{v:.1e}') for k, v in hd['errs'].items()} }); fwd+bwd ms: sharded "
+            f"{hd['ms']['sharded']:.2f}, whole {hd['ms']['whole']:.2f} on {gpu}")
+        if hd["loss_rel"] > MG_TOL or worst > MG_TOL:
+            raise AssertionError(f"the sharded head disagrees on rank {r}: {hd}")
+    for r, rk in enumerate(ranks if "tp_ddp" in ranks[0] else ()):
+        tp = rk["tp_ddp"]
+        log(f"[mg tp+ddp] rank {r}: one DINO-LSTM step (Model(96, 128, 4) + DINOHead(128 -> "
+            f"65536), f32, 16 trials) over a {tuple(tp['mesh'])} (data, model) mesh, DDP over "
+            f"data, last layer {tp['shard']} a rank, against one process: loss "
+            f"{tp['loss_world']:.7f} vs {tp['loss_one']:.7f} (rel {tp['loss_rel']:.2e}, limit "
+            f"1e-5); gradients rel Frobenius max {tp['grad_rel_max']:.2e} ({tp['worst']}; limit "
+            f"1e-5); launches {tp['launches']}; ms/step: {world} ranks {tp['ms']['world']:.2f}, "
+            f"one process {tp['ms']['one']:.2f} (TF32 off) on {gpu}")
+        if tp["loss_rel"] > MG_TOL or tp["grad_rel_max"] > MG_TOL:
+            raise AssertionError(f"TP + DDP disagrees with one process on rank {r}: {tp}")
+    log(f"[mg] parts (rank 0): " + ", ".join(f"{k} {ranks[0][k + '_s']:.1f} s"
+                                            for k in ("trainer", "steps", "main_dino", "head",
+                                                      "tp_ddp") if k in ranks[0]))
+
+
+def main(argv) -> None:
+    multi_gpu_only = argv == ["--multi-gpu-only"]
+    if argv and not multi_gpu_only:
+        sys.exit("usage: python3 chip_smoke.py [--multi-gpu-only]")
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -3515,6 +4104,16 @@ def main() -> None:
 
     gpu = run(phase_device)
     run(phase_build)
+    if multi_gpu_only:
+        run(phase_main)
+        run(phase_main_dino)
+        run(phase_multi_gpu, gpu)
+        log(f"[phases] all {time.perf_counter() - start:.1f} s")
+        log(gpu)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
     errs = run(phase_parity)
     launches = run(phase_main)
     times = run(phase_kernel_timing)
@@ -3537,6 +4136,7 @@ def main() -> None:
         times.update(t)
         launches.update({k: n[k] for k in t})
     run(phase_trainers, gpu)
+    run(phase_multi_gpu, gpu)
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
     sources = dict(VIT_SOURCES, **FLASH_SOURCES, **TEACHER_SOURCES,
                    **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
@@ -3559,4 +4159,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,6 +1,7 @@
 """The port imports on a machine without JAX: importing `cerebra_torch` and
 every one of its modules pulls in neither `jax` nor the `cerebra` package,
-and among them are the ported CLIs."""
+and among them are the ported CLIs, the launcher, the parallel package and
+the metric logger."""
 
 import os
 import subprocess
@@ -26,6 +27,9 @@ for cli in ("discover_channels", "save_channelwise_outputs", "brain_map", "eeg_r
     assert "cerebra_torch.cli." + cli in names, cli
 for mod in ("data.gauss_noise", "data.sources", "signal.image_aug", "models.xcit",
             "models.resnet", "models.hub"):
+    assert "cerebra_torch." + mod in names, mod
+for mod in ("parallel", "parallel.mesh", "parallel.collectives", "parallel.dataflow",
+            "parallel.tp", "cli.launch", "utils.logging"):
     assert "cerebra_torch." + mod in names, mod
 for lazy in ("PIL", "torchvision", "transformers", "sklearn"):
     assert lazy not in sys.modules, lazy
