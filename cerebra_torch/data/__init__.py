@@ -7,6 +7,7 @@ from cerebra_torch.data.schema import (  # noqa: F401
     RawCorpus,
     load_corpus_pth,
     load_split_indices,
+    save_corpus_pth,
 )
 from cerebra_torch.data.corpus import EEGCorpus  # noqa: F401
 from cerebra_torch.data.synthetic import make_synthetic_corpus  # noqa: F401

@@ -19,7 +19,7 @@ Semantics preserved:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -150,3 +150,18 @@ def image_path(corpus: EEGCorpus, idx: int, images_root: str) -> str:
     utils/PerilsEEGDataset.py:157-166): {root}/{wnid}/{name}.JPEG."""
     name = corpus.image_names[int(corpus.image_idx[idx])]
     return f"{images_root}/{name.split('_')[0]}/{name}.JPEG"
+
+
+def label_wise_stats(corpus: EEGCorpus) -> Dict[int, Dict[str, np.ndarray]]:
+    """Per-class EEG mean/std over all trials of the class — the
+    label_wise_data_means tables of utils/Utilities.py:225-408, as
+    vectorized reductions."""
+    out: Dict[int, Dict[str, np.ndarray]] = {}
+    for c in np.unique(corpus.labels):
+        block = corpus.eeg[corpus.labels == c]
+        out[int(c)] = {
+            "mean": block.mean(axis=0),
+            "std": block.std(axis=0),
+            "count": np.asarray(block.shape[0]),
+        }
+    return out

@@ -130,6 +130,32 @@ class RawCorpus:
         return int(self.eeg.shape[2])
 
 
+def save_corpus_pth(path: str, corpus: RawCorpus) -> None:
+    """Write the reference .pth dict format (ConvertToPth.py:170-201)."""
+    import torch
+
+    dataset = [
+        {
+            "eeg": torch.from_numpy(np.ascontiguousarray(corpus.eeg[i])).float(),
+            "image": int(corpus.image_idx[i]),
+            "label": int(corpus.labels[i]),
+            "subject": int(corpus.subjects[i]),
+        }
+        for i in range(corpus.n)
+    ]
+    payload = {
+        "dataset": dataset,
+        "labels": list(corpus.wnids),
+        "images": list(corpus.image_names),
+    }
+    if corpus.means is not None:
+        payload["means"] = [torch.from_numpy(corpus.means.reshape(1, -1)).float()]
+    if corpus.stddevs is not None:
+        payload["stddevs"] = [torch.from_numpy(corpus.stddevs.reshape(1, -1)).float()]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(payload, path)
+
+
 def load_corpus_pth(path: str) -> RawCorpus:
     """Load a reference-format .pth corpus into dense arrays.
 

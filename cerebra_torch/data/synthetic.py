@@ -1,15 +1,38 @@
-"""Synthetic labelled EEG corpora — the data backend that needs no files
+"""Synthetic EEG: labelled corpora, the data backend that needs no files
 (copy of cerebra/data/synthetic.py::make_synthetic_corpus, pure numpy, so a
-seed gives the same arrays bit for bit as the JAX package)."""
+seed gives the same arrays bit for bit as the JAX package), and the
+reference's null-hypothesis noise (`synthetic_eeg_noise`, drawn from a
+torch.Generator where JAX draws from a key: the same seed gives other
+numbers)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
 from cerebra_torch.data.corpus import EEGCorpus
 from cerebra_torch.data.schema import LabelCatalog, RawCorpus
+
+
+def synthetic_eeg_noise(
+    num_trials: int,
+    num_channels: int = 128,
+    num_samples: int = 500,
+    sampling_rate: float = 1000.0,
+    frequency: float = 40.0,
+    amplitude: float = 0.5,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Gaussian noise + 40 Hz sinusoid, (num_trials, C, T) float32: the
+    generator of utils/PerilsEEGDataset.py:140-147 (per-channel N(0, 1) noise
+    plus a shared `amplitude*sin(2π f t)` oscillation), on the generator's
+    device."""
+    noise = torch.randn(num_trials, num_channels, num_samples, generator=generator,
+                        device=generator.device if generator is not None else "cpu")
+    t = torch.arange(num_samples, device=noise.device) / sampling_rate
+    return noise + amplitude * torch.sin(2.0 * np.pi * frequency * t)
 
 
 def make_synthetic_corpus(

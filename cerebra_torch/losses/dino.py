@@ -1,6 +1,6 @@
 """DINO self-distillation losses with explicit center state (port of
 cerebra/losses/dino.py: teacher_temp_schedule, update_center,
-dino_multicrop_loss; LstmDistillation.py:101-159, dino/main_dino.py:428-481).
+dino_multicrop_loss, dino_single_pair_loss; LstmDistillation.py:101-159, dino/main_dino.py:428-481).
 
 The center is a (1, D) tensor returned beside the loss. Under a mesh,
 `data_group` makes the loss the global batch's mean (a differentiable
@@ -118,3 +118,20 @@ def dino_multicrop_loss(
     new_center = update_center(center, teacher_output.reshape(-1, teacher_output.shape[-1]).detach(),
                                center_momentum, data_group)
     return loss, new_center
+
+
+def dino_single_pair_loss(
+    student_output: torch.Tensor,  # (B, D)
+    teacher_output: torch.Tensor,  # (B, D)
+    center: torch.Tensor,  # (1, D)
+    teacher_temp: float,
+    student_temp: float = 0.1,
+    center_momentum: float = 0.9,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-pair variant (LstmDistillFromDinoV2Train.py:62-94): the cross
+    entropy between the centred teacher softmax (no gradient) and the
+    student's log-softmax → (loss, new center)."""
+    student_log = torch.log_softmax(student_output / student_temp, dim=-1)
+    teacher_probs = torch.softmax((teacher_output - center) / teacher_temp, dim=-1).detach()
+    loss = torch.sum(-teacher_probs * student_log, dim=-1).mean()
+    return loss, update_center(center, teacher_output.detach(), center_momentum)

@@ -1,5 +1,5 @@
-"""Time windows, temporal multi-crop and EEG-as-image tiling (port of
-cerebra/signal/windows.py: time_window, multicrop_views, tile_eeg_to_image).
+"""Time windows, temporal crops and EEG-as-image tiling and resizing (port of
+cerebra/signal/windows.py).
 
 Randomness is a `torch.Generator` (or a start passed in), not a JAX key: the
 two give different numbers from one seed, so tests hand both the same starts.
@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def time_window(eeg: torch.Tensor, time_low: int, time_high: int) -> torch.Tensor:
@@ -22,6 +23,15 @@ def _crop_starts(n: int, t_total: int, length: int, generator=None) -> torch.Ten
     [0, T), and if start+len overflows, shift back by the overflow."""
     starts = torch.randint(0, t_total, (n,), generator=generator)
     return starts - torch.clamp(starts + length - t_total, min=0)
+
+
+def random_time_crop(eeg: torch.Tensor, length: int, start: Optional[int] = None,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One temporal crop of (B, T, C) → (B, length, C) at `start`, drawn by
+    the reference's boundary rule when None."""
+    if start is None:
+        start = int(_crop_starts(1, eeg.shape[-2], length, generator)[0])
+    return eeg[..., start:start + length, :]
 
 
 def multicrop_views(
@@ -56,6 +66,16 @@ def window_starts(shape, channels: int, samples: int, size: int,
     [0, max(width - size, 1)) where width = samples·(size//samples + 1)."""
     width = samples * (size // samples + 1)
     return torch.randint(0, max(width - size, 1), tuple(shape), generator=generator)
+
+
+def resize_eeg_to_image(eeg: torch.Tensor, size: int = 224) -> torch.Tensor:
+    """EEG (T, C) → (3, size, size): a bilinear resize of the (T, C) plane,
+    replicated over 3 channels. Antialiased as jax.image.resize is: a
+    shrinking axis (T 512 → 224) takes the triangle filter widened by the
+    scale, a growing one (C 96 → 224) plain bilinear."""
+    img = F.interpolate(eeg[None, None].float(), size=(size, size), mode="bilinear",
+                        align_corners=False, antialias=True)[0, 0].to(eeg.dtype)
+    return img.unsqueeze(0).expand(3, size, size)
 
 
 def tile_eeg_to_image(eeg: torch.Tensor, size: int = 224, start=None,

@@ -3,7 +3,8 @@ and of the analysis CLIs' matplotlib calls).
 
 The card's machine has no matplotlib or PIL, so the port draws its own: a
 heatmap through a colormap (`inferno`, `gray`, `tab10`), a polyline trace of
-one or more series, and `write_png` (8-bit RGB, one IDAT chunk). The pixels
+one or more series, a 3-D scatter seen at an azimuth and elevation, and
+`write_png` (8-bit RGB, one IDAT chunk). The pixels
 do not match matplotlib's (no axes, labels or legend); the arrays behind
 them are what the JAX package plots.
 """
@@ -24,6 +25,9 @@ _STOPS = {
                 "fcffa4"),
     "gray": ("000000", "ffffff"),
 }
+TAB20C = ("3182bd", "6baed6", "9ecae1", "c6dbef", "e6550d", "fd8d3c", "fdae6b", "fdd0a2",
+          "31a354", "74c476", "a1d99b", "c7e9c0", "756bb1", "9e9ac8", "bcbddc", "dadaeb",
+          "636363", "969696", "bdbdbd", "d9d9d9")
 TAB10 = ("1f77b4", "ff7f0e", "2ca02c", "d62728", "9467bd", "8c564b", "e377c2", "7f7f7f",
          "bcbd22", "17becf")
 
@@ -70,6 +74,45 @@ def trace_image(series: Sequence[np.ndarray], height: int = 300, width: int = 10
         for x in cols:
             img[min(rows[x], nxt[x]):max(rows[x], nxt[x]) + 1, x] = colours[n % len(colours)]
     return img
+
+
+def tab20c_colours(n: int) -> np.ndarray:
+    """(n, 3) uint8: matplotlib's `get_cmap("tab20c", n)` — tab20c's 20
+    colours sampled at n even stops — for labels 0..n-1."""
+    stops = np.linspace(0.0, 1.0, n) * len(TAB20C)
+    idx = np.minimum(stops.astype(np.int64), len(TAB20C) - 1)
+    return _rgb(TAB20C)[idx].astype(np.uint8)
+
+
+def scatter3d_image(points: np.ndarray, colours: np.ndarray) -> np.ndarray:
+    """Points (N, 3) seen orthographically from GetTsneForRawEEG.py's view
+    (view_init(azim=50, elev=40), matplotlib's convention), each axis scaled
+    to [-1, 1] first as a 3-D axes box does, drawn far to near as discs of
+    3 pixels in their (N, 3) uint8 colours at alpha 0.8 on white →
+    (900, 1200, 3) uint8. No axes, labels or legend."""
+    height, width, radius, alpha = 900, 1200, 3, 0.8
+    p = np.asarray(points, dtype=np.float64)
+    lo, hi = p.min(axis=0), p.max(axis=0)
+    p = 2.0 * (p - lo) / np.where(hi > lo, hi - lo, 1.0) - 1.0
+    az, el = np.radians(50.0), np.radians(40.0)
+    u = -np.sin(az) * p[:, 0] + np.cos(az) * p[:, 1]
+    v = (-np.sin(el) * np.cos(az) * p[:, 0] - np.sin(el) * np.sin(az) * p[:, 1]
+         + np.cos(el) * p[:, 2])
+    depth = np.cos(el) * np.cos(az) * p[:, 0] + np.cos(el) * np.sin(az) * p[:, 1] \
+        + np.sin(el) * p[:, 2]
+    scale = 0.45 * min(height, width) / np.sqrt(3.0)  # the box's diagonal fits
+    cx = np.round(width / 2 + scale * u).astype(np.int64)
+    cy = np.round(height / 2 - scale * v).astype(np.int64)
+    img = np.full((height, width, 3), 255.0)
+    dy, dx = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    disc = dy ** 2 + dx ** 2 <= radius ** 2
+    dy, dx = dy[disc], dx[disc]
+    colours = np.asarray(colours, dtype=np.float64)
+    for i in np.argsort(depth):  # far to near: nearer discs paint over
+        ys, xs = cy[i] + dy, cx[i] + dx
+        ok = (ys >= 0) & (ys < height) & (xs >= 0) & (xs < width)
+        img[ys[ok], xs[ok]] = (1.0 - alpha) * img[ys[ok], xs[ok]] + alpha * colours[i]
+    return np.round(img).astype(np.uint8)
 
 
 def write_png(path: str, rgb: np.ndarray) -> str:

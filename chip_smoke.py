@@ -13,7 +13,7 @@ prints no kernels line.
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device      nvidia-smi name and power limit, torch.version.cuda
   2. build       nvcc of cerebra_torch/csrc/{lstm_stack,lstm_scan,vit_attn,
-                 vit_mlp}.cu, all started together, seconds each
+                 vit_mlp,sos_scan}.cu, all started together, seconds each
   3. parity      K3, K1, K2 and K2's two pieces (each layer's reverse scan
                  and its products) against their plain versions, f32 and
                  bf16, at B = 1024, 16 and 13 (T = 460, C = H = 96, L = 2),
@@ -234,6 +234,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  against one process, loss and gradients within 1e-5. Each
                  part prints its ms/step; two ranks on one card are no
                  scaling figure.
+ 19. remainder   `[sos scan]`: the IIR cascade kernel (csrc/sos_scan.cu)
+                 against its plain loop on the card in f32, forward and
+                 reversed, at remove_noise's lanes (64 x 96 trials, 512
+                 samples + padding, Butterworth 1-50 Hz at 1000 Hz) and at
+                 T = 4096; filtfilt in f64 against scipy's sosfiltfilt on
+                 the host over (137, 152 k); ms against the plain loop,
+                 the bound (bytes and the serial chain), scipy's host time,
+                 2 launches a filtfilt. `[ingest]`: convert_to_pth on the
+                 card over a 137-channel (128 EEG + 8 EXG + Status) 4096 Hz
+                 BDF of 200 stimulus events (~125 MB) written by the
+                 port: the native and numpy readers bit-equal, the .pth
+                 loaded back (200 x 128 x 512), filtfilt_fft against the
+                 exact filtfilt's payload, seconds a stage. `[denoise]`:
+                 remove_noise, remove_noise_with_ica (n = 20; three trials
+                 against a host f64 projection) and band_powers over a
+                 (2000, 512, 96) f32 corpus: ms and peak memory.
+                 `[transforms]`: lstm_features (K3), autoencoder_reconstruct
+                 (K4) and dino_features (K5/K7 in every block) on 40 x 30
+                 trials, each against its model's plain path on the CPU.
+                 `[tsne]`: get_tsne_for_raw_eeg --synthetic on the card
+                 (40 x 30 trials of 460 x 96): its PNG, KL, seconds
 Every timing line gives the kernel's ms, its plain version's, its bound (the
 larger of its matrix-product operations over the H100's peak and its bytes,
 each input read and each output written once, over 3.35 TB/s) and the ms of
@@ -410,7 +431,7 @@ def phase_build() -> None:
 
     from cerebra_torch.kernels import _build
 
-    names = ("lstm_stack", "lstm_scan", "vit_attn", "vit_mlp")
+    names = ("lstm_stack", "lstm_scan", "vit_attn", "vit_mlp", "sos_scan")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
         built = list(pool.map(_build.build, names))
@@ -4084,6 +4105,370 @@ def phase_multi_gpu(gpu: str) -> None:
                                                       "tp_ddp") if k in ranks[0]))
 
 
+# ------------------------------------------------------------------ phase 19
+# The last modules of the port: the exact IIR cascade (csrc/sos_scan.cu, no
+# Pallas counterpart: JAX ran it as a lax.scan), BDF ingest, the denoisers,
+# the corpus transforms and the t-SNE CLI. Files under REMAINDER_DIR.
+REMAINDER_DIR = os.path.join(ROOT, "build", "chip_smoke", "remainder")
+SOS_SOURCE = "cerebra_torch/csrc/sos_scan.cu"
+REPLACES["sos_scan"] = "cerebra/signal/filters.py:101 _sos_scan (lax.scan)"
+# The kernel and its plain loop run the same per-section updates; nvcc
+# contracts them into FMAs, and the 1 Hz poles of the 1-50 Hz Butterworth
+# carry a rounding difference on: on the CPU each f32 side lies 1.7-1.9e-4
+# of the peak from f64, and the card's first runs showed 9-10e-5 between
+# kernel and plain. Relative to the output's peak: 5e-4 in f32, 1e-9 in f64
+# against scipy (the same recurrence in the same dtype).
+TOL_SOS = {torch.float32: 5e-4, torch.float64: 1e-9}
+# remove_noise's lanes: Perils-sized trials (96 channels, 512 samples) in
+# batches of 64, Butterworth(4) 1-50 Hz at 1000 Hz
+SOS_SHAPE = (64, 96, 512)
+# the ingest recording: 128 EEG + 8 EXG channels (+ Status) at 4096 Hz,
+# a session-start trigger and 200 stimulus events 0.35 s apart
+INGEST_FS, INGEST_EVENTS, INGEST_GAP = 4096, 200, 0.35
+
+
+def remainder_dir(name: str) -> str:
+    import shutil
+
+    path = os.path.join(REMAINDER_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def rel_peak(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|."""
+    want = want.double()
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def sos_plain_filtfilt(spec, x: torch.Tensor) -> torch.Tensor:
+    """filtfilt composed from the plain loop (`_sos_scan_ref`), on x's device."""
+    from cerebra_torch.signal import filters as flt
+
+    p = spec.default_padlen
+    ext = flt._odd_ext(x, p)
+    y = flt._sos_scan_ref(spec.sos, ext, spec.zi, ext[..., 0])
+    y = flt._sos_scan_ref(spec.sos, y, spec.zi, y[..., -1], reverse=True)
+    return y[..., p:p + x.shape[-1]]
+
+
+def sos_chain_ms(T: int, S: int, f64: bool = False) -> float:
+    """The serial bound of one pass: a lane's T·S section updates, each two
+    dependent FMAs (y, then z0 from y) of 4 cycles (8 in f64), at the card's
+    highest SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    return T * S * 2 * (8 if f64 else 4) / (mhz * 1e3)
+
+
+def sos_scan_phase(gpu: str) -> tuple:
+    """`[sos scan]` → (errors, timing row) of sos_scan."""
+    from scipy import signal as sps
+
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.signal import filters as flt
+
+    spec = flt.design_bandpass(1.0, 50.0, fs=1000.0, order=4)
+    S, pad = spec.n_sections, spec.default_padlen
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(*SOS_SHAPE, generator=gen, device="cuda")
+    ext = flt._odd_ext(x, pad)  # (64, 96, 566): one pass's lanes
+    worst = 0.0  # the largest absolute difference, for the kernels line
+    for lanes in (ext, torch.randn(96, 4096, generator=gen, device="cuda")):
+        for reverse in (False, True):
+            scale = lanes[..., -1 if reverse else 0]
+            got = flt.sos_scan(spec.sos, lanes, spec.zi, scale, reverse=reverse)
+            want = flt._sos_scan_ref(spec.sos, lanes, spec.zi, scale, reverse=reverse)
+            err = rel_peak(got, want)
+            log(f"[sos scan] {tuple(lanes.shape)} f32 reverse={reverse}: kernel vs plain "
+                f"{err:.2e} of the peak (limit {TOL_SOS[torch.float32]:.0e})")
+            if not err <= TOL_SOS[torch.float32]:
+                raise AssertionError(f"sos_scan {tuple(lanes.shape)} reverse={reverse}: {err}")
+            worst = max(worst, float((got - want).abs().max()))
+    got, want = flt.filtfilt(spec, x), sos_plain_filtfilt(spec, x)
+    err = rel_peak(got, want)
+    log(f"[sos scan] filtfilt {SOS_SHAPE} f32: kernel vs plain {err:.2e} of the peak")
+    if not err <= TOL_SOS[torch.float32]:
+        raise AssertionError(f"filtfilt kernel vs plain: {err}")
+    worst = max(worst, float((got - want).abs().max()))
+    log(f"[sos scan] largest absolute difference from the plain loop (f32): {worst:.3e}")
+    reset_launches()
+    flt.filtfilt(spec, x)
+    per_filtfilt = LAUNCHES["sos_scan"]
+    log(f"[sos scan] launches per filtfilt: {per_filtfilt}")
+    if per_filtfilt != 2:
+        raise AssertionError(f"filtfilt launched sos_scan {per_filtfilt} times")
+
+    # f64 over a long recording: the ingest's 137 channels at 2048 Hz
+    long = torch.randn(137, 152_000, generator=gen, device="cuda", dtype=torch.float64)
+    got = flt.filtfilt(spec, long)
+    host = long.cpu().numpy()
+    t0 = time.perf_counter()
+    want = sps.sosfiltfilt(spec.sos, host, axis=-1)
+    scipy_s = time.perf_counter() - t0
+    err64 = rel_peak(got, torch.from_numpy(want.copy()).cuda())
+    long_ms = time_ms(lambda: flt.filtfilt(spec, long), 3)
+    log(f"[sos scan] filtfilt (137, 152000) f64: kernel vs scipy sosfiltfilt {err64:.2e} of "
+        f"the peak (limit {TOL_SOS[torch.float64]:.0e}); card {long_ms:.3f} ms (2 passes, "
+        f"chain bound {2 * sos_chain_ms(152_000 + 2 * pad, S, True):.3f} ms), scipy on the host "
+        f"{scipy_s * 1e3:.1f} ms; {gpu}")
+    if not err64 <= TOL_SOS[torch.float64]:
+        raise AssertionError(f"sos_scan f64 against scipy: {err64}")
+
+    # one forward pass over remove_noise's lanes: the kernels-line row
+    lanes, T = ext.numel() // ext.shape[-1], ext.shape[-1]
+    row = timing_row(lambda: flt.sos_scan(spec.sos, ext, spec.zi, ext[..., 0]),
+                     lambda: flt._sos_scan_ref(spec.sos, ext, spec.zi, ext[..., 0]),
+                     (ext, ext[..., 0].contiguous()), 9 * S * lanes * T, torch.float32,
+                     reps=20, plain_reps=1)
+    big = torch.randn(96, 4096, generator=gen, device="cuda")
+    big_ms = time_ms(lambda: flt.sos_scan(spec.sos, big), 10)
+    log(f"[sos scan] one pass {tuple(ext.shape)} f32 (S = {S}): {fmt_row(row)}; serial chain "
+        f"{sos_chain_ms(T, S):.4f} ms; (96, 4096): {big_ms:.3f} ms, chain "
+        f"{sos_chain_ms(4096, S):.4f} ms; library none on the card (scipy: host); {gpu}")
+    return {"sos_scan": worst}, {"sos_scan": row}, per_filtfilt
+
+
+def ingest_phase(gpu: str) -> None:
+    """`[ingest]`: convert_to_pth on the card over a full-width recording."""
+    from cerebra_torch.cli import convert_to_pth
+    from cerebra_torch.data import bdf, ingest, native_bdf
+    from cerebra_torch.data.schema import load_corpus_pth
+
+    out = remainder_dir("ingest")
+    fs, n = INGEST_FS, INGEST_EVENTS
+    T = int((2.0 + (n + 1) * INGEST_GAP + 2.0) * fs)
+    names = [f"A{i + 1}" for i in range(128)] + [f"EXG{i + 1}" for i in range(8)]
+    rng = np.random.default_rng(19)
+    t0 = time.perf_counter()
+    sig = rng.standard_normal((len(names), T), dtype=np.float32) * 20.0
+    sig += (10.0 * np.sin(2 * np.pi * 10.0 * np.arange(T) / fs)).astype(np.float32)
+    status = np.zeros(T, np.int64)
+    for k in range(n + 1):  # the session-start trigger, then the stimuli
+        s0 = int((2.0 + k * INGEST_GAP) * fs)
+        status[s0:s0 + 40] = ingest.STATUS_EVENT
+    path = os.path.join(out, "spampinato-2-2.bdf")
+    bdf.write_raw_bdf(path, sig, names, fs, status=status)
+    del sig
+    mb = os.path.getsize(path) / 1e6
+    log(f"[ingest] wrote {mb:.1f} MB of BDF ({len(names) + 1} channels x {T} samples at {fs} Hz) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    py = bdf.read_raw_bdf(path)
+    t_py = time.perf_counter() - t0
+    if not native_bdf.available():
+        raise AssertionError("the native BDF reader does not build")
+    t0 = time.perf_counter()
+    nat = native_bdf.read_raw_bdf(path)
+    t_nat = time.perf_counter() - t0
+    same = (nat.channel_names == py.channel_names and nat.sample_rate == py.sample_rate
+            and np.array_equal(nat.signals, py.signals) and np.array_equal(nat.status, py.status))
+    log(f"[ingest] readers bit-equal: {same}; numpy {t_py:.2f} s, native {t_nat:.2f} s")
+    if not same:
+        raise AssertionError("the native and numpy BDF readers disagree")
+    del py, nat
+
+    payloads = {}
+    for exact in (False, True):
+        stages = {}
+        t0 = time.perf_counter()
+        if exact:  # the exact filtfilt (sos_scan) through the library call
+            raw = ingest.convert_bdf_to_pth(
+                path, os.path.join(out, "exact", "spampinato-2-exact.pth"), subject=2,
+                expected_samples=n, use_device_filters=False, device="cuda",
+                stage_seconds=stages)
+            pth = os.path.join(out, "exact", "spampinato-2-exact.pth")
+        else:
+            raw = convert_to_pth.main(["--bdf_file", path, "--out_dir", out, "--device", "cuda",
+                                       "--number_of_image_samples", str(n)],
+                                      stage_seconds=stages)
+            pth = os.path.join(out, "spampinato-2-IMAGE_RAPID_14Hz_71Hz.pth")
+        seconds = time.perf_counter() - t0
+        back = load_corpus_pth(pth)
+        ok = (back.eeg.shape == (n, 128, 512) and np.isfinite(back.eeg).all()
+              and np.array_equal(back.eeg, raw.eeg) and back.means.shape == (128,))
+        labels = ingest.load_stimulus_labels(ingest.IMAGE_RAPID_SEQUENCE)[1][:n]
+        ok = ok and list(back.labels) == labels
+        what = "filtfilt (sos_scan)" if exact else "convert_to_pth.main, filtfilt_fft"
+        log(f"[ingest] {what}: {back.eeg.shape} loaded back: {ok}; {seconds:.2f} s "
+            f"({', '.join(f'{k} {v:.2f}' for k, v in stages.items())}); {gpu}")
+        if not ok:
+            raise AssertionError(f"ingest ({what}) wrote a wrong .pth")
+        payloads[exact] = back.eeg
+    # every epoch starts >= 2 s into the recording: the FFT form's edge
+    # error has decayed there (1.2e-6 of the peak 0.5 s in, f64, CPU)
+    err = float(np.abs(payloads[False] - payloads[True]).max() / np.abs(payloads[True]).max())
+    log(f"[ingest] filtfilt_fft against the exact filtfilt over the epochs: {err:.2e} of the "
+        f"peak (limit 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError(f"filtfilt_fft against filtfilt: {err}")
+
+
+def peak_call(fn):
+    """(result, seconds, peak MiB above what was allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def denoise_phase(gpu: str) -> None:
+    """`[denoise]` over a Perils-sized corpus (2000, 512, 96) f32."""
+    from scipy import signal as sps
+
+    from cerebra_torch.signal import denoise, psd
+    from cerebra_torch.signal.filters import design_bandpass
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x = torch.randn(2000, 512, 96, generator=gen, device="cuda")
+    y, _, _ = peak_call(lambda: denoise.remove_noise(x, 1000.0))
+    y, s, mib = peak_call(lambda: denoise.remove_noise(x, 1000.0))
+    spec = design_bandpass(1.0, 50.0, fs=1000.0, order=4)
+    want = sos_plain_filtfilt(spec, x[:2].transpose(1, 2)).transpose(1, 2)
+    err = rel_peak(y[:2], want)
+    log(f"[denoise] remove_noise (2000, 512, 96) f32: {s * 1e3:.2f} ms, peak {mib:.0f} MiB "
+        f"above the input; two trials against the plain loop {err:.2e} of the peak; {gpu}")
+    if not (err <= TOL_SOS[torch.float32] and torch.isfinite(y).all()):
+        raise AssertionError(f"remove_noise: {err}")
+    del y
+    z, s, mib = peak_call(lambda: denoise.remove_noise_with_ica(x, 20))
+    # three trials against the host's f64 projection: the card in f64 to
+    # 1e-10 (the same function); the f32 corpus run within the f32 rounding
+    # of a rank-20 subspace, 64·2⁻²⁴·σ₁/(σ₂₀ − σ₂₁) of the peak (Davis–Kahan:
+    # a perturbation ε·σ₁ turns the subspace by ε·σ₁/gap)
+    xs = x[:3].double().cpu().numpy()
+    mean = xs.mean(axis=1, keepdims=True)
+    sv, vh = np.linalg.svd(xs - mean, full_matrices=False)[1:]
+    vh = vh[:, :20]
+    want = (xs - mean) @ np.transpose(vh, (0, 2, 1)) @ vh + mean
+    peak = np.abs(want).max()
+    err64 = float(np.abs(denoise.remove_noise_with_ica(x[:3].double(), 20).cpu().numpy()
+                         - want).max() / peak)
+    err = float(np.abs(z[:3].double().cpu().numpy() - want).max() / peak)
+    tol = float(64 * 2.0**-24 * (sv[:, 0] / (sv[:, 19] - sv[:, 20])).max())
+    log(f"[denoise] remove_noise_with_ica n=20 (batched SVD): {s * 1e3:.1f} ms, peak {mib:.0f} "
+        f"MiB; three trials against the host's f64 projection: f32 {err:.2e} of the peak "
+        f"(limit {tol:.2e}), f64 on the card {err64:.2e} (limit 1e-10); {gpu}")
+    if not (err <= tol and err64 <= 1e-10 and torch.isfinite(z).all()):
+        raise AssertionError(f"remove_noise_with_ica: f32 {err} (limit {tol}), f64 {err64}")
+    del z
+    xt = x.transpose(1, 2)  # (2000, 96, 512): channels' time series
+    psd.band_powers(xt, 1000.0)  # cuFFT's plan for the shape, made once
+    bp, s, mib = peak_call(lambda: psd.band_powers(xt, 1000.0))
+    f, want = sps.welch(xt[:2].double().cpu().numpy(), fs=1000.0, nperseg=256)
+    _, got = psd.welch_psd(xt[:2], 1000.0)
+    err = float(np.abs(got.double().cpu().numpy() - want).max() / np.abs(want).max())
+    log(f"[denoise] band_powers (2000, 96, 512): {s * 1e3:.2f} ms, peak {mib:.0f} MiB; Welch of "
+        f"two trials against scipy {err:.2e} of the peak (limit 1e-4); bands "
+        f"{sorted(bp)}; {gpu}")
+    if not (err <= 1e-4 and all(torch.isfinite(v).all() for v in bp.values())):
+        raise AssertionError(f"band_powers / welch_psd: {err}")
+
+
+def transforms_phase(gpu: str) -> dict:
+    """`[transforms]` on the synthetic 40 x 30 corpus → launches."""
+    from cerebra_torch.data import make_synthetic_corpus, transforms
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+    from cerebra_torch.models import Model, RecurrentAutoencoder
+    from cerebra_torch.models.dino_model import DinoArgs, DinoModel
+
+    corpus = make_synthetic_corpus(seed=19, n_per_class=30, n_classes=N_CLASSES,
+                                   n_channels=C, n_samples=T_RAW)
+    gen = torch.Generator().manual_seed(19)
+    n_batches = -(-corpus.n // 256)
+    f32 = torch.float32
+    sub = corpus.take(np.arange(32))
+    ran = {}
+    for name, model, call, kern, per_batch in (
+            ("lstm_features", Model(C, H, L, F, generator=gen),
+             lambda c, m: transforms.lstm_features(c, m, features_only=True), "fwd_infer_last", 1),
+            ("autoencoder_reconstruct", RecurrentAutoencoder(T_RAW, C, E_AE, generator=gen),
+             lambda c, m: transforms.autoencoder_reconstruct(c, m).eeg, "fwd_infer", 2)):
+        model.eval()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = call(corpus, model.to("cuda"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ran[name] = {k: v for k, v in LAUNCHES.items() if v}
+        want = call(sub, model.to("cpu"))
+        compare(f"[transforms] {name} (first 32 of {corpus.n}) CUDA against the CPU's plain path",
+                torch.from_numpy(got[:32]), torch.from_numpy(want), f32, True,
+                (TOL_F32_ABS, 1e-5, TOL_BF16_REL))
+        log(f"[transforms] {name}: {corpus.n} trials in {seconds:.2f} s, launches {ran[name]}")
+        if ran[name].get(kern) != per_batch * n_batches:
+            raise AssertionError(f"{name} launched {ran[name]}, not {kern} x {per_batch} a batch")
+    dino = DinoModel(DinoArgs(), seed=19, device="cuda")
+    starts = np.arange(corpus.n) % 8
+    reset_launches()
+    t0 = time.perf_counter()
+    got = transforms.dino_features(corpus, dino, starts=starts, batch_size=64)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ran["dino_features"] = {k: v for k, v in LAUNCHES.items() if v}
+    n_dino = -(-corpus.n // 64)
+    want = transforms.dino_features(corpus.take(np.arange(2)), DinoModel(DinoArgs(), seed=19),
+                                    starts=starts[:2])
+    compare("[transforms] dino_features (ViT-S/8, 224 px; first 2) CUDA (K5/K7) against the "
+            "CPU's unfused path", torch.from_numpy(got[:2]), torch.from_numpy(want), f32, True,
+            (TOL_VIT[0], TOL_VIT[0], TOL_VIT[2]))
+    log(f"[transforms] dino_features: {corpus.n} trials in {seconds:.2f} s "
+        f"({corpus.n / seconds:.1f} trials/s), launches {ran['dino_features']}; {gpu}")
+    if ran["dino_features"] != {"vit_attn_fwd": 12 * n_dino, "vit_mlp_fwd": 12 * n_dino}:
+        raise AssertionError(f"dino_features launched {ran['dino_features']}")
+    return ran
+
+
+def tsne_phase(gpu: str) -> None:
+    """`[tsne]`: the t-SNE CLI on the card."""
+    import io
+
+    from cerebra_torch.cli import get_tsne_for_raw_eeg
+
+    out = remainder_dir("tsne")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        pngs = get_tsne_for_raw_eeg.main(["--synthetic", "--synthetic_classes", "40",
+                                          "--synthetic_per_class", "30", "--device", "cuda",
+                                          "--log_dir", out])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    said = [line for line in buf.getvalue().splitlines() if "KL divergence" in line]
+    size = os.path.getsize(pngs[0]) if pngs and os.path.exists(pngs[0]) else 0
+    log(f"[tsne] {said[0] if said else 'no KL line'}; {os.path.basename(pngs[0]) if pngs else '-'}"
+        f" {size} bytes; {seconds:.2f} s; {gpu}")
+    if not (size > 1000 and said and pngs[0].endswith("SUB_1_RAW_EEG_features_distribution.png")):
+        raise AssertionError(f"get_tsne_for_raw_eeg wrote {pngs}")
+
+
+def phase_remainder(gpu: str) -> tuple:
+    """Phase 19 → (errors, timing rows, launches) of sos_scan."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs, rows, per_filtfilt = sos_scan_phase(gpu)
+    ingest_phase(gpu)
+    from cerebra_torch.kernels import LAUNCHES, reset_launches
+
+    # the main path's launches: remove_noise over the Perils corpus (two
+    # launches a filtfilt), read right after
+    reset_launches()
+    denoise_phase(gpu)
+    launches = {"sos_scan": LAUNCHES["sos_scan"]}
+    log(f"[remainder] sos_scan launches in [denoise]: {launches['sos_scan']} "
+        f"({per_filtfilt} a filtfilt)")
+    if launches["sos_scan"] < per_filtfilt:
+        raise AssertionError(f"the denoise path launched sos_scan {launches['sos_scan']} times")
+    transforms_phase(gpu)
+    tsne_phase(gpu)
+    return errs, rows, launches
+
+
 def main(argv) -> None:
     multi_gpu_only = argv == ["--multi-gpu-only"]
     if argv and not multi_gpu_only:
@@ -4137,9 +4522,13 @@ def main(argv) -> None:
         launches.update({k: n[k] for k in t})
     run(phase_trainers, gpu)
     run(phase_multi_gpu, gpu)
+    e, t, n = run(phase_remainder, gpu)
+    errs.update(e)
+    times.update(t)
+    launches.update(n)
     log(f"[phases] all {time.perf_counter() - start:.1f} s")
     sources = dict(VIT_SOURCES, **FLASH_SOURCES, **TEACHER_SOURCES,
-                   **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE))
+                   **dict.fromkeys(SCAN_KERNELS, SCAN_SOURCE), sos_scan=SOS_SOURCE)
     kernels = [
         {"name": name, "route": "cuda", "source": sources.get(name, SOURCE),
          "replaces": REPLACES[name], "launches": launches[name], "max_abs_err": errs[name],
@@ -4149,7 +4538,7 @@ def main(argv) -> None:
                      "fwd_cluster_scan", "bwd_general", "fwd_train_rc", "fwd_infer_wave",
                      "fwd_train_rc_split", "fwd_infer_split",
                      "bwd_rc", *RC_PIECES, *SCAN_KERNELS, *FAMILY_KERNELS, *FLASH_SOURCES,
-                     *TEACHER_KERNELS)
+                     *TEACHER_KERNELS, "sos_scan")
     ]
     log(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,7 @@ wavefront forward (K1, K3, K4, K10; K4 and K10 also on its split
 layer), K10, K11 and its
 pieces per
 time chunk; the scan's K12-K14, K12/K13 also on its wavefront forward) and
-the ViT kernels (K5-K8) against
+the ViT kernels (K5-K8) and the IIR cascade (sos_scan) against
 their plain PyTorch versions on the card (K7/K8 also piece by piece: the
 fused dh kernel and each product alone), over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
@@ -1300,3 +1300,47 @@ def test_flash_mha_refuses_a_wide_head(cuda):
     q = torch.randn(1, 2, 600, 96, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_mha(q, q, q, 96 ** -0.5)
+
+
+# The IIR cascade (csrc/sos_scan.cu) against its plain loop on the card:
+# lanes not a multiple of a warp, T not a multiple of the 32-step tile, 1, 4
+# and 8 sections, both directions, from zero and from zi, f32 and f64
+# (chip_smoke.py's limits: 5e-4 and 1e-9 of the output's peak); two runs
+# bit-equal.
+@pytest.mark.parametrize("shape", [(1, 1), (3, 31), (33, 100), (2, 40, 257)], ids=str)
+@pytest.mark.parametrize("order", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_sos_scan_matches_plain(cuda, shape, order, dtype):
+    from cerebra_torch.kernels import LAUNCHES
+    from cerebra_torch.signal import filters as flt
+
+    spec = flt.design_bandpass(14.0, 71.0, 1000.0, order=order)  # `order` sections
+    gen = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(*shape, generator=gen, dtype=dtype).to(cuda)
+    tol = 5e-4 if dtype == torch.float32 else 1e-9
+    for reverse in (False, True):
+        for zi in (None, spec.zi):
+            scale = None if zi is None else x[..., -1 if reverse else 0]
+            before = LAUNCHES["sos_scan"]
+            got = flt.sos_scan(spec.sos, x, zi, scale, reverse=reverse)
+            assert LAUNCHES["sos_scan"] == before + 1
+            want = flt._sos_scan_ref(spec.sos, x, zi, scale, reverse=reverse)
+            # relative to the larger of the output's and the input's peak: at
+            # T = 1 from zi a band-pass returns its steady state for a
+            # constant, 0 up to rounding
+            peak = torch.maximum(want.abs().max(), x.abs().max())
+            err = ((got - want).abs().max() / peak).item()
+            assert got.dtype == dtype and err <= tol, err
+    once = flt.sos_scan(spec.sos, x, spec.zi, x[..., 0])
+    assert torch.equal(once, flt.sos_scan(spec.sos, x, spec.zi, x[..., 0]))
+    torch.cuda.synchronize()
+
+
+def test_sos_scan_refuses_what_it_does_not_run(cuda):
+    from cerebra_torch.signal import filters as flt
+
+    spec = flt.design_bandpass(14.0, 71.0, 1000.0, order=9)  # 9 sections: more than 8
+    with pytest.raises(ValueError, match="sections"):
+        flt.sos_scan(spec.sos, torch.randn(2, 50, device=cuda))
+    with pytest.raises(ValueError, match="float32 and float64"):
+        flt.sos_scan(spec.sos[:4], torch.randn(2, 50, device=cuda, dtype=torch.bfloat16))

@@ -1,7 +1,9 @@
 """The port imports on a machine without JAX: importing `cerebra_torch` and
 every one of its modules pulls in neither `jax` nor the `cerebra` package,
-and among them are the ported CLIs, the launcher, the parallel package and
-the metric logger."""
+and among them are the ported CLIs, the launcher, the parallel package, the
+metric logger, and the ingest, signal-analysis, corpus and t-SNE modules;
+nor does it pull in scikit-learn, matplotlib or mne, which the GPU machine
+lacks."""
 
 import os
 import subprocess
@@ -31,7 +33,12 @@ for mod in ("data.gauss_noise", "data.sources", "signal.image_aug", "models.xcit
 for mod in ("parallel", "parallel.mesh", "parallel.collectives", "parallel.dataflow",
             "parallel.tp", "cli.launch", "utils.logging"):
     assert "cerebra_torch." + mod in names, mod
-for lazy in ("PIL", "torchvision", "transformers", "sklearn"):
+for mod in ("cli.convert_to_pth", "cli.get_tsne_for_raw_eeg", "data.bdf", "data.ingest",
+            "data.native_bdf", "data.labelwise", "data.transforms", "signal.psd",
+            "signal.denoise", "signal.mne_compat", "utils.native_build", "eval.native_topk",
+            "eval.faiss_stub", "eval.tsne"):
+    assert "cerebra_torch." + mod in names, mod
+for lazy in ("PIL", "torchvision", "transformers", "sklearn", "matplotlib", "mne"):
     assert lazy not in sys.modules, lazy
 print(len(names))
 """
