@@ -8,10 +8,11 @@
 //   cerebra_fwd_in_product +           replace _fwd_train_kernel (K1) and
 //   cerebra_fwd_cluster_scan           _fwd_infer_kernel (K4) at the small
 //                                      batches lstm_stack.py pick_fwd takes,
+//                                      and _fwd_infer_last_kernel (K3) in f32,
 //                                      layer by layer: the input product on
-//                                      the tensor cores, then the recurrence
-//                                      on a thread-block cluster that keeps
-//                                      W_hh in shared memory
+//                                      the tensor cores (f32: FMA), then the
+//                                      recurrence on a thread-block cluster
+//                                      that keeps W_hh in shared memory
 //   cerebra_fwd_wave                   replaces _fwd_train_kernel (K1),
 //                                      _fwd_infer_last_kernel (K3),
 //                                      _fwd_train_rc_kernel (K10) and
@@ -56,9 +57,9 @@
 // ([k][row]) so one vector load fetches a value for every row. The wrapper
 // picks BT from timings on the card (lstm_stack.py pick_tile). At small
 // batches K1 and K4 take the layer-by-layer path instead ("the
-// layer-by-layer forward" below), and in bf16 at the CLI's widths all four
-// take the wavefront path ("the wavefront forward"), K10 and K4 at the
-// DINO-LSTM's H = 128 its split layer.
+// layer-by-layer forward" below), as does K3 in f32 at every batch, and in
+// bf16 at the CLI's widths all four take the wavefront path ("the wavefront
+// forward"), K3, K4 and K10 at the DINO-LSTM's H = 128 its split layer.
 //
 // K2/K2g keep only what is serial in the serial loop: the dh/dc carries of
 // one layer (the reverse scan). Everything else is a function of a layer's
@@ -222,14 +223,16 @@ int launch_fwd_mode(int mode, const void* x, const void* w_ih0, const void* w_ih
 
 // ------------------------------------------- the layer-by-layer forward
 // Replaces _fwd_train_kernel (K1) and _fwd_infer_kernel (K4) at the batches
-// lstm_stack.py pick_fwd sends here (the autoencoder's B = 16), layer by
-// layer, bottom first, in two launches a layer:
+// lstm_stack.py pick_fwd sends here (the autoencoder's B = 16), and
+// _fwd_infer_last_kernel (K3) in f32 at every batch (the eval's galleries of
+// 320 and 80 rows), layer by layer, bottom first, in two launches a layer:
 //   cerebra_fwd_in_product   P (Tn, B, 4H) f32 = inp·W_ih over all Tn·B rows
 //                            (pallas_lstm_stack.py:140, :213): the input's
 //                            product does not depend on h, so it leaves the
 //                            serial loop for one tiled product
-//                            (vit_common.cuh: wmma in bf16, true f32 FMA in
-//                            f32), no bias, nothing rounded
+//                            (vit_common.cuh's wmma in bf16; in f32
+//                            in_product_f32 below, true f32 FMA), no bias,
+//                            nothing rounded
 //   cerebra_fwd_cluster_scan the recurrence over P (:141-144, :214-225): one
 //                            thread-block cluster of N CTAs a batch tile of
 //                            16 rows; gates = (P + h·W_hh) + b in that order
@@ -247,7 +250,23 @@ int launch_fwd_mode(int mode, const void* x, const void* w_ih0, const void* w_ih
 // cluster barrier (release/acquire). h is double-buffered by step parity, so
 // that one barrier a step suffices: step t reads buffer t%2 and writes
 // (t+1)%2, which every CTA finished reading before the barrier of step t-1.
+// In f32 no barrier spans the cluster in the loop: a CTA hands its slice of
+// h_t to every peer by st.async, 16 bytes a store, whose bytes complete on
+// that peer's "hfull" mbarrier of the buffer, and waits only for its peers'
+// slices before the next step's product. A CTA writes a peer's buffer
+// (t+1)%2 at step t only after the peer's slice of h_{t-1} has landed, which
+// the peer sent after its own step t-1 product, its last read of that
+// buffer; so no "empty" barrier is needed. The f32 step's product is bound
+// by the latency of its shared-memory loads (K3 at B = 320, H = 128, n = 4
+// on an H100: 2.4 µs of a 4.3 µs step with one pass over k in 256 threads),
+// so the threads split k in two halves (twice the warps, the same loads and
+// FMAs).
 // P of step t+1 is loaded into registers while step t multiplies.
+// K3 (last != 0 on its top layer) writes h only at Tn-1, into (B, H); its
+// lower layers write their h sequence into one buffer the wrapper reuses.
+// The clusters of different batch tiles share nothing, so a batch of more
+// tiles than the card holds clusters at once runs them in waves (K3 in f32
+// at B = 320: 20 clusters of 4 CTAs in one wave, lstm_stack.py pick_fwd).
 
 constexpr int kClusterRows = 16;  // batch rows of one cluster's tile
 
@@ -258,26 +277,39 @@ inline size_t cluster_smem(int H, int N) {
   return sizeof(float) * ((size_t)H * 4 * U + kClusterRows * (2 * (size_t)H + 5 * U));
 }
 
-// rows a thread of the cluster scan multiplies: 16 / RG for the most row
-// groups RG (a power of two up to 16) that keep the 2U column pairs x RG
-// groups within 256 threads
+constexpr int kClusterKSplit = 2;  // halves of k the f32 scan's threads split its product in
+
+// rows a thread of the f32 cluster scan multiplies: 16 / RG for row groups
+// RG, a power of two from 2 (1 where 2 would pass 512 threads: the 2U
+// column pairs x RG groups x kClusterKSplit halves of k) up to 8, doubled
+// while the 2U column pairs x RG stay within 192. Each row group reads the
+// whole W_hh slice from shared memory every step, so fewer rows a thread
+// cost shared-memory traffic, more cost warps. Timed on an H100 (one
+// layer's scan, T = 460; PERF.md §6): at 2U = 64 (H 128, n 4) 8 rows
+// 1.71 ms against 4 rows 1.77; 2U = 16 (H 128, n 16) 2 rows 0.95 against 1
+// row 1.28; 2U = 32 4 rows 1.11 against 2 rows 1.28; 2U = 48 (H 96, n 4) 4
+// rows 1.19 against 8 rows 1.39; 2U = 96 8 rows 1.87 against 16 rows 3.63.
 inline int cluster_rows(int NC) {
-  int rg = 1;
-  while (rg < kClusterRows && NC / 2 * rg * 2 <= 256) rg *= 2;
+  const int np = NC / 2;
+  int rg = np * 2 * kClusterKSplit <= 512 ? 2 : 1;
+  while (rg < 8 && np * rg * 2 <= 192) rg *= 2;
   return kClusterRows / rg;
 }
 
 // One layer's recurrence over its input product P (Tn, B, 4H) f32, in
 // clusters of N CTAs (the launch's cluster size) over batch tiles of 16
-// rows: h_seq (Tn, B, H) and, with RES (K1), prefac (Tn, B, 4H) and qf
-// (Tn, B, 2H) of the layer, f32 streams. Thread (p, g) multiplies the local
-// gate columns 2p and 2p+1 for rows [g RR, (g+1) RR) of the tile.
+// rows: h_seq (Tn, B, H), or with last only h at Tn-1 (B, H), and, with RES
+// (K1), prefac (Tn, B, 4H) and qf (Tn, B, 2H) of the layer, f32 streams.
+// Thread (s, p, g) multiplies the local gate columns 2p and 2p+1 for rows
+// [g RR, (g+1) RR) of the tile over half s of k: twice the warps of one
+// pass over k, for the latency of the shared-memory loads, at the same
+// loads and FMAs; the second half's sums join the first's in g_s.
 template <int RR, bool RES>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(512, 1)
     cluster_scan_kernel(const float* __restrict__ P, const float* __restrict__ w_hh,
                         const float* __restrict__ bias, float* __restrict__ h_seq,
                         float* __restrict__ prefac, float* __restrict__ qf, int Tn, int B,
-                        int H) {
+                        int H, int last) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int N = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -288,6 +320,7 @@ __global__ void __launch_bounds__(256, 1)
   float* h_s = w_s + (size_t)H * NC;             // [buf][k][row]
   float* g_s = h_s + 2 * NH;                     // [row][local col]
   float* c_s = g_s + kClusterRows * NC;          // [row][unit]
+  __shared__ __align__(8) uint64_t hfull[2];     // the peers' slices of an h buffer land here
   const int tid = threadIdx.x, nthr = blockDim.x;
 
   // local column j = q U + u is gate q of unit k0 + u: global column q H + k0 + u
@@ -297,8 +330,15 @@ __global__ void __launch_bounds__(256, 1)
   }
   for (int i = tid; i < 2 * NH; i += nthr) h_s[i] = 0.0f;
   for (int i = tid; i < kClusterRows * U; i += nthr) c_s[i] = 0.0f;
+  if (tid == 0) {
+    wave_init(&hfull[0], 1);
+    wave_init(&hfull[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
-  const int NP = NC / 2, p = tid % NP, r0 = (tid / NP) * RR;
+  const int NP = NC / 2, half = nthr / kClusterKSplit, ks = tid / half;
+  const int p = (tid - ks * half) % NP, r0 = ((tid - ks * half) / NP) * RR;
+  const int kb = ks * (H / 2), ke = ks ? H : H / 2;
   int col[2];
   float bv[2];
 #pragma unroll
@@ -307,7 +347,7 @@ __global__ void __launch_bounds__(256, 1)
     col[e] = q * H + k0 + (j - q * U);
     bv[e] = bias[col[e]];
   }
-  float pc[RR][2], pn[RR][2];  // P of this step and of the next
+  float pc[RR][2], pn[RR][2];  // P of this step and of the next (the first half's threads)
   auto load_p = [&](float (&dst)[RR][2], int t) {
 #pragma unroll
     for (int r = 0; r < RR; ++r) {
@@ -317,19 +357,22 @@ __global__ void __launch_bounds__(256, 1)
       dst[r][1] = b < B ? row[col[1]] : 0.0f;
     }
   };
-  load_p(pc, 0);
-  cluster.sync();  // every CTA's h_s is zero before a peer writes into it
+  if (ks == 0) load_p(pc, 0);
+  cluster.sync();  // every CTA's h_s is zero and its barriers set before a peer writes
 
+  const int n4 = U * kClusterRows / 4, peer_bytes = (N - 1) * n4 * (int)sizeof(float4);
   for (int t = 0; t < Tn; ++t) {
     const float* hc = h_s + (t & 1) * NH;
     float* hn = h_s + ((t + 1) & 1) * NH;
-    if (t + 1 < Tn) load_p(pn, t + 1);
+    if (ks == 0 && t + 1 < Tn) load_p(pn, t + 1);
+    // the peers' slices of h_{t-1}: buffer t % 2 is filled at steps t-1, t-3, ...
+    if (N > 1 && t > 0) wave_wait(&hfull[t & 1], ((t - 1) >> 1) & 1);
     float acc[RR][2];
 #pragma unroll
     for (int r = 0; r < RR; ++r) acc[r][0] = acc[r][1] = 0.0f;
     const float* wp = w_s + 2 * p;
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
+#pragma unroll 8
+    for (int k = kb; k < ke; ++k) {
       const float2 w = *reinterpret_cast<const float2*>(wp + k * NC);
       float v[RR];
       rows<RR>(hc + k * kClusterRows + r0, v);
@@ -339,12 +382,18 @@ __global__ void __launch_bounds__(256, 1)
         acc[r][1] = fmaf(v[r], w.y, acc[r][1]);
       }
     }
+    if (ks == 1)
 #pragma unroll
-    for (int r = 0; r < RR; ++r) {
-      float* gr = g_s + (r0 + r) * NC + 2 * p;
-      gr[0] = (pc[r][0] + acc[r][0]) + bv[0];
-      gr[1] = (pc[r][1] + acc[r][1]) + bv[1];
-    }
+      for (int r = 0; r < RR; ++r)
+        *reinterpret_cast<float2*>(g_s + (r0 + r) * NC + 2 * p) = make_float2(acc[r][0], acc[r][1]);
+    __syncthreads();  // the second half's sums are in g_s
+    if (ks == 0)
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        float* gr = g_s + (r0 + r) * NC + 2 * p;
+        gr[0] = (pc[r][0] + (acc[r][0] + gr[0])) + bv[0];
+        gr[1] = (pc[r][1] + (acc[r][1] + gr[1])) + bv[1];
+      }
     __syncthreads();  // the tile's gates of this CTA's columns are complete
 
     for (int i = tid; i < kClusterRows * U; i += nthr) {
@@ -354,26 +403,115 @@ __global__ void __launch_bounds__(256, 1)
       const float h = cell_step<float>(g_s + r * NC + u, (size_t)U, H, c_s[i],
                                        res ? prefac + row * G + k0 + u : nullptr,
                                        res ? qf + row * 2 * H + k0 + u : nullptr);
-      if (b < B) h_seq[row * H + k0 + u] = h;
+      if (b < B && (!last || t == Tn - 1)) h_seq[(last ? (size_t)b : row) * H + k0 + u] = h;
       hn[(k0 + u) * kClusterRows + r] = b < B ? h : 0.0f;
     }
-    __syncthreads();  // this CTA's slice of h_t is in its own buffer
+    __syncthreads();  // this CTA's slice of h_t is in its own buffer; g_s free
 
-    // hand the slice, U units x 16 rows and contiguous, to the other CTAs
-    const int n4 = U * kClusterRows / 4;
-    float* slice = hn + k0 * kClusterRows;
-    const float4* src = reinterpret_cast<const float4*>(slice);
-    for (int i = tid; i < (N - 1) * n4; i += nthr) {
-      const int k = i / n4, e = i - k * n4;
-      float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(slice, k < rank ? k : k + 1));
-      dst[e] = src[e];
+    // hand the slice, U units x 16 rows and contiguous, to the other CTAs by
+    // st.async, 16 bytes a store, completing on their "hfull" barrier of the
+    // buffer (none needs h at Tn-1)
+    if (N > 1 && t + 1 < Tn) {
+      uint64_t* bar = &hfull[(t + 1) & 1];
+      if (tid == 0) wave_expect(bar, peer_bytes);
+      float4* slice = reinterpret_cast<float4*>(hn + k0 * kClusterRows);
+      for (int i = tid; i < (N - 1) * n4; i += nthr) {
+        const int k = i / n4, e = i - k * n4;
+        wave_store_peer4(slice + e, slice[e], bar, k < rank ? k : k + 1);
+      }
     }
-    cluster.sync();  // h_t complete in every CTA; g_s free
 
 #pragma unroll
     for (int r = 0; r < RR; ++r) {
       pc[r][0] = pn[r][0];
       pc[r][1] = pn[r][1];
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer may still write into it
+}
+
+// ---- the f32 input product
+// P (M, N) = A (M, K)·B (K, N), row-major f32, true f32 FMA with k in order
+// (cerebra_fwd_in_product in f32: K1/K3/K4's layer-by-layer path). At the
+// eval's K3 (M = 147,200 rows, K = 96 or 128, N = 512) it is bound by its
+// FMAs (14.5-19.3 GFLOP a layer, 0.22-0.29 ms at 67 TFLOP/s), not by
+// writing P (301 MB, 0.09 ms). A CTA of 256 threads owns a 128 x 128 tile
+// of P and each thread an 8 x 8 block of it in registers (rows 4 ty + i and
+// 64 + 4 ty + i, columns 4 tx + j and 64 + 4 tx + j), so a k-step is four
+// 16-byte shared-memory loads for 64 FMAs; k runs in steps of 8 through two
+// shared-memory buffers, the next step's tiles read into registers while
+// this one multiplies. Ragged M, N and K are masked (zeros past K add
+// nothing).
+constexpr int kPBM = 128, kPBN = 128, kPBK = 8, kPThreads = 256;
+
+__global__ void __launch_bounds__(kPThreads, 2)
+    in_product_f32(const float* __restrict__ A, const float* __restrict__ Bm,
+                   float* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) float As[2][kPBK][kPBM];  // [k][row]
+  __shared__ __align__(16) float Bs[2][kPBK][kPBN];  // [k][col]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * kPBM, n0 = blockIdx.y * kPBN;
+  const int ar = tid / 2, ak = (tid % 2) * 4;    // A: row ar, k ak .. ak + 3
+  const int bk = tid / 32, bc = (tid % 32) * 4;  // B: k bk, columns bc .. bc + 3
+  float ra[4], rb[4];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + ak + q, c = n0 + bc + q;
+      ra[q] = (m0 + ar < M && k < K) ? A[(size_t)(m0 + ar) * K + k] : 0.f;
+      rb[q] = (k0 + bk < K && c < N) ? Bm[(size_t)(k0 + bk) * N + c] : 0.f;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) As[buf][ak + q][ar] = ra[q];
+    *reinterpret_cast<float4*>(&Bs[buf][bk][bc]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  load(0);
+  store(0);
+  __syncthreads();
+  const int nk = (K + kPBK - 1) / kPBK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) load((kt + 1) * kPBK);
+#pragma unroll
+    for (int kk = 0; kk < kPBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kt + 1 < nk) store(buf ^ 1);  // its last reader was step kt - 1, before the barrier
+    __syncthreads();
+  }
+  const bool vec = N % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + (i / 4) * 64 + 4 * ty + i % 4;
+    if (r >= M) continue;
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      const int c = n0 + jh * 64 + 4 * tx;
+      float* out = C + (size_t)r * N + c;
+      if (vec && c + 3 < N) {
+        *reinterpret_cast<float4*>(out) = make_float4(acc[i][4 * jh], acc[i][4 * jh + 1],
+                                                      acc[i][4 * jh + 2], acc[i][4 * jh + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < N) out[j] = acc[i][4 * jh + j];
+      }
     }
   }
 }
@@ -425,7 +563,7 @@ __global__ void __launch_bounds__(256, 1)
     cluster_scan_tc_kernel(const float* __restrict__ P, const __nv_bfloat16* __restrict__ w_hh,
                            const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ h_seq,
                            __nv_bfloat16* __restrict__ prefac, __nv_bfloat16* __restrict__ qf,
-                           int Tn, int B, int H) {
+                           int Tn, int B, int H, int last) {
   using bf = __nv_bfloat16;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -516,7 +654,7 @@ __global__ void __launch_bounds__(256, 1)
                                     res ? prefac + row * G + k0 + u : nullptr,
                                     res ? qf + row * 2 * H + k0 + u : nullptr);
       const bf hb = from_f<bf>(b < B ? h : 0.0f);
-      if (b < B) h_seq[row * H + k0 + u] = hb;
+      if (b < B && (!last || t == Tn - 1)) h_seq[(last ? (size_t)b : row) * H + k0 + u] = hb;
       hn[r * HP + k0 + u] = hb;
     }
     __syncthreads();  // this CTA's slice of h_t is in its own buffer
@@ -538,7 +676,7 @@ __global__ void __launch_bounds__(256, 1)
 
 template <bool RES>
 int launch_cluster_scan(int N, const float* P, const float* w_hh, const float* bias,
-                        float* h_seq, float* prefac, float* qf, int Tn, int B, int H,
+                        float* h_seq, float* prefac, float* qf, int Tn, int B, int H, int last,
                         cudaStream_t s) {
   if (N < 1 || H % N != 0) return (int)cudaErrorInvalidValue;
   const int NC = 4 * (H / N), tiles = (B + kClusterRows - 1) / kClusterRows;
@@ -546,8 +684,8 @@ int launch_cluster_scan(int N, const float* P, const float* w_hh, const float* b
 #define CEREBRA_RR(R)                                                                          \
   case R:                                                                                      \
     return launch_clusters(cluster_scan_kernel<R, RES>, N, tiles,                              \
-                           NC / 2 * (kClusterRows / R), smem, s, P, w_hh, bias, h_seq, prefac, \
-                           qf, Tn, B, H);
+                           NC / 2 * (kClusterRows / R) * kClusterKSplit, smem, s, P, w_hh, bias, \
+                           h_seq, prefac, qf, Tn, B, H, last);
   switch (cluster_rows(NC)) {
     CEREBRA_RR(16)
     CEREBRA_RR(8)
@@ -562,7 +700,7 @@ int launch_cluster_scan(int N, const float* P, const float* w_hh, const float* b
 template <bool RES>
 int launch_cluster_scan(int N, const float* P, const __nv_bfloat16* w_hh,
                         const __nv_bfloat16* bias, __nv_bfloat16* h_seq, __nv_bfloat16* prefac,
-                        __nv_bfloat16* qf, int Tn, int B, int H, cudaStream_t s) {
+                        __nv_bfloat16* qf, int Tn, int B, int H, int last, cudaStream_t s) {
   if (N < 1 || H % N != 0 || H % 16 != 0 || (H / N) % 2 != 0) return (int)cudaErrorInvalidValue;
   const int NC = 4 * (H / N), tiles = (B + kClusterRows - 1) / kClusterRows;
   const int nwarps = cluster_tc_warps(NC), mt = (NC / 8 + nwarps - 1) / nwarps;
@@ -570,7 +708,7 @@ int launch_cluster_scan(int N, const float* P, const __nv_bfloat16* w_hh,
 #define CEREBRA_MT(M)                                                                        \
   if (mt <= M)                                                                               \
     return launch_clusters(cluster_scan_tc_kernel<M, RES>, N, tiles, 32 * nwarps, smem, s, P, \
-                           w_hh, bias, h_seq, prefac, qf, Tn, B, H);
+                           w_hh, bias, h_seq, prefac, qf, Tn, B, H, last);
   CEREBRA_MT(1)
   CEREBRA_MT(2)
   CEREBRA_MT(4)
@@ -1121,32 +1259,35 @@ int cerebra_fwd_in_product(int bf16, const void* inp, const void* w_ih, void* P,
     CEREBRA_VIT_CHECK(vit::launch_gemm<T, T, false, false>((const T*)inp, in, (const T*)w_ih, G, M,
                                                            G, in, vit::EpiF32{(float*)P, G}, s));
   } else {
-    CEREBRA_VIT_CHECK(vit::launch_gemm<float, float, false, false>(
-        (const float*)inp, in, (const float*)w_ih, G, M, G, in, vit::EpiF32{(float*)P, G}, s));
+    const dim3 grid((M + kPBM - 1) / kPBM, (G + kPBN - 1) / kPBN);
+    CEREBRA_VIT_CHECK(in_product_f32<<<grid, kPThreads, 0, s>>>(
+        (const float*)inp, (const float*)w_ih, (float*)P, M, G, in));
   }
   return 0;
 }
 
-// K1/K4's layer-by-layer path, one layer's recurrence over its input product
-// P (Tn, B, 4H) f32 in clusters of n CTAs: h_seq (Tn, B, H) and, when res != 0
-// (K1), prefac (Tn, B, 4H) and qf (Tn, B, 2H) of the layer.
-int cerebra_fwd_cluster_scan(int bf16, int res, int n, const void* P, const void* w_hh,
-                             const void* bias, void* h_seq, void* prefac, void* qf, int Tn, int B,
-                             int H, void* stream) {
+// K1/K3/K4's layer-by-layer path, one layer's recurrence over its input
+// product P (Tn, B, 4H) f32 in clusters of n CTAs: h_seq (Tn, B, H), or with
+// last != 0 (K3's top layer) only h at Tn-1 into h_seq (B, H); and, when
+// res != 0 (K1), prefac (Tn, B, 4H) and qf (Tn, B, 2H) of the layer.
+int cerebra_fwd_cluster_scan(int bf16, int res, int last, int n, const void* P,
+                             const void* w_hh, const void* bias, void* h_seq, void* prefac,
+                             void* qf, int Tn, int B, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)P;
+  if (res && last) return (int)cudaErrorInvalidValue;
   if (bf16) {
     using T = __nv_bfloat16;
     return res ? launch_cluster_scan<true>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
-                                           (T*)prefac, (T*)qf, Tn, B, H, s)
+                                           (T*)prefac, (T*)qf, Tn, B, H, 0, s)
                : launch_cluster_scan<false>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
-                                            (T*)nullptr, (T*)nullptr, Tn, B, H, s);
+                                            (T*)nullptr, (T*)nullptr, Tn, B, H, last, s);
   }
   using T = float;
   return res ? launch_cluster_scan<true>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
-                                         (T*)prefac, (T*)qf, Tn, B, H, s)
+                                         (T*)prefac, (T*)qf, Tn, B, H, 0, s)
              : launch_cluster_scan<false>(n, p, (const T*)w_hh, (const T*)bias, (T*)h_seq,
-                                          (T*)nullptr, (T*)nullptr, Tn, B, H, s);
+                                          (T*)nullptr, (T*)nullptr, Tn, B, H, last, s);
 }
 
 // K1 (mode TRAIN: h_all, prefac, qf), K3 (INFER_LAST: h_out (B, H)), K10

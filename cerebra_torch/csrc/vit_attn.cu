@@ -52,6 +52,7 @@
 
 #include "vit_common.cuh"
 #include "warp_mma.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -129,12 +130,21 @@ __device__ __forceinline__ void tile_acc(const float* a, const float* b, int ty,
   }
 }
 
+// s *= scale, rounded once (scale 1 leaves s as it is)
+__device__ __forceinline__ void scale_tile(float (&s)[4][4], float scale) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = __fmul_rn(s[r][c], scale);
+}
+
 // Forward attention for one (query tile, head, sequence). qkv (B*N, 3D) CD;
 // o (B*N, D) CD; stats (B, H, N, 2) f32 = (m, l) per query row.
+// s = scale * q.k in f32 (K5: 1, its scale folded into Wq; K15: dh^-0.5).
 template <typename CD>
 __global__ void __launch_bounds__(kAttnThreads)
 attn_fwd(const CD* __restrict__ qkv, CD* __restrict__ o, float* __restrict__ stats, int N,
-         int H, int dh) {
+         int H, int dh, float scale) {
   extern __shared__ __align__(16) float sm[];
   float* Qt = sm;           // [c][i]
   float* Kt = Qt + kTile;   // [c][j]
@@ -157,6 +167,7 @@ attn_fwd(const CD* __restrict__ qkv, CD* __restrict__ o, float* __restrict__ sta
     load_t(Kt, k, ld, j0, N, dh);
     __syncthreads();
     tile_dot(Qt, Kt, dh, ty, tx, s);
+    scale_tile(s, scale);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float mx = -INFINITY;
@@ -184,6 +195,7 @@ attn_fwd(const CD* __restrict__ qkv, CD* __restrict__ o, float* __restrict__ sta
     load_r(Vs, v, ld, j0, N, dh);
     __syncthreads();
     tile_dot(Qt, Kt, dh, ty, tx, s);
+    scale_tile(s, scale);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -214,14 +226,18 @@ attn_fwd(const CD* __restrict__ qkv, CD* __restrict__ o, float* __restrict__ sta
   }
 }
 
-// dq for one (query tile, head, sequence), and delta_i = sum_j p_ij dp_ij.
-// dob (B*N, D) CD holds do = (dout*s) @ Wp^T; dq goes to columns [0, D) of
-// dqkv32 (f32) and dqkvn (CD), both (B*N, 3D).
+// dq for one (query tile, head, sequence), and delta_i = sum_j p_ij dp_ij
+// (K6), or with o given delta_i = sum_c o_ic do_ic (K15, the JAX library's
+// di; the pass over the keys for delta is then skipped). dob (B*N, D) CD
+// holds do = (dout*s) @ Wp^T, o (B*N, D) CD the forward's output; dq goes to
+// columns [0, D) of dqkv32 (f32, where given) and dqkvn (CD), both (B*N,
+// 3D). s = scale q.k; dS = p (dp - delta) scale, rounded to CD.
 template <typename CD>
 __global__ void __launch_bounds__(kAttnThreads)
-attn_bwd_dq(const CD* __restrict__ qkv, const CD* __restrict__ dob,
+attn_bwd_dq(const CD* __restrict__ qkv, const CD* __restrict__ dob, const CD* __restrict__ o,
             const float* __restrict__ stats, float* __restrict__ delta,
-            float* __restrict__ dqkv32, CD* __restrict__ dqkvn, int N, int H, int dh) {
+            float* __restrict__ dqkv32, CD* __restrict__ dqkvn, int N, int H, int dh,
+            float scale) {
   extern __shared__ __align__(16) float sm[];
   float* Qt = sm;            // [c][i]
   float* dOt = Qt + kTile;   // [c][i]
@@ -246,13 +262,26 @@ attn_bwd_dq(const CD* __restrict__ qkv, const CD* __restrict__ dob,
     l[r] = st[1];
     dl[r] = 0.f;
   }
-  // pass A: delta = sum_j p * dp
-  for (int j0 = 0; j0 < N; j0 += kT) {
+  if (o) {  // delta = sum_c o do, the columns split over the 16 threads of a row
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + 4 * ty + r;
+      float part = 0.f;
+      if (i < N) {
+        const size_t row = ((size_t)b * N + i) * D + h * dh;
+        for (int c = tx; c < dh; c += 16) part += to_f(o[row + c]) * to_f(dob[row + c]);
+      }
+      dl[r] = group16_sum(part);
+    }
+  }
+  // pass A (K6): delta = sum_j p * dp
+  for (int j0 = 0; j0 < (o ? 0 : N); j0 += kT) {
     __syncthreads();
     load_t(Kt, k, ld, j0, N, dh);
     load_t(Vt, v, ld, j0, N, dh);
     __syncthreads();
     tile_dot(Qt, Kt, dh, ty, tx, s);
+    scale_tile(s, scale);
     tile_dot(dOt, Vt, dh, ty, tx, dp);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -276,6 +305,7 @@ attn_bwd_dq(const CD* __restrict__ qkv, const CD* __restrict__ dob,
     load_r(Ks, k, ld, j0, N, dh);
     __syncthreads();
     tile_dot(Qt, Kt, dh, ty, tx, s);
+    scale_tile(s, scale);
     tile_dot(dOt, Vt, dh, ty, tx, dp);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -283,7 +313,8 @@ attn_bwd_dq(const CD* __restrict__ qkv, const CD* __restrict__ dob,
       for (int c = 0; c < 4; ++c) {
         const bool ok = j0 + 4 * tx + c < N;
         const float p = expf(s[r][c] - m[r]) / l[r];
-        dSt[(4 * tx + c) * kLd + 4 * ty + r] = ok ? rnd<CD>(p * (dp[r][c] - dl[r])) : 0.f;
+        dSt[(4 * tx + c) * kLd + 4 * ty + r] =
+            ok ? rnd<CD>(__fmul_rn(p * (dp[r][c] - dl[r]), scale)) : 0.f;
       }
     __syncthreads();
     tile_acc(dSt, Ks, ty, tx, acc);
@@ -296,7 +327,7 @@ attn_bwd_dq(const CD* __restrict__ qkv, const CD* __restrict__ dob,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (4 * tx + c < dh) {
-        dqkv32[row + 4 * tx + c] = acc[r][c];
+        if (dqkv32) dqkv32[row + 4 * tx + c] = acc[r][c];
         dqkvn[row + 4 * tx + c] = from_f<CD>(acc[r][c]);
       }
     if (tx == 0) delta[((size_t)b * H + h) * N + i] = dl[r];
@@ -309,7 +340,8 @@ template <typename CD>
 __global__ void __launch_bounds__(kAttnThreads)
 attn_bwd_dkdv(const CD* __restrict__ qkv, const CD* __restrict__ dob,
               const float* __restrict__ stats, const float* __restrict__ delta,
-              float* __restrict__ dqkv32, CD* __restrict__ dqkvn, int N, int H, int dh) {
+              float* __restrict__ dqkv32, CD* __restrict__ dqkvn, int N, int H, int dh,
+              float scale) {
   extern __shared__ __align__(16) float sm[];
   float* Kt = sm;            // [c][j]
   float* Vt = Kt + kTile;    // [c][j]
@@ -350,6 +382,7 @@ attn_bwd_dkdv(const CD* __restrict__ qkv, const CD* __restrict__ dob,
     __syncthreads();
     // rows 4 ty + r are queries, columns 4 tx + c keys
     tile_dot(Qt, Kt, dh, ty, tx, s);
+    scale_tile(s, scale);
     tile_dot(dOt, Vt, dh, ty, tx, dp);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -359,7 +392,7 @@ attn_bwd_dkdv(const CD* __restrict__ qkv, const CD* __restrict__ dob,
         const bool ok = i0 + il < N && j0 + 4 * tx + c < N;
         const float p = ok ? expf(s[r][c] - mS[il]) / lS[il] : 0.f;
         Ps[il * kLd + 4 * tx + c] = rnd<CD>(p);
-        dSs[il * kLd + 4 * tx + c] = rnd<CD>(p * (dp[r][c] - dS_[il]));
+        dSs[il * kLd + 4 * tx + c] = rnd<CD>(__fmul_rn(p * (dp[r][c] - dS_[il]), scale));
       }
     }
     __syncthreads();
@@ -375,9 +408,11 @@ attn_bwd_dkdv(const CD* __restrict__ qkv, const CD* __restrict__ dob,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (4 * tx + c < dh) {
-        dqkv32[row + D + 4 * tx + c] = dk[r][c];
+        if (dqkv32) {
+          dqkv32[row + D + 4 * tx + c] = dk[r][c];
+          dqkv32[row + 2 * D + 4 * tx + c] = dv[r][c];
+        }
         dqkvn[row + D + 4 * tx + c] = from_f<CD>(dk[r][c]);
-        dqkv32[row + 2 * D + 4 * tx + c] = dv[r][c];
         dqkvn[row + 2 * D + 4 * tx + c] = from_f<CD>(dv[r][c]);
       }
   }
@@ -503,10 +538,11 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// exp(s - m) as every core forms it, 2^(s log2e - m log2e) with mL = m
-// log2e: one FMA and the MUFU ex2; p is that times rl = 1 / l (both
-// rounded to nearest). The forward, dq and dk/dv run exactly these
-// instructions on the same scores, so they form the same p.
+// exp(scale s - m) as every core forms it, 2^(s sL - m log2e) with sL =
+// scale log2e (K5/K6: scale 1, sL = log2e) and mL = m log2e: one FMA and
+// the MUFU ex2; p is that times rl = 1 / l (both rounded to nearest). The
+// forwards, dq and dk/dv run exactly these instructions on the same scores,
+// so they form the same p.
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -515,8 +551,8 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ float exp_sm(float s, float mL) {
-  return ex2(__fmaf_rn(s, kLog2e, -mL));
+__device__ __forceinline__ float exp_sm(float s, float sL, float mL) {
+  return ex2(__fmaf_rn(s, sL, -mL));
 }
 
 __device__ __forceinline__ float log2e_of(float m) { return __fmul_rn(m, kLog2e); }
@@ -641,7 +677,7 @@ attn_fwd_mma(const bf16* __restrict__ qkv, bf16* __restrict__ o, float* __restri
 #pragma unroll
               for (int e = 2 * r; e < 2 * r + 2; ++e)
                 if (col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N))
-                  sum += exp_sm(s[c][f][e], mnL);
+                  sum += exp_sm(s[c][f][e], kLog2e, mnL);
           l[r] = l[r] * ex2(log2e_of(m[r] - mn)) + quad_sum(sum);
           m[r] = mn;
         }
@@ -655,7 +691,8 @@ attn_fwd_mma(const bf16* __restrict__ qkv, bf16* __restrict__ o, float* __restri
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               s[f][e] = col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N)
-                            ? __fmul_rn(exp_sm(s[f][e], mL[e / 2]), rl[e / 2]) : 0.f;
+                            ? __fmul_rn(exp_sm(s[f][e], kLog2e, mL[e / 2]), rl[e / 2])
+                            : 0.f;
           uint32_t pa[4];
           pack_a(pa, s);
           acc16<KD>(acc, pa, Ks + kHTile, 16 * c);
@@ -681,16 +718,19 @@ attn_fwd_mma(const bf16* __restrict__ qkv, bf16* __restrict__ o, float* __restri
 }
 
 // dq for one (query tile, head, sequence), and delta_i = sum_j p_ij dp_ij.
-// dob (B*N, D) holds do; dq goes to columns [0, D) of dqkv32 (f32) and dqkvn
-// (bf16), both (B*N, 3D). The ring runs K and V twice: pass A sums delta
-// over f32 p (the Pallas body's sum), pass B forms dS = p (dp - delta),
-// rounds it into the A fragment of dS k and accumulates dq.
-template <int KD>
+// dob (B*N, D) holds do; dq goes to columns [0, D) of dqkv32 (f32, where
+// given) and dqkvn (bf16), both (B*N, 3D). K6 (DI false): the ring runs K
+// and V twice, pass A sums delta over f32 p (the Pallas body's sum), pass B
+// forms dS = p (dp - delta), rounds it into the A fragment of dS k and
+// accumulates dq. K15 (DI): delta_i = sum_c o_ic do_ic from the forward's
+// output o (B*N, D) (the JAX library's di), so the ring runs K and V once;
+// s = scale q.k and dS = p (dp - delta) scale (sL = scale log2e).
+template <int KD, bool DI>
 __global__ void __launch_bounds__(kMmaThreads, 4)
 attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
-                const float* __restrict__ stats, float* __restrict__ delta,
-                float* __restrict__ dqkv32, bf16* __restrict__ dqkvn, int N, int H, int dh,
-                int vec) {
+                const bf16* __restrict__ o, const float* __restrict__ stats,
+                float* __restrict__ delta, float* __restrict__ dqkv32,
+                bf16* __restrict__ dqkvn, int N, int H, int dh, int vec, float scale, float sL) {
   extern __shared__ __align__(16) unsigned char smraw[];
   bf16* Qs = reinterpret_cast<bf16*>(smraw);
   bf16* dOs = Qs + kHTile;
@@ -701,7 +741,7 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
   const bf16* q = qkv + (size_t)b * N * ld + h * dh;
   const bf16* k = q + D;
   const bf16* v = q + 2 * D;
-  const int nt = (N + kRows - 1) / kRows, total = 2 * nt;
+  const int nt = (N + kRows - 1) / kRows, total = DI ? nt : 2 * nt;
 
   auto fetch = [&](int it) {
     if (it < total) {
@@ -724,6 +764,15 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
     const float* st = stats + (((size_t)b * H + h) * N + (i < N ? i : 0)) * 2;
     mL[r] = log2e_of(st[0]);
     rl[r] = __frcp_rn(st[1]);
+    if (DI) {  // this lane's columns t, t + 4, ... of its row, summed over the quad below
+      float part = 0.f;
+      if (i < N) {
+        const size_t row = ((size_t)b * N + i) * D + h * dh;
+        for (int c = t; c < dh; c += 4)
+          part += __bfloat162float(o[row + c]) * __bfloat162float(dob[row + c]);
+      }
+      dl[r] = part;
+    }
   }
 #pragma unroll
   for (int nd = 0; nd < 2 * KD; ++nd)
@@ -738,14 +787,14 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
       load_a<KD>(qa, Qs);
       load_a<KD>(da, dOs);
     }
-    if (it == nt) {
+    if (it == (DI ? 0 : nt)) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) dl[r] = quad_sum(dl[r]);
     }
     fetch(it + kStages - 1);
     const bf16* Ks = ring + 2 * (it % kStages) * kHTile;
     const int j0 = (it % nt) * kRows;
-    const bool passA = it < nt;
+    const bool passA = !DI && it < nt;
     by_tile(j0, N, [&](auto masked) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -757,11 +806,11 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const bool ok = col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N);
-            const float p = __fmul_rn(exp_sm(s[f][e], mL[e / 2]), rl[e / 2]);
+            const float p = __fmul_rn(exp_sm(s[f][e], sL, mL[e / 2]), rl[e / 2]);
             if (passA)
               dl[e / 2] += ok ? p * dp[f][e] : 0.f;
             else
-              s[f][e] = ok ? p * (dp[f][e] - dl[e / 2]) : 0.f;
+              s[f][e] = ok ? __fmul_rn(p * (dp[f][e] - dl[e / 2]), scale) : 0.f;
           }
         if (!passA) {
           uint32_t pa[4];
@@ -773,7 +822,7 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
   }
   tc::cp_async_wait<0>();
   const size_t row0 = (size_t)b * N * ld + h * dh;
-  store_rows<KD>(acc, dqkv32 + row0, dqkvn + row0, ld, i0, N, dh);
+  store_rows<KD>(acc, dqkv32 ? dqkv32 + row0 : nullptr, dqkvn + row0, ld, i0, N, dh);
   if (t == 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -792,7 +841,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
 attn_bwd_dkdv_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
                   const float* __restrict__ stats, const float* __restrict__ delta,
                   float* __restrict__ dqkv32, bf16* __restrict__ dqkvn, int N, int H, int dh,
-                  int vec) {
+                  int vec, float scale, float sL) {
   extern __shared__ __align__(16) unsigned char smraw[];
   bf16* Ks = reinterpret_cast<bf16*>(smraw);
   bf16* Vs = Ks + kHTile;
@@ -864,10 +913,11 @@ attn_bwd_dkdv_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int il = 16 * c + 8 * f + 2 * t + e % 2;
-            const float p = col_ok(masked, i0, il, N)
-                                ? __fmul_rn(exp_sm(s[f][e], rs[2 * il]), rs[2 * il + 1]) : 0.f;
+            const float p =
+                col_ok(masked, i0, il, N)
+                    ? __fmul_rn(exp_sm(s[f][e], sL, rs[2 * il]), rs[2 * il + 1]) : 0.f;
             s[f][e] = p;
-            dp[f][e] = p * (dp[f][e] - rs[2 * kRows + il]);
+            dp[f][e] = __fmul_rn(p * (dp[f][e] - rs[2 * kRows + il]), scale);
           }
         uint32_t pa[4], da[4];
         pack_a(pa, s);
@@ -879,8 +929,9 @@ attn_bwd_dkdv_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
   }
   tc::cp_async_wait<0>();
   const size_t row0 = (size_t)b * N * ld + h * dh;
-  store_rows<KD>(dk, dqkv32 + row0 + D, dqkvn + row0 + D, ld, j0, N, dh);
-  store_rows<KD>(dv, dqkv32 + row0 + 2 * D, dqkvn + row0 + 2 * D, ld, j0, N, dh);
+  store_rows<KD>(dk, dqkv32 ? dqkv32 + row0 + D : nullptr, dqkvn + row0 + D, ld, j0, N, dh);
+  store_rows<KD>(dv, dqkv32 ? dqkv32 + row0 + 2 * D : nullptr, dqkvn + row0 + 2 * D, ld, j0, N,
+                 dh);
 }
 
 // S (B, H, N, N) from the forward's orientation (A = q rows, B = k rows) and
@@ -939,11 +990,249 @@ bool vec_ok(int dh, const void* a, const void* b) {
   return dh % 8 == 0 && ((uintptr_t)a % 16) == 0 && ((uintptr_t)b % 16) == 0;
 }
 
+// ------------------------------------------- K15's forward core (bf16)
+// Replaces the forward of cerebra/models/vit.py:_flash_mha, which calls the
+// JAX library's Pallas TPU flash_attention: one pass over the keys with an
+// online softmax, f32 running max m, sum l and output o, o rescaled by
+// exp(m_old - m_new) as m grows, the scale applied to the f32 scores, p =
+// exp(scale s - m) rounded to bf16 for p v, o = (sum p v) / l rounded at
+// the end. (K5's core keeps two passes: its reference, the Pallas _fwd_kernel,
+// rounds the normalised p.) It reads q, k and v straight from the qkv rows
+// (B, N, 3D) of the dense layer and writes o (B, N, D) for proj.
+// What bounds it: the tensor-core products (4 N^2 dh a head and sequence,
+// 15.1 GFLOP at main_dino's globals, 0.015 ms at 989 TFLOP/s) and the exp of
+// every score (the MUFU's 16 a cycle an SM: 0.009 ms), not the bytes. The
+// design: a CTA owns 64 query rows of one (sequence, head), one consumer
+// warpgroup and one producer warp, four CTAs an SM (a consumer waits on its
+// own products, so the SM interleaves four; two warpgroups a CTA with a
+// 3-stage ring, two CTAs an SM, took 0.086 ms against 0.071 on an H100 at
+// main_dino's globals). The producer asks the TMA for the Q tile once, then
+// for each 64-key tile's K and V into a ring of kFlashStages stages
+// (128-byte swizzle; a rank-4 map (c, which q/k/v and head, row, sequence)
+// zero-fills the columns past dh and the rows past N, so the ragged last
+// key tile and the last query tile need no copy of their own); completion
+// lands on the stage's "full" mbarrier and the consumer frees the stage on
+// its "empty" one. A consumer runs
+// S = Q K^T as wgmma m64n64k16 from shared memory (KD k-steps of 16),
+// masks the keys past N, scales, takes the row max with two quad shuffles,
+// forms p with one FMA and ex2 a score, rescales its o accumulators, and
+// packs p, rounded, from the S accumulators straight into the register A
+// operand of o += P V (wgmma m64n64k16, V MN-major from shared memory). A
+// head dim that the TMA cannot cut (dh % 8, or an unaligned base) has the
+// producer warp copy the same swizzled tiles itself.
+constexpr int kFlashWG = 1;                          // consumer warpgroups of 64 query rows
+constexpr int kFlashRows = 64 * kFlashWG;            // query rows a CTA owns
+constexpr int kFlashStages = 2;                      // K/V stages of the ring
+constexpr int kFlashThreads = 128 * kFlashWG + 32;   // + the producer warp
+constexpr int kFlashTile = 64 * 64;                  // bf16 values of a tile: 64 rows of 128 bytes
+constexpr int kFlashSmem =
+    (kFlashWG + 2 * kFlashStages) * kFlashTile * 2 + (2 * kFlashStages + 1) * 8 + 1024;
+
+// element (r, c) of a 64 x 64 bf16 tile under the 128-byte swizzle: the
+// 16-byte chunk c / 8 of row r lands at chunk (c / 8) ^ (r % 8)
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return r * 64 + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// the producer warp's copy of a tile where the TMA cannot cut it: rows r0 ..
+// r0 + 63 of src (row stride ld), columns < dh, zero elsewhere; then the
+// async-proxy fence that lets wgmma read what the warp stored
+__device__ __forceinline__ void flash_fill(bf16* t, const bf16* src, int ld, int r0, int n,
+                                           int dh) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int e = threadIdx.x % 32; e < kFlashTile; e += 32) {
+    const int r = e >> 6, c = e & 63;
+    t[swizzled(r, c)] = (r0 + r < n && c < dh) ? src[(size_t)(r0 + r) * ld + c] : zero;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+}
+
+// qkv (B, N, 3D) bf16 -> o (B, N, D) bf16 and stats (B, H, N, 2) f32 = (m,
+// l) of each query row, m the max of scale s. sL = scale log2e.
+template <int KD>
+__global__ void __launch_bounds__(kFlashThreads, 4)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap map, const bf16* __restrict__ qkv,
+                bf16* __restrict__ o, float* __restrict__ stats, int N, int H, int dh,
+                float scale, float sL, int tma) {
+  extern __shared__ unsigned char smraw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smraw) + 1023) & ~uintptr_t(1023));
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // warpgroup g's Q tile at Qs + g kFlashTile
+  bf16* ring = Qs + kFlashWG * kFlashTile;   // stage st: K at ring + 2 st kFlashTile, V after it
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * kFlashStages * kFlashTile);
+  uint64_t* empty = full + kFlashStages;
+  uint64_t* qbar = empty + kFlashStages;
+  const int D = H * dh, ld = 3 * D;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kFlashRows;
+  const int nt = (N + 63) / 64, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kFlashStages; ++st) {
+      wg::mbar_init(&full[st], 1);
+      wg::mbar_init(&empty[st], kFlashWG);
+    }
+    wg::mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kFlashWG) {  // the producer: lane 0 through the TMA, else the warp
+    if (tma && lane != 0) return;
+    const bf16* seq = qkv + (size_t)b * N * ld + h * dh;
+    if (tma) {
+      wg::mbar_expect_tx(qbar, kFlashWG * kFlashTile * 2);
+      for (int g = 0; g < kFlashWG; ++g)
+        wg::tma_load4(Qs + g * kFlashTile, &map, qbar, 0, h, i0 + 64 * g, b);
+    } else {
+      for (int g = 0; g < kFlashWG; ++g)
+        flash_fill(Qs + g * kFlashTile, seq, ld, i0 + 64 * g, N, dh);
+      if (lane == 0) wg::mbar_arrive(qbar);
+    }
+    for (int it = 0; it < nt; ++it) {
+      const int st = it % kFlashStages;
+      bf16* K = ring + 2 * st * kFlashTile;
+      if (it >= kFlashStages) wg::mbar_wait(&empty[st], (it / kFlashStages - 1) & 1);
+      if (tma) {
+        wg::mbar_expect_tx(&full[st], 2 * kFlashTile * 2);
+        wg::tma_load4(K, &map, &full[st], 0, H + h, 64 * it, b);
+        wg::tma_load4(K + kFlashTile, &map, &full[st], 0, 2 * H + h, 64 * it, b);
+      } else {
+        flash_fill(K, seq + D, ld, 64 * it, N, dh);
+        flash_fill(K + kFlashTile, seq + 2 * D, ld, 64 * it, N, dh);
+        if (lane == 0) wg::mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  const int g = warp / 4, t = lane % 4;
+  const char* Qg = reinterpret_cast<const char*>(Qs + g * kFlashTile);
+  float acc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wg::mbar_wait(qbar, 0);
+
+  for (int it = 0; it < nt; ++it) {
+    const int st = it % kFlashStages, j0 = 64 * it;
+    wg::mbar_wait(&full[st], (it / kFlashStages) & 1);
+    const char* K = reinterpret_cast<const char*>(ring + 2 * st * kFlashTile);
+    const char* V = K + kFlashTile * 2;
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wg::fence_regs(s);
+    wg::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      wg::mma_n64_ss(s, wg::desc(Qg + 32 * kk, 16, 1024), wg::desc(K + 32 * kk, 16, 1024), kk);
+    wg::wg_commit();
+    wg::wg_wait<0>();
+    wg::fence_regs(s);
+
+    // the new row max of scale s over the valid keys, then p and the sums
+    const bool ragged = j0 + 64 > N;
+    float mn[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + 2 * t + i % 2;
+      if (!ragged || j0 + col < N) mn[(i / 2) % 2] = fmaxf(mn[(i / 2) % 2], __fmul_rn(s[i], scale));
+    }
+    float mL[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mn[r] = quad_max(mn[r]);
+      alpha[r] = ex2(log2e_of(m[r] - mn[r]));  // 0 at the first tile (m = -inf)
+      mL[r] = log2e_of(mn[r]);
+      m[r] = mn[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + 2 * t + i % 2, r = (i / 2) % 2;
+      s[i] = (!ragged || j0 + col < N) ? exp_sm(s[i], sL, mL[r]) : 0.f;
+      sum[r] += s[i];
+      acc[i] *= alpha[r];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = tc::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = tc::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = tc::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = tc::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wg::fence_regs(acc);
+    wg::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::mma_n64_rs(acc, pa[kk], wg::desc(V + 2048 * kk, 8192, 1024));
+    wg::wg_commit();
+    wg::wg_wait<0>();
+    wg::fence_regs(acc);
+    if (threadIdx.x % 128 == 0) wg::mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = __fdiv_rn(acc[i], l[(i / 2) % 2]);
+  store_rows<4>(*reinterpret_cast<float(*)[8][4]>(acc), nullptr, o + (size_t)b * N * D + h * dh,
+                D, i0, N, dh);
+  if (t == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + 16 * warp + lane / 4 + 8 * r;
+      if (i < N) {
+        float* sp = stats + (((size_t)b * H + h) * N + i) * 2;
+        sp[0] = m[r];
+        sp[1] = l[r];
+      }
+    }
+}
+
+// The rank-4 map of the qkv rows (B, N, 3D) for K15's forward: (c < dh, q/k/v
+// and head 3H, row N, sequence B), boxes of 64 c x 1 x 64 rows x 1, the
+// 128-byte swizzle; zero fill past dh and N.
+int flash_map(CUtensorMap* map, const bf16* qkv, int B, int N, int H, int dh) {
+  const wg::EncodeTiled fn = wg::encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)3 * H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)3 * H * dh * 2,
+                                 (cuuint64_t)N * 3 * H * dh * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(qkv), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// K15's bf16 forward: through the TMA where dh % 8 == 0 and qkv is 16-byte
+// aligned (tma_used set to 1), else with the producer warp's copies.
+int launch_flash_fwd(const bf16* qkv, bf16* o, float* stats, int B, int N, int H, int dh,
+                     float scale, int* tma_used, cudaStream_t st) {
+  CUtensorMap map{};
+  int tma = dh % 8 == 0 && ((uintptr_t)qkv % 16) == 0;
+  if (tma) tma = flash_map(&map, qkv, B, N, H, dh) == 0;
+  if (tma_used) *tma_used = tma;
+  const dim3 grid((N + kFlashRows - 1) / kFlashRows, H, B);
+  const float sL = scale * kLog2e;
+  return with_kd(dh, [&](auto kd) {
+    auto kern = flash_fwd_wgmma<decltype(kd)::value>;
+    CEREBRA_VIT_CHECK(
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kFlashSmem));
+    CEREBRA_VIT_CHECK(kern<<<grid, kFlashThreads, kFlashSmem, st>>>(map, qkv, o, stats, N, H, dh,
+                                                                    scale, sL, tma));
+    return 0;
+  });
+}
+
 // Launch the attention kernels of compute dtype CD: the mma.sync cores for
-// bf16, the CUDA-core f32 bodies for float.
+// bf16, the CUDA-core f32 bodies for float. scale multiplies the f32 scores
+// (K5/K6: 1); o given (K15, bf16 and f32) takes delta from o . do.
 template <typename CD>
 int launch_attn_fwd(const CD* qkv, CD* o, float* stats, int B, int N, int H, int dh,
-                    cudaStream_t st) {
+                    cudaStream_t st, float scale = 1.f) {
   if constexpr (std::is_same<CD, bf16>::value) {
     const dim3 grid((N + kRows - 1) / kRows, H, B);
     const int vec = vec_ok(dh, qkv, qkv);
@@ -959,29 +1248,32 @@ int launch_attn_fwd(const CD* qkv, CD* o, float* stats, int B, int N, int H, int
     const int smem = 4 * kTile * (int)sizeof(float);
     CEREBRA_VIT_CHECK(cudaFuncSetAttribute(attn_fwd<CD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-    CEREBRA_VIT_CHECK(attn_fwd<CD><<<grid, kAttnThreads, smem, st>>>(qkv, o, stats, N, H, dh));
+    CEREBRA_VIT_CHECK(
+        attn_fwd<CD><<<grid, kAttnThreads, smem, st>>>(qkv, o, stats, N, H, dh, scale));
     return 0;
   }
 }
 
 template <typename CD>
 int launch_attn_bwd(const CD* qkv, const CD* dob, const float* stats, float* delta,
-                    float* dqkv32, CD* dqkvn, int B, int N, int H, int dh, cudaStream_t st) {
+                    float* dqkv32, CD* dqkvn, int B, int N, int H, int dh, cudaStream_t st,
+                    const CD* o = nullptr, float scale = 1.f) {
   if constexpr (std::is_same<CD, bf16>::value) {
     const dim3 grid((N + kRows - 1) / kRows, H, B);
     const int vec = vec_ok(dh, qkv, dob);
+    const float sL = scale * kLog2e;
     return with_kd(dh, [&](auto kd) {
-      auto dq = attn_bwd_dq_mma<decltype(kd)::value>;
-      auto dkdv = attn_bwd_dkdv_mma<decltype(kd)::value>;
+      constexpr int KD = decltype(kd)::value;
+      auto dq = o ? attn_bwd_dq_mma<KD, true> : attn_bwd_dq_mma<KD, false>;
+      auto dkdv = attn_bwd_dkdv_mma<KD>;
       CEREBRA_VIT_CHECK(
           cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem));
       CEREBRA_VIT_CHECK(
           cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem));
-      CEREBRA_VIT_CHECK(dq<<<grid, kMmaThreads, kDqSmem, st>>>(qkv, dob, stats, delta, dqkv32,
-                                                                dqkvn, N, H, dh, vec));
-      CEREBRA_VIT_CHECK(dkdv<<<grid, kMmaThreads, kDkdvSmem, st>>>(qkv, dob, stats, delta,
-                                                                    dqkv32, dqkvn, N, H, dh,
-                                                                    vec));
+      CEREBRA_VIT_CHECK(dq<<<grid, kMmaThreads, kDqSmem, st>>>(
+          qkv, dob, o, stats, delta, dqkv32, dqkvn, N, H, dh, vec, scale, sL));
+      CEREBRA_VIT_CHECK(dkdv<<<grid, kMmaThreads, kDkdvSmem, st>>>(
+          qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh, vec, scale, sL));
       return 0;
     });
   } else {
@@ -993,9 +1285,9 @@ int launch_attn_bwd(const CD* qkv, const CD* dob, const float* stats, float* del
     CEREBRA_VIT_CHECK(cudaFuncSetAttribute(
         attn_bwd_dkdv<CD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv));
     CEREBRA_VIT_CHECK(attn_bwd_dq<CD><<<grid, kAttnThreads, smem_dq, st>>>(
-        qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh));
+        qkv, dob, o, stats, delta, dqkv32, dqkvn, N, H, dh, scale));
     CEREBRA_VIT_CHECK(attn_bwd_dkdv<CD><<<grid, kAttnThreads, smem_dkdv, st>>>(
-        qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh));
+        qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh, scale));
     return 0;
   }
 }
@@ -1095,6 +1387,39 @@ int cerebra_vit_attn_core_bwd(int cd_bf16, const void* qkv, const void* dob, con
                                  (bf16*)dqkvn, B, N, H, D / H, st);
   return launch_attn_bwd<float>((const float*)qkv, (const float*)dob, stats, delta, dqkv32,
                                 (float*)dqkvn, B, N, H, D / H, st);
+}
+
+// K15, the flash attention of Attention(use_flash): qkv (B, N, 3D) CD, the
+// qkv dense layer's rows as they are -> o (B, N, D) CD, the rows proj reads,
+// and stats (B, H, N, 2) f32 = (m, l) per query row; s = scale q.k in f32.
+// bf16: the one-pass wgmma core (flash_fwd_wgmma; *tma_used says whether
+// the TMA brought the tiles); f32: the CUDA-core body. The caller's head
+// dim is at most 64.
+int cerebra_vit_flash_fwd(int cd_bf16, const void* qkv, void* o, float* stats, int B, int N,
+                          int D, int H, float scale, int* tma_used, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
+  if (cd_bf16)
+    return launch_flash_fwd((const bf16*)qkv, (bf16*)o, stats, B, N, H, D / H, scale, tma_used,
+                            st);
+  if (tma_used) *tma_used = 0;
+  return launch_attn_fwd<float>((const float*)qkv, (float*)o, stats, B, N, H, D / H, st, scale);
+}
+
+// K15's backward: from qkv, its forward's o and stats and do (B, N, D) CD ->
+// delta (B, H, N) f32 = sum_c o do per query row, and dq, dk, dv with the
+// scale chained in, straight into dqkv (B, N, 3D) CD, the gradient of the
+// qkv rows (f32 sums, rounded once).
+int cerebra_vit_flash_bwd(int cd_bf16, const void* qkv, const void* o, const void* dob,
+                          const float* stats, float* delta, void* dqkv, int B, int N, int D,
+                          int H, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
+  if (cd_bf16)
+    return launch_attn_bwd<bf16>((const bf16*)qkv, (const bf16*)dob, stats, delta, nullptr,
+                                 (bf16*)dqkv, B, N, H, D / H, st, (const bf16*)o, scale);
+  return launch_attn_bwd<float>((const float*)qkv, (const float*)dob, stats, delta, nullptr,
+                                (float*)dqkv, B, N, H, D / H, st, (const float*)o, scale);
 }
 
 // The scores of every (sequence, head) as the forward forms them, S (B, H,

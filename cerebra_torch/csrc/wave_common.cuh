@@ -133,4 +133,14 @@ __device__ __forceinline__ void wave_store_peer(void* p, uint32_t v, uint64_t* b
                :: "r"(peer_addr(p, rank)), "r"(v), "r"(peer_addr(b, rank)) : "memory");
 }
 
+// v into CTA rank's shared memory at p's offset (16-byte aligned), its 16
+// bytes completing on that CTA's barrier b
+__device__ __forceinline__ void wave_store_peer4(void* p, float4 v, uint64_t* b, int rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n"
+      :: "r"(peer_addr(p, rank)), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w),
+         "r"(peer_addr(b, rank)) : "memory");
+}
+
 }  // namespace

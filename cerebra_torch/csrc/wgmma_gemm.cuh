@@ -160,6 +160,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// the box of the rank-4 `map` at (c0, c1, c2, c3), innermost first, into
+// shared memory at dst, completing on barrier b
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* b, int c0,
+                                          int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(tc::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(tc::smem_addr(b)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 // The descriptor of a 128-byte-swizzled operand tile at p (1024-byte
 // aligned atoms of 8 rows of 128 bytes): lbo the byte stride between 64-wide
@@ -224,6 +236,57 @@ __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
+
+#define CEREBRA_WG_D32                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),       \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),          \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),          \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),          \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= A B for a 64 x 64 tile over k16, both operands from shared memory
+// through their descriptors (B K-major), d overwritten where `acc` is 0.
+// Accumulator layout (w = warp of the warpgroup, g = lane / 4, t = lane %
+// 4): d[4 j + 2 h + e] is row 16 w + g + 8 h, column 8 j + 2 t + e, which
+// is also the register A operand's layout over each 16 columns
+// (mma_n64_rs), as in mma.sync's m16n8k16.
+__device__ __forceinline__ void mma_n64_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31},\n"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CEREBRA_WG_D32
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A B for a 64 x 64 tile over k16: A from registers (a[0..3], the
+// m16n8k16 A fragment of this warp's 16 rows), B from shared memory,
+// MN-major (its 64 columns contiguous a row of k)
+__device__ __forceinline__ void mma_n64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31},\n"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : CEREBRA_WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef CEREBRA_WG_D32
 
 // d += (this warpgroup's 64 rows of the stage's A tile) (its B tile) over
 // the kBK values of k: four k16 products. A tile: K-major, 128 rows of 128

@@ -22,19 +22,21 @@ and their plain PyTorch versions (port of cerebra/models/pallas_lstm_stack.py).
   (`_fwd_wave`, its plain composition `_fwd_wave_ref`): one launch, a
   thread-block cluster a 16-row batch tile, a CTA a layer that holds
   [W_ih; W_hh] in shared memory, the layers one step apart, each step's
-  product on the tensor cores and the cell in registers. K4 and K10 where
-  only half a layer's weights fit a CTA (`wave_split_fits`: the DINO-LSTM's
-  C 96, H 128, L 4) run it with the split layer: two CTAs a layer, each
-  holding the columns of half the units, which hand each other their half
-  of h every step (`_split_step_ref` is its plain layer-step).
+  product on the tensor cores and the cell in registers. K3, K4 and K10
+  where only half a layer's weights fit a CTA (`wave_split_fits`: the
+  DINO-LSTM's C 96, H 128, L 4 and the Spampinato rig's C = H = 128) run it
+  with the split layer: two CTAs a layer, each holding the columns of half
+  the units, which hand each other their half of h every step
+  (`_split_step_ref` is its plain layer-step).
 - K1 and K4 at the small batches `pick_fwd` takes (the recurrent
-  autoencoder's B = 16) run layer by layer, bottom first
-  (`_fwd_layerwise`): the layer's input product over all T·B rows
-  (`fwd_in_product`, f32 P = inp·W_ih), then its recurrence over P on a
-  thread-block cluster that keeps W_hh in shared memory
-  (`fwd_cluster_scan`), which writes h and, for K1, the residuals. Every
-  other shape runs the whole stack in one launch (`lstm_fwd_kernel`);
-  `fwd_path` states the rule.
+  autoencoder's B = 16), and K3 in f32 at every batch (the eval's
+  galleries), run layer by layer, bottom first (`_fwd_layerwise`): the
+  layer's input product over all T·B rows (`fwd_in_product`, f32 P =
+  inp·W_ih), then its recurrence over P on a thread-block cluster that
+  keeps W_hh in shared memory (`fwd_cluster_scan`, exact f32 FMA in f32),
+  which writes h and, for K1, the residuals; K3's top layer writes only h
+  at T−1. Every other shape runs the whole stack in one launch
+  (`lstm_fwd_kernel`); `fwd_path` states the rule.
 - K10 `fwd_train_rc`: the recompute variant's forward, which streams only
   h_all and c_all (T, B, H) per layer, c rounded to the stream dtype (2H a
   row and layer instead of K1's 7H).
@@ -62,9 +64,9 @@ tensor launches the kernel, built at first use, or raises. `LAUNCHES` counts
 kernel launches so a run can show that it went through the kernels
 (`fwd_train`, `fwd_infer`, `bwd` for K2, `bwd_general` for K2g, `bwd_rc` for
 K11, one a call; `fwd_wave` one a launch of the wavefront forward (K1, K3,
-K4 or K10), `fwd_wave_split` one a launch of it with the split layer (K4 or
-K10); `fwd_in_product` and `fwd_cluster_scan` one a layer of K1/K4's
-layer-by-layer path; `stack_bwd_scan` and `stack_bwd_products` one
+K4 or K10), `fwd_wave_split` one a launch of it with the split layer (K3,
+K4 or K10); `fwd_in_product` and `fwd_cluster_scan` one a layer of
+K1/K3/K4's layer-by-layer path; `stack_bwd_scan` and `stack_bwd_products` one
 a layer of K2/K2g; `rc_gates`, `rc_scan` and `rc_products` one a chunk and
 layer of K11).
 
@@ -222,12 +224,16 @@ def _in_product_ref(inp: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
     return inp.float() @ w_ih.float()
 
 
-def _fwd_scan_ref(P: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor, res: bool = False):
+def _fwd_scan_ref(P: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor, res: bool = False,
+                  last: bool = False):
     """Plain recurrence of one layer over its input product P (T, B, 4H) f32:
     gates = (P_t + h_{t−1}·W_hh) + b, h rounded to the stream dtype (w_hh's)
     before W_hh, K1's cell math and rounding. → (h (T, B, H) in the stream
-    dtype, and with `res` K1's prefac (T, B, 4H) and qf (T, B, 2H) of the
-    layer, else None, None)."""
+    dtype, or with `last` (K3's top layer) only h at T−1 (B, H); and with
+    `res` K1's prefac (T, B, 4H) and qf (T, B, 2H) of the layer, else None,
+    None)."""
+    if res and last:
+        raise ValueError("the last-state scan writes no residuals")
     T, B, G = P.shape
     H, sd = G // 4, w_hh.dtype
     h = torch.zeros(B, H, device=P.device)
@@ -248,30 +254,32 @@ def _fwd_scan_ref(P: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor, res: boo
         h_seq[t] = h.to(sd)
         if res:
             prefac[t], qf[t] = _residuals(i, f, g, o, c_prev, tanh_c, sd)
-    return h_seq, prefac, qf
+    return (h_seq[-1] if last else h_seq), prefac, qf
 
 
 def _fwd_layerwise(x: torch.Tensor, layers: Layers, product, scan) -> torch.Tensor:
-    """K1/K4 as the layer-by-layer CUDA path composes them, bottom layer
+    """K1/K3/K4 as the layer-by-layer CUDA path composes them, bottom layer
     first: `product(inp, w_ih)` → the layer's f32 input product P, then
     `scan(l, P, w_hh, b)` → the layer's h (T, B, H), which is the next
     layer's input (the scan writes whatever else the caller keeps: K1's
-    residuals). Returns the top layer's h."""
+    residuals; K3's top layer only its h at T−1). Returns the top layer's
+    scan output."""
     inp = x
     for l, (w_ih, w_hh, b) in enumerate(layers):
         inp = scan(l, product(inp, w_ih), w_hh, b)
     return inp
 
 
-def _fwd_layerwise_ref(x: torch.Tensor, layers: Layers, train: bool):
+def _fwd_layerwise_ref(x: torch.Tensor, layers: Layers, train: bool, last: bool = False):
     """`_fwd_layerwise` through the plain pieces, on any device: K1's
     (h_all, prefac, qf) stacked over the layers when `train`, else K4's top
-    h (T, B, H)."""
-    _dims(x, layers)
+    h (T, B, H), or with `last` K3's top h at T−1 (B, H), which the top
+    layer's scan alone writes."""
+    _, _, _, _, L = _dims(x, layers)
     outs = []
 
     def scan(l, P, w_hh, b):
-        outs.append(_fwd_scan_ref(P, w_hh, b, train))
+        outs.append(_fwd_scan_ref(P, w_hh, b, train, last and l == L - 1))
         return outs[-1][0]
 
     top = _fwd_layerwise(x, layers, _in_product_ref, scan)
@@ -747,7 +755,7 @@ def _typed(lib) -> None:
     lib.cerebra_lstm_fwd.restype = i
     lib.cerebra_fwd_in_product.argtypes = [i, vp, vp, vp, i, i, i, vp]
     lib.cerebra_fwd_in_product.restype = i
-    lib.cerebra_fwd_cluster_scan.argtypes = [i, i, i] + [vp] * 6 + [i] * 3 + [vp]
+    lib.cerebra_fwd_cluster_scan.argtypes = [i] * 4 + [vp] * 6 + [i] * 3 + [vp]
     lib.cerebra_fwd_cluster_scan.restype = i
     lib.cerebra_fwd_wave.argtypes = [i, i, i] + [vp] * 10 + [i] * 5 + [vp]
     lib.cerebra_fwd_wave.restype = i
@@ -806,7 +814,8 @@ def cluster_smem(H: int, n: int, dtype: torch.dtype) -> int:
 
 def cluster_sizes(H: int, dtype: torch.dtype) -> Tuple[int, ...]:
     """The cluster sizes n the scan can run H at: n divides H, a CTA's 2H/n
-    column pairs fit its 256 threads, its shared memory fits one H100 block,
+    column pairs fit 256 threads (f32: twice that, one a pair and half of
+    k), its shared memory fits one H100 block,
     and in bf16 the tensor-core step's tiles fit (H a multiple of 16, H/n
     even). At H = 384: 16 and 8 in bf16, 16 in f32."""
     return tuple(n for n in _CLUSTER_SIZES
@@ -814,11 +823,17 @@ def cluster_sizes(H: int, dtype: torch.dtype) -> Tuple[int, ...]:
                  and (dtype != torch.bfloat16 or (H % 16 == 0 and H // n % 2 == 0)))
 
 
-def pick_fwd(B: int, C: int, H: int, L: int, dtype: torch.dtype) -> int:
-    """Which forward K1 and K4 run where the wavefront forward does not
-    (`fwd_path`): the cluster size n of the layer-by-layer path (input
-    product, then the recurrence on clusters of n CTAs), or 0 for
-    `lstm_fwd_kernel`, the whole stack in one launch.
+def pick_fwd(B: int, C: int, H: int, L: int, dtype: torch.dtype, kind: str = "fwd_train") -> int:
+    """Which forward K1 and K4 (`kind` fwd_train, fwd_infer), and K3 in f32
+    (fwd_infer_last), run where the wavefront forward does not (`fwd_path`):
+    the cluster size n of the layer-by-layer path (input product, then the
+    recurrence on clusters of n CTAs), or 0 for `lstm_fwd_kernel`, the whole
+    stack in one launch.
+
+    K3 in f32 takes the layer-by-layer path at every batch (`_k3_clusters`):
+    its lower layers write h into one reused buffer and the top layer only
+    h at T−1, and the clusters of more tiles than the card holds at once
+    run in waves.
 
     The layer-by-layer path takes batches of at most 4 tiles of 16 rows
     (B <= 64): its f32 input product is T·B·4H floats a layer (45 MB at the
@@ -834,9 +849,31 @@ def pick_fwd(B: int, C: int, H: int, L: int, dtype: torch.dtype) -> int:
     8.74); in f32 the FMA product sets the step, so the largest n."""
     fits = [n for n in cluster_sizes(H, dtype) if dtype != torch.bfloat16 or H // n >= 12]
     tiles = -(-B // _CLUSTER_ROWS)
+    if kind == "fwd_infer_last":
+        return _k3_clusters(tiles, fits) if dtype == torch.float32 else 0
     if not fits or tiles > _FWD_MAX_TILES or tiles * fits[0] > _SMS:
         return 0
     return fits[0]
+
+
+def _k3_clusters(tiles: int, fits: Sequence[int]) -> int:
+    """The f32 K3's cluster size at `tiles` batch tiles of 16 rows, of the
+    sizes H fits (largest first): the largest whose clusters all fit the
+    card's SMs at once, else the smallest (several waves). In f32 a CTA's
+    step is 16 rows x H x 4H/n FMAs, so fewer units a CTA shorten the step
+    until a second wave doubles the sequence. On an H100 at T = 460
+    (PERF.md, `[fwd paths]`): the eval's C 96, H 128, L 4 at B = 320 took
+    9.04 ms at n = 4 (one wave of 80 CTAs), 8.62 at 8 (two waves), 9.02 at
+    16, 13.24 at 2 (cuDNN f32 12.3, `lstm_fwd_kernel` 25.0); at B = 80 4.50
+    at 16, 5.14 at 8, 7.54 at 4 (cuDNN 4.9, `lstm_fwd_kernel` 24.7);
+    C = H = 96, L = 2 at B = 320 3.11 at 4, 3.85 at 8 (cuDNN 2.35,
+    `lstm_fwd_kernel` 9.07) and at B = 1024 5.79 at 2, 9.25 at 4 (two
+    waves; cuDNN 6.30, `lstm_fwd_kernel` 9.03). A second wave paid at
+    H = 128, B = 320 (5 %) and cost at H = 96, B = 1024 (60 %), so the
+    rule keeps one wave."""
+    if not fits:
+        return 0
+    return next((n for n in fits if tiles * n <= _SMS), fits[-1])
 
 
 def _wave_cta_smem(C: int, H: int, ns: int, mt: int = 1) -> int:
@@ -886,8 +923,9 @@ def wave_split_fits(C: int, H: int, L: int, dtype: torch.dtype) -> bool:
     units in warps of 8 and k-steps of 16), 2H threads within 384 (H <=
     192), at most 4 layers (8 CTAs, a portable cluster) and half a layer's
     weights within a CTA's shared memory (`wave_split_smem`). The
-    DINO-LSTM's C 96, H 128, L 4; not the autoencoder's widths (C 384,
-    H 96: 238.6 KiB; H = 384)."""
+    DINO-LSTM's C 96, H 128, L 4 (157.6 KiB) and the Spampinato rig's C =
+    H = 128, L 4 (165.6 KiB), where K3, K4 and K10 run it; not the
+    autoencoder's widths (C 384, H 96: 238.6 KiB; H = 384)."""
     return (dtype == torch.bfloat16 and C % 16 == 0 and H % 32 == 0 and 2 * H <= 384
             and 1 <= L <= 4 and wave_split_smem(C, H) <= _MAX_SMEM)
 
@@ -920,14 +958,17 @@ def fwd_path(B: int, C: int, H: int, L: int, dtype: torch.dtype, kind: str) -> s
     layer), "cluster" (the layer-by-layer path, clusters of `pick_fwd`'s
     size) or "stack" (`lstm_fwd_kernel`). Every forward (K1 fwd_train, K3
     fwd_infer_last, K4 fwd_infer, K10 fwd_train_rc) takes the wavefront path
-    where `wave_fits`, at every batch; K4 and K10 then the split layer where
-    `wave_split_fits`; K1 and K4 then the layer-by-layer path where
-    `pick_fwd` gives a cluster size; the rest `lstm_fwd_kernel`."""
+    where `wave_fits`, at every batch; K3, K4 and K10 then the split layer
+    where `wave_split_fits` (bf16 at the DINO-LSTM's and the Spampinato
+    rig's H = 128: the teacher's K3 at B = 16 and the rig's, every batch);
+    K1 and K4 then the layer-by-layer path where `pick_fwd` gives a cluster
+    size, and K3 in f32 (the eval's) at every batch; the rest
+    `lstm_fwd_kernel`."""
     if kind in _WAVE_KINDS and wave_fits(C, H, L, dtype):
         return "wave"
-    if kind in ("fwd_infer", "fwd_train_rc") and wave_split_fits(C, H, L, dtype):
+    if kind in ("fwd_infer_last", "fwd_infer", "fwd_train_rc") and wave_split_fits(C, H, L, dtype):
         return "split"
-    if kind in ("fwd_train", "fwd_infer") and pick_fwd(B, C, H, L, dtype):
+    if kind in ("fwd_train", "fwd_infer", "fwd_infer_last") and pick_fwd(B, C, H, L, dtype, kind):
         return "cluster"
     return "stack"
 
@@ -1038,11 +1079,13 @@ def _in_product_cuda(inp, w_ih, out=None):
     return P
 
 
-def _cluster_scan_cuda(P, w_hh, b, n: int, h=None, prefac=None, qf=None, res: bool = False):
+def _cluster_scan_cuda(P, w_hh, b, n: int, h=None, prefac=None, qf=None, res: bool = False,
+                       last: bool = False):
     """One layer's recurrence over its input product on the card
-    (`fwd_cluster_scan`) in clusters of n CTAs: h (T, B, H) and, with `res`,
-    prefac and qf, each written where given, else allocated. A cluster the
-    card refuses raises. → (h, prefac, qf)."""
+    (`fwd_cluster_scan`) in clusters of n CTAs: h (T, B, H), or with `last`
+    only h at T−1 (B, H), and, with `res`, prefac and qf, each written where
+    given, else allocated. A cluster the card refuses raises. → (h, prefac,
+    qf)."""
     T, B, G = P.shape
     H, sd, dev = G // 4, w_hh.dtype, P.device
     if (P.dtype != torch.float32 or tuple(w_hh.shape) != (H, G) or tuple(b.shape) != (G,)
@@ -1050,7 +1093,10 @@ def _cluster_scan_cuda(P, w_hh, b, n: int, h=None, prefac=None, qf=None, res: bo
         raise ValueError("P, w_hh or b do not match one layer")
     if n < 1 or H % n:
         raise ValueError(f"a cluster of {n} CTAs does not split H={H} units")
-    h = torch.empty(T, B, H, dtype=sd, device=dev) if h is None else h
+    if res and last:
+        raise ValueError("the last-state scan writes no residuals")
+    if h is None:
+        h = torch.empty((B, H) if last else (T, B, H), dtype=sd, device=dev)
     if not res:
         prefac = qf = None
     else:
@@ -1059,20 +1105,23 @@ def _cluster_scan_cuda(P, w_hh, b, n: int, h=None, prefac=None, qf=None, res: bo
     _cuda_checks(1, P, w_hh, b, h, prefac, qf)
     lib = _lib()
     rc = lib.cerebra_fwd_cluster_scan(
-        int(sd == torch.bfloat16), int(res), n, P.data_ptr(), w_hh.data_ptr(), b.data_ptr(),
-        h.data_ptr(), ptr(prefac), ptr(qf), T, B, H, stream_of(P))
+        int(sd == torch.bfloat16), int(res), int(last), n, P.data_ptr(), w_hh.data_ptr(),
+        b.data_ptr(), h.data_ptr(), ptr(prefac), ptr(qf), T, B, H, stream_of(P))
     check_rc(lib, rc, "fwd_cluster_scan")
     LAUNCHES["fwd_cluster_scan"] += 1
     return h, prefac, qf
 
 
 def _fwd_cluster_cuda(x, layers, kind: str, n: int):
-    """K1 (`kind` fwd_train) or K4 (fwd_infer) on the card as
-    `_fwd_layerwise`, with clusters of n CTAs: one f32 P buffer for every
-    layer, and for K4 one scratch h for the layers below the top (stream
-    order makes both safe: a layer's product has read the layer below's h
-    before its scan writes)."""
+    """K1 (`kind` fwd_train), K4 (fwd_infer) or K3 (fwd_infer_last) on the
+    card as `_fwd_layerwise`, with clusters of n CTAs: one f32 P buffer for
+    every layer, and for K4 and K3 one scratch h for the layers below the
+    top (stream order makes both safe: a layer's product has read the layer
+    below's h before its scan writes); K3's top layer writes only h at
+    T−1."""
     T, B, C, H, L = _dims(x, layers)
+    if kind not in ("fwd_train", "fwd_infer", "fwd_infer_last"):
+        raise ValueError(f"the layer-by-layer forward does not run {kind}")
     sd, dev, G = x.dtype, x.device, 4 * H
     layers = [tuple(w.contiguous() for w in layer) for layer in layers]
     _cuda_checks(1, x)
@@ -1083,13 +1132,15 @@ def _fwd_cluster_cuda(x, layers, kind: str, n: int):
         prefac = torch.empty(L, T, B, G, dtype=sd, device=dev)
         qf = torch.empty(L, T, B, 2 * H, dtype=sd, device=dev)
     else:
-        out = torch.empty(T, B, H, dtype=sd, device=dev)
+        last = kind == "fwd_infer_last"
+        out = torch.empty((B, H) if last else (T, B, H), dtype=sd, device=dev)
         below = torch.empty(T, B, H, dtype=sd, device=dev) if L > 1 else None
 
     def scan(l, P_, w_hh, b):
         if train:
             return _cluster_scan_cuda(P_, w_hh, b, n, h_all[l], prefac[l], qf[l], True)[0]
-        return _cluster_scan_cuda(P_, w_hh, b, n, out if l == L - 1 else below)[0]
+        top = l == L - 1
+        return _cluster_scan_cuda(P_, w_hh, b, n, out if top else below, last=last and top)[0]
 
     top = _fwd_layerwise(x, layers, lambda inp, w_ih: _in_product_cuda(inp, w_ih, P), scan)
     LAUNCHES[kind] += 1
@@ -1176,7 +1227,7 @@ def _fwd_dispatch(x, layers, kind: str, tile):
     if path in ("wave", "split"):
         return _fwd_wave_cuda(x, layers, kind, path == "split")
     if path == "cluster":
-        return _fwd_cluster_cuda(x, layers, kind, pick_fwd(B, C, H, L, x.dtype))
+        return _fwd_cluster_cuda(x, layers, kind, pick_fwd(B, C, H, L, x.dtype, kind))
     return _fwd_cuda(x, layers, kind, tile)
 
 
@@ -1488,18 +1539,20 @@ def fwd_in_product(inp: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_cluster_scan(P: torch.Tensor, w_hh: torch.Tensor, b: torch.Tensor, res: bool = False,
-                     n=None):
+                     n=None, last: bool = False):
     """One layer's recurrence over its input product P (T, B, 4H) f32 on CUDA,
-    in clusters of n CTAs (default: `pick_fwd`'s at this B and H), its plain
-    version on the CPU → (h (T, B, H), and with `res` K1's prefac and qf,
-    else None, None)."""
+    in clusters of n CTAs (default: `pick_fwd`'s at this B and H, K3's with
+    `last`), its plain version on the CPU → (h (T, B, H), or with `last`
+    only h at T−1 (B, H); and with `res` K1's prefac and qf, else None,
+    None)."""
     if on_cuda(P, w_hh, b):
         T, B, G = P.shape
-        n = n or pick_fwd(B, G // 4, G // 4, 1, w_hh.dtype)
+        kind = "fwd_infer_last" if last else "fwd_train"
+        n = n or pick_fwd(B, G // 4, G // 4, 1, w_hh.dtype, kind)
         if not n:
             raise ValueError(f"B={B}, H={G // 4}: no cluster of the scan takes this shape")
-        return _cluster_scan_cuda(P, w_hh, b, n, res=res)
-    return _fwd_scan_ref(P, w_hh, b, res)
+        return _cluster_scan_cuda(P, w_hh, b, n, res=res, last=last)
+    return _fwd_scan_ref(P, w_hh, b, res, last)
 
 
 def bwd(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool = False, tile=None):

@@ -37,7 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cerebra_torch.models._torch_interop import strip_torch_prefixes, trunc_normal_init
-from cerebra_torch.models.vit_attn import flash_mha, fused_attn_residual
+from cerebra_torch.models.vit_attn import flash_mha_qkv, fused_attn_residual
 from cerebra_torch.models.vit_mlp import LN_EPS, fused_mlp_residual
 
 _LECUN_STD_CORRECTION = 0.87962566103423978  # std of a unit normal truncated at ±2
@@ -86,18 +86,17 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, need_weights: bool = True):
         """(out, attn) like the reference Attention (:68-92); attn is None on
         the flash path (`use_flash`, N ≥ flash_min_seq, no map asked for):
-        K15, `vit_attn.flash_mha`, on K5/K6's attention cores."""
+        K15, `vit_attn.flash_mha_qkv`, from the qkv layer's rows to proj's
+        with no layout pass between them."""
         B, N, D = x.shape
         H = self.num_heads
-        qkv = dense(x, self.qkv, self.dtype).reshape(B, N, 3, H, D // H)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (B, H, N, dh)
+        qkv = dense(x, self.qkv, self.dtype)
         scale = (D // H) ** -0.5
         if self.use_flash and not need_weights and N >= self.flash_min_seq:
-            out, attn = flash_mha(q, k, v, scale), None
-        else:
-            attn = torch.softmax((q * scale) @ k.transpose(-2, -1), dim=-1)
-            out = attn @ v
-        out = out.transpose(1, 2).reshape(B, N, D)
+            return dense(flash_mha_qkv(qkv, H, scale), self.proj, self.dtype), None
+        q, k, v = qkv.reshape(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)  # each (B, H, N, dh)
+        attn = torch.softmax((q * scale) @ k.transpose(-2, -1), dim=-1)
+        out = (attn @ v).transpose(1, 2).reshape(B, N, D)
         return dense(out, self.proj, self.dtype), attn
 
 

@@ -9,9 +9,16 @@ PyTorch versions (port of cerebra/models/pallas_vit_attn.py).
   them).
 - K6 `vit_attn_bwd` (`_bwd_kernel`): dx = dout + the LN backward, and f32
   dγ, dβ, dWqkv, dbqkv, dWp, dbp.
-- K15 `flash_mha`: the same cores as plain multi-head attention over
-  (B, H, N, dh) q, k, v, the port of `_flash_mha` (the Pallas TPU flash
-  attention) that `Attention(use_flash=True)` takes.
+- K15 `flash_mha_qkv`: multi-head attention straight from the qkv dense
+  layer's rows (B, N, 3D) to the rows proj reads (B, N, D), the port of
+  `_flash_mha` (the JAX library's Pallas TPU flash attention) that
+  `Attention(use_flash=True)` takes: a one-pass online-softmax forward core
+  of its own (bf16 on wgmma fed by the TMA; f32 on the FMA cores) and K6's
+  backward cores with di = Σ o·do, the scale applied to the f32 scores
+  inside the kernels; its backward returns the gradient of the qkv rows.
+  Its plain version is `flash_mha_qkv_ref` (pieces `flash_fwd_ref` /
+  `flash_bwd_ref`); `flash_mha(q, k, v, scale)` keeps `_flash_mha`'s
+  signature and packs its inputs into qkv rows.
 - Their attention cores alone, the launches between the products:
   `attn_core_fwd` (o and each query row's softmax max and sum) and
   `attn_core_bwd` (dq, then dk and dv), with plain pieces
@@ -40,9 +47,14 @@ import torch
 from cerebra_torch.kernels import LAUNCHES, check_rc, load_lib, on_cuda, ptr, stream_of
 from cerebra_torch.models.vit_mlp import check_cuda, layernorm_f32, ln_backward, mm
 
-LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0, vit_attn_core_fwd=0, vit_attn_core_bwd=0)
+LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0, vit_attn_core_fwd=0, vit_attn_core_bwd=0,
+                vit_attn_flash_fwd=0, vit_attn_flash_bwd=0)
 
 MAX_HEAD_DIM = 64  # the CUDA kernels' tile width
+FLASH_TILE = 64  # keys a tile of K15's online softmax (csrc/vit_attn.cu)
+# whether the last K15 forward on the card had the TMA bring its tiles (bf16,
+# a head dim of 8k, an aligned qkv) or its producer warp copy them
+FLASH_ROUTE = {"tma": None}
 Params = Sequence[torch.Tensor]
 
 
@@ -154,6 +166,48 @@ def attn_core_bwd_ref(qkv, dob, stats, B: int, N: int, H: int):
     return dqkv32, dqkv32.to(cdt), delta
 
 
+def flash_fwd_ref(qkv, num_heads: int, scale: float):
+    """Plain K15 forward, the kernel's one-pass algorithm: over key tiles of
+    64, s = (q·kᵀ) · scale in f32, the running row max m, p = exp(s − m),
+    o and l = Σ p rescaled by exp(m_old − m) as m grows, o += p (rounded to
+    cdt)·v; at the end o / l rounded to cdt. qkv (B, N, 3D) in cdt → (o (B,
+    N, D) in cdt, stats (B, H, N, 2) f32 = each query row's final m and l)."""
+    B, N, D3 = qkv.shape
+    D, cdt = D3 // 3, qkv.dtype
+    q, k, v = (_heads(qkv[..., i * D:(i + 1) * D], B, N, num_heads) for i in range(3))
+    m = torch.full((B, num_heads, N, 1), -torch.inf, device=qkv.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, num_heads, N, D // num_heads, device=qkv.device)
+    for j0 in range(0, N, FLASH_TILE):
+        kt, vt = k[:, :, j0:j0 + FLASH_TILE], v[:, :, j0:j0 + FLASH_TILE]
+        s = mm(q, kt.transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm(p.to(cdt), vt)
+        m = m_new
+    o = (acc / l).to(cdt)
+    return o.transpose(1, 2).reshape(B, N, D), torch.cat([m, l], -1)
+
+
+def flash_bwd_ref(qkv, o, do, stats, num_heads: int, scale: float):
+    """Plain K15 backward, the JAX library's formulas: di = Σ_c o·do per
+    query row (f32), p = exp(s − m) / l from the forward's stats, dp =
+    do·vᵀ, dS = p·(dp − di)·scale rounded to cdt; dq = dS·k, dk = dSᵀ·q, dv
+    = p(cdt)ᵀ·do with f32 sums → dqkv (B, N, 3D) in cdt."""
+    B, N, D3 = qkv.shape
+    D, cdt = D3 // 3, qkv.dtype
+    q, k, v = (_heads(qkv[..., i * D:(i + 1) * D], B, N, num_heads) for i in range(3))
+    do_h, o_h = _heads(do, B, N, num_heads), _heads(o, B, N, num_heads)
+    di = (o_h.float() * do_h.float()).sum(-1, keepdim=True)
+    p = torch.exp(mm(q, k.transpose(-1, -2)) * scale - stats[..., :1]) / stats[..., 1:]
+    dp = mm(do_h, v.transpose(-1, -2))
+    ds = (p * (dp - di) * scale).to(cdt)
+    grads = (mm(ds, k), mm(ds.transpose(-1, -2), q), mm(p.to(cdt).transpose(-1, -2), do_h))
+    return torch.cat([t.transpose(1, 2).reshape(B, N, D) for t in grads], -1).to(cdt)
+
+
 # ------------------------------------------------------------ CUDA kernels
 def _typed(lib) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
@@ -169,6 +223,10 @@ def _typed(lib) -> None:
     lib.cerebra_vit_attn_core_bwd.restype = i
     lib.cerebra_vit_attn_scores.argtypes = [vp] * 3 + [i] * 4 + [vp]
     lib.cerebra_vit_attn_scores.restype = i
+    lib.cerebra_vit_flash_fwd.argtypes = [i] + [vp] * 3 + [i] * 4 + [ctypes.c_float, vp, vp]
+    lib.cerebra_vit_flash_fwd.restype = i
+    lib.cerebra_vit_flash_bwd.argtypes = [i] + [vp] * 6 + [i] * 4 + [ctypes.c_float, vp]
+    lib.cerebra_vit_flash_bwd.restype = i
 
 
 def _dims(x, p: Params, num_heads: int):
@@ -289,6 +347,49 @@ def _core_bwd_cuda(qkv, dob, stats, B, N, H):
     return dqkv32, dqkvn, delta
 
 
+def _flash_dims(qkv, num_heads: int, others=()):
+    if qkv.dim() != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"qkv must be (B, N, 3D), got {tuple(qkv.shape)}")
+    if not qkv.is_contiguous():
+        raise ValueError("the attention cores take contiguous tensors only")
+    B, N, D3 = qkv.shape
+    _core_dims(qkv.view(B * N, D3), B, N, num_heads, others)
+    return B, N, D3 // 3
+
+
+def _flash_fwd_cuda(qkv, num_heads: int, scale: float):
+    B, N, D = _flash_dims(qkv, num_heads)
+    o = torch.empty(B, N, D, dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty(B, num_heads, N, 2, dtype=torch.float32, device=qkv.device)
+    tma = ctypes.c_int(0)
+    lib = load_lib("vit_attn", _typed)
+    rc = lib.cerebra_vit_flash_fwd(int(qkv.dtype == torch.bfloat16), ptr(qkv), ptr(o), ptr(stats),
+                                   B, N, D, num_heads, scale, ctypes.addressof(tma),
+                                   stream_of(qkv))
+    check_rc(lib, rc, "vit_attn_flash_fwd")
+    LAUNCHES["vit_attn_flash_fwd"] += 1
+    FLASH_ROUTE["tma"] = bool(tma.value)
+    return o, stats
+
+
+def _flash_bwd_cuda(qkv, o, do, stats, num_heads: int, scale: float):
+    B, N, D = _flash_dims(qkv, num_heads, (o, do, stats))
+    for t in (o, do):
+        if t.shape != (B, N, D) or t.dtype != qkv.dtype:
+            raise ValueError("o and do must be (B, N, D) in qkv's dtype")
+    if stats.shape != (B, num_heads, N, 2) or stats.dtype != torch.float32:
+        raise ValueError("stats must be (B, H, N, 2) float32")
+    delta = torch.empty(B, num_heads, N, dtype=torch.float32, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    lib = load_lib("vit_attn", _typed)
+    rc = lib.cerebra_vit_flash_bwd(int(qkv.dtype == torch.bfloat16), ptr(qkv), ptr(o), ptr(do),
+                                   ptr(stats), ptr(delta), ptr(dqkv), B, N, D, num_heads, scale,
+                                   stream_of(qkv))
+    check_rc(lib, rc, "vit_attn_flash_bwd")
+    LAUNCHES["vit_attn_flash_bwd"] += 1
+    return dqkv
+
+
 # ---------------------------------------------------------------- wrappers
 def attn_fwd(x, s, p: Params, num_heads: int):
     """K5 on CUDA, its plain version on the CPU → (out, saved)."""
@@ -335,37 +436,66 @@ def attn_core_bwd(qkv, dob, stats, B: int, N: int, H: int):
     return attn_core_bwd_ref(qkv, dob, stats, B, N, H)
 
 
-class _FlashMHA(torch.autograd.Function):
-    """K15: softmax(q·kᵀ·scale)·v through K5/K6's attention cores."""
+def flash_fwd(qkv, num_heads: int, scale: float):
+    """K15's forward on CUDA, its plain version on the CPU → (o (B, N, D),
+    stats (B, H, N, 2) f32)."""
+    if on_cuda(qkv):
+        return _flash_fwd_cuda(qkv, num_heads, scale)
+    return flash_fwd_ref(qkv, num_heads, scale)
+
+
+def flash_bwd(qkv, o, do, stats, num_heads: int, scale: float):
+    """K15's backward on CUDA, its plain version on the CPU → dqkv (B, N, 3D)
+    in qkv's dtype."""
+    if on_cuda(qkv, o, do, stats):
+        return _flash_bwd_cuda(qkv, o, do, stats, num_heads, scale)
+    return flash_bwd_ref(qkv, o, do, stats, num_heads, scale)
+
+
+class _FlashQKV(torch.autograd.Function):
+    """K15 over the qkv rows: `impl` is (forward, backward), the dispatching
+    wrappers or the plain pieces."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        B, H, N, _ = q.shape
-        # the scale folded into q in q's dtype, as `(q * scale) @ kᵀ` rounds it
-        qkv = torch.cat([_rows(t, B, N) for t in (q * scale, k, v)], 1)
-        o, stats = attn_core_fwd(qkv, B, N, H)
-        ctx.save_for_backward(qkv, stats)
-        ctx.scale = scale
-        return _heads(o.reshape(B, N, -1), B, N, H)
+    def forward(ctx, impl, qkv, num_heads, scale):
+        qkv = qkv.contiguous()
+        o, stats = impl[0](qkv, num_heads, scale)
+        ctx.save_for_backward(qkv, o, stats)
+        ctx.impl, ctx.num_heads, ctx.scale = impl, num_heads, scale
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        qkv, stats = ctx.saved_tensors
-        B, H, N, _ = do.shape
-        dqkv32, _, _ = attn_core_bwd(qkv, _rows(do, B, N).to(qkv.dtype), stats, B, N, H)
-        dq, dk, dv = _qkv_heads(dqkv32, B, N, H)
-        # chain rule through q·scale
-        return (dq * ctx.scale).to(qkv.dtype), dk.to(qkv.dtype), dv.to(qkv.dtype), None
+        qkv, o, stats = ctx.saved_tensors
+        dqkv = ctx.impl[1](qkv, o, do.to(qkv.dtype).contiguous(), stats, ctx.num_heads,
+                           ctx.scale)
+        return None, dqkv, None, None
+
+
+def flash_mha_qkv(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Multi-head softmax(q·kᵀ·scale)·v straight from the qkv rows (B, N, 3D),
+    feature i·D + h·dh + c (the dense layer's output as it is), to the rows
+    (B, N, D) that proj reads, in qkv's dtype (f32 or bf16); the gradient is
+    that of the qkv rows. On CUDA K15's kernels (`vit_attn_flash_fwd`,
+    `vit_attn_flash_bwd`); a head dim above MAX_HEAD_DIM raises. On the CPU
+    their plain versions."""
+    return _FlashQKV.apply((flash_fwd, flash_bwd), qkv, num_heads, scale)
+
+
+def flash_mha_qkv_ref(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """`flash_mha_qkv` through the plain pieces on any device (the card
+    holds the kernels against it)."""
+    return _FlashQKV.apply((flash_fwd_ref, flash_bwd_ref), qkv, num_heads, scale)
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """softmax(q·kᵀ·scale)·v over (B, H, N, dh) q, k, v of one dtype (f32 or
-    bf16) → (B, H, N, dh), the function of the JAX package's `_flash_mha`
-    (cerebra/models/vit.py:75). On CUDA the forward is K5's attention core
-    (`vit_attn_core_fwd`) and the backward K6's (`vit_attn_core_bwd`, from
-    the forward's row statistics); a head dim above MAX_HEAD_DIM raises. On
-    the CPU both are their plain versions."""
-    return _FlashMHA.apply(q, k, v, scale)
+    bf16) → (B, H, N, dh), the function and signature of the JAX package's
+    `_flash_mha` (cerebra/models/vit.py:75): q, k and v packed into qkv rows
+    for `flash_mha_qkv`."""
+    B, H, N, _ = q.shape
+    qkv = torch.cat([_rows(t, B, N) for t in (q, k, v)], 1).view(B, N, -1)
+    return _heads(flash_mha_qkv(qkv, H, scale), B, N, H)
 
 
 class _FusedAttn(torch.autograd.Function):

@@ -19,7 +19,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  bf16, at B = 1024, 16 and 13 (T = 460, C = H = 96, L = 2),
                  K3 at B = 960 in bf16, and K2 on K1's own residuals; in
                  bf16 K1 and K3 run the wavefront forward (`fwd_wave`
-                 launches counted)
+                 launches counted), in f32 K3 the layer-by-layer path
   4. main        `cerebra_torch.cli.lstm_distill_from_dinov2_train.main` on
                  the synthetic corpus (40 classes x 30 trials of (96, 512)),
                  bf16, batch 16, 6 epochs; launch counts cover every step,
@@ -84,7 +84,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  that set `fwd_path` (both autoencoder widths and the CLI's
                  B = 16, bf16 and f32, the bench step's B = 1024 and the
                  validation's B = 960, bf16, and the DINO-LSTM's widths at
-                 B = 1024 and 16, T = 300); the two pieces
+                 B = 1024 and 16, T = 300); K3 in f32 at the eval's
+                 galleries (B = 320 and 80, C 96, H 128, L 4) at every
+                 cluster size beside `lstm_fwd_kernel`; the two pieces
                  alone against plain and the
                  library call at the encoder's width
  12. rc          K10/K11 (`lstm_stack_rc`, the recompute backward) and K4
@@ -130,20 +132,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  H 128, L 4) over its crops, B = 16, T = 300 and B = 32,
                  T = 200; `lstm_distill`'s C = H = 96, L = 4 and the
                  Spampinato rig's C = H = 128, L = 4, B = 16, T = 460; K3
-                 also at the eval's gallery (B = 320, C 96, H 128) and at
-                 `lstm_distill`'s validation gallery; `lstm_distillation.main`
-                 at its full-width defaults (Model(96, 128, 4) + DINOHead
-                 128 -> 384, 2 x 300 + 4 x 200 crops, batch 8, bf16) on 40
-                 classes x 10 trials for 2 epochs: finite losses,
-                 checkpoint.pth, log.txt, and every step 2 K1, 2 K2 and 1 K3;
-                 the eval CLI on that checkpoint (its teacher's backbone, K3
-                 on h[T-1]) and on phase 4's weights: the three score files,
-                 finite R/P, K3 for the gallery and the query; `lstm_distill`
-                 and the Spampinato trainer for 2 epochs; `[lstm dino step]`
-                 (ms/step, windows/s), `[lstm dino profile]` (device time by
-                 part, the teacher's K3 apart, the idle share) and `[lstm
+                 also at the eval's gallery and query (B = 320 and 80, C 96,
+                 H 128, f32: the layer-by-layer path) and at `lstm_distill`'s
+                 validation gallery; `lstm_distillation.main` at its
+                 full-width defaults (Model(96, 128, 4) + DINOHead 128 ->
+                 384, 2 x 300 + 4 x 200 crops, batch 8, bf16) on 40 classes
+                 x 10 trials for 2 epochs: finite losses, checkpoint.pth,
+                 log.txt, and every step 2 K1, 2 K2 and 1 K3, the teacher's
+                 K3 one `fwd_wave_split` launch; the eval CLI on that
+                 checkpoint (its teacher's backbone, K3 on h[T-1]) and on
+                 phase 4's weights: the three score files, finite R/P, K3
+                 for the gallery and the query, each an input product and a
+                 cluster scan a layer; `lstm_distill` and the Spampinato
+                 trainer for 2 epochs (its validation's K3 on the split
+                 wavefront); `[lstm dino step]` (ms/step, windows/s),
+                 `[lstm dino profile]` (device time by part, the teacher's
+                 K3 apart, no `lstm_fwd_kernel`, the idle share) and `[lstm
                  family timing]` (each kernel at each shape against plain,
-                 bound and cuDNN)
+                 bound and cuDNN; K3 beside `lstm_fwd_kernel`)
  15. analysis    `[analysis greedy]`: discover_channels at the Spampinato
                  scale (40 x 300 trials of 128 channels, 460 samples: 9600
                  gallery and 2400 query trials, D 11.8 GB), 4 channels, D
@@ -157,12 +163,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
                  (ViT-Ti/16, DINOHead to 65536, 40 x 10 trials) with random
                  weights and a vit_small/8 checkpoint, 24 K5 and 24 K7 each;
                  `[attention maps]`: visualize_attention --threshold 0.6;
-                 `[flash]`: K15 (`flash_mha` on K5/K6's attention cores)
-                 against plain and `Attention`'s softmax path at main_dino's
-                 globals, f32 and bf16, its time against SDPA's flash
-                 kernels and by device time, and two main_dino steps with
-                 --use_flash true --use_fused_attn false (12 core launches
-                 a global view forward)
+                 `[flash]`: K15 (`flash_mha_qkv`: its one-pass forward core
+                 on wgmma fed by the TMA, K6's backward cores with di = Σ
+                 o·do) against its plain pieces and `Attention`'s softmax
+                 path at main_dino's globals, f32 and bf16, its forward and
+                 backward against SDPA's flash kernels in the same call and
+                 by device time, the device kernels of `Attention`'s flash
+                 branch (no layout, scale or cast kernel between the qkv
+                 layer and proj), and two main_dino steps with --use_flash
+                 true --use_fused_attn false (12 forward launches a global
+                 view forward)
  16. teacher     `[teacher kernels]`: K5 and K7 with LayerScale (gammas
                  U(0.5, 1.5) folded into proj and fc2), f32, against their
                  plain versions and timed at the DINOv2 ViT-S/14's shapes
@@ -545,7 +555,8 @@ def phase_parity() -> dict:
                                  ls._fwd_infer_last_ref(x, layers), torch.bfloat16, False))
     torch.cuda.synchronize()
     # the bf16 K1 and K3 calls above (3 batches, and K3 at 960) run the
-    # wavefront forward, one launch each; f32 keeps lstm_fwd_kernel
+    # wavefront forward, one launch each; f32 K1 its earlier paths, f32 K3
+    # the layer-by-layer one
     want_wave = sum(2 for B in (1024, 16, 13)
                     if ls.fwd_path(B, C, H, L, torch.bfloat16, "fwd_train") == "wave") + 1
     log(f"[parity] fwd_wave launches {ls.LAUNCHES['fwd_wave']} (expected {want_wave}); "
@@ -1651,7 +1662,8 @@ def phase_fwd_paths(gpu: str) -> tuple:
         ms = {}
         for kind in kinds:
             ms[f"{kind} lstm_fwd_kernel"] = round(time_ms(lambda: ls._fwd_cuda(x, layers, kind), 3), 3)
-            if kind in ("fwd_train", "fwd_infer"):
+            if kind in ("fwd_train", "fwd_infer") or (kind == "fwd_infer_last"
+                                                      and dtype == torch.float32):
                 for n in ls.cluster_sizes(h, dtype):
                     ms[f"{kind} n={n}"] = round(
                         time_ms(lambda: ls._fwd_cluster_cuda(x, layers, kind, n), 3), 3)
@@ -1672,6 +1684,21 @@ def phase_fwd_paths(gpu: str) -> tuple:
                      f"{ls.wave_split_tiles(B, c, h, l_)}")
         log(f"[fwd paths] B={B} C={c} H={h} L={l_} T={t_} {str(dtype).split('.')[-1]}: ms {ms}; "
             f"fwd_path takes {paths} (clusters of {ls.pick_fwd(B, c, h, l_, dtype)}{tiles}) on {gpu}")
+        del x, layers
+
+    # K3 in f32 at the eval's galleries (C 96, H 128, L 4): the layer-by-layer
+    # path at every cluster size (pick_fwd's rule), lstm_fwd_kernel as a record
+    f32 = torch.float32
+    for B in (320, 80):
+        x, layers, _ = make_stack(B, f32, seed=8, C=96, H=128, L=4, T=T)
+        ms = {"lstm_fwd_kernel": round(
+            time_ms(lambda: ls._fwd_cuda(x, layers, "fwd_infer_last"), 2), 3)}
+        for n in ls.cluster_sizes(128, f32):
+            ms[f"n={n}"] = round(
+                time_ms(lambda: ls._fwd_cluster_cuda(x, layers, "fwd_infer_last", n), 3), 3)
+        log(f"[fwd paths] K3 B={B} C=96 H=128 L=4 T={T} float32: ms {ms}; fwd_path takes "
+            f"{ls.fwd_path(B, 96, 128, 4, f32, 'fwd_infer_last')} (clusters of "
+            f"{ls.pick_fwd(B, 96, 128, 4, f32, 'fwd_infer_last')}) on {gpu}")
         del x, layers
 
     # the pieces alone at the encoder's width, as the AE step runs them (K1's
@@ -2174,10 +2201,12 @@ def phase_scan(gpu: str) -> tuple:
 # CLI's batch 16 over T = 460.
 FAMILY_SHAPES = {"dino_global": (16, 300, 96, 128, 4), "dino_local": (32, 200, 96, 128, 4),
                  "distill": (16, T, 96, 96, 4), "spampinato": (16, T, 128, 128, 4)}
-# K3 alone, at the galleries of 40 classes x 10 trials (80 %: B = 320) and in
-# the dtype its main path runs: the eval CLI over a DINO checkpoint's backbone
-# (f32, as the eval runs) and `lstm_distill`'s validation (bf16)
+# K3 alone, at the galleries of 40 classes x 10 trials (80 %: B = 320; the
+# query 80) and in the dtype its main path runs: the eval CLI over a DINO
+# checkpoint's backbone (f32, as the eval runs: the layer-by-layer path) and
+# `lstm_distill`'s validation (bf16)
 FAMILY_K3_SHAPES = {"eval": ((320, T, 96, 128, 4), torch.float32),
+                    "eval_query": ((80, T, 96, 128, 4), torch.float32),
                     "distill_val": ((320, T, 96, 96, 4), torch.bfloat16)}
 FAMILY_CLASSES, FAMILY_TRIALS = 40, 10
 # the kernels line's entries of phase 14: name -> (kernel, shape, dtype)
@@ -2188,6 +2217,7 @@ FAMILY_KERNELS = {
     "fwd_train_dino_local": ("fwd_train", "dino_local", torch.bfloat16),
     "bwd_dino_local": ("bwd", "dino_local", torch.bfloat16),
     "fwd_infer_last_eval": ("fwd_infer_last", "eval", torch.float32),
+    "fwd_infer_last_eval_query": ("fwd_infer_last", "eval_query", torch.float32),
     "fwd_train_distill": ("fwd_train", "distill", torch.bfloat16),
     "bwd_distill": ("bwd", "distill", torch.bfloat16),
     "fwd_infer_last_distill": ("fwd_infer_last", "distill_val", torch.bfloat16),
@@ -2197,11 +2227,13 @@ FAMILY_KERNELS = {
 REPLACES.update({name: REPLACES[k] for name, (k, _, _) in FAMILY_KERNELS.items()})
 # the run of family_clis that drives each shape
 FAMILY_RUNS = {"dino_global": "dino", "dino_local": "dino", "eval": "eval_dino",
+               "eval_query": "eval_dino",
                "distill": "distill", "distill_val": "distill", "spampinato": "spampinato"}
 # the DINO-LSTM step's kernels by name fragment (first match wins): K1 runs
-# the cluster path there, so `lstm_fwd_kernel` is the teacher's K3 alone;
-# the port's own products are in namespace vit (cuBLAS's, the head's, are not)
-DINO_LSTM_PARTS = (("lstm_fwd_kernel", "K3 teacher forward"),
+# the cluster path there, so the wavefront forward (its split layer) is the
+# teacher's K3 alone, and `lstm_fwd_kernel` runs nowhere; the port's own
+# products are in namespace vit (cuBLAS's, the head's, are not)
+DINO_LSTM_PARTS = (("wave_fwd_kernel", "K3 teacher forward"),
                    ("cluster_scan", "K1 cluster scans"),
                    ("gemm_tc<false, false, vit::EpiF32>", "K1 input products"),
                    ("scan_bwd_kernel", "K2 scans"), ("vit::", "K2 products"),
@@ -2327,8 +2359,10 @@ def family_clis(gpu: str) -> dict:
         for name in ("checkpoint.pth", "checkpoint0000.pth", "log.txt"):
             if not os.path.exists(os.path.join(dino_dir, name)):
                 raise AssertionError(f"lstm_distillation wrote no {name}")
+        # the teacher's K3 on the split wavefront, one launch a step
         want = {"fwd_train": 2 * dino_steps, "bwd": 2 * dino_steps,
-                "fwd_infer_last": dino_steps, "bwd_general": 0}
+                "fwd_infer_last": dino_steps, "fwd_wave_split": dino_steps, "fwd_wave": 0,
+                "bwd_general": 0}
         for label in ("dino_global", "dino_local"):  # K1 and K2 once at each crop shape
             B_, T_ = FAMILY_SHAPES[label][:2]
             want.update({("fwd_train", B_, T_): dino_steps, ("bwd", B_, T_): dino_steps})
@@ -2356,7 +2390,7 @@ def family_clis(gpu: str) -> dict:
         if not os.path.exists(weights):  # the CLI would score a random-init model
             raise AssertionError(f"no {weights} to evaluate")
 
-        def check_eval(out, n, eval_dir=eval_dir, weights=weights, argv=argv):
+        def check_eval(out, n, eval_dir=eval_dir, weights=weights, argv=argv, key=key):
             if not all(math.isfinite(v) for v in out):
                 raise AssertionError(f"eval recall/precision {out}")
             for name in ("synthetic_Scores.pth", "synthetic_Scores.txt", "synthetic_.csv"):
@@ -2364,6 +2398,10 @@ def family_clis(gpu: str) -> dict:
                     raise AssertionError(f"the eval wrote no {name}")
             if n["fwd_infer_last"] != 2:  # the gallery's and the query's features
                 raise AssertionError(f"the eval's features bypassed K3: {n}")
+            # f32 K3 layer by layer: an input product and a cluster scan a layer
+            layers = 4 if key == "eval_dino" else L  # Model(96, 128, 4); phase 4's Model
+            if (n["fwd_in_product"], n["fwd_cluster_scan"]) != (2 * layers, 2 * layers):
+                raise AssertionError(f"the eval's f32 K3 bypassed the layer-by-layer path: {n}")
             check_eval_loaded(argv, weights, os.path.join(eval_dir, "synthetic_Scores.pth"))
 
         out, runs[key], _ = family_run(
@@ -2393,6 +2431,9 @@ def family_clis(gpu: str) -> dict:
                 raise AssertionError(f"{key}: K1/K3 bypassed the wavefront forward: {n}")
             if path == "cluster" and min(n["fwd_in_product"], n["fwd_cluster_scan"]) < 4 * steps:
                 raise AssertionError(f"{key}: K1 bypassed its layer-by-layer pieces: {n}")
+            if path == "cluster" and n["fwd_wave_split"] != n["fwd_infer_last"]:
+                raise AssertionError(f"{key}: the validation's K3 bypassed the split wavefront: "
+                                     f"{n}")
 
         (_, hist), runs[key], _ = family_run(
             f"{fn.__module__.split('.')[-1]} (C = H = {H_}, L = 4, batch 16, bf16, 2 epochs)",
@@ -2447,6 +2488,9 @@ def family_step_timing(gpu: str) -> None:
         part = next((p for frag, p in DINO_LSTM_PARTS if frag in name),
                     "rest (head, loss, AdamW, EMA, crops)")
         parts[part] = parts.get(part, 0.0) + ms / 3
+    if any("lstm_fwd_kernel" in name for name, _ in kernels):
+        raise AssertionError("the DINO-LSTM step ran lstm_fwd_kernel: the teacher's K3 should "
+                             "run the split wavefront")
     busy = sum(parts.values())
     log(f"[lstm dino profile] {wall_ms:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms (idle {max(0.0, 1 - busy / wall_ms) * 100:.1f} %); by part "
@@ -2489,8 +2533,15 @@ def family_kernel_timing(gpu: str) -> dict:
                              cudnn_ms(T_, B, C_, H_, L_, lib,
                                       dtype=torch.float32 if dtype == torch.float32 else None))
             path = ls.fwd_path(B, C_, H_, L_, dtype, kind) if kind != "bwd" else "scans + products"
+            record = ""
+            if kind == "fwd_infer_last" and path != "stack":  # the kernel it replaced
+                row["stack_ms"] = time_windows(
+                    lambda: ls._fwd_cuda(x, layers, "fwd_infer_last"), 2, 1, 1)[0]
+                record = f"; lstm_fwd_kernel {row['stack_ms']:.3f} ms"
+            if path == "cluster":
+                record += f" (clusters of {ls.pick_fwd(B, C_, H_, L_, dtype, kind)})"
             log(f"[lstm family timing] {kind} {label} B={B} T={T_} C={C_} H={H_} L={L_} {dt} "
-                f"({path}): {fmt_row(row)} on {gpu}")
+                f"({path}): {fmt_row(row)}{record} on {gpu}")
             rows[(kind, label)] = row
         del x, layers, g, res
     return rows
@@ -2521,8 +2572,8 @@ def phase_lstm_family(gpu: str) -> tuple:
 
 
 # Phase 15: retrieval analysis and the EEG-side DINO CLIs at full width, and
-# K15 (`flash_mha`, the flash attention of `Attention(use_flash=True)`) on
-# K5/K6's attention cores. The corpora: the Spampinato scale (40 classes x
+# K15 (`flash_mha_qkv`, the flash attention of `Attention(use_flash=True)`,
+# over the qkv rows). The corpora: the Spampinato scale (40 classes x
 # 300 trials of 128 channels x 500 samples, windowed to 460: 9600 gallery and
 # 2400 query trials, D = 128 x 2400 x 9600 f32 = 11.8 GB) and the Perils
 # size (40 x 50 trials of 96 channels x 512 samples).
@@ -2749,38 +2800,35 @@ def attention_maps(gpu: str) -> None:
     log(f"[attention maps] {len(paths)} PNGs in {seconds:.1f} s on {gpu}")
 
 
-def flash_plain(q, k, v, do, scale: float):
-    """K15's plain version: the attention cores' plain pieces in the
-    wrapper's layout → (out, dq, dk, dv), or (out,) without `do`."""
-    from cerebra_torch.models import vit_attn as va
-
-    B, H_, N, _ = q.shape
-    qkv = torch.cat([va._rows(t, B, N) for t in (q * scale, k, v)], 1)
-    o, stats = va.attn_core_fwd_ref(qkv, B, N, H_)
-    if do is None:
-        return (va._heads(o.reshape(B, N, -1), B, N, H_),)
-    dqkv32, _, _ = va.attn_core_bwd_ref(qkv, va._rows(do, B, N).to(qkv.dtype), stats, B, N, H_)
-    dq, dk, dv = va._qkv_heads(dqkv32, B, N, H_)
-    return (va._heads(o.reshape(B, N, -1), B, N, H_), (dq * scale).to(q.dtype), dk.to(q.dtype),
-            dv.to(q.dtype))
+def flash_inputs(B: int, N: int, Hh: int, dh: int, cdt, seed: int):
+    """qkv rows (B, N, 3D) and a cotangent do (B, N, D) in cdt on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    D = Hh * dh
+    return (torch.randn(B, N, 3 * D, generator=gen).to("cuda", cdt),
+            torch.randn(B, N, D, generator=gen).to("cuda", cdt))
 
 
-def flash_kernel(q, k, v, do, scale: float):
-    from cerebra_torch.models.vit_attn import flash_mha
+def flash_kernel(qkv, do, Hh: int, scale: float):
+    """K15 through autograd on the card → (o, dqkv)."""
+    from cerebra_torch.models.vit_attn import flash_mha_qkv
 
-    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = flash_mha(qg, kg, vg, scale)
-    return (out, *torch.autograd.grad(out, (qg, kg, vg), do))
+    x = qkv.detach().requires_grad_(True)
+    out = flash_mha_qkv(x, Hh, scale)
+    return (out, *torch.autograd.grad(out, x, do))
 
 
 def flash_parity(gpu: str) -> dict:
     """K15 at main_dino's globals: `Attention(use_flash=True)` against its
-    softmax path (the value and every gradient), and flash_mha against its
-    plain version, bf16 and f32 → the bf16 errors of the forward and the
-    backward for the kernels line."""
+    softmax path (the value and every gradient), the kernels against their
+    plain pieces (o, the row statistics, dq, dk, dv of the qkv rows), bf16
+    and f32, and `flash_mha(q, k, v)` against the qkv rows it packs; the
+    bf16 forward must have had the TMA bring its tiles → the bf16 errors of
+    the forward and the backward for the kernels line."""
     from cerebra_torch.models import vit as tv
+    from cerebra_torch.models import vit_attn as va
 
     B, N, D, Hh = 16, 785, D_VIT, H_VIT
+    dh = D // Hh
     errs = {}
     for cdt in (torch.float32, torch.bfloat16):
         name = str(cdt).split(".")[-1]
@@ -2800,69 +2848,132 @@ def flash_parity(gpu: str) -> dict:
         for i, (a, b) in enumerate(zip(*outs)):
             compare(f"K15 Attention(use_flash) {names[i]} B={B} N={N} {name}", a, b, cdt, i > 0,
                     TOL_VIT)
-        dh = D // Hh
-        q, k, v, do = (torch.randn(B, Hh, N, dh, generator=gen).to("cuda", cdt)
-                       for _ in range(4))
-        got, want = flash_kernel(q, k, v, do, dh ** -0.5), flash_plain(q, k, v, do, dh ** -0.5)
-        e_fwd = compare(f"K15 flash_mha out B={B} H={Hh} N={N} {name}", got[0], want[0], cdt,
-                        False, TOL_VIT)
-        e_bwd = max(compare(f"K15 flash_mha {n} B={B} H={Hh} N={N} {name}", a, b, cdt, True,
-                            TOL_VIT) for n, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]))
+        qkv, do = flash_inputs(B, N, Hh, dh, cdt, 17)
+        o, stats = va.flash_fwd(qkv, Hh, dh ** -0.5)
+        if cdt == torch.bfloat16 and not va.FLASH_ROUTE["tma"]:
+            raise AssertionError("K15's bf16 forward did not have the TMA bring its tiles")
+        o_r, stats_r = va.flash_fwd_ref(qkv, Hh, dh ** -0.5)
+        tag = f"B={B} H={Hh} N={N} dh={dh} {name}"
+        # o in the compute dtype's gate; m and l, f32 sums of up to N terms
+        # (l reaches ~N), relative as the f32 gradients
+        e_fwd = max(compare(f"K15 forward {k} {tag}", a, b, cdt if k == "o" else torch.float32,
+                            k != "o", TOL_VIT)
+                    for k, a, b in (("o", o, o_r), ("m", stats[..., 0], stats_r[..., 0]),
+                                    ("l", stats[..., 1], stats_r[..., 1])))
+        got = va.flash_bwd(qkv, o, do, stats, Hh, dh ** -0.5)
+        want = va.flash_bwd_ref(qkv, o, do, stats, Hh, dh ** -0.5)
+        e_bwd = max(compare(f"K15 backward {k} {tag}", got[..., i * D:(i + 1) * D],
+                            want[..., i * D:(i + 1) * D], cdt, True, TOL_VIT)
+                    for i, k in enumerate(("dq", "dk", "dv")))
+        q, k, v = (va._heads(qkv[..., i * D:(i + 1) * D], B, N, Hh) for i in range(3))
+        if not torch.equal(va._rows(va.flash_mha(q, k, v, dh ** -0.5), B, N).view(B, N, D), o):
+            raise AssertionError(f"flash_mha(q, k, v) is not K15 on its packed rows at {tag}")
         if cdt == torch.bfloat16:
             errs = {"vit_attn_flash_fwd": e_fwd, "vit_attn_flash_bwd": e_bwd}
+            log(f"[flash] the bf16 forward's tiles came through the TMA; flash_mha(q, k, v) "
+                f"equals K15 on its packed rows bit for bit on {gpu}")
     return errs
+
+
+# kernels that would be a layout pass, a scale or a cast between the qkv
+# dense layer and proj (torch's elementwise, copy and concatenation kernels)
+FLASH_LAYOUT_PASSES = ("elementwise", "copy", "Copy", "CatArray", "cat_")
+
+
+def short_kernel(name: str) -> str:
+    """A kernel's name without its return type, namespace and arguments."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1][:60]
+
+
+def flash_attention_profile(gpu: str) -> None:
+    """`[flash]`: the device kernels of `Attention`'s flash branch, forward
+    and backward, in bf16 at main_dino's globals (a bf16 module, so no
+    parameter is cast): the qkv dense layer, K15 and proj, and in the
+    backward their gradients; none may be a layout pass, a scale or a cast
+    (FLASH_LAYOUT_PASSES)."""
+    from cerebra_torch.models import vit as tv
+
+    B, N, D, Hh = 16, 785, D_VIT, H_VIT
+    gen = torch.Generator().manual_seed(3)
+    attn = tv.Attention(D, Hh, dtype=torch.bfloat16, use_flash=True).to("cuda", torch.bfloat16)
+    x = torch.randn(B, N, D, generator=gen).to("cuda", torch.bfloat16).requires_grad_(True)
+    cot = torch.randn(B, N, D, generator=gen).to("cuda", torch.bfloat16)
+    params = (x, *attn.parameters())
+    box = []
+
+    def fwd():
+        box[:] = [attn(x, need_weights=False)[0]]
+
+    def bwd():
+        torch.autograd.grad(box[0], params, cot, retain_graph=True)
+
+    fwd()
+    for what, call in (("forward", fwd), ("backward", bwd)):
+        kernels, wall_ms, _ = device_kernels(call, 3)
+        names = [k for k, _ in kernels[:len(kernels) // 3]]
+        ms = sum(t for _, t in kernels) / 3
+        short = [short_kernel(k) for k in names]
+        log(f"[flash] Attention(use_flash) {what} B={B} N={N} bf16: {len(names)} kernels, "
+            f"{ms:.4f} ms device, {wall_ms:.4f} ms host: {short} on {gpu}")
+        bad = [k for k in names if any(frag in k for frag in FLASH_LAYOUT_PASSES)]
+        if bad:
+            raise AssertionError(f"Attention's flash {what} runs layout, scale or cast kernels "
+                                 f"between the qkv layer and proj: {bad}")
 
 
 def flash_timing(gpu: str) -> dict:
     """`[flash]`: K15's forward and backward at main_dino's globals, bf16,
-    against the plain version, the bound and SDPA's flash kernels on the same
-    q, k, v (the yardstick the port no longer calls) → kernels-line rows."""
+    each against its plain piece, the bound and SDPA's flash kernels on the
+    same q, k, v in the same call (the yardstick the port never calls) →
+    kernels-line rows."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    from cerebra_torch.models.vit_attn import flash_mha
+    from cerebra_torch.models import vit_attn as va
 
     B, N, Hh, dh = 16, 785, H_VIT, D_VIT // H_VIT
-    scale, bf = dh ** -0.5, torch.bfloat16
-    gen = torch.Generator().manual_seed(16)
-    q, k, v, do = (torch.randn(B, Hh, N, dh, generator=gen).to("cuda", bf) for _ in range(4))
-    out = flash_mha(q, k, v, scale)
-
-    def sdpa_both():
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-        torch.autograd.grad(sdpa(qg, kg, vg, scale=scale), (qg, kg, vg), do)
-
-    with torch.no_grad():
-        fwd = {"ms": time_windows(lambda: flash_mha(q, k, v, scale), 10, 3, 2)[0],
-               "plain_ms": time_windows(lambda: flash_plain(q, k, v, None, scale), 3, 1, 1)[0]}
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-            fwd["library_ms"] = time_windows(lambda: sdpa(q, k, v, scale=scale), 10, 3, 2)[0]
-    both = {"ms": time_windows(lambda: flash_kernel(q, k, v, do, scale), 10, 3, 2)[0],
-            "plain_ms": time_windows(lambda: flash_plain(q, k, v, do, scale), 3, 1, 1)[0]}
+    D, scale, bf = Hh * dh, dh ** -0.5, torch.bfloat16
+    qkv, do = flash_inputs(B, N, Hh, dh, bf, 16)
+    o, stats = va.flash_fwd(qkv, Hh, scale)
+    q, k, v = (va._heads(qkv[..., i * D:(i + 1) * D], B, N, Hh).contiguous() for i in range(3))
+    dob = va._heads(do, B, N, Hh).contiguous()
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        both["library_ms"] = time_windows(sdpa_both, 10, 3, 2)[0]
+        out_s = sdpa(qg, kg, vg, scale=scale)
+        fwd = {"library_ms": time_windows(lambda: sdpa(q, k, v, scale=scale), 20, 5, 3)[0]}
+        bwd = {"library_ms": time_windows(lambda: torch.autograd.grad(
+            out_s, (qg, kg, vg), dob, retain_graph=True), 20, 5, 3)[0]}
+    fwd["ms"] = time_windows(lambda: va.flash_fwd(qkv, Hh, scale), 20, 5, 3)[0]
+    bwd["ms"] = time_windows(lambda: va.flash_bwd(qkv, o, do, stats, Hh, scale), 20, 5, 3)[0]
+    fwd["plain_ms"] = time_windows(lambda: va.flash_fwd_ref(qkv, Hh, scale), 3, 1, 1)[0]
+    bwd["plain_ms"] = time_windows(lambda: va.flash_bwd_ref(qkv, o, do, stats, Hh, scale), 3, 1,
+                                   1)[0]
     n = 5
-    kernels, wall_ms, _ = device_kernels(lambda: flash_kernel(q, k, v, do, scale), n)
+    kernels, wall_ms, _ = device_kernels(lambda: flash_kernel(qkv, do, Hh, scale), n)
     device = sum(ms for _, ms in kernels) / n
-    cores = sum(ms for name, ms in kernels if "attn_fwd" in name or "attn_bwd" in name) / n
-    log(f"[flash] K15 forward + backward by device time: {device:.4f} ms a call, the attention "
-        f"cores {cores:.4f}, the layout copies, casts and scaling {device - cores:.4f}; "
-        f"{wall_ms:.4f} ms a call on the host clock under the profiler on {gpu}")
-    both.update(fwd_bwd_device_ms=device, fwd_bwd_cores_ms=cores)
+    by_kernel = {}
+    for name, ms in kernels:
+        key = short_kernel(name)
+        by_kernel[key] = by_kernel.get(key, 0.0) + ms / n
+    log(f"[flash] K15 forward + backward through autograd by device time: {device:.4f} ms a "
+        f"call { {k: round(v, 4) for k, v in by_kernel.items()} }; {wall_ms:.4f} ms a call on "
+        f"the host clock under the profiler on {gpu}")
+    bwd.update(fwd_bwd_device_ms=device)
     # the forward's products: QKᵀ and PV, 4·B·H·N²·dh; the backward's S
-    # again, dV, dP, dQ and dK, 2.5 times that; bytes: q, k, v in and o
-    # out, then q, k, v, o and do in and dq, dk, dv out
+    # again, dV, dP, dQ and dK, 2.5 times that; bytes: qkv in and o out,
+    # then qkv, o and do in and dqkv out
     ops = 4 * B * Hh * N * N * dh
     rows = {}
     for name, row, flops, moved in (
-            ("vit_attn_flash_fwd", fwd, ops, nbytes(q, k, v, out)),
-            ("vit_attn_flash_bwd", {k_: both[k_] - fwd.get(k_, 0.0) for k_ in both}, 2.5 * ops,
-             nbytes(q, k, v, out, do) + 3 * nbytes(q))):
+            ("vit_attn_flash_fwd", fwd, ops, nbytes(qkv, o)),
+            ("vit_attn_flash_bwd", bwd, 2.5 * ops, nbytes(qkv, o, do, qkv))):
         t_ops, t_mem = flops / PEAK_FLOPS[bf], moved / HBM_BYTES_PER_S
         rows[name] = dict(row, bound_ms=max(t_ops, t_mem) * 1e3,
                           bound_by="operations" if t_ops > t_mem else "bytes")
         log(f"[flash] {name} B={B} H={Hh} N={N} dh={dh} bf16: {fmt_row(rows[name])} (SDPA "
-            f"flash; the backward rows are forward + backward less the forward) on {gpu}")
+            f"flash in the same call; kernel / SDPA {row['ms'] / row['library_ms']:.2f}) on {gpu}")
+    flash_attention_profile(gpu)
     return rows
 
 
@@ -2888,18 +2999,18 @@ def flash_main_dino(gpu: str) -> dict:
     launches = dict(LAUNCHES)
     if state.step != steps or not all(math.isfinite(v) for v in hist["loss"]):
         raise AssertionError(f"main_dino --use_flash: {state.step} steps, losses {hist['loss']}")
-    want = {"vit_attn_core_fwd": 24 * steps, "vit_attn_core_bwd": 12 * steps,
-            "vit_attn_fwd": 0, "vit_attn_bwd": 0}
+    want = {"vit_attn_flash_fwd": 24 * steps, "vit_attn_flash_bwd": 12 * steps,
+            "vit_attn_core_fwd": 0, "vit_attn_core_bwd": 0, "vit_attn_fwd": 0, "vit_attn_bwd": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"main_dino --use_flash launched {launches}, not {want}")
     log(f"[flash] main_dino --use_flash true --use_fused_attn false: {steps} steps in "
         f"{seconds:.1f} s (the model's init included), losses {hist['loss']}; K15 forward "
-        f"{launches['vit_attn_core_fwd']} launches (12 a global view forward, 2 a step), "
-        f"backward {launches['vit_attn_core_bwd']} on {gpu}")
+        f"{launches['vit_attn_flash_fwd']} launches (12 a global view forward, 2 a step), "
+        f"backward {launches['vit_attn_flash_bwd']} on {gpu}")
     del state
     torch.cuda.empty_cache()
-    return {"vit_attn_flash_fwd": launches["vit_attn_core_fwd"],
-            "vit_attn_flash_bwd": launches["vit_attn_core_bwd"]}
+    return {"vit_attn_flash_fwd": launches["vit_attn_flash_fwd"],
+            "vit_attn_flash_bwd": launches["vit_attn_flash_bwd"]}
 
 
 def phase_analysis(gpu: str) -> tuple:

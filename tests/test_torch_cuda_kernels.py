@@ -1,11 +1,11 @@
 """The port's CUDA LSTM kernels (the stack's K1, K2/K2g and their two pieces,
 each layer's reverse scan and products, K3, K4, K1/K4's layer-by-layer path
 and its two pieces, the input product and the cluster scan, K1/K3's
-wavefront forward (K1, K3, K4, K10; K4 and K10 also on its split
-layer), K10, K11 and its
+wavefront forward (K1, K3, K4, K10; K3, K4 and K10 also on its split
+layer), K3 in f32 layer by layer, K10, K11 and its
 pieces per
 time chunk; the scan's K12-K14, K12/K13 also on its wavefront forward) and
-the ViT kernels (K5-K8) and the IIR cascade (sos_scan) against
+the ViT kernels (K5-K8, K15) and the IIR cascade (sos_scan) against
 their plain PyTorch versions on the card (K7/K8 also piece by piece: the
 fused dh kernel and each product alone), over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
@@ -396,8 +396,9 @@ def test_fwd_layerwise_calls_no_library_product(cuda):
 # ------------------------------------------- K1/K3's wavefront forward
 # bf16 at the widths `wave_fits` takes: the bench step's and the CLI's
 # batches (1024, its validation's 960), a ragged 13 and a single row, L of 1
-# to 3, and two widths with C != H; in f32 `fwd_path` keeps
-# `lstm_fwd_kernel`, which the same test holds to the plain versions.
+# to 3, and two widths with C != H; in f32 `fwd_path` keeps K1 on
+# `lstm_fwd_kernel` and sends K3 layer by layer, which the same test holds
+# to the plain versions.
 WAVE_SHAPES = [(40, 1024, 96, 96, 2), (40, 960, 96, 96, 2), (33, 13, 96, 96, 1),
                (25, 1, 96, 96, 3), (19, 40, 32, 64, 3), (11, 17, 128, 48, 2)]
 
@@ -570,8 +571,8 @@ def test_fwd_wave_split_tiles_give_the_same_bits(cuda, shape):
 
 @pytest.mark.parametrize("B", [1024, 13])
 def test_fwd_wave_split_runs_k1_and_k3(cuda, B):
-    """K1 and K3 through the split layer at the DINO-LSTM's widths, which
-    `fwd_path` does not route there (chip_smoke.py times them as a record):
+    """K1 (which `fwd_path` does not route there; chip_smoke.py times it as
+    a record) and K3 through the split layer at the DINO-LSTM's widths:
     against the plain versions, and K2 on the split K1's residuals."""
     x, layers, g = make_stack((30, B, 96, 128, 4), torch.bfloat16, cuda, seed=9)
     got = ls._fwd_wave_cuda(x, layers, "fwd_train", split=True)
@@ -584,6 +585,45 @@ def test_fwd_wave_split_runs_k1_and_k3(cuda, B):
     for got_l, want_l in zip(got_g, ls._bwd_ref(g, x, layers, *want)[1]):
         for a, b in zip(got_l, want_l):
             assert_close(a, b, torch.bfloat16, grad=True)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------- K3 at H = 128
+# The DINO-LSTM teacher's widths (C 96, H 128, L 4) and the Spampinato rig's
+# (C = H = 128, L 4) in bf16 on the split wavefront; the eval's (C 96, H 128,
+# L 4) in f32 at its gallery and query batches (320, 80) and a ragged 21 at
+# L 3 on the layer-by-layer path (the top layer's scan writing h at T-1
+# alone); T short.
+K3_SHAPES = [((13, 16, 96, 128, 4), torch.bfloat16), ((11, 16, 128, 128, 4), torch.bfloat16),
+             ((9, 320, 96, 128, 4), torch.float32), ((9, 80, 96, 128, 4), torch.float32),
+             ((7, 21, 96, 128, 3), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", K3_SHAPES, ids=str)
+def test_k3_at_h128_takes_its_path_and_matches_plain(cuda, shape, dtype):
+    """K3 through `fwd_path`'s path (bf16: one `fwd_wave_split` launch; f32:
+    an input product and a cluster scan a layer, no wavefront launch)
+    against the per-step plain K3, bit for bit the same on a second run; in
+    f32 every cluster size the width fits gives the plain K3 and the top h
+    of the sequence form (`fwd_infer`'s last step) bit for bit."""
+    T, B, C, H, L = shape
+    x, layers, _ = make_stack(shape, dtype, cuda, seed=B + C)
+    bf16 = dtype == torch.bfloat16
+    assert ls.fwd_path(B, C, H, L, dtype, "fwd_infer_last") == ("split" if bf16 else "cluster")
+    ls.reset_launches()
+    got = ls.fwd_infer_last(x, layers)
+    n = ls.LAUNCHES
+    assert (n["fwd_infer_last"], n["fwd_wave_split"], n["fwd_wave"]) == (1, int(bf16), 0)
+    assert n["fwd_in_product"] == n["fwd_cluster_scan"] == (0 if bf16 else L)
+    want = ls._fwd_infer_last_ref(x, layers)
+    assert got.dtype == dtype and got.shape == (B, H)
+    assert_close(got, want, dtype)
+    assert torch.equal(got, ls.fwd_infer_last(x, layers))
+    if not bf16:
+        for m in ls.cluster_sizes(H, dtype):
+            last = ls._fwd_cluster_cuda(x, layers, "fwd_infer_last", m)
+            assert_close(last, want, dtype)
+            assert torch.equal(last, ls._fwd_cluster_cuda(x, layers, "fwd_infer", m)[-1])
     torch.cuda.synchronize()
 
 
@@ -1264,10 +1304,11 @@ def test_vit_attn_backward_recomputes_the_forward_scores(cuda, N, dh):
     assert torch.equal(stats[..., 0], S.amax(-1))
 
 
-# K15, the flash attention of `Attention(use_flash=True)`, on the attention
-# cores: the value and the q, k, v gradients against the softmax formula, at
-# main_dino's globals (N 785, dh 64) and around the 512-token gate, f32 and
-# bf16; a head dim the cores do not take raises rather than falling back.
+# K15, the flash attention of `Attention(use_flash=True)`, through
+# `flash_mha(q, k, v)`: the value and the q, k, v gradients against the
+# softmax formula (the scale on the f32 scores), at main_dino's globals (N
+# 785, dh 64) and around the 512-token gate, f32 and bf16; a head dim the
+# kernels do not take raises rather than falling back.
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("N,dh", [(512, 64), (785, 64), (600, 32)])
 def test_flash_mha_matches_plain(cuda, N, dh, dt):
@@ -1278,19 +1319,57 @@ def test_flash_mha_matches_plain(cuda, N, dh, dt):
     gen = torch.Generator().manual_seed(N)
     q, k, v, do = (torch.randn(2, 3, N, dh, generator=gen).to(cuda, cdt) for _ in range(4))
     scale = dh ** -0.5
-    before = LAUNCHES["vit_attn_core_fwd"], LAUNCHES["vit_attn_core_bwd"]
+    before = LAUNCHES["vit_attn_flash_fwd"], LAUNCHES["vit_attn_flash_bwd"]
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     out = flash_mha(qg, kg, vg, scale)
     got = torch.autograd.grad(out, (qg, kg, vg), do)
-    assert (LAUNCHES["vit_attn_core_fwd"], LAUNCHES["vit_attn_core_bwd"]) == (
+    assert (LAUNCHES["vit_attn_flash_fwd"], LAUNCHES["vit_attn_flash_bwd"]) == (
         before[0] + 1, before[1] + 1)
     qr, kr, vr = (t.float().requires_grad_(True) for t in (q, k, v))
-    want = torch.softmax((qr * scale).to(cdt).float() @ kr.transpose(-1, -2), -1) @ vr
+    want = torch.softmax((qr @ kr.transpose(-1, -2)) * scale, -1) @ vr
     want_g = torch.autograd.grad(want, (qr, kr, vr), do.float())
     vit_close(out, want, cdt, grad=False)
     for a, b in zip(got, want_g):
         assert a.dtype == cdt
         vit_close(a, b, cdt, grad=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("N,dh", [(785, 64), (600, 32), (130, 64), (77, 6)])
+def test_flash_qkv_kernels_match_their_plain_pieces(cuda, N, dh, dt):
+    """K15's forward core (bf16: one pass on wgmma, the tiles through the
+    TMA where dh % 8 == 0, else copied by the producer warp; f32: the FMA
+    core) and its backward cores over the qkv rows against the plain pieces
+    (`flash_fwd_ref`, `flash_bwd_ref`) and through autograd against
+    `flash_mha_qkv_ref`, at N ragged against the 64-row tiles and dh 64, 32
+    and 6; two runs bit-equal (fixed order, no atomics)."""
+    from cerebra_torch.models import vit_attn as va
+
+    cdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    H = {64: 6, 32: 3, 6: 5}[dh]
+    D, scale = H * dh, dh ** -0.5
+    gen = torch.Generator().manual_seed(N + dh)
+    qkv = torch.randn(2, N, 3 * D, generator=gen).to(cuda, cdt)
+    do = torch.randn(2, N, D, generator=gen).to(cuda, cdt)
+    o, stats = va.flash_fwd(qkv, H, scale)
+    assert va.FLASH_ROUTE["tma"] == (dt == "bf16" and dh % 8 == 0)
+    o_r, stats_r = va.flash_fwd_ref(qkv, H, scale)
+    vit_close(o, o_r, cdt, grad=False)
+    # m and l: f32 sums of up to N terms (l reaches ~N), held relatively
+    vit_close(stats, stats_r, torch.float32, grad=True)
+    dqkv = va.flash_bwd(qkv, o, do, stats, H, scale)
+    assert dqkv.dtype == cdt and dqkv.shape == qkv.shape
+    vit_close(dqkv, va.flash_bwd_ref(qkv, o, do, stats, H, scale), cdt, grad=True)
+    assert torch.equal(o, va.flash_fwd(qkv, H, scale)[0])
+    assert torch.equal(dqkv, va.flash_bwd(qkv, o, do, stats, H, scale))
+    outs = []
+    for fn in (va.flash_mha_qkv, va.flash_mha_qkv_ref):
+        x = qkv.clone().requires_grad_(True)
+        out = fn(x, H, scale)
+        outs.append((out, *torch.autograd.grad(out, x, do)))
+    for i, (a, b) in enumerate(zip(*outs)):
+        vit_close(a, b, cdt, grad=i > 0)
     torch.cuda.synchronize()
 
 

@@ -4,8 +4,8 @@ JAX; features of tiled EEG images with JAX's window starts), `from_torch_checkpo
 both packages, `dino_image_transform`, the `eeg_retrieval_dino` CLI in the
 eeg, eeg2eeg and img modes (stimulus JPEGs), `visualize_attention`'s maps
 and masks, `brain_map`,
-the PNG writer, and K15 (`Attention(use_flash=True)`, the flash attention on
-K5/K6's attention cores) against the JAX Attention's softmax path.
+the PNG writer, and K15 (`Attention(use_flash=True)`, the flash attention
+over the qkv rows) against the JAX Attention's softmax path.
 
 Tolerances: features, maps and K15's values f32 1e-5, K15's gradients 2e-5
 (f32 sums in another order); the image transform and multi-scale resizes
@@ -274,10 +274,12 @@ def _jax_attention(dim, heads, N, seed):
     return jattn, params, x
 
 
-@pytest.mark.parametrize("dim,heads,N", [(32, 2, 17), (48, 3, 40)])
+@pytest.mark.parametrize("dim,heads,N", [(32, 2, 17), (48, 3, 40), (32, 2, 150)])
 def test_flash_attention_matches_jax_softmax_path(dim, heads, N):
-    """K15 on the CPU (the attention cores' plain versions): the JAX
-    Attention's unfused path is the function `_flash_mha` computes."""
+    """K15 on the CPU (its plain pieces: the one-pass softmax over key tiles
+    of 64 and the backward with di = Σ o·do, over the qkv rows): the JAX
+    Attention's unfused path is the function `_flash_mha` computes; N = 150
+    is ragged against the 64-key tile."""
     jattn, params, x = _jax_attention(dim, heads, N, seed=N)
     cot = np.random.default_rng(1).normal(size=(2, N, dim)).astype(np.float32)
 

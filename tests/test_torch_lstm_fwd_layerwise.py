@@ -4,7 +4,9 @@ recurrence over it (`_fwd_layerwise`) — through its plain pieces on the CPU
 (`_in_product_ref`, `_fwd_scan_ref`), against the per-step plain K1/K4
 (`_fwd_train_ref`, `_fwd_infer_ref`) and the JAX package's Pallas
 `_fwd_train_impl` / `_fwd_infer_impl` in interpret mode, over L of 1 to 3
-and ragged batches; and `pick_fwd`'s choice of path. Tolerances: f32 values
+and ragged batches; K3 in f32 on the same path (the top layer's scan
+writes only h at T−1) against `_fwd_infer_last_impl`, L of 1 to 4; and
+`pick_fwd`'s choice of path. Tolerances: f32 values
 atol 1e-5 (tests/test_torch_lstm_stack.py); bf16 against Pallas atol 1e-2
 (tests/test_torch_lstm_stack_seq.py: a flipped rounding in the recurrence
 moves h by a bf16 ulp or two)."""
@@ -14,7 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from cerebra.models.pallas_lstm_stack import _fwd_infer_impl, _fwd_train_impl
+from cerebra.models.pallas_lstm_stack import (
+    _fwd_infer_impl,
+    _fwd_infer_last_impl,
+    _fwd_train_impl,
+)
 from cerebra_torch.models import lstm_stack as ls
 from tests.test_torch_lstm_stack import make_case, to_jax, to_torch
 
@@ -153,3 +159,47 @@ def test_pick_fwd_sizes_follow_the_kernel_layout():
     assert ls.cluster_sizes(10, torch.bfloat16) == ()
     assert ls.cluster_sizes(96, torch.bfloat16) == (16, 8, 4, 2, 1)
     assert ls.cluster_sizes(48, torch.bfloat16) == (8, 4, 2, 1)  # 16 CTAs: 3 units, odd
+
+
+@pytest.mark.parametrize("B", [5, 21])
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
+def test_k3_last_state_composition_matches_pallas(L, B):
+    """K3 in f32 as the layer-by-layer path composes it (the lower layers'
+    h in one buffer, the top layer's scan writing h at T−1 alone): against
+    the Pallas `_fwd_infer_last_impl` in interpret mode and the per-step
+    plain K3 at 1e-5, with batches ragged against the 16-row tile; the top
+    layer's last-state scan is the full scan's last step bit for bit."""
+    x, layers = make_case(T=7, B=B, C=6, H=8, L=L, seed=340 + 10 * L + B)
+    xt, lt = to_torch(x, layers)
+    got = ls._fwd_layerwise_ref(xt, lt, train=False, last=True)
+    assert got.shape == (B, 8) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(_fwd_infer_last_impl(*to_jax(x, layers))),
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ls._fwd_infer_last_ref(xt, lt).numpy(), atol=1e-5)
+    torch.testing.assert_close(got, ls._fwd_layerwise_ref(xt, lt, train=False)[-1], rtol=0,
+                               atol=0)
+    P = ls._in_product_ref(xt, lt[0][0])
+    h_last, prefac, qf = ls.fwd_cluster_scan(P, lt[0][1], lt[0][2], last=True)
+    assert prefac is None and qf is None
+    torch.testing.assert_close(h_last, ls._fwd_scan_ref(P, lt[0][1], lt[0][2])[0][-1], rtol=0,
+                               atol=0)
+    with pytest.raises(ValueError, match="residuals"):
+        ls._fwd_scan_ref(P, lt[0][1], lt[0][2], res=True, last=True)
+
+
+def test_k3_in_f32_takes_the_layerwise_path():
+    """K3 in f32 runs the layer-by-layer path at every batch, with the
+    largest cluster whose clusters all fit the card's 132 SMs at once: the
+    eval's galleries (C 96, H 128, L 4) at B = 320 (20 tiles of 16) in
+    clusters of 4 CTAs, at B = 80 (5 tiles) of 16; more tiles than 132
+    single CTAs hold run the smallest cluster in waves. In bf16 K3 keeps
+    the wavefront forward (split at H = 128) and never this path."""
+    F32 = torch.float32
+    for B, n in ((320, 4), (80, 16), (16, 16), (13, 16), (1024, 2)):
+        assert ls.pick_fwd(B, 96, 128, 4, F32, "fwd_infer_last") == n, B
+        assert ls.fwd_path(B, 96, 128, 4, F32, "fwd_infer_last") == "cluster", B
+    assert ls.pick_fwd(320, 96, 96, 2, F32, "fwd_infer_last") == 4
+    assert ls.pick_fwd(4000, 96, 128, 4, F32, "fwd_infer_last") == 2  # waves
+    assert ls.pick_fwd(320, 96, 128, 4, F32) == 0  # K1 and K4 keep B <= 64
+    assert ls.pick_fwd(320, 96, 128, 4, torch.bfloat16, "fwd_infer_last") == 0
+    assert ls.fwd_path(320, 96, 128, 4, torch.bfloat16, "fwd_infer_last") == "split"

@@ -120,13 +120,14 @@ def test_fwd_path_rule():
     take the wavefront path at every batch: the bench step's 1024, the
     CLI's validation 960 and 240, its train batch 16, a ragged 13 and 1.
     f32 and the widths whose weights overflow a CTA (the DINO-LSTM's H =
-    128, the autoencoder's) keep the earlier paths for K1 and K3; K4 and K10
-    at H = 128 take the split layer (tests/test_torch_lstm_fwd_wave_modes.py
-    holds the rest of the rule there)."""
+    128, the autoencoder's) keep the earlier paths for K1; K3 in f32 takes
+    the layer-by-layer path at every batch; K3, K4 and K10 at H = 128 take
+    the split layer (tests/test_torch_lstm_fwd_wave_modes.py holds the rest
+    of the rule there)."""
     for B in (1024, 960, 240, 16, 13, 1):
         for kind in ("fwd_train", "fwd_infer_last", "fwd_infer", "fwd_train_rc"):
             assert ls.fwd_path(B, 96, 96, 2, BF16, kind) == "wave", (B, kind)
-        assert ls.fwd_path(B, 96, 96, 2, F32, "fwd_infer_last") == "stack"
+        assert ls.fwd_path(B, 96, 96, 2, F32, "fwd_infer_last") == "cluster"
         assert ls.fwd_path(B, 96, 96, 2, F32, "fwd_train_rc") == "stack"
     assert ls.fwd_path(16, 96, 96, 2, F32, "fwd_infer") == "cluster"
     assert ls.fwd_path(1024, 96, 96, 2, F32, "fwd_infer") == "stack"

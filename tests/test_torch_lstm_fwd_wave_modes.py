@@ -96,9 +96,9 @@ def test_split_step_is_the_unsplit_step(dt):
 
 @pytest.mark.parametrize("kind", ["fwd_train", "fwd_infer_last"])
 def test_split_composition_runs_k1_and_k3(kind):
-    """K1 and K3, which `fwd_path` does not send to the split layer (the
-    card times them there as a record), through the split composition in
-    bf16: the wavefront composition's bits."""
+    """K1, which `fwd_path` does not send to the split layer (the card times
+    it there as a record), and K3, which it sends there at H = 128, through
+    the split composition in bf16: the wavefront composition's bits."""
     x, layers = make_case(T=5, B=19, C=48, H=32, L=3, seed=530)
     xt, lt = to_torch(x, layers, BF16)
     got, want = (ls._fwd_wave_ref(xt, lt, kind, split) for split in (True, False))
@@ -117,11 +117,14 @@ def test_wave_refuses_other_kinds():
 def test_fwd_path_rule_for_k4_and_k10(B):
     """At the headline widths (C = H = 96, L = 2) K4 and K10 take the
     wavefront path at every batch, as K1 and K3 do; at the DINO-LSTM's
-    (C 96, H 128, L 4) the split layer, while K1 and K3 keep theirs (K1 the
-    layer-by-layer path at B ≤ 64, else `lstm_fwd_kernel`; K3
-    `lstm_fwd_kernel`); at the autoencoder's widths K4 keeps the
-    layer-by-layer path at B ≤ 64 and K10 `lstm_fwd_kernel`; 5 layers at H =
-    128 (10 CTAs, no portable cluster) and f32 keep the earlier paths."""
+    (C 96, H 128, L 4) the split layer, as K3 does in bf16 there and at the
+    Spampinato rig's C = H = 128, while K1 keeps its path (the
+    layer-by-layer one at B ≤ 64, else `lstm_fwd_kernel`); at the
+    autoencoder's widths K4 keeps the layer-by-layer path at B ≤ 64 and K10
+    `lstm_fwd_kernel`; 5 layers at H = 128 (10 CTAs, no portable cluster)
+    and f32 keep the earlier paths, but for K3 in f32, which takes the
+    layer-by-layer path at every batch (the eval's galleries of 320 and 80
+    among them)."""
     for kind in ("fwd_train", "fwd_infer_last", "fwd_infer", "fwd_train_rc"):
         assert ls.fwd_path(B, 96, 96, 2, BF16, kind) == "wave", kind
     for kind in MODES:
@@ -130,7 +133,9 @@ def test_fwd_path_rule_for_k4_and_k10(B):
         assert ls.fwd_path(B, 96, 128, 5, BF16, kind) == five, kind
     small = B <= 64
     assert ls.fwd_path(B, 96, 128, 4, BF16, "fwd_train") == ("cluster" if small else "stack")
-    assert ls.fwd_path(B, 96, 128, 4, BF16, "fwd_infer_last") == "stack"
+    assert ls.fwd_path(B, 96, 128, 4, BF16, "fwd_infer_last") == "split"
+    assert ls.fwd_path(B, 128, 128, 4, BF16, "fwd_infer_last") == "split"
+    assert ls.fwd_path(B, 96, 128, 4, F32, "fwd_infer_last") == "cluster"
     for C, H in ((96, 384), (384, 96)):
         assert ls.fwd_path(B, C, H, 1, BF16, "fwd_infer") == ("cluster" if small else "stack")
         assert ls.fwd_path(B, C, H, 1, BF16, "fwd_train_rc") == "stack"
