@@ -12,7 +12,9 @@ the reference `.pth` layout).
 
 `--profile_dir DIR` writes a `torch.profiler` trace of the training loop
 into DIR (`train/resume.py::profile_trace`), as the JAX CLI writes its
-`jax.profiler` trace there. `--devices N` trains over N ranks (the global
+`jax.profiler` trace there. The trace carries the step's phases and the
+LSTM stack's forward, backward scans and products as `cerebra_torch.*`
+ranges (`utils/spans.py`). `--devices N` trains over N ranks (the global
 batch `--batch_size` split over them); only rank 0 writes files.
 """
 

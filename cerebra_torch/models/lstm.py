@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cerebra_torch.models.lstm_stack import lstm_stack, lstm_stack_last
+from cerebra_torch.utils.spans import span
 
 
 def _uniform(shape, bound, generator, device):
@@ -69,7 +70,8 @@ class LSTMStack(nn.Module):
         return x_t, layers
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x_t, layers = self.prepare(x)
+        with span("cerebra_torch.lstm.prepare"):
+            x_t, layers = self.prepare(x)
         if self.last_state_only:
             return lstm_stack_last(x_t, layers)
         return lstm_stack(x_t, layers).transpose(0, 1)

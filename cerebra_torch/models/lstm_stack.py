@@ -93,6 +93,7 @@ from cerebra_torch.kernels import (  # noqa: F401  (reset_launches is re-exporte
     reset_launches,
     stream_of,
 )
+from cerebra_torch.utils.spans import span
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -514,10 +515,12 @@ def _bwd_layerwise(g, x, layers: Layers, h_all, prefac, qf, need_dx: bool, scan,
     cot = g
     for l in reversed(range(L)):
         w_ih, w_hh, _ = layers[l]
-        dgates = scan(cot, prefac[l], qf[l], w_hh)
+        with span("cerebra_torch.lstm.bwd.scan"):
+            dgates = scan(cot, prefac[l], qf[l], w_hh)
         chain = "gup" if l > 0 else ("dx" if need_dx else None)
-        dw_ih, dw_hh, db, cot = products(l, dgates, x if l == 0 else h_all[l - 1], h_all[l],
-                                         w_ih, chain)
+        with span("cerebra_torch.lstm.bwd.products"):
+            dw_ih, dw_hh, db, cot = products(l, dgates, x if l == 0 else h_all[l - 1], h_all[l],
+                                             w_ih, chain)
         grads[l] = (dw_ih, dw_hh, db)
     return cot, grads
 
@@ -1633,27 +1636,32 @@ class _Stack(torch.autograd.Function):
     weight gradients are the same either way).
     `impl` is (forward-train, backward) — the dispatching wrappers, or the
     plain versions for timing them on the card; the forward's first
-    residual is h_all, and the backward takes every residual and `need_dx`."""
+    residual is h_all, and the backward takes every residual and `need_dx`.
+    The forward and backward are the spans `cerebra_torch.lstm.fwd` and
+    `cerebra_torch.lstm.bwd` (`utils/spans.py`); `_bwd_layerwise` spans each
+    layer's scan and products inside the latter."""
 
     @staticmethod
     def forward(ctx, impl, last, x, *flat):
-        layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
-        res = impl[0](x, layers)
-        ctx.impl, ctx.n_res = impl, len(res)
-        ctx.save_for_backward(x, *res, *flat)
-        # a copy: a view would hand out the saved residual
-        return (res[0][-1, -1] if last else res[0][-1]).clone()
+        with span("cerebra_torch.lstm.fwd"):
+            layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
+            res = impl[0](x, layers)
+            ctx.impl, ctx.n_res = impl, len(res)
+            ctx.save_for_backward(x, *res, *flat)
+            # a copy: a view would hand out the saved residual
+            return (res[0][-1, -1] if last else res[0][-1]).clone()
 
     @staticmethod
     def backward(ctx, g):
-        x, *saved = ctx.saved_tensors
-        res, flat = saved[:ctx.n_res], saved[ctx.n_res:]
-        layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
-        need_dx = ctx.needs_input_grad[2]
-        dx, grads = ctx.impl[1](g.to(x.dtype).contiguous(), x, layers, *res, need_dx)
-        # as _vjp_bwd casts dW to the weight dtype
-        dws = [dw.to(w.dtype) for w, dw in zip(flat, [d for layer in grads for d in layer])]
-        return (None, None, dx if need_dx else None, *dws)
+        with span("cerebra_torch.lstm.bwd"):
+            x, *saved = ctx.saved_tensors
+            res, flat = saved[:ctx.n_res], saved[ctx.n_res:]
+            layers = [flat[k:k + 3] for k in range(0, len(flat), 3)]
+            need_dx = ctx.needs_input_grad[2]
+            dx, grads = ctx.impl[1](g.to(x.dtype).contiguous(), x, layers, *res, need_dx)
+            # as _vjp_bwd casts dW to the weight dtype
+            dws = [dw.to(w.dtype) for w, dw in zip(flat, [d for layer in grads for d in layer])]
+            return (None, None, dx if need_dx else None, *dws)
 
 
 def _stack(impl, infer, last: bool, x: torch.Tensor, layers: Layers) -> torch.Tensor:

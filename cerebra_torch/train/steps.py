@@ -15,6 +15,7 @@ from cerebra_torch.parallel.tp import shard_dino_state
 from cerebra_torch.signal.windows import multicrop_views
 from cerebra_torch.train.ema import ema_update
 from cerebra_torch.train.optim import ScheduledAdamW, cancel_last_layer_grads
+from cerebra_torch.utils.spans import span
 
 
 def feature_distill_step(
@@ -30,13 +31,21 @@ def feature_distill_step(
     on EEG, loss against cached teacher features, backward, update.
 
     loss_fn(feats, cls_pred, teacher_feats, labels, epoch) → scalar. Returns
-    the detached loss without synchronising with the device."""
-    optimizer.zero_grad(set_to_none=True)
-    feats, cls_pred = model(eeg)
-    loss = loss_fn(feats, cls_pred, teacher_feats, labels, epoch)
-    loss.backward()
-    optimizer.step()
-    return loss.detach()
+    the detached loss without synchronising with the device. Its phases are
+    spans (`utils/spans.py`): `cerebra_torch.step` around the whole, and
+    `.forward`, `.loss`, `.backward` and `.optimizer` (twice) inside it."""
+    with span("cerebra_torch.step"):
+        with span("cerebra_torch.step.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("cerebra_torch.step.forward"):
+            feats, cls_pred = model(eeg)
+        with span("cerebra_torch.step.loss"):
+            loss = loss_fn(feats, cls_pred, teacher_feats, labels, epoch)
+        with span("cerebra_torch.step.backward"):
+            loss.backward()
+        with span("cerebra_torch.step.optimizer"):
+            optimizer.step()
+        return loss.detach()
 
 
 # ------------------------------------------------------------------- DINO

@@ -100,9 +100,8 @@ def _grads(module) -> dict:
 def collectives_rank(x: np.ndarray, c: np.ndarray) -> dict:
     """This rank's row of x (world, n): psum, pmean, all_gather, axis_size,
     and the gradients in its row of sum(psum(x)² · c) and
-    sum(all_gather(x)³ · c) (c (n,), (world, n)); a MetricLogger meter
-    after `synchronize_between_processes`; `shard_params_tp` of three
-    arrays over a (2, 2) mesh's model axis."""
+    sum(all_gather(x)³ · c) (c (n,), (world, n)); `shard_params_tp` of
+    three arrays over a (2, 2) mesh's model axis."""
     r = dist.get_rank()
     out = {"size": collectives.axis_size()}
     xr = torch.from_numpy(x[r]).requires_grad_(True)
@@ -115,13 +114,6 @@ def collectives_rank(x: np.ndarray, c: np.ndarray) -> dict:
     out["gather"] = g.detach()
     (g ** 3 * torch.from_numpy(c)).sum().backward()
     out["gather_grad"] = xr.grad.clone()
-    from cerebra_torch.utils.logging import MetricLogger
-
-    logger = MetricLogger()
-    for v in range(r + 1):  # rank r logs r + 1 values of r
-        logger.update(loss=float(r))
-    logger.synchronize_between_processes()
-    out["meter"] = (logger.loss.count, logger.loss.total, logger.loss.value)
     from cerebra_torch.parallel.tp import shard_params_tp
 
     params = {"kernel": torch.arange(16 * 64.0).reshape(16, 64), "bias": torch.arange(64.0),

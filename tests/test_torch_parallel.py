@@ -119,8 +119,6 @@ def test_collectives_match_jax_values_and_gradients():
         np.testing.assert_allclose(out["psum_grad"], 4 * np.asarray(psum_grad)[r], rtol=1e-6)
         np.testing.assert_allclose(out["gather_grad"], 4 * np.asarray(gather_grad)[r],
                                    rtol=1e-6)
-        # MetricLogger: count and total summed over the world, the window local
-        assert out["meter"] == (10, 0 * 1 + 1 * 2 + 2 * 3 + 3 * 4, float(r))
         for k, v in tp.items():  # rank r holds device r's shard of JAX's layout
             shard = next(sh.data for sh in v.addressable_shards if sh.device == jax.devices()[r])
             np.testing.assert_array_equal(out["tp"][k].numpy(), np.asarray(shard), err_msg=k)

@@ -1,7 +1,7 @@
 """The port imports on a machine without JAX: importing `cerebra_torch` and
 every one of its modules pulls in neither `jax` nor the `cerebra` package,
 and among them are the ported CLIs, the launcher, the parallel package, the
-metric logger, and the ingest, signal-analysis, corpus and t-SNE modules;
+spans, and the ingest, signal-analysis, corpus and t-SNE modules;
 nor does it pull in scikit-learn, matplotlib or mne, which the GPU machine
 lacks."""
 
@@ -31,7 +31,7 @@ for mod in ("data.gauss_noise", "data.sources", "signal.image_aug", "models.xcit
             "models.resnet", "models.hub"):
     assert "cerebra_torch." + mod in names, mod
 for mod in ("parallel", "parallel.mesh", "parallel.collectives", "parallel.dataflow",
-            "parallel.tp", "cli.launch", "utils.logging"):
+            "parallel.tp", "cli.launch", "utils.spans"):
     assert "cerebra_torch." + mod in names, mod
 for mod in ("cli.convert_to_pth", "cli.get_tsne_for_raw_eeg", "data.bdf", "data.ingest",
             "data.native_bdf", "data.labelwise", "data.transforms", "signal.psd",
