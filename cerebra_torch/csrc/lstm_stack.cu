@@ -85,6 +85,7 @@
 #include "vit_common.cuh"
 #include "warp_mma.cuh"
 #include "wave_common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -1055,14 +1056,23 @@ int launch_wave(int mode, const void* x, const void* w_ih0, const void* w_ihr, c
 // h_prev is zero there) and db = Σ dgates (4H), and the chain dgates·w_ihᵀ to
 // the layer below, kept f32 (chain 1: gup (Tn, B, in)) or rounded once to
 // the stream dtype (chain 2: dx (Tn, B, C)). w_ih (in, 4H) is read in place
-// through the product's B_T flag. Each dW sums `splits` fixed row chunks
-// into f32 partials (scratch) that sum_partials adds in order, so a result
-// is the same on every run; the caller picks the splits to fill the card and
-// keep each chunk's f32 sum short. Bound by bytes: reading dgates, inp and h
-// once and writing gup takes 0.16-0.22 ms a layer at B = 1024, C = H = 96,
-// over the 0.07-0.11 ms of its multiply-adds on the bf16 tensor cores; the
-// products load their tiles synchronously (vit_common.cuh) and read dgates
-// three or four times, so they reach neither bound.
+// through the product's B_T flag. Each dW sums fixed row chunks into f32
+// partials (scratch) that sum_partials adds in order, so a result is the
+// same on every run; the caller picks the chunks to fill the card and keep
+// each chunk's f32 sum short (at most 4096 rows).
+//
+// In bf16, where the TMA can read the operands (in and H multiples of 8,
+// 16-byte bases), dW_ih, dW_hh and db are one launch of wgmma_gemm.cuh's
+// stack_contract (dw_rows > 0 rows a chunk, whole 64-row steps): one pass
+// over dgates a layer, h's rows B back with the TMA's zero fill for t = 0,
+// db from the column sums of the same dgates tiles in shared memory, one
+// partial [dW_ih | dW_hh | db] a chunk. Bound by bytes: reading dgates, inp
+// and h once takes 0.16-0.19 ms a layer at B = 1024, C = H = 96, over the
+// 0.09-0.14 ms of the padded multiply-adds (in and H to 128 rows) on the
+// bf16 tensor cores. Elsewhere (f32, other widths) dW_ih and dW_hh are
+// row-chunked products on vit_common.cuh's tiles, loaded synchronously, and
+// db a column sum, each reading dgates again. The chain stays a
+// vit_common.cuh product in both.
 
 // part[z * zstride + i * K2 + j] = (aᵀ·b)[i][j] over rows [z R, (z + 1) R) of
 // a (M, K1) and b (M, K2), for each group z of R rows (the last one ragged):
@@ -1113,11 +1123,36 @@ int chain_product(const T* dgates, const T* w_ih, int in, int chain, void* out, 
   return 0;
 }
 
+// dW_ih, dW_hh and db of one layer in one stack_contract launch over chunks
+// of `rows` rows, then the chunks' partials added in order: scratch holds
+// ceil(M / rows) partials of (in + H + 1) * 4H floats
+inline int stack_dw(const __nv_bfloat16* dgates, const __nv_bfloat16* inp, int in,
+                    const __nv_bfloat16* h, float* dw_ih, float* dw_hh, float* db, float* scratch,
+                    int rows, int M, int B, int H, cudaStream_t st) {
+  const int G = 4 * H, chunks = (M + rows - 1) / rows;
+  const long long n = (long long)(in + H + 1) * G;
+  CEREBRA_VIT_RC(wg::launch_stack(inp, in, h, H, B, dgates, G, M, rows, 1,
+                                  vit::EpiPairPartial{scratch, G, (size_t)n}, st));
+  CEREBRA_VIT_RC(vit::launch_sum_partials(scratch, dw_ih, chunks, (long long)in * G, n, st));
+  CEREBRA_VIT_RC(
+      vit::launch_sum_partials(scratch + (size_t)in * G, dw_hh, chunks, (long long)H * G, n, st));
+  return vit::launch_sum_partials(scratch + (size_t)(in + H) * G, db, chunks, G, n, st);
+}
+
 template <typename T>
 int layer_products(const T* dgates, const T* inp, int in, const T* h, const T* w_ih, int chain,
                    void* out, float* dw_ih, float* dw_hh, float* db, float* scratch,
-                   int splits_ih, int splits_hh, int Tn, int B, int H, cudaStream_t st) {
+                   int splits_ih, int splits_hh, int dw_rows, int Tn, int B, int H,
+                   cudaStream_t st) {
   const int G = 4 * H, M = Tn * B;
+  if (dw_rows > 0) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      CEREBRA_VIT_RC(stack_dw(dgates, inp, in, h, dw_ih, dw_hh, db, scratch, dw_rows, M, B, H,
+                              st));
+      return chain_product<T>(dgates, w_ih, in, chain, out, M, H, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   CEREBRA_VIT_RC(contract<T>(inp, in, dgates, G, M, dw_ih, scratch, splits_ih, st));
   CEREBRA_VIT_RC(
       contract<T>(h, H, dgates + (size_t)B * G, G, M - B, dw_hh, scratch, splits_hh, st));
@@ -1358,22 +1393,25 @@ int cerebra_stack_scan_bwd(int bf16, int g_f32, int g_last, int bt, const void* 
 // K2/K2g, one layer's products (layer_products) after its scan: inp (Tn, B,
 // in) is x or the layer below's h, h (Tn, B, H) the layer's own h, w_ih
 // (in, 4H); dW_ih, dW_hh and db are f32 outputs; chain 0 none, 1 gup (f32),
-// 2 dx (stream dtype) into out. scratch: max(splits_ih * in, splits_hh * H,
-// 32) * 4H floats.
+// 2 dx (stream dtype) into out. dw_rows > 0 (bf16 only): dW and db in one
+// stack_contract pass, chunks of dw_rows rows, scratch ceil(Tn B / dw_rows)
+// * (in + H + 1) * 4H floats; else scratch max(splits_ih * in, splits_hh *
+// H, 32) * 4H floats.
 int cerebra_stack_bwd_products(int bf16, const void* dgates, const void* inp, int in,
                                const void* h, const void* w_ih, int chain, void* out,
                                void* dw_ih, void* dw_hh, void* db, void* scratch, int splits_ih,
-                               int splits_hh, int Tn, int B, int H, void* stream) {
+                               int splits_hh, int dw_rows, int Tn, int B, int H, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     using T = __nv_bfloat16;
     return layer_products<T>((const T*)dgates, (const T*)inp, in, (const T*)h, (const T*)w_ih,
                              chain, out, (float*)dw_ih, (float*)dw_hh, (float*)db,
-                             (float*)scratch, splits_ih, splits_hh, Tn, B, H, s);
+                             (float*)scratch, splits_ih, splits_hh, dw_rows, Tn, B, H, s);
   }
   return layer_products<float>((const float*)dgates, (const float*)inp, in, (const float*)h,
                                (const float*)w_ih, chain, out, (float*)dw_ih, (float*)dw_hh,
-                               (float*)db, (float*)scratch, splits_ih, splits_hh, Tn, B, H, s);
+                               (float*)db, (float*)scratch, splits_ih, splits_hh, dw_rows, Tn, B,
+                               H, s);
 }
 
 // K11, one chunk and layer: the gates (M, 4H) f32 = a·w + bias of M rows,

@@ -13,8 +13,10 @@
 // from device memory into shared memory (no cp.async/TMA ring, no wgmma), so
 // they run well below the tensor cores' rate. The MLP half-block K7/K8 no
 // longer uses them: its products run on wgmma_gemm.cuh (a TMA ring feeding
-// wgmma); moving K5/K6's, K1/K4's, K2/K2g's and K11's products there is
-// later work. The row and column kernels are bound by memory bandwidth.
+// wgmma), and so do K2/K2g's bf16 dW and db (wgmma_gemm.cuh's
+// stack_contract, with EpiPairPartial below); moving K5/K6's, K1/K4's,
+// K2/K2g's chain and K11's products there is later work. The row and column
+// kernels are bound by memory bandwidth.
 
 #pragma once
 
@@ -425,6 +427,25 @@ struct EpiPartial {
   size_t zstride;
   __device__ void operator()(int i, int j, float acc) const {
     part[blockIdx.z * zstride + (size_t)i * ld + j] = acc;
+  }
+};
+
+// part[y][i][j] = C(i, j) over k chunk y = blockIdx.y, and C(i, j + 1) where
+// two: the pair epilogue (wgmma_gemm.cuh's convention) of K2/K2g's one-pass
+// dW and db contraction (lstm_stack.cu layer_products), which replaces
+// EpiPartial there
+struct EpiPairPartial {
+  float* part;
+  int ld;
+  size_t zstride;
+  __device__ void operator()(int i, int j, float v0, float v1, bool two) const {
+    float* p = part + blockIdx.y * zstride + (size_t)i * ld + j;
+    if (two && ((uintptr_t)p & 7) == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    } else {
+      p[0] = v0;
+      if (two) p[1] = v1;
+    }
   }
 };
 

@@ -28,6 +28,10 @@
 // own partial: K8 runs dW1 and dW2 as one launch of split-row contractions.
 // The TMA needs 16-byte aligned bases and row strides (ld % 8 == 0); a launch
 // whose operands do not meet that returns cudaErrorInvalidValue.
+//
+// stack_contract, further down, is a second kernel on the same parts: two
+// stacked MN-major A operands against one B and B's column sums, in one pass
+// over B (K2/K2g's dW_ih, dW_hh and db).
 
 #pragma once
 
@@ -409,6 +413,151 @@ tma_gemm(const __grid_constant__ CUtensorMap a0, const __grid_constant__ CUtenso
   }
 }
 
+// ------------------------------------------------ the stacked contraction
+// C = [A0 | A1]^T B over k < K, all three MN-major (stored (K, width)): row
+// r < M0 of C is sum_k A0[k][r] B[k][j]; row M0 + r (r < M1) is
+// sum_k A1[k - shift][r] B[k][j], the rows of A1 before 0 zero; and, with
+// `sums`, row M0 + M1 is sum_k B[k][j]. K2/K2g's products of one layer are
+// this with A0 = inp, A1 = h, shift = B and B = dgates: dW_ih, dW_hh and db
+// in one pass over dgates (lstm_stack.cu layer_products).
+//
+// Design. A CTA owns a 128-column tile of B (blockIdx.x), one chunk of k of
+// whole kBK steps (blockIdx.y) and a group of kStackSlices 64-row slices of
+// the stacked A (blockIdx.z): A0's slices, then A1's, each padded to 64 rows
+// by the TMA's zero fill. One producer warp keeps a ring of kStackStages
+// stages filled, each B's tile of one k step (two boxes of 64 columns x kBK
+// rows) and the group's A slices of the same rows (a box each); A1's boxes
+// start `shift` rows back, and the TMA fills rows before 0 with zeros, so the
+// vanishing t = 0 term needs no case of its own. Consumer warpgroup g runs
+// wgmma m64n128k16 on slice g into its registers; while those products run,
+// each consumer thread of a group-0 CTA adds its 8 values of two columns of
+// the stage's B tile in shared memory into f32 sums, so db takes no pass of
+// its own over B. Each consumer warp frees the stage on its "empty" mbarrier
+// once its products and reads are done. The epilogue writes the chunk's
+// partial through epi (rows of the padding are not written); the caller adds
+// the chunks in order. The column tiles of one chunk read the same A rows,
+// so the tile (blockIdx.x) runs fastest: they run together, and all but the
+// first read A from L2.
+constexpr int kStackSlices = 4;                                   // consumer warpgroups
+constexpr int kStackThreads = 128 * kStackSlices + 32;            // + the producer warp
+constexpr int kStackStages = 4;
+constexpr int kSliceBytes = kBox * kBK * 2;                       // 8 KB: an A slice of a stage
+constexpr int kStackStageBytes = kTileBytes + kStackSlices * kSliceBytes;  // 48 KB
+constexpr int kStackSmem =
+    kStackStages * kStackStageBytes + 2 * kStackStages * 8 + 8 * kBN * 4 + 1024;  // + alignment
+
+template <class Epi>
+__global__ void __launch_bounds__(kStackThreads, 1)
+stack_contract(const __grid_constant__ CUtensorMap ma0, const __grid_constant__ CUtensorMap ma1,
+               const __grid_constant__ CUtensorMap mb, int M0, int M1, int N, int K, int shift,
+               int kchunk, int sums, Epi epi) {
+  extern __shared__ unsigned char smraw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smraw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStackStages * kStackStageBytes);
+  uint64_t* empty = full + kStackStages;
+  float(*red)[kBN] = reinterpret_cast<float(*)[kBN]>(empty + kStackStages);
+  const int s0 = (M0 + kBox - 1) / kBox, slices = s0 + (M1 + kBox - 1) / kBox;
+  const int first = blockIdx.z * kStackSlices, active = min(kStackSlices, slices - first);
+  const int j0 = blockIdx.x * kBN, kb = blockIdx.y * kchunk, ke = min(K, kb + kchunk);
+  const int nk = (ke - kb + kBK - 1) / kBK;
+  const bool colsum = sums && blockIdx.z == 0;
+  const int g = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStackStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kStackSlices);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (g == kStackSlices) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      const int bytes = kTileBytes + active * kSliceBytes;
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kStackStages, k0 = kb + it * kBK;
+        if (it >= kStackStages) mbar_wait(&empty[s], (it / kStackStages - 1) & 1);
+        bf16* st = reinterpret_cast<bf16*>(base + s * kStackStageBytes);
+        mbar_expect_tx(&full[s], bytes);
+        load_operand<true>(st, &mb, &full[s], j0, k0);
+        for (int q = 0; q < active; ++q) {
+          bf16* dst = st + (kTileBytes + q * kSliceBytes) / 2;
+          const int sl = first + q;
+          if (sl < s0)
+            tma_load(dst, &ma0, &full[s], sl * kBox, k0);
+          else
+            tma_load(dst, &ma1, &full[s], (sl - s0) * kBox, k0 - shift);
+        }
+      }
+    }
+    return;
+  }
+
+  // this thread's two columns 2 cp, 2 cp + 1 of B's tile and its rows
+  // r, r + 8, ..., r + 56 of a stage: one 4-byte word a row in the
+  // 128-byte swizzle (16-byte chunk c of row k sits at chunk c ^ (k % 8))
+  const int cp = threadIdx.x % 64, r = threadIdx.x / 64;
+  const int cs_at = (cp / 32) * (kTileBytes / 2) + r * 128 + ((((cp % 32) / 4) ^ r) * 16) +
+                    (cp % 4) * 4;
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  float cs0 = 0.f, cs1 = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % kStackStages;
+    mbar_wait(&full[s], (it / kStackStages) & 1);
+    const unsigned char* st = base + s * kStackStageBytes;
+    // a warpgroup past the last slice multiplies a slice no copy fills and
+    // writes nothing: no branch around the warpgroup-wide products
+    fence_regs(d);
+    wg_fence();
+    stage_mma<true, true>(d, reinterpret_cast<const bf16*>(st + kTileBytes + g * kSliceBytes),
+                          reinterpret_cast<const bf16*>(st), 0);
+    wg_commit();
+    if (colsum) {
+#pragma unroll
+      for (int q = 0; q < kBK / 8; ++q) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(st + cs_at + q * 1024);
+        cs0 += __low2float(v);
+        cs1 += __high2float(v);
+      }
+    }
+    wg_wait<0>();
+    fence_regs(d);
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[s]);
+  }
+
+  if (g < active) {
+    const int sl = first + g, w = (threadIdx.x / 32) % 4, l = threadIdx.x % 32;
+    const int row0 = sl < s0 ? sl * kBox : M0 + (sl - s0) * kBox;  // C's row of the slice's first
+    const int rows = sl < s0 ? M0 : M0 + M1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + 16 * w + l / 4 + 8 * h;
+      if (i >= rows) continue;
+#pragma unroll
+      for (int j8 = 0; j8 < kBN / 8; ++j8) {
+        const int j = j0 + 8 * j8 + 2 * (l % 4);
+        if (j < N) epi(i, j, d[4 * j8 + 2 * h], d[4 * j8 + 2 * h + 1], j + 1 < N);
+      }
+    }
+  }
+  if (colsum) {  // the 8 row strands of each column, added in order
+    red[r][2 * cp] = cs0;
+    red[r][2 * cp + 1] = cs1;
+    asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kStackSlices) : "memory");
+    if (threadIdx.x < kBN && j0 + (int)threadIdx.x < N) {
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sum += red[q][threadIdx.x];
+      epi(M0 + M1, j0 + threadIdx.x, sum, 0.f, false);
+    }
+  }
+}
+
 // ------------------------------------------------------------ host side
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -517,6 +666,34 @@ int launch(const Operands& o0, const Operands* o1, Epi e0, Epi e1, int K, int sp
   const int t = o1 ? max(tiles(d0), tiles(d1)) : tiles(d0);
   kern<<<dim3(t, splits, o1 ? 2 : 1), kThreads, smem, st>>>(m[0], m[1], m[2], m[3], d0, d1, e0,
                                                           e1, K, k_chunk(K, splits));
+  return (int)cudaGetLastError();
+}
+
+// One stacked contraction (stack_contract) over K rows in chunks of kchunk
+// rows (a multiple of kBK): a0 (K, M0), a1 (K, M1) shifted `shift` rows
+// back, b (K, N); epi takes chunk blockIdx.y's partial of rows
+// [0, M0 + M1 + (sums != 0)). cudaErrorInvalidValue where an operand is not
+// 16-byte aligned (usable) or kchunk is not whole steps.
+template <class Epi>
+int launch_stack(const bf16* a0, int M0, const bf16* a1, int M1, int shift, const bf16* b, int N,
+                 int K, int kchunk, int sums, Epi epi, cudaStream_t st) {
+  if (!tma_ok(a0, M0) || !tma_ok(a1, M1) || !tma_ok(b, N) || K <= 0 || kchunk <= 0 ||
+      kchunk % kBK)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[3];
+  int rc = operand_map(&m[0], a0, M0, M0, K, true);
+  if (!rc) rc = operand_map(&m[1], a1, M1, M1, K, true);
+  if (!rc) rc = operand_map(&m[2], b, N, N, K, true);
+  if (rc) return rc;
+  auto kern = stack_contract<Epi>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kStackSmem);
+  if (e != cudaSuccess) return (int)e;
+  const int slices = (M0 + kBox - 1) / kBox + (M1 + kBox - 1) / kBox;
+  const dim3 grid((N + kBN - 1) / kBN, (K + kchunk - 1) / kchunk,
+                  (slices + kStackSlices - 1) / kStackSlices);
+  kern<<<grid, kStackThreads, kStackSmem, st>>>(m[0], m[1], m[2], M0, M1, N, K, shift, kchunk,
+                                                sums, epi);
   return (int)cudaGetLastError();
 }
 

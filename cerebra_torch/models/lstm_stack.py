@@ -67,8 +67,9 @@ K11, one a call; `fwd_wave` one a launch of the wavefront forward (K1, K3,
 K4 or K10), `fwd_wave_split` one a launch of it with the split layer (K3,
 K4 or K10); `fwd_in_product` and `fwd_cluster_scan` one a layer of
 K1/K3/K4's layer-by-layer path; `stack_bwd_scan` and `stack_bwd_products` one
-a layer of K2/K2g; `rc_gates`, `rc_scan` and `rc_products` one a chunk and
-layer of K11).
+a layer of K2/K2g, and `stack_bwd_products_wgmma` one a layer whose dW and db
+took the one-pass TMA + wgmma contraction (`_products_wgmma`); `rc_gates`,
+`rc_scan` and `rc_products` one a chunk and layer of K11).
 
 The 128-lane padding and 8-row batch alignment of the Pallas wrappers
 (`_pad_for_kernel`) are a TPU layout choice and are not ported: the CUDA
@@ -99,8 +100,8 @@ Layers = Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 LAUNCHES.update(fwd_train=0, bwd=0, fwd_infer_last=0, fwd_infer=0, bwd_general=0,
                 fwd_train_rc=0, bwd_rc=0, fwd_in_product=0, fwd_cluster_scan=0, fwd_wave=0,
-                fwd_wave_split=0, stack_bwd_scan=0, stack_bwd_products=0, rc_gates=0, rc_scan=0,
-                rc_products=0)
+                fwd_wave_split=0, stack_bwd_scan=0, stack_bwd_products=0,
+                stack_bwd_products_wgmma=0, rc_gates=0, rc_scan=0, rc_products=0)
 _FWD_MODES = {"fwd_infer_last": 0, "fwd_train": 1, "fwd_infer": 2, "fwd_train_rc": 3}  # FwdMode
 
 _STREAM_DTYPES = (torch.float32, torch.bfloat16)
@@ -766,7 +767,7 @@ def _typed(lib) -> None:
     lib.cerebra_fwd_wave_clusters.restype = i
     lib.cerebra_stack_scan_bwd.argtypes = [i] * 4 + [vp] * 5 + [i] * 3 + [vp]
     lib.cerebra_stack_scan_bwd.restype = i
-    lib.cerebra_stack_bwd_products.argtypes = ([i, vp, vp, i, vp, vp, i] + [vp] * 5 + [i] * 5
+    lib.cerebra_stack_bwd_products.argtypes = ([i, vp, vp, i, vp, vp, i] + [vp] * 5 + [i] * 6
                                                + [vp])
     lib.cerebra_stack_bwd_products.restype = i
     lib.cerebra_rc_gates.argtypes = [i] + [vp] * 4 + [i] * 3 + [vp]
@@ -1014,6 +1015,37 @@ def _row_splits(rows: int, cols: int, K: int) -> int:
     return max(1, min(want, 256, -(-K // 32)))
 
 
+@functools.lru_cache(maxsize=None)
+def _dw_rows(M: int, in_dim: int, H: int) -> int:
+    """Rows a chunk of the one-pass dW/db contraction over M rows
+    (`wgmma_gemm.cuh::stack_contract`): whole 64-row steps, at most 64 of
+    them (4096 rows, which keeps each f32 sum short) and at least 8 where M
+    has them (fewer partials to write at small M). Of those, the fewest
+    chunks whose CTAs (128 columns of 4H by four 64-row slices of the padded
+    in + H, one CTA an SM) take the fewest steps in all over waves of the
+    card's SMs; no chunk is empty."""
+    slices = -(-in_dim // 64) + -(-H // 64)
+    ctas = -(-4 * H // 128) * -(-slices // 4)
+    steps = -(-M // 64)
+    lo = -(-steps // 64)
+    best = None
+    for n in range(lo, max(lo, steps // 8) + 1):
+        per = -(-steps // n)
+        cost = -(-ctas * -(-steps // per) // _SMS) * per
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    return 64 * best[1]
+
+
+def _products_wgmma(dgates, inp, h) -> bool:
+    """Whether one layer's dW and db take the one-pass TMA + wgmma
+    contraction: bf16 streams whose rows and bases the TMA reads (16-byte
+    aligned, so in and H multiples of 8). f32 and other widths keep the
+    row-chunked products and the column sum."""
+    return dgates.dtype == torch.bfloat16 and all(
+        t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0 for t in (dgates, inp, h))
+
+
 def _cuda_checks(tile, *tensors):
     for t in tensors:
         if t is not None and not t.is_contiguous():
@@ -1259,10 +1291,13 @@ def _scan_cuda(g, prefac, qf, w_hh, tile=None, out=None):
     return dgates
 
 
-def _scratch_floats(in_dim: int, H: int, T: int, B: int) -> int:
-    """f32 scratch of one layer's products: the larger dW's split partials,
-    or the 32 chunks of db."""
+def _scratch_floats(in_dim: int, H: int, T: int, B: int, wgmma: bool = False) -> int:
+    """f32 scratch of one layer's products: with `wgmma` one partial
+    [dW_ih | dW_hh | db] a chunk of `_dw_rows`; else the larger dW's split
+    partials, or the 32 chunks of db."""
     G = 4 * H
+    if wgmma:
+        return G * (in_dim + H + 1) * -(-T * B // _dw_rows(T * B, in_dim, H))
     return G * max(_row_splits(in_dim, G, T * B) * in_dim,
                    _row_splits(H, G, (T - 1) * B) * H, 32)
 
@@ -1285,19 +1320,21 @@ def _products_cuda(dgates, inp, h, w_ih, chain=None, dws=None, out=None, scratch
     if out is None and chain is not None:
         out = torch.empty(T, B, in_dim, dtype=torch.float32 if chain == "gup" else sd,
                           device=dev)
+    wgmma = _products_wgmma(dgates, inp, h)
     if scratch is None:
-        scratch = torch.empty(_scratch_floats(in_dim, H, T, B), device=dev)
+        scratch = torch.empty(_scratch_floats(in_dim, H, T, B, wgmma), device=dev)
     _cuda_checks(1, dgates, inp, h, w_ih, out, *dws)
     lib = _lib()
     rc = lib.cerebra_stack_bwd_products(
         int(sd == torch.bfloat16), dgates.data_ptr(), inp.data_ptr(), in_dim, h.data_ptr(),
         w_ih.data_ptr(), {None: 0, "gup": 1, "dx": 2}[chain], ptr(out), dws[0].data_ptr(),
         dws[1].data_ptr(), dws[2].data_ptr(), scratch.data_ptr(),
-        _row_splits(in_dim, G, T * B), _row_splits(H, G, (T - 1) * B), T, B, H,
-        stream_of(dgates),
+        _row_splits(in_dim, G, T * B), _row_splits(H, G, (T - 1) * B),
+        _dw_rows(T * B, in_dim, H) if wgmma else 0, T, B, H, stream_of(dgates),
     )
     check_rc(lib, rc, "stack_bwd_products")
     LAUNCHES["stack_bwd_products"] += 1
+    LAUNCHES["stack_bwd_products_wgmma"] += wgmma
     return (*dws, out)
 
 
@@ -1321,8 +1358,10 @@ def _bwd_cuda(g, x, layers, h_all, prefac, qf, need_dx: bool, tile=None):
     dgates = torch.empty(T, B, G, dtype=x.dtype, device=dev)
     outs = {"gup": torch.empty(T, B, H, dtype=torch.float32, device=dev) if L > 1 else None,
             "dx": torch.empty(T, B, C, dtype=x.dtype, device=dev) if need_dx else None}
-    scratch = torch.empty(max(_scratch_floats(C, H, T, B), _scratch_floats(H, H, T, B)),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(max(
+        _scratch_floats(C if l == 0 else H, H, T, B,
+                        _products_wgmma(dgates, x if l == 0 else h_all[l - 1], h_all[l]))
+        for l in range(L)), dtype=torch.float32, device=dev)
 
     def scan(cot, prefac_l, qf_l, w_hh):
         return _scan_cuda(cot, prefac_l, qf_l, w_hh, tile, dgates)

@@ -200,21 +200,38 @@ def test_stack_scan_matches_plain(cuda, dtype, shape, cot, tile):
     torch.cuda.synchronize()
 
 
+# SHAPES, and the one-pass contraction's main users: the headline layer
+# (C = H = 96, B 1024; T 20 gives 40 row chunks), the DINO-LSTM's H 128 at
+# B 8 (its first layer, in 96, and the rest, in 128)
+PRODUCT_SHAPES = SHAPES + [(20, 1024, 96, 96, 1), (30, 8, 96, 128, 1), (30, 8, 128, 128, 1)]
+
+
+def products_case(shape, dtype, device, chain=None, seed=3):
+    T, B, C, H, _ = shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, generator=gen).to(device, dtype)
+
+    return r(T, B, 4 * H), r(T, B, C), r(T, B, H), r(C, 4 * H) / math.sqrt(C), chain
+
+
 @pytest.mark.parametrize("chain", [None, "gup", "dx"])
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", PRODUCT_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_stack_products_match_plain(cuda, dtype, shape, chain):
     """K2/K2g's products of one layer: dW_ih, dW_hh, db and the chain to the
     layer below (f32, or dx in the stream dtype), T = 1 included (no dW_hh
-    term)."""
-    T, B, C, H, _ = shape
-    gen = torch.Generator().manual_seed(3)
-
-    def r(*s):
-        return torch.randn(*s, generator=gen).to(cuda, dtype)
-
-    args = (r(T, B, 4 * H), r(T, B, C), r(T, B, H), r(C, 4 * H) / math.sqrt(C), chain)
+    term: h's rows lie wholly before 0 there). bf16 at widths the TMA reads
+    (C and H multiples of 8) takes the one-pass TMA + wgmma contraction,
+    f32 and the other widths do not."""
+    _, _, C, H, _ = shape
+    args = products_case(shape, dtype, cuda, chain)
+    ls.reset_launches()
     got, want = ls.bwd_products(*args), ls._products_ref(*args)
+    wgmma = dtype == torch.bfloat16 and C % 8 == 0 and H % 8 == 0
+    assert ls.LAUNCHES["stack_bwd_products"] == 1
+    assert ls.LAUNCHES["stack_bwd_products_wgmma"] == int(wgmma)
     assert (got[3] is None) == (chain is None)
     if chain is not None:
         assert got[3].dtype == (torch.float32 if chain == "gup" else dtype)
@@ -222,6 +239,49 @@ def test_stack_products_match_plain(cuda, dtype, shape, chain):
         if b is not None:
             assert_close(a, b, dtype, grad=True)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(20, 1024, 96, 96, 1), (30, 8, 128, 128, 1),
+                                   (12, 16, 96, 384, 1), (1, 1, 96, 96, 1)], ids=str)
+def test_stack_products_repeat_bit_for_bit(cuda, shape):
+    """The one-pass contraction's dW_ih, dW_hh and db are the same bits on
+    every call: fixed chunks, fixed column-sum strands, partials added in
+    order."""
+    args = products_case(shape, torch.bfloat16, cuda, "gup", seed=5)
+    ls.reset_launches()
+    first, second = ls.bwd_products(*args), ls.bwd_products(*args)
+    assert ls.LAUNCHES["stack_bwd_products_wgmma"] == 2
+    for a, b in zip(first, second):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_stack_backward_kernels_belong_to_the_stack_layer(cuda):
+    """Every hand-written kernel of the headline backward (B 1024, C = H = 96,
+    L 2; T cut to 20) carries a name fragment of the benchmark's
+    `perfbench/layers/lstm_stack.json`, so its device time is the LSTM
+    stack's. The file is read, not changed. PyTorch's own kernels (`at::`:
+    the scan's transposed copy of W_hh) are the step's, as before."""
+    import json
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "perfbench", "layers", "lstm_stack.json")) as f:
+        fragments = json.load(f)["kernels"]
+    x, layers, g = make_stack((20, 1024, 96, 96, 2), torch.bfloat16, cuda, seed=6)
+    res = ls.fwd_train(x, layers)
+    ls.bwd(g, x, layers, *res)
+    torch.cuda.synchronize()
+    ls.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ls.bwd(g, x, layers, *res)
+        torch.cuda.synchronize()
+    assert ls.LAUNCHES["stack_bwd_products_wgmma"] == 2
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    ours = {n for n in names if "at::" not in n}
+    assert any("stack_contract" in n for n in ours), names
+    assert all(any(f in n for f in fragments) for n in ours), (ours, fragments)
 
 
 def test_stack_backward_calls_no_library_product(cuda):

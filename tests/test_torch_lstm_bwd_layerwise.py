@@ -160,4 +160,58 @@ def test_cpu_pieces_take_plain_path():
     ref_dx, ref = ls._bwd_ref(g, xt, lt, h_all, prefac, qf, need_dx=True)
     torch.testing.assert_close(dx, ref_dx, rtol=0, atol=0)
     assert all(v == 0 for v in ls.LAUNCHES.values()), ls.LAUNCHES
-    assert {"stack_bwd_scan", "stack_bwd_products"} <= set(ls.LAUNCHES)
+    assert {"stack_bwd_scan", "stack_bwd_products", "stack_bwd_products_wgmma"} <= set(ls.LAUNCHES)
+
+
+# The one-pass dW/db contraction's row chunks (`_dw_rows`) at (M = T·B, in,
+# H): the headline layer (T 460, B 1024, C = H = 96), the CLI's B 16, the
+# DINO-LSTM's layers at B 8 and 1024, the autoencoder's encoder and
+# decoder, the card test's headline cut (T 20), one step, one row.
+DW_SHAPES = [(460 * 1024, 96, 96), (460 * 16, 96, 96), (300 * 8, 96, 128), (300 * 8, 128, 128),
+             (300 * 1024, 128, 128), (12 * 16, 96, 384), (12 * 13, 384, 96),
+             (20 * 1024, 96, 96), (64, 96, 96), (1, 8, 8)]
+
+
+@pytest.mark.parametrize("M, in_dim, H", DW_SHAPES, ids=str)
+def test_dw_chunks_cover_every_row_once(M, in_dim, H):
+    """Chunks of whole 64-row steps, at most 4096 rows and at least 8 steps
+    where M has them; the chunks `stack_contract`'s grid makes
+    (ceil(M / rows), chunk y over [y rows, (y + 1) rows) ∩ [0, M)) cover
+    every row once, none is empty, and the scratch `_scratch_floats` sizes
+    holds every chunk's [dW_ih | dW_hh | db] partial."""
+    rows = ls._dw_rows(M, in_dim, H)
+    steps = -(-M // 64)
+    assert rows % 64 == 0 and 64 * min(8, steps) <= rows <= 4096
+    chunks = -(-M // rows)
+    seen = np.zeros(M, np.int64)
+    for y in range(chunks):
+        a, b = y * rows, min(M, (y + 1) * rows)
+        assert b > a
+        seen[a:b] += 1
+    assert (seen == 1).all()
+    assert ls._scratch_floats(in_dim, H, M, 1, True) >= chunks * (in_dim + H + 1) * 4 * H
+    assert ls._scratch_floats(in_dim, H, M, 1, True) == ls._scratch_floats(in_dim, H, 1, M, True)
+
+
+def test_dw_chunks_fill_the_card_at_the_headline():
+    """B 1024, T 460: 132 chunks of 56 steps, so the 3 column tiles' 396
+    CTAs are 3 whole waves of the 132 SMs."""
+    rows = ls._dw_rows(460 * 1024, 96, 96)
+    assert rows == 56 * 64 and -(-460 * 1024 // rows) == 132
+
+
+def test_products_path_rule():
+    """bf16 streams of widths the TMA reads (multiples of 8, 16-byte
+    bases) take the one-pass contraction; f32 and other widths do not."""
+    def z(*s, dtype=torch.bfloat16):
+        return torch.zeros(*s, dtype=dtype)
+
+    assert ls._products_wgmma(z(3, 5, 384), z(3, 5, 96), z(3, 5, 96))
+    assert ls._products_wgmma(z(3, 5, 512), z(3, 5, 128), z(3, 5, 128))
+    assert not ls._products_wgmma(z(3, 5, 384, dtype=torch.float32),
+                                  z(3, 5, 96, dtype=torch.float32),
+                                  z(3, 5, 96, dtype=torch.float32))
+    assert not ls._products_wgmma(z(3, 5, 40), z(3, 5, 24), z(3, 5, 10))
+    assert not ls._products_wgmma(z(3, 5, 256), z(3, 5, 300), z(3, 5, 64))
+    shifted = z(3 * 5 * 96 + 1)[1:].view(3, 5, 96)  # a base 2 bytes past 16
+    assert not ls._products_wgmma(z(3, 5, 384), shifted, z(3, 5, 96))
