@@ -1,6 +1,10 @@
 """Operations and bytes of each layer at a cell's shapes, and the peaks of
 one H100 (`peaks.json`).
 
+A driver's counts are {"layers": {<layer>: {"flops", "bytes"}}, "step_flops",
+"dtype"}: each layer's operations and bytes a step, under the name of its
+file in `layers/`, and the whole step's operations.
+
 Operations are the matrix products the algorithm needs, 2 per
 multiply-add; recompute is not counted, nor the cell's elementwise math.
 Bytes count each layer input, weight, output, cotangent and weight
@@ -65,6 +69,17 @@ def bound_s(flops: int, nbytes: int, dtype: str) -> float:
     return max(flops / PEAKS["flops_per_s"][dtype], nbytes / PEAKS["hbm_bytes_per_s"])
 
 
+def layer_roofline(record: dict, layer: str):
+    """The layer's `bound_s` over its device seconds a step, in %; None
+    where the trace gives it no time or the counts have no entry for it."""
+    t = record.get("trace")
+    c = record["counts"]["layers"].get(layer)
+    s = t["layer_s"].get(layer, 0.0) if t else 0.0
+    if c is None or s <= 0:
+        return None
+    return bound_s(c["flops"], c["bytes"], record["counts"]["dtype"]) / (s / t["steps"]) * 100
+
+
 def feature_distill(cfg: dict, B: int) -> dict:
     """Counts a step of the LSTM→DINOv2 student at batch B."""
     T = cfg["time_high"] - cfg["time_low"]
@@ -73,7 +88,8 @@ def feature_distill(cfg: dict, B: int) -> dict:
     lstm = stack_flops(T, B, C, H, L, bwd=True)
     head = dense_flops(B, [H, cfg["output_size"], cfg["n_classes"]], bwd=True)
     filt = filter_flops(B * C, cfg["raw_samples"])
-    return {"lstm_flops": lstm, "lstm_bytes": stack_bytes(T, B, C, H, L, stream, bwd=True),
+    return {"layers": {"lstm_stack": {"flops": lstm,
+                                      "bytes": stack_bytes(T, B, C, H, L, stream, bwd=True)}},
             "step_flops": lstm + head + filt, "dtype": cfg["dtype"]}
 
 
@@ -92,5 +108,5 @@ def dino(cfg: dict, B: int) -> dict:
     dims = [H] + [cfg["head_hidden_dim"]] * (cfg["head_nlayers"] - 1) + [
         cfg["head_bottleneck_dim"], cfg["out_dim"]]
     head = dense_flops(bg + bl, dims, bwd=True) + dense_flops(bg, dims, bwd=False)
-    return {"lstm_flops": lstm, "lstm_bytes": nbytes, "step_flops": lstm + head,
-            "dtype": cfg["dtype"]}
+    return {"layers": {"lstm_stack": {"flops": lstm, "bytes": nbytes}},
+            "step_flops": lstm + head, "dtype": cfg["dtype"]}

@@ -1,4 +1,6 @@
-"""Device ms a step of the LSTM stack's kernels (layer `lstm_stack`)."""
+"""Device ms a step of the operations launched inside the LSTM stack's
+program spans, `cerebra_torch.lstm.fwd` and `cerebra_torch.lstm.bwd` with
+what lies under them (layer `lstm_stack`)."""
 
 
 def read(record):

@@ -1,11 +1,10 @@
-"""Device ms a step not claimed by the filter or the LSTM stack: the head,
-the loss, the optimizer, the EMA, the gathers and copies."""
+"""Device ms a step that no layer of `layers/` claims: the head, the loss,
+the optimizer, the EMA, the gathers and copies, the stack's input copy and
+weight casts (`cerebra_torch.lstm.prepare`)."""
 
 
 def read(record):
     t = record.get("trace")
     if not t or t["busy_s"] <= 0:
         return None
-    rest = t["other_s"] + sum(v for k, v in t["layer_s"].items()
-                              if k not in ("signal", "lstm_stack"))
-    return rest / t["steps"] * 1e3
+    return t["other_s"] / t["steps"] * 1e3

@@ -9,11 +9,13 @@ steps and no window), then the cell's `trace_steps` steps each:
 
 - each alone after a synchronise, the harness's host ms around the call
   (what `host_dispatch_ms` reads);
-- `trace.profile_steps`, read by the harness's readers of the layers by
-  kernel name and span (`lstm_kernel_ms`, `filter_ms`, `rest_device_ms`);
+- `trace.profile_steps`, read by the harness's readers of the layers
+  (`lstm_kernel_ms`, `filter_ms`, `rest_device_ms`: the stack's program
+  spans, the filter's harness span, the time no layer claims);
 - traced with the host's operations (`trace.capture`): each program span's
   device ms, every operation going to the innermost span around its
-  launch (`attribute`), and the runtime and driver calls inside
+  launch (`trace.attribute`, the rule by which `lstm_kernel_ms` reads the
+  stack's spans), and the runtime and driver calls inside
   `cerebra_torch.step`, launches and synchronising calls apart;
 - each alone under the program's span recording (no profiler): each span's
   host ms, and the harness's host ms around the same calls;
@@ -27,36 +29,10 @@ import json
 import sys
 import time
 
-PROGRAM = "cerebra_torch."
 STEP = "cerebra_torch.step"
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
               "cudaMemcpy")
-
-
-def program_spans(events: dict) -> list:
-    """The program's ranges (name, start, end) among `trace.parse`'s host
-    operations. Their `gpu_user_annotation` twins are not among them, nor
-    among the device operations."""
-    return [(name, a, b) for a, b, name in events["host"] if name.startswith(PROGRAM)]
-
-
-def attribute(dev, launch: dict, spans) -> dict:
-    """Device seconds of each span: every operation goes to the innermost
-    (shortest) span whose interval holds its launch's host time, on
-    whatever thread (while autograd's thread runs `lstm.bwd`, the main
-    thread is inside `step.backward`). An operation with no launch time or
-    launched outside every span goes to none."""
-    by_length = sorted(spans, key=lambda s: s[2] - s[1])
-    out = {}
-    for _, a, b, corr in dev:
-        at = launch.get(corr)
-        if at is None:
-            continue
-        owner = next((name for name, s, e in by_length if s <= at <= e), None)
-        if owner is not None:
-            out[owner] = out.get(owner, 0.0) + b - a
-    return out
 
 
 def phases(events: dict, k: int) -> dict:
@@ -64,7 +40,7 @@ def phases(events: dict, k: int) -> dict:
     device ms a step of each span, and each runtime or driver call's count
     a step inside `cerebra_torch.step` (over every step span traced, the
     one before the marker too)."""
-    from perfbench.trace import MARKER
+    from perfbench.trace import MARKER, attribute, program_spans
 
     marks = [t1 for name, _, t1, _ in events["dev"] if MARKER in name]
     dev = [e for e in events["dev"] if e[1] >= max(marks)]

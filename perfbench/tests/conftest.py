@@ -1,10 +1,14 @@
 """Cells at a size the CPU holds: the configurations' files with narrow
 widths and short sequences, f32 (the CPU runs the kernels' plain
-versions), and each cell's own limits. The DINO-LSTM's driver and
-reference have no cell in BENCHMARK.json yet (PERF.md, Open questions:
-the fp8 control fails none of these limits, which its readings on the
-card would set); they run here on `DINO_B8`, the traffic of the CLI's
-batch of 8 that their cell would carry."""
+versions), and each cell's own limits. Each driver's sizes and faults are
+in `tests/drivers/<driver>.py`, so a cell with a driver of its own adds a
+file there. The DINO-LSTM's driver and reference have no cell in
+BENCHMARK.json yet (PERF.md, Open questions: the fp8 control fails none of
+these limits, which its readings on the card would set); they run here on
+`DINO_B8`, the traffic of the CLI's batch of 8 that their cell would
+carry."""
+
+import importlib
 
 import torch
 
@@ -20,19 +24,18 @@ DINO_B8 = {"config": "dino_lstm", "traffic": "b8", "chips": 1, "batch": 8, "corp
 
 
 def small(name: str, dtype: str = "float32"):
+    """The cell and its configuration at the size that its driver's module
+    in `tests/drivers/` gives."""
     if name == "dino_lstm.b8":
         cell, cfg = dict(DINO_B8), load_json(HERE, "configs", "dino_lstm.json")
     else:
         cell, cfg = load_cell(name)
-    if cfg["driver"] == "feature_distill":
-        cfg = dict(cfg, input_size=16, lstm_size=16, output_size=64, n_classes=8,
-                   raw_samples=128, time_low=8, time_high=120, num_taps=33, dtype=dtype)
-        cell = dict(cell, batch=16, corpus_trials=32, warmup_steps=1, trace_steps=2)
-    else:  # the program fixes DINOHead's hidden and bottleneck widths
-        cfg = dict(cfg, input_size=8, samples=40, embed_dim=16, out_dim=32, global_length=24,
-                   local_length=16, epochs=4, warmup_epochs=1, dtype=dtype)
-        cell = dict(cell, batch=4, corpus_trials=32, start_step=7, warmup_steps=1, trace_steps=2)
-    return cell, cfg
+    return driver(cfg).small(cell, cfg, dtype)
+
+
+def driver(cfg: dict):
+    """`tests/drivers/<driver>.py` of a configuration: its CPU sizes and faults."""
+    return importlib.import_module(f"perfbench.tests.drivers.{cfg['driver']}")
 
 
 CELLS = ("lstm_distill_dinov2.b1024", "dino_lstm.b8")  # every driver

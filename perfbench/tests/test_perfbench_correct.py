@@ -10,7 +10,7 @@ import torch
 
 from perfbench import compare
 from perfbench.run import measure
-from perfbench.tests.conftest import BENCHMARK_CELLS, small
+from perfbench.tests.conftest import BENCHMARK_CELLS, driver, small
 
 SEED = 2 ** 31 + 77
 
@@ -21,35 +21,6 @@ def run_small(name: str) -> bool:
     return record["failed"] == 0 and compare.passed(record["checks"])
 
 
-def frozen_distill_step(model, opt, loss_fn, eeg, feats, labels, epoch):
-    return loss_fn(*model(eeg), feats, labels, epoch).detach()
-
-
-def plant(monkeypatch, name: str, fault: str) -> None:
-    import cerebra_torch.train.recipes as recipes
-    import cerebra_torch.train.steps as steps
-
-    if small(name)[1]["driver"] == "feature_distill":
-        whole = steps.feature_distill_step
-        if fault == "frozen":
-            step = frozen_distill_step
-        else:
-            def step(model, opt, loss_fn, eeg, feats, labels, epoch):
-                n = eeg.shape[0] // 2
-                return whole(model, opt, loss_fn, eeg[:n], feats[:n], labels[:n], epoch)
-        monkeypatch.setattr(steps, "feature_distill_step", step)
-        return
-    make = recipes.make_dino_lstm
-
-    def make_faulty(*args, **kwargs):
-        state, step, niter = make(*args, **kwargs)
-        if fault == "frozen":
-            return state, lambda s, batch, gen: (s, {"loss": torch.zeros(())}), niter
-        return state, lambda s, batch, gen: step(s, batch[:batch.shape[0] // 2], gen), niter
-
-    monkeypatch.setattr(recipes, "make_dino_lstm", make_faulty)
-
-
 @pytest.mark.parametrize("name", BENCHMARK_CELLS)
 def test_sound_run_is_correct(name):
     assert run_small(name)
@@ -58,7 +29,8 @@ def test_sound_run_is_correct(name):
 @pytest.mark.parametrize("fault", ["frozen", "half"])
 @pytest.mark.parametrize("name", BENCHMARK_CELLS)
 def test_fault_is_not_correct(monkeypatch, name, fault):
-    plant(monkeypatch, name, fault)
+    cell, cfg = small(name)
+    driver(cfg).plant(monkeypatch, fault)
     assert not run_small(name)
 
 
@@ -70,8 +42,8 @@ def test_control_is_not_correct(name, seed):
     import importlib
 
     cell, cfg = small(name)
-    driver = importlib.import_module(f"perfbench.drivers.{cfg['driver']}")
-    run = driver.Run(cell, cfg, seed, torch.device("cpu"))
+    harness = importlib.import_module(f"perfbench.drivers.{cfg['driver']}")
+    run = harness.Run(cell, cfg, seed, torch.device("cpu"))
     run.first_steps(cell["check_steps"])
     run.free()
     checks = compare.judge(compare.gaps(run.reference("fp8"), run.reference("f32")),

@@ -27,7 +27,8 @@ def test_top_level_keys():
 def test_config_file(entry):
     cfg = load_json(ROOT, entry["file"])
     assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
-    assert cfg["reduced"] == entry["reduced"] == []
+    assert cfg["reduced"] == entry["reduced"] and len(entry["reduced"]) <= 16
+    assert all(isinstance(k, str) and NAME.match(k) for k in entry["reduced"])
     assert os.path.exists(os.path.join(HERE, "drivers", f"{cfg['driver']}.py"))
 
 
@@ -58,22 +59,46 @@ def test_metric_reader(metric):
         assert 0 < metric["bound"] <= 0.25 and metric["source"] in ("host_clock", "device_trace")
 
 
-def test_readers_read_a_record():
-    """Each reader returns a number from a record with every field a run
-    fills, or None where its layer has no time there."""
-    record = {"cell": "c", "chips": 1, "batch": 8, "steps": 10, "window_s": 0.2,
-              "step_ms": [20.0] * 10, "setup_s": 12.0, "dispatch_ms": [3.0, 4.0],
-              "peak_window_bytes": 2 ** 30,
-              "counts": {"lstm_flops": 1e9, "lstm_bytes": 1e6, "step_flops": 2e9,
-                         "dtype": "bfloat16"},
-              "trace": {"steps": 2, "stretch_s": 0.05, "busy_s": 0.03, "other_s": 0.01,
-                        "layer_s": {"signal": 0.0, "lstm_stack": 0.02}}}
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
-        value = read_metric(m["name"], record)
-        assert value is None if m["name"].startswith("filter_ms") else value > 0, m["name"]
+LAYERS = trace.load_layers()
+METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
 
 
-@pytest.mark.parametrize("layer", trace.load_layers(), ids=lambda l: l["name"])
+def record(layer_s: float) -> dict:
+    """A run's record with every field a run fills: each layer of `layers/`
+    `layer_s` device seconds over the traced steps, and operations and bytes
+    in the counts."""
+    return {"cell": "c", "chips": 1, "batch": 8, "steps": 10, "window_s": 0.2,
+            "step_ms": [20.0] * 10, "setup_s": 12.0, "dispatch_ms": [3.0, 4.0],
+            "peak_window_bytes": 2 ** 30,
+            "counts": {"layers": {l["name"]: {"flops": 1e9, "bytes": 1e6} for l in LAYERS},
+                       "step_flops": 2e9, "dtype": "bfloat16"},
+            "trace": {"steps": 2, "stretch_s": 0.05, "busy_s": 0.03, "other_s": 0.01,
+                      "layer_s": {l["name"]: layer_s for l in LAYERS}}}
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])
+def test_readers_read_a_record(metric):
+    """Each reader returns a number from a record in which every layer has
+    time."""
+    value = read_metric(metric["name"], record(0.004))
+    assert value > 0
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])
+def test_readers_of_a_layer_without_time_return_none(metric):
+    """A reader that reads a layer's time (its number follows that time)
+    returns None where every layer reads 0; the others read as before."""
+    name, full = metric["name"], read_metric(metric["name"], record(0.004))
+    reads_layers = read_metric(name, record(0.008)) != full
+    assert read_metric(name, record(0.0)) == (None if reads_layers else full)
+
+
+@pytest.mark.parametrize("layer", LAYERS, ids=lambda l: l["name"])
 def test_layer_file(layer):
-    assert ("span" in layer) != ("kernels" in layer)
+    """A layer is named as its file and is of one kind: a harness span, or
+    program spans (names of the program's own), or kernel fragments."""
     assert NAME.match(layer["name"])
+    assert os.path.exists(os.path.join(trace.LAYERS_DIR, f"{layer['name']}.json"))
+    assert ("span" in layer) + ("program_spans" in layer) <= 1 and trace.kind(layer)
+    if trace.kind(layer) == "program_spans":
+        assert all(p.startswith(trace.PROGRAM) for p in layer["program_spans"])

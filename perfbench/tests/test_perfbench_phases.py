@@ -1,26 +1,10 @@
 """The program's spans read from a trace (`perfbench/phases.py`): device
-time by the innermost span around each launch, runtime calls inside the
-step, and the recorded pass's host ms."""
+time by the innermost span around each launch (`trace.attribute`), runtime
+calls inside the step, and the recorded pass's host ms."""
 
 import torch
 
 from perfbench import phases, trace
-
-
-def test_attribute_to_the_innermost_span():
-    """Each operation goes to the shortest span around its launch, whatever
-    thread the span is on; one launched outside every span, or with no
-    launch time, goes to none."""
-    spans = [("cerebra_torch.step", 0.0, 10.0),
-             ("cerebra_torch.step.backward", 4.0, 9.0),
-             ("cerebra_torch.lstm.bwd", 4.5, 8.0),  # autograd's thread
-             ("cerebra_torch.lstm.bwd.scan", 5.0, 6.0)]
-    dev = [("a", 20.0, 21.0, 1), ("b", 21.0, 23.0, 2), ("c", 23.0, 23.5, 3),
-           ("d", 24.0, 24.25, 4), ("e", 25.0, 26.0, 5), ("f", 26.0, 27.0, 6)]
-    launch = {1: 1.0, 2: 5.5, 3: 7.0, 4: 8.5, 5: 11.0}  # 6 has no launch time
-    assert phases.attribute(dev, launch, spans) == {
-        "cerebra_torch.step": 1.0, "cerebra_torch.lstm.bwd.scan": 2.0,
-        "cerebra_torch.lstm.bwd": 0.5, "cerebra_torch.step.backward": 0.25}
 
 
 def chrome_trace() -> dict:

@@ -6,7 +6,18 @@ marker kernel and returns their events from the profiler's Chrome trace;
 `reduce` turns them into what the per-layer readers read: the traced
 stretch (first kernel start to last kernel end), the union of device
 activity in it, each layer's device seconds, and the breakdown (the longest device operations, and the
-idle gaps by what the host was doing)."""
+idle gaps by what the host was doing).
+
+A layer is a file `layers/<name>.json` of one of three kinds, which claim a
+device operation in this order:
+
+- `"span"`: a harness span; the layer owns each operation launched inside it;
+- `"program_spans"`: prefixes of the program's own span names; the layer owns
+  each operation whose innermost program span (`attribute`'s rule) is one of
+  them or lies under one (`cerebra_torch.lstm.bwd` takes in
+  `cerebra_torch.lstm.bwd.scan`, not `cerebra_torch.lstm.bwdx`);
+- `"kernels"`: fragments of kernel names; the layer owns each operation whose
+  name holds one."""
 
 import bisect
 import glob
@@ -20,6 +31,8 @@ MARKER = "spin_kernel"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
+PROGRAM = "cerebra_torch."
+KINDS = ("span", "program_spans", "kernels")  # the order in which layers claim
 LAYERS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "layers")
 
 
@@ -27,14 +40,19 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
+def kind(layer: dict) -> str:
+    """The key of KINDS that defines a layer: the first it has."""
+    return next(k for k in KINDS if k in layer)
+
+
 def load_layers() -> list:
-    """layers/*.json in name order: {"name", and "span" (a harness span) or
-    "kernels" (fragments of kernel names)}; span layers claim first."""
+    """layers/*.json: {"name", and a key of KINDS}, in the order they
+    claim (by kind, then by name)."""
     layers = []
     for path in sorted(glob.glob(os.path.join(LAYERS_DIR, "*.json"))):
         with open(path) as f:
             layers.append(json.load(f))
-    return sorted(layers, key=lambda l: "span" not in l)
+    return sorted(layers, key=lambda l: KINDS.index(kind(l)))
 
 
 def parse(trace: dict) -> dict:
@@ -60,6 +78,54 @@ def parse(trace: dict) -> dict:
     return {"dev": dev, "launch": launch, "spans": spans, "host": sorted(host)}
 
 
+def program_spans(events: dict) -> list:
+    """The program's ranges (name, start, end) among `parse`'s host
+    operations. Their `gpu_user_annotation` twins are not among them, nor
+    among the device operations."""
+    return [(name, a, b) for a, b, name in events["host"] if name.startswith(PROGRAM)]
+
+
+def innermost(at, by_length):
+    """The name of the shortest span of `by_length` (spans sorted by
+    length) whose interval holds the host time `at`; None where `at` is
+    None or no span holds it."""
+    if at is None:
+        return None
+    return next((name for name, s, e in by_length if s <= at <= e), None)
+
+
+def attribute(dev, launch: dict, spans) -> dict:
+    """Device seconds of each span: every operation goes to the innermost
+    (shortest) span whose interval holds its launch's host time, on
+    whatever thread (while autograd's thread runs `lstm.bwd`, the main
+    thread is inside `step.backward`). An operation with no launch time or
+    launched outside every span goes to none."""
+    by_length = sorted(spans, key=lambda s: s[2] - s[1])
+    out = {}
+    for _, a, b, corr in dev:
+        owner = innermost(launch.get(corr), by_length)
+        if owner is not None:
+            out[owner] = out.get(owner, 0.0) + b - a
+    return out
+
+
+def under(name, prefixes) -> bool:
+    """Whether the span `name` is one of `prefixes` or lies under one."""
+    return name is not None and any(name == p or name.startswith(p + ".") for p in prefixes)
+
+
+def events_of(prof) -> dict:
+    """`parse` of a finished profiler's Chrome trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return parse(json.load(f))
+    finally:
+        os.remove(path)
+
+
 def capture(step, k: int, host: bool) -> dict:
     """`parse` of a profile of k calls of `step` after a marker kernel (a
     trace can lose its first kernels: 64 small ones and one step run
@@ -82,14 +148,7 @@ def capture(step, k: int, host: bool) -> dict:
             for _ in range(k):
                 step()
             torch.cuda.synchronize()
-        fd, path = tempfile.mkstemp(suffix=".json")
-        os.close(fd)
-        try:
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = parse(json.load(f))
-        finally:
-            os.remove(path)
+        events = events_of(prof)
         if any(MARKER in name for name, *_ in events["dev"]):
             return events
     raise RuntimeError("three device traces lost their marker kernel")
@@ -132,26 +191,25 @@ def _label(host, starts, t: float) -> str:
 
 
 def profile_steps(step, k: int, layers: list) -> dict:
-    """`reduce` of k steps traced without the host's operations; the layers
-    that a harness span defines, and the idle gaps' labels, from k more
-    steps traced with them (their kernels' times are the device's own; the
-    gaps between them there carry the profiler's host overhead)."""
+    """`reduce` of k steps traced without the host's operations (the
+    stretch, the busy union, the longest operations), with every layer's
+    device seconds, the seconds no layer claims and the idle gaps' labels
+    from k more steps traced with them: one partition of one capture, since
+    span layers need the host's ranges (the kernels' times there are the
+    device's own; the gaps between them carry the profiler's host
+    overhead)."""
     quiet = reduce(capture(step, k, host=False), layers, k)
     full = reduce(capture(step, k, host=True), layers, k)
-    for l in layers:
-        name = l["name"]
-        if "span" in l and quiet["layer_s"][name] == 0.0:
-            quiet["layer_s"][name] = full["layer_s"][name]
-            quiet["other_s"] -= full["layer_s"][name]
+    quiet.update(layer_s=full["layer_s"], other_s=full["other_s"])
     quiet["breakdown"]["idle_gaps"] = full["breakdown"]["idle_gaps"]
     return quiet
 
 
 def reduce(events: dict, layers: list, k: int) -> dict:
     """The k steps after the marker: the stretch, the busy union, each
-    layer's device seconds (span layers first, by launch time; then kernel
-    layers, by name), the seconds no layer claims, and the breakdown a
-    step."""
+    layer's device seconds (claimed in `load_layers`' order: harness spans
+    and program spans by launch time, kernel fragments by name), the
+    seconds no layer claims, and the breakdown a step."""
     marks = [t1 for name, _, t1, _ in events["dev"] if MARKER in name]
     dev = [e for e in events["dev"] if e[1] >= max(marks)]
     if not dev:
@@ -165,17 +223,19 @@ def reduce(events: dict, layers: list, k: int) -> dict:
     spans = {}
     for name, a, b in events["spans"]:
         spans.setdefault(name, []).append((a, b))
+    by_length = sorted(program_spans(events), key=lambda s: s[2] - s[1])
+
+    def claims(l, name, at, inner) -> bool:
+        if kind(l) == "span":
+            return at is not None and any(s <= at <= e for s, e in spans.get(l["span"], ()))
+        if kind(l) == "program_spans":
+            return under(inner, l["program_spans"])
+        return any(frag in name for frag in l["kernels"])
+
     for name, a, b, corr in dev:
         at = events["launch"].get(corr)
-        owner = None
-        for l in layers:
-            if "span" in l:
-                if at is not None and any(s <= at <= e for s, e in spans.get(l["span"], ())):
-                    owner = l["name"]
-            elif any(frag in name for frag in l["kernels"]):
-                owner = l["name"]
-            if owner:
-                break
+        inner = innermost(at, by_length)
+        owner = next((l["name"] for l in layers if claims(l, name, at, inner)), None)
         if owner:
             layer_s[owner] += b - a
         else:
