@@ -22,7 +22,10 @@ layer casts its input, weight and bias to it, LayerNorm computes in f32
 Each block's two halves take the fused kernels (models/vit_attn.py,
 models/vit_mlp.py) when `use_fused_attn` / `use_fused_mlp` are on; None
 ("auto") turns them on for CUDA tensors. With the flags off a block runs the
-JAX package's own unfused path (its XLA formulas), not a fallback.
+JAX package's own unfused path (its XLA formulas), not a fallback. Either
+way each half's forward lies in the span `cerebra_torch.vit.attn` /
+`cerebra_torch.vit.mlp` (`utils/spans.py`); the fused halves' backwards in
+`.attn.bwd` / `.mlp.bwd`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from cerebra_torch.models._torch_interop import strip_torch_prefixes, trunc_normal_init
 from cerebra_torch.models.vit_attn import flash_mha_qkv, fused_attn_residual
 from cerebra_torch.models.vit_mlp import LN_EPS, fused_mlp_residual
+from cerebra_torch.utils.spans import span
 
 _LECUN_STD_CORRECTION = 0.87962566103423978  # std of a unit normal truncated at ±2
 
@@ -149,13 +153,14 @@ class Block(nn.Module):
                 self.dtype, self._drop_path_scale(B, x.device),
             )
         else:
-            y, attn = self.attn(layer_norm(x, self.norm1, self.dtype),
-                                need_weights=return_attention)
-            if return_attention:
-                return attn
-            if self.layer_scale:
-                y = y * self.ls1.gamma
-            x = x + self._drop_path(y)
+            with span("cerebra_torch.vit.attn"):
+                y, attn = self.attn(layer_norm(x, self.norm1, self.dtype),
+                                    need_weights=return_attention)
+                if return_attention:
+                    return attn
+                if self.layer_scale:
+                    y = y * self.ls1.gamma
+                x = x + self._drop_path(y)
         if _fused_on(self.use_fused_mlp, x) and seq_gate:
             w2, b2 = self.mlp.fc2.weight.t(), self.mlp.fc2.bias
             if self.layer_scale:
@@ -168,11 +173,12 @@ class Block(nn.Module):
                 x.reshape(B * N, D), self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight.t(),
                 self.mlp.fc1.bias, w2, b2, self.fused_mlp_tile_m, self.dtype, scale,
             ).reshape(B, N, D)
-        h = dense(layer_norm(x, self.norm2, self.dtype), self.mlp.fc1, self.dtype)
-        h = dense(F.gelu(h), self.mlp.fc2, self.dtype)  # exact erf, torch nn.GELU's default
-        if self.layer_scale:
-            h = h * self.ls2.gamma
-        return x + self._drop_path(h)
+        with span("cerebra_torch.vit.mlp"):
+            h = dense(layer_norm(x, self.norm2, self.dtype), self.mlp.fc1, self.dtype)
+            h = dense(F.gelu(h), self.mlp.fc2, self.dtype)  # exact erf, torch nn.GELU's default
+            if self.layer_scale:
+                h = h * self.ls2.gamma
+            return x + self._drop_path(h)
 
     def _mask(self, batch: int, device):
         keep = 1.0 - self.drop_path

@@ -46,6 +46,7 @@ import torch
 
 from cerebra_torch.kernels import LAUNCHES, check_rc, load_lib, on_cuda, ptr, stream_of
 from cerebra_torch.models.vit_mlp import check_cuda, layernorm_f32, ln_backward, mm
+from cerebra_torch.utils.spans import span
 
 LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0, vit_attn_core_fwd=0, vit_attn_core_bwd=0,
                 vit_attn_flash_fwd=0, vit_attn_flash_bwd=0)
@@ -513,28 +514,32 @@ class _FusedAttn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        x, s, *rest = ctx.saved_tensors
-        H = ctx.num_heads
-        dx, dg, db, dwqkv, dbqkv, dwp, dbp = ctx.impl[1](
-            dout.to(x.dtype).contiguous(), x, s, rest[:6], H, rest[6:])
-        # the q slices were scale-folded: chain rule through wq·scale
-        D = x.shape[-1]
-        scale = (D // H) ** -0.5
-        dwqkv[:, :D] *= scale
-        dbqkv[:D] *= scale
-        dparams = (dg, db, dwqkv, dbqkv, dwp, dbp)
-        return (None, None, dx, None, None, *[d.to(t) for d, t in zip(dparams, ctx.dtypes)])
+        with span("cerebra_torch.vit.attn.bwd"):
+            x, s, *rest = ctx.saved_tensors
+            H = ctx.num_heads
+            dx, dg, db, dwqkv, dbqkv, dwp, dbp = ctx.impl[1](
+                dout.to(x.dtype).contiguous(), x, s, rest[:6], H, rest[6:])
+            # the q slices were scale-folded: chain rule through wq·scale
+            D = x.shape[-1]
+            scale = (D // H) ** -0.5
+            dwqkv[:, :D] *= scale
+            dbqkv[:D] *= scale
+            dparams = (dg, db, dwqkv, dbqkv, dwp, dbp)
+            return (None, None, dx, None, None, *[d.to(t) for d, t in zip(dparams, ctx.dtypes)])
 
 
 def _residual(impl, x, g, b, wqkv, bqkv, wproj, bproj, num_heads, compute_dtype, scale):
-    cdt = compute_dtype or x.dtype
-    s = None
-    if scale is not None:
-        s = scale.detach().reshape(x.shape[0]).to(torch.float32).contiguous()
-    params = (g, b, wqkv, bqkv, wproj, bproj)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
-        return _FusedAttn.apply(impl, num_heads, x, s, cdt, *params)
-    return impl[0](x, s, _prep(*params, num_heads, cdt), num_heads)[0]
+    """The half-block, its weights' casts (`_prep`) included, inside the
+    span `cerebra_torch.vit.attn`, with or without autograd."""
+    with span("cerebra_torch.vit.attn"):
+        cdt = compute_dtype or x.dtype
+        s = None
+        if scale is not None:
+            s = scale.detach().reshape(x.shape[0]).to(torch.float32).contiguous()
+        params = (g, b, wqkv, bqkv, wproj, bproj)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+            return _FusedAttn.apply(impl, num_heads, x, s, cdt, *params)
+        return impl[0](x, s, _prep(*params, num_heads, cdt), num_heads)[0]
 
 
 def fused_attn_residual(x, g, b, wqkv, bqkv, wproj, bproj, num_heads: int, pad: int = 16,

@@ -33,6 +33,7 @@ from typing import Sequence, Tuple
 import torch
 
 from cerebra_torch.kernels import LAUNCHES, check_rc, load_lib, on_cuda, ptr, stream_of
+from cerebra_torch.utils.spans import span
 
 LAUNCHES.update(vit_mlp_fwd=0, vit_mlp_bwd=0, vit_mlp_dh=0, vit_mlp_product=0)
 
@@ -437,23 +438,27 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        x, s, *rest = ctx.saved_tensors
-        grads = ctx.impl[1](dout.to(x.dtype).contiguous(), x, s, rest[:6], rest[6:])
-        dx, dparams = grads[0], grads[1:]
-        return (None, dx, None, None, *[d.to(t) for d, t in zip(dparams, ctx.dtypes)])
+        with span("cerebra_torch.vit.mlp.bwd"):
+            x, s, *rest = ctx.saved_tensors
+            grads = ctx.impl[1](dout.to(x.dtype).contiguous(), x, s, rest[:6], rest[6:])
+            dx, dparams = grads[0], grads[1:]
+            return (None, dx, None, None, *[d.to(t) for d, t in zip(dparams, ctx.dtypes)])
 
 
 def _residual(impl, x, g, b, w1, b1, w2, b2, compute_dtype, scale):
+    """The half-block, its weights' casts (`_prep`) included, inside the
+    span `cerebra_torch.vit.mlp`, with or without autograd."""
     if x.dim() != 2:
         raise ValueError(f"x must be (M, D), got shape {tuple(x.shape)}")
-    cdt = compute_dtype or x.dtype
-    s = None
-    if scale is not None:
-        s = scale.detach().reshape(x.shape[0]).to(torch.float32).contiguous()
-    params = (g, b, w1, b1, w2, b2)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
-        return _FusedMLP.apply(impl, x, s, cdt, *params)
-    return impl[0](x, s, _prep(*params, cdt))[0]
+    with span("cerebra_torch.vit.mlp"):
+        cdt = compute_dtype or x.dtype
+        s = None
+        if scale is not None:
+            s = scale.detach().reshape(x.shape[0]).to(torch.float32).contiguous()
+        params = (g, b, w1, b1, w2, b2)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+            return _FusedMLP.apply(impl, x, s, cdt, *params)
+        return impl[0](x, s, _prep(*params, cdt))[0]
 
 
 def fused_mlp_residual(x, g, b, w1, b1, w2, b2, tile_m: int = 256, compute_dtype=None,

@@ -103,7 +103,11 @@ def make_dino_step(
     student is in training mode (drop path active), the teacher in eval.
     Under a mesh `batch` is this rank's rows, `data_group` the mesh's data
     group, and a head sharded over "model" names its group itself
-    (`losses/dino.py`)."""
+    (`losses/dino.py`). Its phases are spans (`utils/spans.py`):
+    `cerebra_torch.step` around the whole, and inside it `.views`,
+    `.teacher`, `.forward` (the student), `.loss`, `.backward`,
+    `.optimizer` (zero_grad; then the cancel, the clip and the update) and
+    `.ema` (teacher and center)."""
     lr_schedule = np.asarray(lr_schedule, dtype=np.float32)
     wd_schedule = np.asarray(wd_schedule, dtype=np.float32)
     momentum_schedule = np.asarray(momentum_schedule, dtype=np.float32)
@@ -118,26 +122,35 @@ def make_dino_step(
         it = state.step
         epoch = it // niter_per_ep
         t_temp = float(teacher_temp_by_epoch[epoch])
-        groups = view_fn(generator, batch)
-        n_teacher, B = groups[0].shape[:2]
-        n_crops = sum(int(g.shape[0]) for g in groups)
+        with span("cerebra_torch.step"):
+            with span("cerebra_torch.step.views"):
+                groups = view_fn(generator, batch)
+            n_teacher, B = groups[0].shape[:2]
+            n_crops = sum(int(g.shape[0]) for g in groups)
 
-        # teacher: only the global group (LstmDistillation.py:584-586)
-        with torch.no_grad():
-            teacher_out = state.teacher([groups[0]]).reshape(n_teacher, B, -1).float()
-        student_out = (state.forward or state.student)(groups).reshape(n_crops, B, -1).float()
-        loss, new_center = dino_multicrop_loss(
-            student_out, teacher_out, state.center, teacher_temp=t_temp,
-            student_temp=student_temp, center_momentum=center_momentum,
-            compat_reference_pairing=compat_reference_pairing, data_group=data_group,
-            model_group=state.student.head.model_group,
-        )
-        state.optimizer.zero_grad()
-        loss.backward()
-        cancel_last_layer_grads(state.student, epoch, freeze_last_layer)
-        state.optimizer.step()
-        ema_update(state.teacher, state.student, float(momentum_schedule[it]))
-        state.center = new_center
+            # teacher: only the global group (LstmDistillation.py:584-586)
+            with span("cerebra_torch.step.teacher"), torch.no_grad():
+                teacher_out = state.teacher([groups[0]]).reshape(n_teacher, B, -1).float()
+            with span("cerebra_torch.step.forward"):
+                student_out = (state.forward or state.student)(groups).reshape(
+                    n_crops, B, -1).float()
+            with span("cerebra_torch.step.loss"):
+                loss, new_center = dino_multicrop_loss(
+                    student_out, teacher_out, state.center, teacher_temp=t_temp,
+                    student_temp=student_temp, center_momentum=center_momentum,
+                    compat_reference_pairing=compat_reference_pairing, data_group=data_group,
+                    model_group=state.student.head.model_group,
+                )
+            with span("cerebra_torch.step.optimizer"):
+                state.optimizer.zero_grad()
+            with span("cerebra_torch.step.backward"):
+                loss.backward()
+            with span("cerebra_torch.step.optimizer"):
+                cancel_last_layer_grads(state.student, epoch, freeze_last_layer)
+                state.optimizer.step()
+            with span("cerebra_torch.step.ema"):
+                ema_update(state.teacher, state.student, float(momentum_schedule[it]))
+                state.center = new_center
         state.step = it + 1
         return state, {"loss": loss.detach(), "lr": float(lr_schedule[it]),
                        "wd": float(wd_schedule[it]), "momentum": float(momentum_schedule[it])}

@@ -12,13 +12,19 @@ the profiler, which stretches a host step. With neither on, `span` returns
 one shared no-op, after a check of two module-level flags.
 
 The names begin with `cerebra_torch.`: `step` (`train/steps.py::
-feature_distill_step`) with `step.forward`, `.loss`, `.backward` and
-`.optimizer` (zero_grad and the update, two intervals a step) inside it;
+feature_distill_step` and `make_dino_step`'s step) with `step.forward`,
+`.loss`, `.backward` and `.optimizer` (zero_grad and the update, two
+intervals a step) inside it, and in the DINO step also `step.views`,
+`.teacher` and `.ema` (the EMA of teacher and center);
 `lstm.prepare` (`models/lstm.py::LSTMStack.prepare`: the input's
 time-major copy and the weights' casts), `lstm.fwd` and `lstm.bwd` (the
 stack's autograd function, `models/lstm_stack.py::_Stack`) and, inside
 `lstm.bwd`, `lstm.bwd.scan` and `lstm.bwd.products` (K2's reverse scan and
-products, one of each a layer).
+products, one of each a layer); `vit.attn` and `vit.mlp` (each ViT
+half-block's forward, fused or not: `models/vit_attn.py::_residual`,
+`models/vit_mlp.py::_residual`, `models/vit.py::Block.forward`'s unfused
+branches), `vit.attn.bwd` and `vit.mlp.bwd` (the fused halves' backwards,
+K6 and K8).
 """
 
 from __future__ import annotations

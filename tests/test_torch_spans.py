@@ -2,11 +2,13 @@
 nothing on; under `recording()` one CPU `feature_distill_step` records the
 step's phases and the LSTM stack's ranges, each inside its parent; the
 layer-by-layer backward records a scan and products a layer inside
-`lstm.bwd`; under `torch.profiler` the same names are `user_annotation`
-events of the Chrome export."""
+`lstm.bwd`; one small DINO ViT step records its phases and each ViT
+half-block's forward and backward; under `torch.profiler` the same names
+are `user_annotation` events of the Chrome export."""
 
 import json
 
+import pytest
 import torch
 
 from cerebra_torch.models.lstm import Model
@@ -113,3 +115,35 @@ def test_profiler_sees_the_same_names(tmp_path):
     assert got == {P + "step": 1, P + "step.optimizer": 2, P + "step.forward": 1,
                    P + "step.loss": 1, P + "step.backward": 1, P + "lstm.prepare": 1,
                    P + "lstm.fwd": 1, P + "lstm.bwd": 1}
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_dino_vit_step_spans(monkeypatch, fused):
+    """One DINO ViT step of the recipe (D 32, depth 2): each half-block's
+    forward once a block for each student group and for the teacher's
+    globals, each fused half's backward once a block for each student group
+    (the unfused halves' backward is autograd's own, with no span); the
+    step's phases once each, `.optimizer` twice (zero_grad, then the
+    cancel, clip and update), each inside the step; the half-blocks inside
+    `.teacher`, `.forward` and `.backward`."""
+    from tests._dino_vit_small import small_run
+
+    run = small_run(monkeypatch, fused)
+    depth = run.cfg["depth"]
+    with spans.recording() as rec:
+        run.step()
+    names = [r[0][len(P):] for r in rec]
+    want = {"step": 1, "step.views": 1, "step.teacher": 1, "step.forward": 1, "step.loss": 1,
+            "step.backward": 1, "step.optimizer": 2, "step.ema": 1,
+            "vit.attn": 3 * depth, "vit.mlp": 3 * depth}
+    if fused:
+        want.update({"vit.attn.bwd": 2 * depth, "vit.mlp.bwd": 2 * depth})
+    assert {n: names.count(n) for n in set(names)} == want
+    parents = {}
+    for name, up, *_ in rec:
+        parents.setdefault(name[len(P):], set()).add(up and up[len(P):])
+    assert parents["step"] == {None}
+    assert all(parents[n] == {"step"} for n in want if n.startswith("step."))
+    assert parents["vit.attn"] == parents["vit.mlp"] == {"step.teacher", "step.forward"}
+    if fused:  # autograd runs the backward on the calling thread on the CPU
+        assert parents["vit.attn.bwd"] == parents["vit.mlp.bwd"] == {"step.backward"}
