@@ -19,9 +19,9 @@
 //   forward:  LN rows (y) -> y @ Wqkv + bqkv rounded to CD (qkv) ->
 //             attention core (o, and each query row's m and l) -> o @ Wp +
 //             bp, scaled, plus the residual;
-//   backward: dout*s in CD -> dWp, dbp -> do = dn @ Wp^T -> dq core (query
-//             tiles) -> dk/dv core (key tiles) -> dWqkv, dbqkv -> dy = dqkv
-//             @ Wqkv^T -> LN backward.
+//   backward: dout*s in CD -> dbp -> do = dn @ Wp^T -> dq core (query
+//             tiles) -> dk/dv core (key tiles) -> dWp = o^T dn and dWqkv =
+//             y^T dqkv -> dbqkv -> dy = dqkv @ Wqkv^T -> LN backward.
 // The attention cores never hold more than a 64x64 tile of scores. The
 // forward is two-pass: pass 1 finds each row's max m and sum l = sum exp(s -
 // m), pass 2 forms p = exp(s - m) / l, rounds p to CD and accumulates p @ v,
@@ -31,7 +31,17 @@
 // bit and, for dS = p (dp - sum_j p dp), first sums p * dp over every key
 // tile as the Pallas body does (not FlashAttention's do . o, which would use
 // the rounded o). Every dW is a contraction over rows summed in fixed chunks
-// and a fixed order (vit_common.cuh): deterministic, no atomics.
+// and a fixed order: deterministic, no atomics.
+//
+// The five dense products (qkv, proj, do, dy and the two dW) are 14.5 of the
+// 26.8 TFLOP this half-block does in a main_dino step at batch 128 (12
+// blocks, the teacher's forward too). In bf16 they run on wgmma_gemm.cuh as
+// K7/K8's do: a TMA ring feeding wgmma, the epilogues on register pairs, dWp
+// and dWqkv as one launch of two split-row contractions once the cores have
+// written dqkv (`product`, `weight_grads`, `dw_splits`). The TMA needs
+// 16-byte aligned bases and D % 8 == 0, as every ViT width has; other
+// operands are refused (cudaErrorInvalidValue). f32 compute keeps
+// vit_common.cuh's CUDA-core f32 body and its contract_rows.
 //
 // In bf16 the cores are bound by their tensor-core products (4 N^2 dh a
 // head and sequence forward, 10 backward, as the bound counts them; the
@@ -42,8 +52,8 @@
 // rounded, straight into the A fragment of the next mma.sync; the streamed
 // tiles come through a cp.async ring that overlaps the next tile's copy
 // with this tile's math, one barrier a tile. wgmma, TMA and a key-split of
-// the long sequences are later work. In f32 the cores run on the CUDA cores
-// with true f32 FMA; the products are vit_common.cuh's.
+// the long sequences are later work for the cores. In f32 the cores run on
+// the CUDA cores with true f32 FMA.
 //
 // Rounding points follow the Pallas bodies: LN in f32 with eps 1e-6; y, q,
 // k, v, p, o, dout*s, do, dS, dq, dk, dv rounded to CD where the body casts
@@ -1296,6 +1306,63 @@ constexpr int kRowThreads = 256;  // 8 rows (warps) per block
 
 int row_blocks(int M) { return (M + kRowThreads / 32 - 1) / (kRowThreads / 32); }
 
+// ------------------------------------------------- K5/K6's dense products
+// One product of the half-block, C = A B with A = a^T where A_T and B = b^T
+// where B_T (a and b row-major), then epi on C: in bf16 on wgmma_gemm.cuh
+// with the pair epilogue we (B_MN is !B_T; cudaErrorInvalidValue where the
+// TMA cannot read an operand), in f32 on vit_common.cuh's CUDA-core body
+// with te.
+template <bool A_T, bool B_T, typename CD, class WgEpi, class TcEpi>
+int product(const CD* a, int lda, const CD* b, int ldb, int M, int N, int K, WgEpi we, TcEpi te,
+            cudaStream_t st) {
+  if constexpr (std::is_same<CD, bf16>::value) {
+    return wg::launch<A_T, !B_T>(wg::Operands{a, b, lda, ldb, M, N}, nullptr, we, we, K, 1, st);
+  } else {
+    CEREBRA_VIT_CHECK(launch_gemm<CD, CD, A_T, B_T>(a, lda, b, ldb, M, N, K, te, st));
+    return 0;
+  }
+}
+
+// Row chunks of the bf16 dWp (D, D) and dWqkv (D, 3D) contractions over M
+// rows, one launch of both: the most whose CTAs (both products' output
+// tiles, once a chunk) fit one wave at wg::kMinBlocks CTAs an SM, at most
+// 32 and M / 256, so that a chunk holds four 64-row steps. One wave leaves
+// no tail and the fewest partials to write: on an H100 at main_dino's
+// 200,960 and 74,240 rows, 7 chunks (252 CTAs) ran K6 1-4 % faster than 4,
+// 11, 14, 18, 22, 29 or 32. K8 keeps its own rule (vit_mlp.cu's
+// contraction_splits).
+int dw_splits(int M, int D) {
+  const int t = wg::tiles(wg::Dims{D, D}) + wg::tiles(wg::Dims{D, 3 * D});
+  int s = wg::kMinBlocks * wg::sm_count() / t;
+  if (s > M / (4 * wg::kBK)) s = M / (4 * wg::kBK);
+  return s < 1 ? 1 : s > 32 ? 32 : s;
+}
+
+// dWp = o^T dn (D, D) and dWqkv = y^T dqkvn (D, 3D), f32, in fixed row
+// chunks added in a fixed order: the same result on every run, no atomics.
+// bf16: one launch of the two split-row contractions on wgmma_gemm.cuh,
+// dw_splits chunks of whole 64-row steps, each chunk's partial to scratch
+// (dWp's, then dWqkv's), the partials added in chunk order; f32:
+// contract_rows each (kRowSplits chunks).
+template <typename CD>
+int weight_grads(const CD* o, const CD* dn, const CD* y, const CD* dqkvn, float* dwp,
+                 float* dwqkv, int M, int D, float* scratch, cudaStream_t st) {
+  if constexpr (std::is_same<CD, bf16>::value) {
+    const int splits = dw_splits(M, D);
+    const size_t pp = (size_t)D * D, pq = 3 * pp;
+    float* qpart = scratch + splits * pp;
+    const wg::Operands q{y, dqkvn, D, 3 * D, D, 3 * D};
+    CEREBRA_VIT_RC((wg::launch<true, true>(wg::Operands{o, dn, D, D, D, D}, &q,
+                                           wg::EpiPartial{scratch, D, pp},
+                                           wg::EpiPartial{qpart, 3 * D, pq}, M, splits, st)));
+    CEREBRA_VIT_RC(launch_sum_partials(scratch, dwp, splits, (long long)pp, (long long)pp, st));
+    return launch_sum_partials(qpart, dwqkv, splits, (long long)pq, (long long)pq, st);
+  } else {
+    CEREBRA_VIT_RC(contract_rows<CD>(o, D, dn, D, M, dwp, scratch, st));
+    return contract_rows<CD>(y, D, dqkvn, 3 * D, M, dwqkv, scratch, st);
+  }
+}
+
 template <typename SD, typename CD>
 int attn_fwd_all(const SD* x, const float* s, const CD* g, const CD* b, const CD* wqkv,
                  const CD* bqkv, const CD* wp, const CD* bp, CD* y, float* mu, float* rstd,
@@ -1304,11 +1371,13 @@ int attn_fwd_all(const SD* x, const float* s, const CD* g, const CD* b, const CD
   const int M = B * N, dh = D / H;
   CEREBRA_VIT_CHECK(ln_fwd_rows<SD, CD><<<row_blocks(M), kRowThreads, 0, st>>>(
       x, g, b, y, mu, rstd, M, D));
-  CEREBRA_VIT_CHECK(launch_gemm<CD, CD, false, false>(
-      y, D, wqkv, 3 * D, M, 3 * D, D, EpiBiasRound<CD>{bqkv, qkv, 3 * D}, st));
+  CEREBRA_VIT_RC((product<false, false>(y, D, wqkv, 3 * D, M, 3 * D, D,
+                                        wg::EpiBiasRound<CD>{bqkv, qkv, 3 * D},
+                                        EpiBiasRound<CD>{bqkv, qkv, 3 * D}, st)));
   CEREBRA_VIT_RC(launch_attn_fwd<CD>(qkv, o, stats, B, N, H, dh, st));
-  CEREBRA_VIT_CHECK(launch_gemm<CD, CD, false, false>(
-      o, D, wp, D, M, D, D, EpiResidual<SD, CD>{x, bp, s, N, out, D}, st));
+  CEREBRA_VIT_RC((product<false, false>(o, D, wp, D, M, D, D,
+                                        wg::EpiResidual<SD, CD>{x, bp, s, N, out, D},
+                                        EpiResidual<SD, CD>{x, bp, s, N, out, D}, st)));
   return 0;
 }
 
@@ -1321,20 +1390,21 @@ int attn_bwd_all(const SD* x, const SD* dout, const float* s, const CD* g, const
                  cudaStream_t st) {
   const int M = B * N, dh = D / H;
   const long long MD = (long long)M * D;
-  // proj: dn = dout * s in CD; dbp = sum dout * s; dWp = o^T dn; do = dn @ Wp^T
+  // proj: dn = dout * s in CD; dbp = sum dout * s; do = dn @ Wp^T
   CEREBRA_VIT_CHECK(scale_round<SD, CD><<<(unsigned)((MD + 255) / 256), 256, 0, st>>>(
       dout, s, N, dn, MD, D));
   CEREBRA_VIT_RC(column_sum<SD>(dout, s, N, dbp, M, D, scratch, st));
-  CEREBRA_VIT_RC(contract_rows<CD>(o, D, dn, D, M, dwp, scratch, st));
-  CEREBRA_VIT_CHECK(launch_gemm<CD, CD, false, true>(
-      dn, D, wp, D, M, D, D, EpiBiasRound<CD>{nullptr, dob, D}, st));
+  CEREBRA_VIT_RC((product<false, true>(dn, D, wp, D, M, D, D,
+                                       wg::EpiBiasRound<CD>{nullptr, dob, D},
+                                       EpiBiasRound<CD>{nullptr, dob, D}, st)));
   // attention
   CEREBRA_VIT_RC(launch_attn_bwd<CD>(qkv, dob, stats, delta, dqkv32, dqkvn, B, N, H, dh, st));
-  // qkv weights: dWqkv = y^T dqkv_CD; dbqkv = sum dqkv (f32); dy = dqkv_CD @ Wqkv^T
-  CEREBRA_VIT_RC(contract_rows<CD>(y, D, dqkvn, 3 * D, M, dwqkv, scratch, st));
+  // weights: dWp = o^T dn, dWqkv = y^T dqkv_CD; dbqkv = sum dqkv (f32);
+  // dy = dqkv_CD @ Wqkv^T
+  CEREBRA_VIT_RC(weight_grads<CD>(o, dn, y, dqkvn, dwp, dwqkv, M, D, scratch, st));
   CEREBRA_VIT_RC(column_sum<float>(dqkv32, nullptr, 1, dbqkv, M, 3 * D, scratch, st));
-  CEREBRA_VIT_CHECK(launch_gemm<CD, CD, false, true>(
-      dqkvn, 3 * D, wqkv, 3 * D, M, D, 3 * D, EpiF32{dy, D}, st));
+  CEREBRA_VIT_RC((product<false, true>(dqkvn, 3 * D, wqkv, 3 * D, M, D, 3 * D,
+                                       wg::EpiF32{dy, D}, EpiF32{dy, D}, st)));
   // LN affine and core backward
   CEREBRA_VIT_RC(ln_backward_cols<SD>(x, mu, rstd, dy, dg, db, M, D, scratch, st));
   CEREBRA_VIT_CHECK(ln_bwd_rows<SD, CD><<<row_blocks(M), kRowThreads, 0, st>>>(
@@ -1349,6 +1419,8 @@ extern "C" {
 // sd_bf16 / cd_bf16 != 0: the stream / compute dtype is bfloat16, else float.
 // Outputs the backward reads: y (M, D) CD, mu and rstd (M) f32, qkv (M, 3D)
 // CD, o (M, D) CD, stats (B, H, N, 2) f32.
+// In bf16 compute the products run on wgmma_gemm.cuh, whose TMA needs
+// 16-byte aligned bases and D % 8 == 0 (cudaErrorInvalidValue else).
 int cerebra_vit_attn_fwd(int sd_bf16, int cd_bf16, const void* x, const float* s,
                          const void* g, const void* b, const void* wqkv, const void* bqkv,
                          const void* wp, const void* bp, void* y, float* mu, float* rstd,
@@ -1439,17 +1511,23 @@ int cerebra_vit_attn_scores(const void* qkv, float* S, float* St, int B, int N, 
   });
 }
 
-// f32 scratch floats the backward needs for width D.
-long long cerebra_vit_attn_scratch(int D) {
+// f32 scratch floats the backward needs for M rows of width D in the
+// compute dtype cd_bf16 names.
+long long cerebra_vit_attn_scratch(int cd_bf16, int M, int D) {
   const long long sums = (long long)kColSplits * 3 * D;
-  const long long dw = (long long)kRowSplits * 3 * D * D;
+  const long long dw = cd_bf16 ? (long long)dw_splits(M, D) * 4 * D * D
+                               : (long long)kRowSplits * 3 * D * D;
   return sums > dw ? sums : dw;
 }
+
+// Row chunks of the bf16 backward's dWp and dWqkv contractions on this card.
+int cerebra_vit_attn_splits(int M, int D) { return dw_splits(M, D); }
 
 // Scratch: dn (M, D) CD, dob (M, D) CD, delta (B, H, N) f32, dqkv32 (M, 3D)
 // f32, dqkvn (M, 3D) CD, dy (M, D) f32, scratch (cerebra_vit_attn_scratch)
 // f32. Outputs: dx (M, D) SD and f32 dg, db (D), dwqkv (D, 3D), dbqkv (3D),
-// dwp (D, D), dbp (D).
+// dwp (D, D), dbp (D). In bf16 compute the products run on wgmma_gemm.cuh,
+// as cerebra_vit_attn_fwd's, the dW contractions in dw_splits row chunks.
 int cerebra_vit_attn_bwd(int sd_bf16, int cd_bf16, const void* x, const void* dout,
                          const float* s, const void* g, const void* wqkv, const void* wp,
                          const void* y, const float* mu, const float* rstd, const void* qkv,

@@ -11,12 +11,13 @@
 //
 // What bounds them on an H100: the products load their tiles synchronously
 // from device memory into shared memory (no cp.async/TMA ring, no wgmma), so
-// they run well below the tensor cores' rate. The MLP half-block K7/K8 no
-// longer uses them: its products run on wgmma_gemm.cuh (a TMA ring feeding
-// wgmma), and so do K2/K2g's bf16 dW and db (wgmma_gemm.cuh's
-// stack_contract, with EpiPairPartial below); moving K5/K6's, K1/K4's,
-// K2/K2g's chain and K11's products there is later work. The row and column
-// kernels are bound by memory bandwidth.
+// they run well below the tensor cores' rate. The bf16 ViT half-blocks no
+// longer use them: K7/K8's and K5/K6's products run on wgmma_gemm.cuh (a TMA
+// ring feeding wgmma), and so do K2/K2g's bf16 dW and db (wgmma_gemm.cuh's
+// stack_contract, with EpiPairPartial below). Their callers now: the f32
+// bodies of K5-K8 (the DINOv2 teacher); K1/K4's input products, K2/K2g's
+// chain and K11's products (lstm_stack.cu), whose move is later work. The
+// row and column kernels are bound by memory bandwidth.
 
 #pragma once
 

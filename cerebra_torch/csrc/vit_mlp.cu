@@ -408,7 +408,7 @@ int mlp_fwd(const SD* x, const float* s, const CD* g, const CD* b, const CD* w1,
       x, g, b, y, mu, rstd, M, D));
   if constexpr (std::is_same<CD, bf16>::value) {
     const EpiGelu<CD> fc1{b1, gh, nullptr, F};
-    const wg::EpiResidual<SD, CD> fc2{x, b2, s, out, D};
+    const wg::EpiResidual<SD, CD> fc2{x, b2, s, 1, out, D};
     CEREBRA_VIT_RC((run_product<false, false>(wg::Operands{y, w1, D, F, M, F}, nullptr, fc1, fc1,
                                               D, 1, st)));
     CEREBRA_VIT_RC((run_product<false, false>(wg::Operands{gh, w2, F, D, M, D}, nullptr, fc2, fc2,
@@ -481,7 +481,8 @@ int mlp_bwd(const SD* x, const SD* dout, const float* s, const CD* g, const CD* 
 // The products of the MLP alone, as the half-blocks run them, for the card
 // tests and the timing of the pieces: epi 0 out f32 = C, 1 out (CD) =
 // gelu(C + bias), 2 out (f32) = x + s (C + bias), 3 out = the partials of C
-// over `splits` row chunks (splits, M, N) f32.
+// over `splits` row chunks (splits, M, N) f32, 4 out (CD) = C + bias (bias
+// may be null; K5/K6's qkv and do epilogue).
 template <bool A_T, bool B_T>
 int product(int epi, const bf16* a, int lda, const bf16* b, int ldb, int M, int N, int K,
             int splits, const bf16* bias, const float* x, const float* s, void* out,
@@ -497,12 +498,16 @@ int product(int epi, const bf16* a, int lda, const bf16* b, int ldb, int M, int 
       return run_product<A_T, B_T>(o, nullptr, e, e, K, 1, st);
     }
     case 2: {
-      const wg::EpiResidual<float, bf16> e{x, bias, s, (float*)out, N};
+      const wg::EpiResidual<float, bf16> e{x, bias, s, 1, (float*)out, N};
       return run_product<A_T, B_T>(o, nullptr, e, e, K, 1, st);
     }
     case 3: {
       const wg::EpiPartial e{(float*)out, N, (size_t)M * N};
       return run_product<A_T, B_T>(o, nullptr, e, e, K, splits, st);
+    }
+    case 4: {
+      const wg::EpiBiasRound<bf16> e{bias, (bf16*)out, N};
+      return run_product<A_T, B_T>(o, nullptr, e, e, K, 1, st);
     }
   }
   return (int)cudaErrorInvalidValue;

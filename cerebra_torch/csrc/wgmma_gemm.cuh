@@ -1,6 +1,7 @@
 // A bf16 tensor-core matrix product for Hopper (sm_90a) on wgmma, fed by
-// the Tensor Memory Accelerator: the body of the fused ViT MLP half-block's
-// products (vit_mlp.cu, K7 and K8), with the pair epilogues they share.
+// the Tensor Memory Accelerator: the body of the fused ViT half-blocks'
+// dense products (vit_mlp.cu, K7 and K8; vit_attn.cu, K5 and K6), with the
+// pair epilogues they share.
 //
 //   C(i, j) = sum_k A(i, k) B(k, j),  i < M, j < N, then epi on pairs of C
 //   A(i, k) = A_MN ? A[k * lda + i] : A[i * lda + k]
@@ -104,18 +105,35 @@ struct EpiPartial {
   }
 };
 
-// out (SD) = x + s_i (C + bias), s_i = rs[i] or 1: the residual add with the
-// drop-path branch scale
+// out (CD) = C + bias (bias may be null), rounded to CD
+template <typename CD>
+struct EpiBiasRound {
+  const CD* bias;
+  CD* out;
+  int ld;
+  __device__ void operator()(int i, int j, float v0, float v1, bool two) const {
+    if (bias) {
+      v0 += ld_f(bias + j);
+      if (two) v1 += ld_f(bias + j + 1);
+    }
+    store2(out + (size_t)i * ld + j, v0, v1, two);
+  }
+};
+
+// out (SD) = x + s_i (C + bias), s_i = rs[i / rdiv] or 1: the residual add
+// with the drop-path branch scale (one a row: rdiv 1, K7; one a sequence of
+// rdiv rows: K5)
 template <typename SD, typename CD>
 struct EpiResidual {
   const SD* x;
   const CD* bias;
   const float* rs;
+  int rdiv;
   SD* out;
   int ld;
   __device__ void operator()(int i, int j, float v0, float v1, bool two) const {
     const size_t o = (size_t)i * ld + j;
-    const float s = rs ? rs[i] : 1.f;
+    const float s = rs ? rs[i / rdiv] : 1.f;
     float a = v0 + ld_f(bias + j), b = two ? v1 + ld_f(bias + j + 1) : 0.f;
     if (rs) a *= s, b *= s;
     store2(out + o, ld_f(x + o) + a, two ? ld_f(x + o + 1) + b : 0.f, two);

@@ -34,7 +34,14 @@ depth), a constant with no gradient.
 
 Dispatch: a tensor on the CPU takes the plain version (`_attn_fwd_ref`,
 `_attn_bwd_ref`); a CUDA tensor launches the kernel, built at first use from
-`csrc/vit_attn.cu`, or raises.
+`csrc/vit_attn.cu`, or raises. On CUDA in a bf16 compute dtype, K5/K6's
+five dense products (qkv, proj, do, dy, and dWp with dWqkv) run on the TMA +
+wgmma pipeline of `csrc/wgmma_gemm.cuh`, dWp and dWqkv as one launch of
+`dw_splits` row chunks; operands the TMA cannot read (D not a multiple of 8,
+a base off 16 bytes) are refused, as K7/K8 refuse them (`_products_wgmma`).
+f32 compute keeps `vit_common.cuh`'s f32 bodies.
+`LAUNCHES["vit_attn_products_wgmma"]` counts the K5/K6 calls that took the
+wgmma path.
 """
 
 from __future__ import annotations
@@ -45,11 +52,11 @@ from typing import Sequence, Tuple
 import torch
 
 from cerebra_torch.kernels import LAUNCHES, check_rc, load_lib, on_cuda, ptr, stream_of
-from cerebra_torch.models.vit_mlp import check_cuda, layernorm_f32, ln_backward, mm
+from cerebra_torch.models.vit_mlp import _check_tma, check_cuda, layernorm_f32, ln_backward, mm
 from cerebra_torch.utils.spans import span
 
 LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0, vit_attn_core_fwd=0, vit_attn_core_bwd=0,
-                vit_attn_flash_fwd=0, vit_attn_flash_bwd=0)
+                vit_attn_flash_fwd=0, vit_attn_flash_bwd=0, vit_attn_products_wgmma=0)
 
 MAX_HEAD_DIM = 64  # the CUDA kernels' tile width
 FLASH_TILE = 64  # keys a tile of K15's online softmax (csrc/vit_attn.cu)
@@ -216,8 +223,10 @@ def _typed(lib) -> None:
     lib.cerebra_vit_attn_fwd.restype = i
     lib.cerebra_vit_attn_bwd.argtypes = [i, i] + [vp] * 26 + [i] * 4 + [vp]
     lib.cerebra_vit_attn_bwd.restype = i
-    lib.cerebra_vit_attn_scratch.argtypes = [i]
+    lib.cerebra_vit_attn_scratch.argtypes = [i, i, i]
     lib.cerebra_vit_attn_scratch.restype = ctypes.c_longlong
+    lib.cerebra_vit_attn_splits.argtypes = [i, i]
+    lib.cerebra_vit_attn_splits.restype = i
     lib.cerebra_vit_attn_core_fwd.argtypes = [i] + [vp] * 3 + [i] * 4 + [vp]
     lib.cerebra_vit_attn_core_fwd.restype = i
     lib.cerebra_vit_attn_core_bwd.argtypes = [i] + [vp] * 6 + [i] * 4 + [vp]
@@ -228,6 +237,25 @@ def _typed(lib) -> None:
     lib.cerebra_vit_flash_fwd.restype = i
     lib.cerebra_vit_flash_bwd.argtypes = [i] + [vp] * 6 + [i] * 4 + [ctypes.c_float, vp]
     lib.cerebra_vit_flash_bwd.restype = i
+
+
+def _products_wgmma(wqkv, *operands) -> bool:
+    """Whether K5/K6's dense products run on the TMA + wgmma pipeline: they
+    do in a bf16 compute dtype, where `wqkv` and the other operands must be
+    what the TMA reads (rows of a multiple of 8 values, 16-byte aligned
+    bases; ValueError else, as K7/K8 refuse them); f32 compute keeps
+    `vit_common.cuh`'s f32 bodies."""
+    if wqkv.dtype != torch.bfloat16:
+        return False
+    _check_tma(wqkv, *operands)
+    return True
+
+
+def dw_splits(M: int, D: int) -> int:
+    """Row chunks of K6's bf16 dWp and dWqkv contractions over M rows on this
+    card (CUDA only; `csrc/vit_attn.cu`'s `dw_splits`). The chunks are
+    `vit_mlp.row_chunks(M, s)`."""
+    return load_lib("vit_attn", _typed).cerebra_vit_attn_splits(M, D)
 
 
 def _dims(x, p: Params, num_heads: int):
@@ -250,6 +278,7 @@ def _attn_fwd_cuda(x, s, p: Params, num_heads: int):
     B, N, D = _dims(x, p, num_heads)
     check_cuda(x, s, p, B)
     M, cdt, dev, f32 = B * N, p[2].dtype, x.device, torch.float32
+    wgmma = _products_wgmma(p[2], p[4])
     y = torch.empty(M, D, dtype=cdt, device=dev)
     mu = torch.empty(M, dtype=f32, device=dev)
     rstd = torch.empty_like(mu)
@@ -264,6 +293,7 @@ def _attn_fwd_cuda(x, s, p: Params, num_heads: int):
     )
     check_rc(lib, rc, "vit_attn_fwd")
     LAUNCHES["vit_attn_fwd"] += 1
+    LAUNCHES["vit_attn_products_wgmma"] += wgmma
     return out, (y, mu, rstd, qkv, o, stats)
 
 
@@ -277,6 +307,7 @@ def _attn_bwd_cuda(dout, x, s, p: Params, num_heads: int, saved):
     y, mu, rstd, qkv, o, stats = saved
     g, _, wqkv, _, wp, _ = p
     M, cdt, dev, f32 = B * N, wqkv.dtype, x.device, torch.float32
+    wgmma = _products_wgmma(wqkv, wp, y, o)
     dn = torch.empty(M, D, dtype=cdt, device=dev)
     dob = torch.empty(M, D, dtype=cdt, device=dev)
     delta = torch.empty(B, num_heads, N, dtype=f32, device=dev)
@@ -289,7 +320,8 @@ def _attn_bwd_cuda(dout, x, s, p: Params, num_heads: int, saved):
     dbqkv = torch.empty(3 * D, dtype=f32, device=dev)
     dwp = torch.empty(D, D, dtype=f32, device=dev)
     lib = load_lib("vit_attn", _typed)
-    scratch = torch.empty(lib.cerebra_vit_attn_scratch(D), dtype=f32, device=dev)
+    scratch = torch.empty(lib.cerebra_vit_attn_scratch(int(wgmma), M, D), dtype=f32,
+                          device=dev)
     rc = lib.cerebra_vit_attn_bwd(
         *_flags(x, cdt), ptr(x), ptr(dout), ptr(s), ptr(g), ptr(wqkv), ptr(wp), ptr(y),
         ptr(mu), ptr(rstd), ptr(qkv), ptr(o), ptr(stats), ptr(dn), ptr(dob), ptr(delta),
@@ -299,6 +331,7 @@ def _attn_bwd_cuda(dout, x, s, p: Params, num_heads: int, saved):
     )
     check_rc(lib, rc, "vit_attn_bwd")
     LAUNCHES["vit_attn_bwd"] += 1
+    LAUNCHES["vit_attn_products_wgmma"] += wgmma
     return dx, dg, db, dwqkv, dbqkv, dwp, dbp
 
 

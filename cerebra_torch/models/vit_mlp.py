@@ -205,15 +205,17 @@ def _mlp_bwd_pieces(dout, x, s, p: Params, rows: int = DH_ROWS, splits: int = 1)
     return dx, dg, db, dw1, sum_in_order(db1_parts), dw2, db2
 
 
-_EPIS = {"f32": 0, "gelu": 1, "residual": 2, "partial": 3}
+_EPIS = {"f32": 0, "gelu": 1, "residual": 2, "partial": 3, "bias_round": 4}
 
 
 def mlp_product_ref(a, b, a_t: bool = False, b_t: bool = False, epi: str = "f32", bias=None,
                     x=None, s=None, splits: int = 1):
-    """One product of the MLP, C = A·B with A = aᵀ if a_t else a and B = bᵀ
-    if b_t else b, and its epilogue: "f32" C; "gelu" gelu(C + bias) in
-    bias's dtype; "residual" x + s·(C + bias) in x's dtype; "partial" the
-    partials of C over `splits` row chunks of k (splits, M, N)."""
+    """One product of the ViT half-blocks, C = A·B with A = aᵀ if a_t else a
+    and B = bᵀ if b_t else b, and its epilogue: "f32" C; "gelu" gelu(C +
+    bias) in bias's dtype; "residual" x + s·(C + bias) in x's dtype;
+    "partial" the partials of C over `splits` row chunks of k (splits, M,
+    N); "bias_round" C + bias, or C without a bias, rounded to bf16 (K5's
+    qkv, K6's do)."""
     A = a.t() if a_t else a
     B = b.t() if b_t else b
     if epi == "partial":
@@ -221,6 +223,8 @@ def mlp_product_ref(a, b, a_t: bool = False, b_t: bool = False, epi: str = "f32"
     c = mm(A, B)
     if epi == "f32":
         return c
+    if epi == "bias_round":
+        return (c if bias is None else c + bias.float()).to(torch.bfloat16)
     if epi == "gelu":
         return _gelu(c + bias.float()).to(bias.dtype)
     if epi == "residual":
@@ -319,8 +323,8 @@ def _check_tma(*tensors) -> None:
     (a multiple of 8 bf16 values)."""
     for t in tensors:
         if t.data_ptr() % 16 or t.shape[-1] % 8:
-            raise ValueError("the MLP's products take operands whose base and rows are "
-                             f"16-byte aligned; got shape {tuple(t.shape)}")
+            raise ValueError("the ViT half-blocks' products take operands whose base and rows "
+                             f"are 16-byte aligned; got shape {tuple(t.shape)}")
 
 
 def _check_bf16(*tensors) -> None:
@@ -361,8 +365,10 @@ def _product_cuda(a, b, a_t, b_t, epi, bias, x, s, splits):
     Kb, N = (b.shape[1], b.shape[0]) if b_t else b.shape
     if Kb != K:
         raise ValueError(f"inner dims {K} and {Kb} differ")
-    if epi in ("gelu", "residual") and (bias is None or bias.shape != (N,)):
+    if epi in ("gelu", "residual") and bias is None:
         raise ValueError(f"the {epi} epilogue takes a bias of {N} values")
+    if bias is not None and bias.shape != (N,):
+        raise ValueError(f"the bias must hold {N} values")
     if epi == "residual" and (x is None or x.dtype != torch.float32 or x.shape != (M, N)
                               or not x.is_contiguous()):
         raise ValueError("the residual epilogue takes a contiguous f32 x of the output's shape")
@@ -371,7 +377,7 @@ def _product_cuda(a, b, a_t, b_t, epi, bias, x, s, splits):
     if splits < 1:
         raise ValueError("splits is at least 1")
     dev = a.device
-    if epi == "gelu":
+    if epi in ("gelu", "bias_round"):
         out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
     elif epi == "partial":
         out = torch.empty(splits, M, N, dtype=torch.float32, device=dev)
@@ -413,9 +419,10 @@ def mlp_dh(y, dn, w1, b1, w2):
 
 def mlp_product(a, b, a_t: bool = False, b_t: bool = False, epi: str = "f32", bias=None,
                 x=None, s=None, splits: int = 1):
-    """One product of K7/K8 alone (`mlp_product_ref`'s function; on CUDA
-    bf16 operands whose base and rows are 16-byte aligned, as the
-    half-blocks' products take them)."""
+    """One product of K7/K8, or with "bias_round" of K5/K6, alone on the
+    TMA + wgmma pipeline (`mlp_product_ref`'s function; on CUDA bf16
+    operands whose base and rows are 16-byte aligned, as the half-blocks'
+    products take them)."""
     if epi not in _EPIS:
         raise ValueError(f"unknown epilogue {epi!r}")
     if on_cuda(a, b, bias, x, s):

@@ -1091,9 +1091,11 @@ def phase_main_dino() -> dict:
         raise AssertionError("non-finite center or student parameters")
     log(f"[main_dino] losses {[round(v, 4) for v in losses]}; windows/s per epoch "
         f"{[round(w, 2) for w in hist['windows_per_s']]}")
-    # 12 blocks x (2 student view groups + 1 teacher group) forwards, 12 x 2 backwards
+    # 12 blocks x (2 student view groups + 1 teacher group) forwards, 12 x 2
+    # backwards; in bf16 every K5/K6 call's products on wgmma
     for name, per_step in (("vit_attn_fwd", 36), ("vit_mlp_fwd", 36),
-                           ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24)):
+                           ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24),
+                           ("vit_attn_products_wgmma", 60)):
         if launches[name] < per_step * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps, "
                                  f"fewer than {per_step} per step")
@@ -1107,7 +1109,8 @@ def label_vit(names) -> list:
     launch order, None for the others. K5 launches LN, the qkv product
     (`EpiBiasRound`), its attention core and the proj (`EpiResidual`); K6
     from `scale_round` to `ln_bwd_rows`, its two attention cores in the
-    middle; K7 LN, fc1 (`EpiGelu`) and fc2 (`EpiResidual`); K8 from
+    middle, and in bf16 dWp and dWqkv as one launch after them (`EpiPartial`,
+    "dW/dbqkv"; in f32 dWp's contraction comes before the cores); K7 LN, fc1 (`EpiGelu`) and fc2 (`EpiResidual`); K8 from
     `mlp_bwd_dn` to `ln_bwd_rows`: dn/db2, the fused dh kernel, the dW
     contractions (`EpiPartial`), dy (`EpiF32`), the LN column partials, the
     sums of partials (`sum_jobs`) and the LN rows."""
@@ -1135,7 +1138,7 @@ def label_vit(names) -> list:
             piece = "scale/dbp"
             for j in range(nearest(i, "scale_round", -1), nearest(i, "ln_bwd_rows", 1) + 1):
                 for frag, p in (("attn_bwd_dq", "dq core"), ("attn_bwd_dkdv", "dk/dv core"),
-                                ("EpiPartial", "dWp" if j < i else "dWqkv/dbqkv"),
+                                ("EpiPartial", "dWp" if j < i else "dW/dbqkv"),
                                 ("EpiBiasRound", "do product"), ("EpiF32", "dy product"),
                                 ("ln_bwd", "LN backward")):
                     if frag in names[j]:
@@ -2766,7 +2769,8 @@ def dino_retrieval(gpu: str) -> None:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         ran = {k: v for k, v in LAUNCHES.items() if v}
-        # 12 blocks x (the gallery's forward + the query's)
+        # 12 blocks x (the gallery's forward + the query's), in f32: the exact
+        # match holds vit_attn_products_wgmma at 0
         if ran != {"vit_attn_fwd": 24, "vit_mlp_fwd": 24}:
             raise AssertionError(f"eeg_retrieval_dino ({what}) launched {ran}")
         files = ("commandline_args.txt", "synthetic_Scores.pth", "synthetic_Scores.txt",
@@ -3242,6 +3246,7 @@ def noise_probe_phase(gpu: str) -> tuple:
     ran = {k: v for k, v in LAUNCHES.items() if v}
     with open(os.path.join(log_dir, "noise_probe.json")) as f:
         saved = json.load(f)
+    # f32: the exact match holds vit_attn_products_wgmma at 0
     if ran != {"vit_attn_fwd": 24, "vit_mlp_fwd": 24} or saved != out or not all(
             math.isfinite(v) for v in saved.values()) or saved["feature_dim"] != 192:
         raise AssertionError(f"noise_probe: {saved}, launches {ran}")
@@ -3275,6 +3280,7 @@ def hub_phase(gpu: str) -> None:
             f"(build on the host included)")
         del model, out
     ran = {k: v for k, v in LAUNCHES.items() if v}
+    # f32: the exact match holds vit_attn_products_wgmma at 0
     if ran != {"vit_attn_fwd": 12 * len(HUB_VITS), "vit_mlp_fwd": 12 * len(HUB_VITS)}:
         raise AssertionError(f"hub forwards launched {ran}")
     cache = teacher_dir("hub_cache")
@@ -3310,8 +3316,9 @@ def dino_images(gpu: str) -> None:
     """`[dino images]`: two steps of dino_vit_train with stimulus-image locals
     at main_dino's defaults (ViT-S/8, out_dim 65536, 2 x 224 px EEG globals,
     4 x 96 px image crops, batch 8, bf16, drop path 0.1): a finite loss and
-    K5/K7 36 times, K6/K8 24 times a step; the crops on the card against
-    the CPU for the same draws."""
+    K5/K7 36 times, K6/K8 24 times a step, every K5/K6 call's products on
+    the TMA + wgmma path (60 a step); the crops on the card against the CPU
+    for the same draws."""
     from cerebra_torch.data.sources import synthetic_image_source
     from cerebra_torch.kernels import LAUNCHES, reset_launches
     from cerebra_torch.signal.image_aug import dino_local_crop, draw_crop
@@ -3333,7 +3340,8 @@ def dino_images(gpu: str) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     ran = {k: v for k, v in LAUNCHES.items() if v}
-    want = {"vit_attn_fwd": 72, "vit_mlp_fwd": 72, "vit_attn_bwd": 48, "vit_mlp_bwd": 48}
+    want = {"vit_attn_fwd": 72, "vit_mlp_fwd": 72, "vit_attn_bwd": 48, "vit_mlp_bwd": 48,
+            "vit_attn_products_wgmma": 120}
     if state.step != 2 or ran != want or not all(math.isfinite(v) for v in hist["loss"]):
         raise AssertionError(f"dino_vit_train with images: {state.step} steps, loss "
                              f"{hist['loss']}, launches {ran}")
@@ -3923,7 +3931,8 @@ def mg_main_dino() -> dict:
     launches = {k: v for k, v in LAUNCHES.items() if v}
     steps = MG_DINO_EPOCHS * (MG_DINO_TRIALS // (4 * dist.get_world_size()))
     for name, per_step in (("vit_attn_fwd", 36), ("vit_mlp_fwd", 36),
-                           ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24)):
+                           ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24),
+                           ("vit_attn_products_wgmma", 60)):
         if launches.get(name, 0) < per_step * steps:
             raise AssertionError(f"{name} launched {launches.get(name, 0)} times in "
                                  f"{steps} steps on this rank")
@@ -4530,6 +4539,7 @@ def transforms_phase(gpu: str) -> dict:
             (TOL_VIT[0], TOL_VIT[0], TOL_VIT[2]))
     log(f"[transforms] dino_features: {corpus.n} trials in {seconds:.2f} s "
         f"({corpus.n / seconds:.1f} trials/s), launches {ran['dino_features']}; {gpu}")
+    # f32: the exact match holds vit_attn_products_wgmma at 0
     if ran["dino_features"] != {"vit_attn_fwd": 12 * n_dino, "vit_mlp_fwd": 12 * n_dino}:
         raise AssertionError(f"dino_features launched {ran['dino_features']}")
     return ran

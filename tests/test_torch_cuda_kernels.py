@@ -7,7 +7,8 @@ pieces per
 time chunk; the scan's K12-K14, K12/K13 also on its wavefront forward) and
 the ViT kernels (K5-K8, K15) and the IIR cascade (sos_scan) against
 their plain PyTorch versions on the card (K7/K8 also piece by piece: the
-fused dh kernel and each product alone), over shapes and tiles
+fused dh kernel and each product alone; K5/K6's products on the TMA + wgmma
+path in bf16 and on their f32 bodies in f32), over shapes and tiles
 the main paths do not reach: L of 1 to 3, ragged batches, T = 1, C ≠ H, 4H
 below one warp's multiple, and the recurrent autoencoder's widths (encoder
 C = 96, H = 384, with 4H above the block's 512 threads; decoder C = 384,
@@ -1093,10 +1094,12 @@ def test_scan_wave_layout_and_refusals(cuda):
 
 # ------------------------------------------------ fused ViT half-blocks K5–K8
 # (B, N, D, H): dh 8 with a ragged tile, dh 64 over two key tiles, the
-# locals' width at a small batch. Tolerances as chip_smoke.py's ViT phase:
-# f32 values max-abs 1e-4, f32 gradients relative Frobenius 2e-5, every bf16
-# output relative Frobenius 1.5e-2.
-VIT_SHAPES = [(2, 13, 32, 4), (3, 70, 64, 1), (2, 145, 384, 6)]
+# locals' width at a small batch, main_dino's globals (12,560 rows: ragged
+# 128-row tiles of the wgmma products, which the TMA's zero fill pads).
+# Tolerances as chip_smoke.py's ViT phase: f32 values max-abs 1e-4, f32
+# gradients relative Frobenius 2e-5, every bf16 output relative Frobenius
+# 1.5e-2.
+VIT_SHAPES = [(2, 13, 32, 4), (3, 70, 64, 1), (2, 145, 384, 6), (16, 785, 384, 6)]
 VIT_DTYPES = {"f32": (torch.float32, torch.float32), "f32_bf16": (torch.float32, torch.bfloat16),
               "bf16": (torch.bfloat16, torch.bfloat16)}
 
@@ -1150,6 +1153,88 @@ def test_vit_attn_kernels_match_plain(cuda, shape, dt, scaled):
     for a, b in zip(got, want):
         vit_close(a, b, cdt, grad=True)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dt", list(VIT_DTYPES))
+@pytest.mark.parametrize("shape", [(2, 145, 384, 6), (2, 13, 36, 4)], ids=str)
+def test_vit_attn_products_take_wgmma_in_bf16(cuda, shape, dt):
+    """K5/K6's products take the TMA + wgmma path, and count one a call,
+    exactly where the compute dtype is bf16; f32 keeps its f32 bodies at
+    any width and leaves the count; bf16 at D 36, whose rows the TMA cannot
+    read, is refused with a ValueError before any launch."""
+    from cerebra_torch.kernels import LAUNCHES
+    from cerebra_torch.models import vit_attn as va
+
+    B, N, D, H = shape
+    sd, cdt = VIT_DTYPES[dt]
+    x, params, dout, s = vit_inputs(B, N, D, 0, sd, cuda, 8, True, attn=True)
+    p = va._prep(*params, H, cdt)
+    before = dict(LAUNCHES)
+    if cdt == torch.bfloat16 and D % 8:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            va.attn_fwd(x, s, p, H)
+        assert dict(LAUNCHES) == before
+        return
+    _, saved = va.attn_fwd(x, s, p, H)
+    va.attn_bwd(dout, x, s, p, H, saved)
+    want = 2 if cdt == torch.bfloat16 else 0
+    assert LAUNCHES["vit_attn_products_wgmma"] == before["vit_attn_products_wgmma"] + want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("M", [128 * 2 * 785, 128 * 4 * 145], ids=str)
+def test_vit_attn_dw_splits_fill_the_card(cuda, M):
+    """At main_dino's batch-128 rows K6's dW chunk count on this card puts
+    the 36 output tiles of dWp (D, D) and dWqkv (D, 3D), D 384, times the
+    chunks on every SM and in one wave at two CTAs an SM, as full as whole
+    chunks make it (7 on a 132-SM H100); no chunk is empty."""
+    from cerebra_torch.models import vit_attn as va
+    from cerebra_torch.models import vit_mlp as vm
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    s = va.dw_splits(M, 384)
+    tiles, slots = 3 * 3 + 3 * 9, 2 * sms
+    assert sms <= tiles * s <= slots < tiles * (s + 1)
+    assert all(r1 > r0 for r0, r1 in vm.row_chunks(M, s))
+
+
+def test_vit_attn_bf16_calls_run_no_gemm_tc(cuda):
+    """A bf16 K5 + K6 at main_dino's width runs its products as
+    wgmma_gemm.cuh's tma_gemm and no vit_common.cuh gemm_tc kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cerebra_torch.models import vit_attn as va
+
+    B, N, D, H = 2, 145, 384, 6
+    x, params, dout, s = vit_inputs(B, N, D, 0, torch.float32, cuda, 9, True, attn=True)
+    p = va._prep(*params, H, torch.bfloat16)
+    _, saved = va.attn_fwd(x, s, p, H)
+    va.attn_bwd(dout, x, s, p, H, saved)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):  # the tracer can miss its first kernel
+            _, saved = va.attn_fwd(x, s, p, H)
+            va.attn_bwd(dout, x, s, p, H, saved)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert not [n for n in names if "gemm_tc" in n], names
+    assert len([n for n in names if "tma_gemm" in n]) == 5, names  # 5 epilogues
+
+
+def test_vit_attn_repeats_bit_for_bit(cuda):
+    """K5 and K6 in bf16 at main_dino's globals give the same bits on a
+    second call: fixed dW chunks and orders of sums, no atomics."""
+    from cerebra_torch.models import vit_attn as va
+
+    B, N, D, H = 16, 785, 384, 6
+    x, params, dout, s = vit_inputs(B, N, D, 0, torch.float32, cuda, 10, True, attn=True)
+    p = va._prep(*params, H, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        out, saved = va.attn_fwd(x, s, p, H)
+        runs.append((out, *saved, *va.attn_bwd(dout, x, s, p, H, saved)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("scaled", [False, True], ids=["no_s", "s"])
@@ -1250,6 +1335,34 @@ def test_vit_mlp_product_matches_plain(cuda, shape, orient, epi):
     assert LAUNCHES["vit_mlp_product"] == before + 1
     assert got.dtype == want.dtype and got.shape == want.shape
     vit_close(got, want, torch.bfloat16 if epi == "gelu" else torch.float32, grad=True)
+    torch.cuda.synchronize()
+
+
+# K5's qkv and K6's do epilogue on the same products: C + bias (or C alone)
+# rounded once to bf16, in every orientation, against the plain product, at
+# ragged M, N and K; (304, 264, 200) has 16-byte aligned rows in every
+# orientation, and operands whose rows are not are refused as above.
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("orient", list(MLP_ORIENT))
+@pytest.mark.parametrize("shape", [(77, 200, 72), (304, 264, 200)], ids=str)
+def test_vit_bias_round_product_matches_plain(cuda, shape, orient, bias):
+    from cerebra_torch.kernels import LAUNCHES
+    from cerebra_torch.models import vit_mlp as vm
+
+    a_t, b_t = MLP_ORIENT[orient]
+    a, b, bi, _, _ = mlp_product_inputs(*shape, a_t, b_t, cuda)
+    kw = dict(a_t=a_t, b_t=b_t, epi="bias_round", bias=bi if bias else None)
+    before = LAUNCHES["vit_mlp_product"]
+    if a.shape[1] % 8 or b.shape[1] % 8:  # rows the TMA cannot read
+        with pytest.raises(ValueError):
+            vm.mlp_product(a, b, **kw)
+        assert LAUNCHES["vit_mlp_product"] == before
+        return
+    got = vm.mlp_product(a, b, **kw)
+    want = vm.mlp_product_ref(a, b, **kw)
+    assert LAUNCHES["vit_mlp_product"] == before + 1
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    vit_close(got, want, torch.bfloat16, grad=True)
     torch.cuda.synchronize()
 
 
