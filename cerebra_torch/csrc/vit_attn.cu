@@ -22,16 +22,21 @@
 //   backward: dout*s in CD -> dbp -> do = dn @ Wp^T -> dq core (query
 //             tiles) -> dk/dv core (key tiles) -> dWp = o^T dn and dWqkv =
 //             y^T dqkv -> dbqkv -> dy = dqkv @ Wqkv^T -> LN backward.
-// The attention cores never hold more than a 64x64 tile of scores. The
-// forward is two-pass: pass 1 finds each row's max m and sum l = sum exp(s -
-// m), pass 2 forms p = exp(s - m) / l, rounds p to CD and accumulates p @ v,
-// so p is rounded where the Pallas body rounds its full-row softmax (a
-// one-pass online softmax would round unnormalised values instead). The
-// forward saves m and l per row; the backward recomputes p from them bit for
-// bit and, for dS = p (dp - sum_j p dp), first sums p * dp over every key
-// tile as the Pallas body does (not FlashAttention's do . o, which would use
-// the rounded o). Every dW is a contraction over rows summed in fixed chunks
-// and a fixed order: deterministic, no atomics.
+// The attention cores never hold more than a 64x64 tile of scores. In bf16
+// the forward makes one pass over the keys (K15's flash_fwd_wgmma at scale
+// 1): each key tile's scores rescale the running row max m, sum l and
+// output, p~ = exp(s - m) over the running m is rounded to CD for p~ v, and o
+// = (sum p~ v) / l is divided in f32 and rounded once at the end. The
+// rounding of p~ has the same relative error as rounding the normalised p
+// where the Pallas body rounds its full-row softmax, and no score-sized
+// product or exp is formed twice. The forward saves each row's final m and
+// l; the backward recomputes p = exp(s - m) / l from them and, for dS = p
+// (dp - delta), takes delta_i = sum_c o_ic do_ic from the saved o (equal to
+// the Pallas body's sum_j p_ij dp_ij, since o_i = sum_j p_ij v_ij and dp_ij =
+// do_i . v_j), so dq too makes one pass over the keys. f32 compute keeps the
+// two-pass bodies: pass 1 finds m and l, pass 2 rounds the normalised p;
+// delta sums p dp over a pass of its own. Every dW is a contraction over
+// rows summed in fixed chunks and a fixed order: deterministic, no atomics.
 //
 // The five dense products (qkv, proj, do, dy and the two dW) are 14.5 of the
 // 26.8 TFLOP this half-block does in a main_dino step at batch 128 (12
@@ -45,20 +50,21 @@
 //
 // In bf16 the cores are bound by their tensor-core products (4 N^2 dh a
 // head and sequence forward, 10 backward, as the bound counts them; the
-// forward forms the scores twice and the backward five score-sized products
-// a tile pair in dq and four in dk/dv) and by the exp and divide of every
-// score. So the scores never leave registers: each warp owns 16 whole rows,
-// takes its row max and sums with two quad shuffles, and packs p or dS,
-// rounded, straight into the A fragment of the next mma.sync; the streamed
-// tiles come through a cp.async ring that overlaps the next tile's copy
-// with this tile's math, one barrier a tile. wgmma, TMA and a key-split of
-// the long sequences are later work for the cores. In f32 the cores run on
-// the CUDA cores with true f32 FMA.
+// forward forms each score once on wgmma, dq forms three score-sized
+// products a tile pair and dk/dv four) and by the exp of every score. So
+// the scores never leave registers: the forward is K15's TMA ring into
+// wgmma with p packed from the S accumulators into the register A operand;
+// in the backward cores each warp owns 16 whole rows and packs p or dS,
+// rounded, straight into the A fragment of the next mma.sync, the streamed
+// tiles through a cp.async ring that overlaps the next tile's copy with
+// this tile's math, one barrier a tile. In f32 the cores run on the CUDA
+// cores with true f32 FMA.
 //
-// Rounding points follow the Pallas bodies: LN in f32 with eps 1e-6; y, q,
-// k, v, p, o, dout*s, do, dS, dq, dk, dv rounded to CD where the body casts
-// them; f32 accumulation; softmax, dp, dbqkv, dbp, dg, db in f32; the
-// residual stream in SD.
+// Rounding points follow the Pallas bodies but for the cores' p: LN in f32
+// with eps 1e-6; y, q, k, v, o, dout*s, do, dS, dq, dk, dv rounded to CD
+// where the body casts them; p rounded to CD unnormalised in the bf16
+// forward, normalised in the backward and in f32; f32 accumulation;
+// softmax, delta, dp, dbqkv, dbp, dg, db in f32; the residual stream in SD.
 
 #include "vit_common.cuh"
 #include "warp_mma.cuh"
@@ -429,15 +435,16 @@ attn_bwd_dkdv(const CD* __restrict__ qkv, const CD* __restrict__ dob,
 }
 
 // ------------------------------------------------ attention cores (bf16)
-// The same three kernels for a bf16 compute dtype, on mma.sync m16n8k16
-// (bf16 operands, f32 sums), with every score tile in registers. A CTA of
-// four warps owns 64 rows of one (sequence, head): query rows in the forward
-// and in dq, key rows in dk/dv; warp w owns rows 16 w .. 16 w + 15 across
-// every column, so a row's max and sums stay in the four lanes of a quad
-// (two shuffles). Its own rows' operands go from shared memory into A
-// fragments once; the other side's 64-row tiles stream through a ring of
-// kStages shared-memory stages filled by cp.async (16-byte copies, zero
-// fill past N) while the previous tile is being used, one barrier a tile.
+// The two backward kernels for a bf16 compute dtype, on mma.sync m16n8k16
+// (bf16 operands, f32 sums), with every score tile in registers (the bf16
+// forward is K15's flash_fwd_wgmma, below). A CTA of four warps owns 64
+// rows of one (sequence, head): query rows in dq, key rows in dk/dv; warp w
+// owns rows 16 w .. 16 w + 15 across every column, so a row's sums stay in
+// the four lanes of a quad (two shuffles). Its own rows' operands go from
+// shared memory into A fragments once; the other side's 64-row tiles stream
+// through a ring of kStages shared-memory stages filled by cp.async
+// (16-byte copies, zero fill past N) while the previous tile is being used,
+// one barrier a tile.
 // Tiles are bf16 [row][c], rows kLdH = 72 values apart (the 8 rows an
 // ldmatrix reads land in 8 different 4-bank groups), zero from dh up to
 // the depth KD * 16.
@@ -447,12 +454,11 @@ constexpr int kMmaThreads = 128;     // four warps of 16 rows
 constexpr int kLdH = kT + 8;         // bf16 row stride of a shared tile
 constexpr int kHTile = kRows * kLdH;
 constexpr int kStages = 2;
-// CTAs an SM holds, as the launch bounds ask: 4 for the forward and dq
-// (registers capped at 128 a thread; the forward takes 140 without the cap)
-// and 3 for dk/dv (168 registers); none spills (nvcc -Xptxas -v).
+// CTAs an SM holds, as the launch bounds ask: 4 for dq (registers capped
+// at 128 a thread) and 3 for dk/dv (168 registers); none spills (nvcc
+// -Xptxas -v).
 
 // Shared memory of each kernel, bytes: its own rows' tiles and the ring.
-constexpr int kFwdSmem = (1 + 2 * kStages) * kHTile * 2;                 // Q | (K, V) x stages
 constexpr int kDqSmem = (2 + 2 * kStages) * kHTile * 2;                  // Q, dO | (K, V)
 constexpr int kDkdvSmem = (2 + 2 * kStages) * kHTile * 2 + kStages * kRows * 3 * 4;
 
@@ -492,9 +498,9 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[KD][4], const bf16* t) {
 
 // s = a . t[c16 .. c16 + 15]^T: this warp's 16 rows against 16 rows of tile
 // t (two n8 tiles), summed over k-steps 0 .. KD-1 in order from zero. Every
-// score of every kernel is formed here, so a score recomputed with its
-// operands swapped (S^T = K Q^T in dk/dv) adds the same products in the
-// same order as the forward.
+// score of both backward cores is formed here, so a score recomputed with
+// its operands swapped (S^T = K Q^T in dk/dv) adds the same products in the
+// same order as dq.
 template <int KD>
 __device__ __forceinline__ void score16(float (&s)[2][4], const uint32_t (&a)[KD][4],
                                         const bf16* t, int c16) {
@@ -550,9 +556,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // exp(scale s - m) as every core forms it, 2^(s sL - m log2e) with sL =
 // scale log2e (K5/K6: scale 1, sL = log2e) and mL = m log2e: one FMA and
-// the MUFU ex2; p is that times rl = 1 / l (both rounded to nearest). The
-// forwards, dq and dk/dv run exactly these instructions on the same scores,
-// so they form the same p.
+// the MUFU ex2; the backward's p is that times rl = 1 / l (both rounded to
+// nearest). dq and dk/dv run exactly these instructions on the same scores,
+// so they form the same p; the forward forms its exp so too, over its
+// running max.
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -616,126 +623,13 @@ __device__ __forceinline__ void store_rows(const float (&acc)[2 * KD][4], float*
   }
 }
 
-// Forward core for one (query tile, head, sequence). qkv (B*N, 3D); o (B*N,
-// D); stats (B, H, N, 2) f32 = (m, l) per query row. The ring runs 2 nt
-// tiles: the K tiles for pass 1 (m and l), then K and V for pass 2 (p = exp(s
-// - m) / l rounded to bf16, packed straight into the A fragment of p v).
+// dq for one (query tile, head, sequence), and delta_i = sum_c o_ic do_ic
+// from the forward's output o (B*N, D) (the JAX library's di; equal to the
+// Pallas body's sum_j p_ij dp_ij), so the ring runs K and V once. dob (B*N,
+// D) holds do; dq goes to columns [0, D) of dqkv32 (f32, where given) and
+// dqkvn (bf16), both (B*N, 3D). s = scale q.k; dS = p (dp - delta) scale,
+// rounded into the A fragment of dS k (sL = scale log2e).
 template <int KD>
-__global__ void __launch_bounds__(kMmaThreads, 4)
-attn_fwd_mma(const bf16* __restrict__ qkv, bf16* __restrict__ o, float* __restrict__ stats,
-             int N, int H, int dh, int vec) {
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smraw);
-  bf16* ring = Qs + kHTile;  // stage st: K at ring + 2 st kHTile, V after it
-  const int D = H * dh, ld = 3 * D;
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x % 32, t = lane % 4;
-  const bf16* q = qkv + (size_t)b * N * ld + h * dh;
-  const bf16* k = q + D;
-  const bf16* v = q + 2 * D;
-  const int nt = (N + kRows - 1) / kRows, total = 2 * nt;
-
-  auto fetch = [&](int it) {
-    if (it < total) {
-      bf16* st = ring + 2 * (it % kStages) * kHTile;
-      const int j0 = (it % nt) * kRows;
-      load_tile<KD>(st, k, ld, j0, N, dh, vec);
-      if (it >= nt) load_tile<KD>(st + kHTile, v, ld, j0, N, dh, vec);
-    }
-    tc::cp_async_commit();
-  };
-  load_tile<KD>(Qs, q, ld, i0, N, dh, vec);  // in the first group
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) fetch(s);
-
-  uint32_t qa[KD][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, mL[2], rl[2], acc[2 * KD][4];
-#pragma unroll
-  for (int nd = 0; nd < 2 * KD; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    tc::cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (it == 0) load_a<KD>(qa, Qs);
-    fetch(it + kStages - 1);
-    const bf16* Ks = ring + 2 * (it % kStages) * kHTile;
-    const int j0 = (it % nt) * kRows;
-    const bool pass1 = it < nt;
-    by_tile(j0, N, [&](auto masked) {
-      if (pass1) {  // the tile's row max, then the rescaled sum
-        float s[4][2][4], mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          score16<KD>(s[c], qa, Ks, 16 * c);
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N))
-                mx[e / 2] = fmaxf(mx[e / 2], s[c][f][e]);
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float mn = fmaxf(m[r], quad_max(mx[r])), mnL = log2e_of(mn);
-          float sum = 0.f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-#pragma unroll
-            for (int f = 0; f < 2; ++f)
-#pragma unroll
-              for (int e = 2 * r; e < 2 * r + 2; ++e)
-                if (col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N))
-                  sum += exp_sm(s[c][f][e], kLog2e, mnL);
-          l[r] = l[r] * ex2(log2e_of(m[r] - mn)) + quad_sum(sum);
-          m[r] = mn;
-        }
-      } else {  // pass 2: o += p v, 16 keys at a time
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float s[2][4];
-          score16<KD>(s, qa, Ks, 16 * c);
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              s[f][e] = col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N)
-                            ? __fmul_rn(exp_sm(s[f][e], kLog2e, mL[e / 2]), rl[e / 2])
-                            : 0.f;
-          uint32_t pa[4];
-          pack_a(pa, s);
-          acc16<KD>(acc, pa, Ks + kHTile, 16 * c);
-        }
-      }
-    });
-    if (it == nt - 1)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) mL[r] = log2e_of(m[r]), rl[r] = __frcp_rn(l[r]);
-  }
-  tc::cp_async_wait<0>();
-  store_rows<KD>(acc, nullptr, o + (size_t)b * N * D + h * dh, D, i0, N, dh);
-  if (t == 0)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = i0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * r;
-      if (i < N) {
-        float* st = stats + (((size_t)b * H + h) * N + i) * 2;
-        st[0] = m[r];
-        st[1] = l[r];
-      }
-    }
-}
-
-// dq for one (query tile, head, sequence), and delta_i = sum_j p_ij dp_ij.
-// dob (B*N, D) holds do; dq goes to columns [0, D) of dqkv32 (f32, where
-// given) and dqkvn (bf16), both (B*N, 3D). K6 (DI false): the ring runs K
-// and V twice, pass A sums delta over f32 p (the Pallas body's sum), pass B
-// forms dS = p (dp - delta), rounds it into the A fragment of dS k and
-// accumulates dq. K15 (DI): delta_i = sum_c o_ic do_ic from the forward's
-// output o (B*N, D) (the JAX library's di), so the ring runs K and V once;
-// s = scale q.k and dS = p (dp - delta) scale (sL = scale log2e).
-template <int KD, bool DI>
 __global__ void __launch_bounds__(kMmaThreads, 4)
 attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
                 const bf16* __restrict__ o, const float* __restrict__ stats,
@@ -751,12 +645,12 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
   const bf16* q = qkv + (size_t)b * N * ld + h * dh;
   const bf16* k = q + D;
   const bf16* v = q + 2 * D;
-  const int nt = (N + kRows - 1) / kRows, total = DI ? nt : 2 * nt;
+  const int nt = (N + kRows - 1) / kRows;
 
   auto fetch = [&](int it) {
-    if (it < total) {
+    if (it < nt) {
       bf16* st = ring + 2 * (it % kStages) * kHTile;
-      const int j0 = (it % nt) * kRows;
+      const int j0 = it * kRows;
       load_tile<KD>(st, k, ld, j0, N, dh, vec);
       load_tile<KD>(st + kHTile, v, ld, j0, N, dh, vec);
     }
@@ -767,22 +661,20 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) fetch(s);
 
-  float mL[2], rl[2], dl[2] = {0.f, 0.f}, acc[2 * KD][4];
+  float mL[2], rl[2], dl[2], acc[2 * KD][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + 16 * (threadIdx.x / 32) + lane / 4 + 8 * r;
     const float* st = stats + (((size_t)b * H + h) * N + (i < N ? i : 0)) * 2;
     mL[r] = log2e_of(st[0]);
     rl[r] = __frcp_rn(st[1]);
-    if (DI) {  // this lane's columns t, t + 4, ... of its row, summed over the quad below
-      float part = 0.f;
-      if (i < N) {
-        const size_t row = ((size_t)b * N + i) * D + h * dh;
-        for (int c = t; c < dh; c += 4)
-          part += __bfloat162float(o[row + c]) * __bfloat162float(dob[row + c]);
-      }
-      dl[r] = part;
+    float part = 0.f;  // this lane's columns t, t + 4, ... of its row, summed over the quad
+    if (i < N) {
+      const size_t row = ((size_t)b * N + i) * D + h * dh;
+      for (int c = t; c < dh; c += 4)
+        part += __bfloat162float(o[row + c]) * __bfloat162float(dob[row + c]);
     }
+    dl[r] = quad_sum(part);
   }
 #pragma unroll
   for (int nd = 0; nd < 2 * KD; ++nd)
@@ -790,21 +682,16 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
   uint32_t qa[KD][4], da[KD][4];
 
-  for (int it = 0; it < total; ++it) {
+  for (int it = 0; it < nt; ++it) {
     tc::cp_async_wait<kStages - 2>();
     __syncthreads();
     if (it == 0) {
       load_a<KD>(qa, Qs);
       load_a<KD>(da, dOs);
     }
-    if (it == (DI ? 0 : nt)) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) dl[r] = quad_sum(dl[r]);
-    }
     fetch(it + kStages - 1);
     const bf16* Ks = ring + 2 * (it % kStages) * kHTile;
-    const int j0 = (it % nt) * kRows;
-    const bool passA = !DI && it < nt;
+    const int j0 = it * kRows;
     by_tile(j0, N, [&](auto masked) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -815,18 +702,13 @@ attn_bwd_dq_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
         for (int f = 0; f < 2; ++f)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const bool ok = col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N);
             const float p = __fmul_rn(exp_sm(s[f][e], sL, mL[e / 2]), rl[e / 2]);
-            if (passA)
-              dl[e / 2] += ok ? p * dp[f][e] : 0.f;
-            else
-              s[f][e] = ok ? __fmul_rn(p * (dp[f][e] - dl[e / 2]), scale) : 0.f;
+            s[f][e] = col_ok(masked, j0, 16 * c + 8 * f + 2 * t + e % 2, N)
+                          ? __fmul_rn(p * (dp[f][e] - dl[e / 2]), scale) : 0.f;
           }
-        if (!passA) {
-          uint32_t pa[4];
-          pack_a(pa, s);
-          acc16<KD>(acc, pa, Ks, 16 * c);
-        }
+        uint32_t pa[4];
+        pack_a(pa, s);
+        acc16<KD>(acc, pa, Ks, 16 * c);
       }
     });
   }
@@ -944,10 +826,10 @@ attn_bwd_dkdv_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ dob,
                  dh);
 }
 
-// S (B, H, N, N) from the forward's orientation (A = q rows, B = k rows) and
-// St (B, H, N, N) from dk/dv's (A = k rows, B = q rows), both through
-// score16: for the card test that the backward recomputes the forward's
-// scores bit for bit.
+// S (B, H, N, N) from dq's orientation (A = q rows, B = k rows) and St (B,
+// H, N, N) from dk/dv's (A = k rows, B = q rows), both through score16: for
+// the card test that the backward cores recompute the same scores bit for
+// bit, and the forward's saved row max from them.
 template <int KD>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_scores_mma(const bf16* __restrict__ qkv, float* __restrict__ S, float* __restrict__ St,
@@ -1000,15 +882,15 @@ bool vec_ok(int dh, const void* a, const void* b) {
   return dh % 8 == 0 && ((uintptr_t)a % 16) == 0 && ((uintptr_t)b % 16) == 0;
 }
 
-// ------------------------------------------- K15's forward core (bf16)
+// ------------------------------------ the bf16 forward core (K15, K5)
 // Replaces the forward of cerebra/models/vit.py:_flash_mha, which calls the
 // JAX library's Pallas TPU flash_attention: one pass over the keys with an
 // online softmax, f32 running max m, sum l and output o, o rescaled by
 // exp(m_old - m_new) as m grows, the scale applied to the f32 scores, p =
 // exp(scale s - m) rounded to bf16 for p v, o = (sum p v) / l rounded at
-// the end. (K5's core keeps two passes: its reference, the Pallas _fwd_kernel,
-// rounds the normalised p.) It reads q, k and v straight from the qkv rows
-// (B, N, 3D) of the dense layer and writes o (B, N, D) for proj.
+// the end. K5's bf16 core is the same kernel at scale 1 (K5 folds its scale
+// into Wq). It reads q, k and v straight from the qkv rows (B, N, 3D) of
+// the dense layer and writes o (B, N, D) for proj.
 // What bounds it: the tensor-core products (4 N^2 dh a head and sequence,
 // 15.1 GFLOP at main_dino's globals, 0.015 ms at 989 TFLOP/s) and the exp of
 // every score (the MUFU's 16 a cycle an SM: 0.009 ms), not the bytes. The
@@ -1237,23 +1119,17 @@ int launch_flash_fwd(const bf16* qkv, bf16* o, float* stats, int B, int N, int H
   });
 }
 
-// Launch the attention kernels of compute dtype CD: the mma.sync cores for
-// bf16, the CUDA-core f32 bodies for float. scale multiplies the f32 scores
-// (K5/K6: 1); o given (K15, bf16 and f32) takes delta from o . do.
+// The forward core of compute dtype CD: s = scale q.k in f32 (K5: 1, its
+// scale folded into Wq). bf16: flash_fwd_wgmma, one pass over the keys
+// (*tma_used says whether the TMA brought the tiles); f32: the CUDA-core
+// two-pass body.
 template <typename CD>
 int launch_attn_fwd(const CD* qkv, CD* o, float* stats, int B, int N, int H, int dh,
-                    cudaStream_t st, float scale = 1.f) {
+                    cudaStream_t st, float scale = 1.f, int* tma_used = nullptr) {
   if constexpr (std::is_same<CD, bf16>::value) {
-    const dim3 grid((N + kRows - 1) / kRows, H, B);
-    const int vec = vec_ok(dh, qkv, qkv);
-    return with_kd(dh, [&](auto kd) {
-      auto kern = attn_fwd_mma<decltype(kd)::value>;
-      CEREBRA_VIT_CHECK(
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem));
-      CEREBRA_VIT_CHECK(kern<<<grid, kMmaThreads, kFwdSmem, st>>>(qkv, o, stats, N, H, dh, vec));
-      return 0;
-    });
+    return launch_flash_fwd(qkv, o, stats, B, N, H, dh, scale, tma_used, st);
   } else {
+    if (tma_used) *tma_used = 0;
     const dim3 grid((N + kT - 1) / kT, H, B);
     const int smem = 4 * kTile * (int)sizeof(float);
     CEREBRA_VIT_CHECK(cudaFuncSetAttribute(attn_fwd<CD>,
@@ -1264,17 +1140,23 @@ int launch_attn_fwd(const CD* qkv, CD* o, float* stats, int B, int N, int H, int
   }
 }
 
+// The backward cores of compute dtype CD: dq (query tiles), then dk/dv (key
+// tiles), s = scale q.k. delta = sum_c o do from the forward's o, in one
+// pass over the keys; f32 alone also takes a null o and then sums delta =
+// sum_j p dp over a pass of its own (K6's f32 body). bf16: the mma.sync
+// cores (a null o is refused); f32: the CUDA-core bodies.
 template <typename CD>
-int launch_attn_bwd(const CD* qkv, const CD* dob, const float* stats, float* delta,
+int launch_attn_bwd(const CD* qkv, const CD* dob, const CD* o, const float* stats, float* delta,
                     float* dqkv32, CD* dqkvn, int B, int N, int H, int dh, cudaStream_t st,
-                    const CD* o = nullptr, float scale = 1.f) {
+                    float scale = 1.f) {
   if constexpr (std::is_same<CD, bf16>::value) {
+    if (!o) return (int)cudaErrorInvalidValue;
     const dim3 grid((N + kRows - 1) / kRows, H, B);
     const int vec = vec_ok(dh, qkv, dob);
     const float sL = scale * kLog2e;
     return with_kd(dh, [&](auto kd) {
       constexpr int KD = decltype(kd)::value;
-      auto dq = o ? attn_bwd_dq_mma<KD, true> : attn_bwd_dq_mma<KD, false>;
+      auto dq = attn_bwd_dq_mma<KD>;
       auto dkdv = attn_bwd_dkdv_mma<KD>;
       CEREBRA_VIT_CHECK(
           cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem));
@@ -1300,6 +1182,13 @@ int launch_attn_bwd(const CD* qkv, const CD* dob, const float* stats, float* del
         qkv, dob, stats, delta, dqkv32, dqkvn, N, H, dh, scale));
     return 0;
   }
+}
+
+// The o K6's cores take delta from: the forward's in bf16 (one pass over
+// the keys), none in f32 (its two-pass body sums p dp).
+template <typename CD>
+const CD* k6_o(const CD* o) {
+  return std::is_same<CD, bf16>::value ? o : nullptr;
 }
 
 constexpr int kRowThreads = 256;  // 8 rows (warps) per block
@@ -1398,7 +1287,8 @@ int attn_bwd_all(const SD* x, const SD* dout, const float* s, const CD* g, const
                                        wg::EpiBiasRound<CD>{nullptr, dob, D},
                                        EpiBiasRound<CD>{nullptr, dob, D}, st)));
   // attention
-  CEREBRA_VIT_RC(launch_attn_bwd<CD>(qkv, dob, stats, delta, dqkv32, dqkvn, B, N, H, dh, st));
+  CEREBRA_VIT_RC(launch_attn_bwd<CD>(qkv, dob, k6_o(o), stats, delta, dqkv32, dqkvn, B, N, H,
+                                     dh, st));
   // weights: dWp = o^T dn, dWqkv = y^T dqkv_CD; dbqkv = sum dqkv (f32);
   // dy = dqkv_CD @ Wqkv^T
   CEREBRA_VIT_RC(weight_grads<CD>(o, dn, y, dqkvn, dwp, dwqkv, M, D, scratch, st));
@@ -1436,7 +1326,8 @@ int cerebra_vit_attn_fwd(int sd_bf16, int cd_bf16, const void* x, const float* s
 }
 
 // The attention core of the forward alone: qkv (B*N, 3D) CD -> o (B*N, D)
-// CD and stats (B, H, N, 2) f32, as cerebra_vit_attn_fwd runs it.
+// CD and stats (B, H, N, 2) f32, as cerebra_vit_attn_fwd runs it (in bf16
+// K15's forward at scale 1).
 int cerebra_vit_attn_core_fwd(int cd_bf16, const void* qkv, void* o, float* stats, int B, int N,
                               int D, int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -1447,35 +1338,36 @@ int cerebra_vit_attn_core_fwd(int cd_bf16, const void* qkv, void* o, float* stat
 }
 
 // The attention core of the backward alone: from qkv, dob (B*N, D) CD and
-// the forward's stats -> delta (B, H, N) f32, dq, dk, dv into dqkv32 (B*N,
-// 3D) f32 and dqkvn (B*N, 3D) CD, as cerebra_vit_attn_bwd runs it.
-int cerebra_vit_attn_core_bwd(int cd_bf16, const void* qkv, const void* dob, const float* stats,
-                              float* delta, float* dqkv32, void* dqkvn, int B, int N, int D,
-                              int H, void* stream) {
+// the forward's o (B*N, D) CD and stats -> delta (B, H, N) f32, dq, dk, dv
+// into dqkv32 (B*N, 3D) f32 and dqkvn (B*N, 3D) CD, as cerebra_vit_attn_bwd
+// runs it (delta from o in bf16, from p dp in f32).
+int cerebra_vit_attn_core_bwd(int cd_bf16, const void* qkv, const void* dob, const void* o,
+                              const float* stats, float* delta, float* dqkv32, void* dqkvn,
+                              int B, int N, int D, int H, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
   if (cd_bf16)
-    return launch_attn_bwd<bf16>((const bf16*)qkv, (const bf16*)dob, stats, delta, dqkv32,
-                                 (bf16*)dqkvn, B, N, H, D / H, st);
-  return launch_attn_bwd<float>((const float*)qkv, (const float*)dob, stats, delta, dqkv32,
-                                (float*)dqkvn, B, N, H, D / H, st);
+    return launch_attn_bwd<bf16>((const bf16*)qkv, (const bf16*)dob, k6_o((const bf16*)o), stats,
+                                 delta, dqkv32, (bf16*)dqkvn, B, N, H, D / H, st);
+  return launch_attn_bwd<float>((const float*)qkv, (const float*)dob, k6_o((const float*)o),
+                                stats, delta, dqkv32, (float*)dqkvn, B, N, H, D / H, st);
 }
 
 // K15, the flash attention of Attention(use_flash): qkv (B, N, 3D) CD, the
 // qkv dense layer's rows as they are -> o (B, N, D) CD, the rows proj reads,
 // and stats (B, H, N, 2) f32 = (m, l) per query row; s = scale q.k in f32.
-// bf16: the one-pass wgmma core (flash_fwd_wgmma; *tma_used says whether
-// the TMA brought the tiles); f32: the CUDA-core body. The caller's head
-// dim is at most 64.
+// bf16: the one-pass wgmma core (flash_fwd_wgmma, K5's bf16 core too;
+// *tma_used says whether the TMA brought the tiles); f32: the CUDA-core
+// body. The caller's head dim is at most 64.
 int cerebra_vit_flash_fwd(int cd_bf16, const void* qkv, void* o, float* stats, int B, int N,
                           int D, int H, float scale, int* tma_used, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
   if (cd_bf16)
-    return launch_flash_fwd((const bf16*)qkv, (bf16*)o, stats, B, N, H, D / H, scale, tma_used,
-                            st);
-  if (tma_used) *tma_used = 0;
-  return launch_attn_fwd<float>((const float*)qkv, (float*)o, stats, B, N, H, D / H, st, scale);
+    return launch_attn_fwd<bf16>((const bf16*)qkv, (bf16*)o, stats, B, N, H, D / H, st, scale,
+                                 tma_used);
+  return launch_attn_fwd<float>((const float*)qkv, (float*)o, stats, B, N, H, D / H, st, scale,
+                                tma_used);
 }
 
 // K15's backward: from qkv, its forward's o and stats and do (B, N, D) CD ->
@@ -1488,13 +1380,13 @@ int cerebra_vit_flash_bwd(int cd_bf16, const void* qkv, const void* o, const voi
   cudaStream_t st = (cudaStream_t)stream;
   if (D % H != 0 || D / H > kT) return (int)cudaErrorInvalidValue;
   if (cd_bf16)
-    return launch_attn_bwd<bf16>((const bf16*)qkv, (const bf16*)dob, stats, delta, nullptr,
-                                 (bf16*)dqkv, B, N, H, D / H, st, (const bf16*)o, scale);
-  return launch_attn_bwd<float>((const float*)qkv, (const float*)dob, stats, delta, nullptr,
-                                (float*)dqkv, B, N, H, D / H, st, (const float*)o, scale);
+    return launch_attn_bwd<bf16>((const bf16*)qkv, (const bf16*)dob, (const bf16*)o, stats, delta,
+                                 nullptr, (bf16*)dqkv, B, N, H, D / H, st, scale);
+  return launch_attn_bwd<float>((const float*)qkv, (const float*)dob, (const float*)o, stats,
+                                delta, nullptr, (float*)dqkv, B, N, H, D / H, st, scale);
 }
 
-// The scores of every (sequence, head) as the forward forms them, S (B, H,
+// The scores of every (sequence, head) as the dq core forms them, S (B, H,
 // N, N) f32, and as the dk/dv core forms them with the operands swapped, St
 // (B, H, N, N) f32, row key: St[j][i] must equal S[i][j] bit for bit.
 int cerebra_vit_attn_scores(const void* qkv, float* S, float* St, int B, int N, int D, int H,

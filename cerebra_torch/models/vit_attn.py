@@ -21,9 +21,10 @@ PyTorch versions (port of cerebra/models/pallas_vit_attn.py).
   signature and packs its inputs into qkv rows.
 - Their attention cores alone, the launches between the products:
   `attn_core_fwd` (o and each query row's softmax max and sum) and
-  `attn_core_bwd` (dq, then dk and dv), with plain pieces
-  `attn_core_fwd_ref` / `attn_core_bwd_ref`; `attn_scores_cuda` gives the
-  bf16 cores' scores in the forward's and in dk/dv's orientation.
+  `attn_core_bwd` (dq, then dk and dv, from the forward's o and stats),
+  with plain pieces `attn_core_fwd_ref` / `attn_core_bwd_ref`;
+  `attn_scores_cuda` gives the bf16 backward cores' scores in dq's and in
+  dk/dv's orientation.
 
 The q scale dh^-0.5 is folded into Wq and bq before the kernel, and dWq, dbq
 are rescaled after it (`_split_params`, `_bwd`). The qkv feature order is
@@ -42,6 +43,19 @@ a base off 16 bytes) are refused, as K7/K8 refuse them (`_products_wgmma`).
 f32 compute keeps `vit_common.cuh`'s f32 bodies.
 `LAUNCHES["vit_attn_products_wgmma"]` counts the K5/K6 calls that took the
 wgmma path.
+
+The attention cores' rounding points. The plain versions follow the Pallas
+bodies: p = softmax(s) in f32 over the whole row, rounded to cdt for p·v;
+delta = Σ_j p·dp over f32 p. On CUDA in bf16 both cores make one pass over
+the keys: K5's forward core is K15's (`flash_fwd_wgmma` at scale 1, the
+scale already in Wq), which rounds p̃ = exp(s − m) over the running row max
+and divides Σ p̃·v by l in f32 at the end, and K6's dq core takes delta =
+Σ_c o·do from the saved o (the identity Σ_j p·dp = o·do holds exactly).
+Rounding p̃ has the same relative error as rounding p; the card tests hold
+both against the plain versions at the bf16 limit.
+`LAUNCHES["vit_attn_core_one_pass"]` counts the K5/K6 calls whose core took
+that path. f32 compute keeps the two-pass cores, the plain versions'
+formulas.
 """
 
 from __future__ import annotations
@@ -56,7 +70,8 @@ from cerebra_torch.models.vit_mlp import _check_tma, check_cuda, layernorm_f32, 
 from cerebra_torch.utils.spans import span
 
 LAUNCHES.update(vit_attn_fwd=0, vit_attn_bwd=0, vit_attn_core_fwd=0, vit_attn_core_bwd=0,
-                vit_attn_flash_fwd=0, vit_attn_flash_bwd=0, vit_attn_products_wgmma=0)
+                vit_attn_flash_fwd=0, vit_attn_flash_bwd=0, vit_attn_products_wgmma=0,
+                vit_attn_core_one_pass=0)
 
 MAX_HEAD_DIM = 64  # the CUDA kernels' tile width
 FLASH_TILE = 64  # keys a tile of K15's online softmax (csrc/vit_attn.cu)
@@ -229,7 +244,7 @@ def _typed(lib) -> None:
     lib.cerebra_vit_attn_splits.restype = i
     lib.cerebra_vit_attn_core_fwd.argtypes = [i] + [vp] * 3 + [i] * 4 + [vp]
     lib.cerebra_vit_attn_core_fwd.restype = i
-    lib.cerebra_vit_attn_core_bwd.argtypes = [i] + [vp] * 6 + [i] * 4 + [vp]
+    lib.cerebra_vit_attn_core_bwd.argtypes = [i] + [vp] * 7 + [i] * 4 + [vp]
     lib.cerebra_vit_attn_core_bwd.restype = i
     lib.cerebra_vit_attn_scores.argtypes = [vp] * 3 + [i] * 4 + [vp]
     lib.cerebra_vit_attn_scores.restype = i
@@ -294,6 +309,7 @@ def _attn_fwd_cuda(x, s, p: Params, num_heads: int):
     check_rc(lib, rc, "vit_attn_fwd")
     LAUNCHES["vit_attn_fwd"] += 1
     LAUNCHES["vit_attn_products_wgmma"] += wgmma
+    LAUNCHES["vit_attn_core_one_pass"] += cdt == torch.bfloat16
     return out, (y, mu, rstd, qkv, o, stats)
 
 
@@ -332,6 +348,7 @@ def _attn_bwd_cuda(dout, x, s, p: Params, num_heads: int, saved):
     check_rc(lib, rc, "vit_attn_bwd")
     LAUNCHES["vit_attn_bwd"] += 1
     LAUNCHES["vit_attn_products_wgmma"] += wgmma
+    LAUNCHES["vit_attn_core_one_pass"] += cdt == torch.bfloat16
     return dx, dg, db, dwqkv, dbqkv, dwp, dbp
 
 
@@ -362,10 +379,11 @@ def _core_fwd_cuda(qkv, B, N, H):
     return o, stats
 
 
-def _core_bwd_cuda(qkv, dob, stats, B, N, H):
-    D = _core_dims(qkv, B, N, H, (dob, stats))
-    if dob.shape != (B * N, D) or dob.dtype != qkv.dtype:
-        raise ValueError("dob must be (B·N, D) in qkv's dtype")
+def _core_bwd_cuda(qkv, dob, o, stats, B, N, H):
+    D = _core_dims(qkv, B, N, H, (dob, o, stats))
+    for t in (dob, o):
+        if t.shape != (B * N, D) or t.dtype != qkv.dtype:
+            raise ValueError("dob and o must be (B·N, D) in qkv's dtype")
     if stats.shape != (B, H, N, 2) or stats.dtype != torch.float32:
         raise ValueError("stats must be (B, H, N, 2) float32")
     dev, f32 = qkv.device, torch.float32
@@ -374,8 +392,8 @@ def _core_bwd_cuda(qkv, dob, stats, B, N, H):
     dqkvn = torch.empty(B * N, 3 * D, dtype=qkv.dtype, device=dev)
     lib = load_lib("vit_attn", _typed)
     rc = lib.cerebra_vit_attn_core_bwd(int(qkv.dtype == torch.bfloat16), ptr(qkv), ptr(dob),
-                                       ptr(stats), ptr(delta), ptr(dqkv32), ptr(dqkvn), B, N, D,
-                                       H, stream_of(qkv))
+                                       ptr(o), ptr(stats), ptr(delta), ptr(dqkv32), ptr(dqkvn), B,
+                                       N, D, H, stream_of(qkv))
     check_rc(lib, rc, "vit_attn_core_bwd")
     LAUNCHES["vit_attn_core_bwd"] += 1
     return dqkv32, dqkvn, delta
@@ -441,8 +459,8 @@ def attn_bwd(dout, x, s, p: Params, num_heads: int, saved):
 
 
 def attn_scores_cuda(qkv, B: int, N: int, H: int):
-    """The bf16 cores' scores of every (sequence, head) on the card, formed
-    as the forward and dq form them (S, q rows against k rows) and as dk/dv
+    """The bf16 backward cores' scores of every (sequence, head) on the
+    card, formed as dq forms them (S, q rows against k rows) and as dk/dv
     forms them (St, k rows against q rows), both (B, H, N, N) f32 with rows
     the first operand's; St must be S transposed bit for bit."""
     D = _core_dims(qkv, B, N, H)
@@ -456,17 +474,20 @@ def attn_scores_cuda(qkv, B: int, N: int, H: int):
 
 
 def attn_core_fwd(qkv, B: int, N: int, H: int):
-    """K5's attention core alone (the kernel on CUDA, its plain version on
-    the CPU) → (o, stats); K5 runs the same kernel between its products."""
+    """K5's attention core alone (the kernel on CUDA, in bf16 K15's forward
+    at scale 1; its plain version on the CPU) → (o, stats); K5 runs the same
+    kernel between its products."""
     if on_cuda(qkv):
         return _core_fwd_cuda(qkv, B, N, H)
     return attn_core_fwd_ref(qkv, B, N, H)
 
 
-def attn_core_bwd(qkv, dob, stats, B: int, N: int, H: int):
-    """K6's attention cores alone (dq, then dk/dv) → (dqkv32, dqkvn, delta)."""
-    if on_cuda(qkv, dob, stats):
-        return _core_bwd_cuda(qkv, dob, stats, B, N, H)
+def attn_core_bwd(qkv, dob, o, stats, B: int, N: int, H: int):
+    """K6's attention cores alone (dq, then dk/dv) from the forward core's o
+    and stats → (dqkv32, dqkvn, delta). The bf16 kernel takes delta from o
+    (Σ_c o·do); the f32 kernel and the plain version sum Σ_j p·dp."""
+    if on_cuda(qkv, dob, o, stats):
+        return _core_bwd_cuda(qkv, dob, o, stats, B, N, H)
     return attn_core_bwd_ref(qkv, dob, stats, B, N, H)
 
 

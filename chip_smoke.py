@@ -947,10 +947,11 @@ def phase_main_dino() -> dict:
     log(f"[main_dino] losses {[round(v, 4) for v in losses]}; windows/s per epoch "
         f"{[round(w, 2) for w in hist['windows_per_s']]}")
     # 12 blocks x (2 student view groups + 1 teacher group) forwards, 12 x 2
-    # backwards; in bf16 every K5/K6 call's products on wgmma
+    # backwards; in bf16 every K5/K6 call's products on wgmma and its core
+    # one pass over the keys
     for name, per_step in (("vit_attn_fwd", 36), ("vit_mlp_fwd", 36),
                            ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24),
-                           ("vit_attn_products_wgmma", 60)):
+                           ("vit_attn_products_wgmma", 60), ("vit_attn_core_one_pass", 60)):
         if launches[name] < per_step * steps:
             raise AssertionError(f"{name} launched {launches[name]} times in {steps} steps, "
                                  f"fewer than {per_step} per step")
@@ -962,7 +963,9 @@ def phase_main_dino() -> dict:
 def label_vit(names) -> list:
     """(half-block, piece) of each kernel of the ViT half-blocks, by name in
     launch order, None for the others. K5 launches LN, the qkv product
-    (`EpiBiasRound`), its attention core and the proj (`EpiResidual`); K6
+    (`EpiBiasRound`), its attention core (`flash_fwd_wgmma` in bf16, K15's
+    forward, which K5 launches right after its qkv product; `attn_fwd` in
+    f32) and the proj (`EpiResidual`); K6
     from `scale_round` to `ln_bwd_rows`, its two attention cores in the
     middle, and in bf16 dWp and dWqkv as one launch after them (`EpiPartial`,
     "dW/dbqkv"; in f32 dWp's contraction comes before the cores); K7 LN, fc1 (`EpiGelu`) and fc2 (`EpiResidual`); K8 from
@@ -982,7 +985,8 @@ def label_vit(names) -> list:
         return i
 
     for i, name in enumerate(names):
-        if "attn_fwd" in name:
+        if "attn_fwd" in name or (
+                "flash_fwd" in name and i > 0 and "EpiBiasRound" in names[i - 1]):
             expect(i - 2, "ln_fwd_rows")
             expect(i - 1, "EpiBiasRound")
             expect(i + 1, "EpiResidual")
@@ -1069,19 +1073,19 @@ def vit_pieces(B: int, N: int, x, dout, s_seq, pa, sa, gpu: str) -> dict:
     qkv = sa[3]
     dob = (dout.reshape(B * N, D) @ pa[4].float().t()).to(torch.bfloat16)
     tag = f"B={B} N={N} bf16"
-    _, st_k = va.attn_core_fwd(qkv, B, N, H_VIT)
+    o_k, st_k = va.attn_core_fwd(qkv, B, N, H_VIT)
     sdpa_f, sdpa_fb = sdpa_ms(qkv, dob, B, N)
     rows = {
         "fwd": timing_row(lambda: va.attn_core_fwd(qkv, B, N, H_VIT),
                           lambda: va.attn_core_fwd_ref(qkv, B, N, H_VIT), (qkv,),
                           4 * B * N * N * D, torch.bfloat16, 10, 3, what=f"core fwd {tag}",
                           family="vit"),
-        "bwd": timing_row(lambda: va.attn_core_bwd(qkv, dob, st_k, B, N, H_VIT),
+        "bwd": timing_row(lambda: va.attn_core_bwd(qkv, dob, o_k, st_k, B, N, H_VIT),
                           lambda: va.attn_core_bwd_ref(qkv, dob, st_k, B, N, H_VIT),
-                          (qkv, dob, st_k), 10 * B * N * N * D, torch.bfloat16, 10, 3,
+                          (qkv, dob, o_k, st_k), 10 * B * N * N * D, torch.bfloat16, 10, 3,
                           what=f"core bwd {tag}", family="vit", grad=True),
     }
-    kernels, _, _ = traced(lambda: va.attn_core_bwd(qkv, dob, st_k, B, N, H_VIT), n)
+    kernels, _, _ = traced(lambda: va.attn_core_bwd(qkv, dob, o_k, st_k, B, N, H_VIT), n)
     split = {core: sum(ms for k, ms in kernels if frag in k) / n
              for core, frag in (("dq core", "attn_bwd_dq"), ("dk/dv core", "attn_bwd_dkdv"))}
     log(f"[vit pieces] core fwd {tag}: {fmt_row(rows['fwd'])}; SDPA flash forward "
@@ -2365,7 +2369,7 @@ def dino_retrieval(gpu: str) -> None:
         seconds = time.perf_counter() - t0
         ran = {k: v for k, v in LAUNCHES.items() if v}
         # 12 blocks x (the gallery's forward + the query's), in f32: the exact
-        # match holds vit_attn_products_wgmma at 0
+        # match holds vit_attn_products_wgmma and vit_attn_core_one_pass at 0
         if ran != {"vit_attn_fwd": 24, "vit_mlp_fwd": 24}:
             raise AssertionError(f"eeg_retrieval_dino ({what}) launched {ran}")
         files = ("commandline_args.txt", "synthetic_Scores.pth", "synthetic_Scores.txt",
@@ -2543,7 +2547,8 @@ def flash_main_dino(gpu: str) -> dict:
     if state.step != steps or not all(math.isfinite(v) for v in hist["loss"]):
         raise AssertionError(f"main_dino --use_flash: {state.step} steps, losses {hist['loss']}")
     want = {"vit_attn_flash_fwd": 24 * steps, "vit_attn_flash_bwd": 12 * steps,
-            "vit_attn_core_fwd": 0, "vit_attn_core_bwd": 0, "vit_attn_fwd": 0, "vit_attn_bwd": 0}
+            "vit_attn_core_fwd": 0, "vit_attn_core_bwd": 0, "vit_attn_fwd": 0, "vit_attn_bwd": 0,
+            "vit_attn_core_one_pass": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"main_dino --use_flash launched {launches}, not {want}")
     log(f"[flash] main_dino --use_flash true --use_fused_attn false: {steps} steps in "
@@ -2778,7 +2783,8 @@ def noise_probe_phase(gpu: str) -> tuple:
     ran = {k: v for k, v in LAUNCHES.items() if v}
     with open(os.path.join(log_dir, "noise_probe.json")) as f:
         saved = json.load(f)
-    # f32: the exact match holds vit_attn_products_wgmma at 0
+    # f32: the exact match holds vit_attn_products_wgmma and
+    # vit_attn_core_one_pass at 0
     if ran != {"vit_attn_fwd": 24, "vit_mlp_fwd": 24} or saved != out or not all(
             math.isfinite(v) for v in saved.values()) or saved["feature_dim"] != 192:
         raise AssertionError(f"noise_probe: {saved}, launches {ran}")
@@ -2812,7 +2818,8 @@ def hub_phase(gpu: str) -> None:
             f"(build on the host included)")
         del model, out
     ran = {k: v for k, v in LAUNCHES.items() if v}
-    # f32: the exact match holds vit_attn_products_wgmma at 0
+    # f32: the exact match holds vit_attn_products_wgmma and
+    # vit_attn_core_one_pass at 0
     if ran != {"vit_attn_fwd": 12 * len(HUB_VITS), "vit_mlp_fwd": 12 * len(HUB_VITS)}:
         raise AssertionError(f"hub forwards launched {ran}")
     cache = teacher_dir("hub_cache")
@@ -2873,7 +2880,7 @@ def dino_images(gpu: str) -> None:
     seconds = time.perf_counter() - t0
     ran = {k: v for k, v in LAUNCHES.items() if v}
     want = {"vit_attn_fwd": 72, "vit_mlp_fwd": 72, "vit_attn_bwd": 48, "vit_mlp_bwd": 48,
-            "vit_attn_products_wgmma": 120}
+            "vit_attn_products_wgmma": 120, "vit_attn_core_one_pass": 120}
     if state.step != 2 or ran != want or not all(math.isfinite(v) for v in hist["loss"]):
         raise AssertionError(f"dino_vit_train with images: {state.step} steps, loss "
                              f"{hist['loss']}, launches {ran}")
@@ -3460,7 +3467,7 @@ def mg_main_dino() -> dict:
     steps = MG_DINO_EPOCHS * (MG_DINO_TRIALS // (4 * dist.get_world_size()))
     for name, per_step in (("vit_attn_fwd", 36), ("vit_mlp_fwd", 36),
                            ("vit_attn_bwd", 24), ("vit_mlp_bwd", 24),
-                           ("vit_attn_products_wgmma", 60)):
+                           ("vit_attn_products_wgmma", 60), ("vit_attn_core_one_pass", 60)):
         if launches.get(name, 0) < per_step * steps:
             raise AssertionError(f"{name} launched {launches.get(name, 0)} times in "
                                  f"{steps} steps on this rank")
@@ -4017,7 +4024,8 @@ def transforms_phase(gpu: str) -> dict:
             "CPU's unfused path", torch.from_numpy(got[:2]), torch.from_numpy(want), TOL_VIT)
     log(f"[transforms] dino_features: {corpus.n} trials in {seconds:.2f} s "
         f"({corpus.n / seconds:.1f} trials/s), launches {ran['dino_features']}; {gpu}")
-    # f32: the exact match holds vit_attn_products_wgmma at 0
+    # f32: the exact match holds vit_attn_products_wgmma and
+    # vit_attn_core_one_pass at 0
     if ran["dino_features"] != {"vit_attn_fwd": 12 * n_dino, "vit_mlp_fwd": 12 * n_dino}:
         raise AssertionError(f"dino_features launched {ran['dino_features']}")
     return ran

@@ -1282,13 +1282,15 @@ def test_vit_attn_kernels_match_plain(cuda, shape, dt, scaled):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("counter", ["vit_attn_products_wgmma", "vit_attn_core_one_pass"])
 @pytest.mark.parametrize("dt", list(VIT_DTYPES))
 @pytest.mark.parametrize("shape", [(2, 145, 384, 6), (2, 13, 36, 4)], ids=str)
-def test_vit_attn_products_take_wgmma_in_bf16(cuda, shape, dt):
-    """K5/K6's products take the TMA + wgmma path, and count one a call,
-    exactly where the compute dtype is bf16; f32 keeps its f32 bodies at
-    any width and leaves the count; bf16 at D 36, whose rows the TMA cannot
-    read, is refused with a ValueError before any launch."""
+def test_vit_attn_products_take_wgmma_in_bf16(cuda, shape, dt, counter):
+    """K5/K6's products take the TMA + wgmma path and their attention cores
+    the one-pass path, each counted once a call (`counter`), exactly where
+    the compute dtype is bf16; f32 keeps its f32 bodies and two-pass cores
+    at any width and leaves both counts; bf16 at D 36, whose rows the TMA
+    cannot read, is refused with a ValueError before any launch."""
     from cerebra_torch.kernels import LAUNCHES
     from cerebra_torch.models import vit_attn as va
 
@@ -1305,7 +1307,7 @@ def test_vit_attn_products_take_wgmma_in_bf16(cuda, shape, dt):
     _, saved = va.attn_fwd(x, s, p, H)
     va.attn_bwd(dout, x, s, p, H, saved)
     want = 2 if cdt == torch.bfloat16 else 0
-    assert LAUNCHES["vit_attn_products_wgmma"] == before["vit_attn_products_wgmma"] + want
+    assert LAUNCHES[counter] == before[counter] + want
     torch.cuda.synchronize()
 
 
@@ -1583,7 +1585,7 @@ def test_vit_attn_cores_match_plain(cuda, shape, dt):
     o_r, stats_r = va.attn_core_fwd_ref(qkv, B, N, H)
     vit_close(o, o_r, cdt, grad=False)
     vit_close(stats, stats_r, torch.float32, grad=False)
-    got = va.attn_core_bwd(qkv, dob, stats, B, N, H)
+    got = va.attn_core_bwd(qkv, dob, o, stats, B, N, H)
     for a, b in zip(got, va.attn_core_bwd_ref(qkv, dob, stats, B, N, H)):
         vit_close(a, b, cdt, grad=True)
     assert (LAUNCHES["vit_attn_core_fwd"], LAUNCHES["vit_attn_core_bwd"]) == (
@@ -1594,8 +1596,9 @@ def test_vit_attn_cores_match_plain(cuda, shape, dt):
 @pytest.mark.parametrize("shape", CORE_SHAPES, ids=str)
 def test_vit_attn_backward_recomputes_the_forward_scores(cuda, shape):
     """dk/dv forms S^T = K Q^T with the key rows as the A operand; it must
-    equal the forward's S = Q K^T bit for bit, and the forward's saved row
-    max must be the max of those scores, so every core forms the same p."""
+    equal dq's S = Q K^T bit for bit, and the forward's saved row max (its
+    scores on wgmma) must be the max of those scores, so both backward
+    cores form the same p from the forward's m and l."""
     from cerebra_torch.models import vit_attn as va
 
     qkv, _, B, N, H = core_inputs(shape, torch.bfloat16, cuda, seed=shape[1])
@@ -1605,6 +1608,27 @@ def test_vit_attn_backward_recomputes_the_forward_scores(cuda, shape):
     vit_close(S, q.float() @ k.float().transpose(-1, -2), torch.float32, grad=False)
     _, stats = va.attn_core_fwd(qkv, B, N, H)
     assert torch.equal(stats[..., 0], S.amax(-1))
+
+
+# K5's bf16 forward core is K15's at scale 1 (K5 folds its scale into Wq):
+# the core alone and the half-block's saved o and stats against K15's
+# forward on the same qkv rows, bit for bit, at main_dino's globals and
+# locals and at a ragged shape of head dim 8.
+@pytest.mark.parametrize("shape", [(16, 785, 384, 6), (32, 145, 384, 6), (2, 13, 32, 4)],
+                         ids=str)
+def test_vit_attn_bf16_core_is_flash_at_scale_one(cuda, shape):
+    from cerebra_torch.models import vit_attn as va
+
+    B, N, D, H = shape
+    qkv, _, _, _, _ = core_inputs(shape, torch.bfloat16, cuda, seed=N)
+    o, stats = va.attn_core_fwd(qkv, B, N, H)
+    o_f, stats_f = va.flash_fwd(qkv.view(B, N, 3 * D), H, 1.0)
+    assert torch.equal(o, o_f.view(B * N, D)) and torch.equal(stats, stats_f)
+    x, params, _, s = vit_inputs(B, N, D, 0, torch.float32, cuda, N, True, attn=True)
+    _, saved = va.attn_fwd(x, s, va._prep(*params, H, torch.bfloat16), H)
+    qkv_h, o_h, stats_h = saved[3:]
+    o_f, stats_f = va.flash_fwd(qkv_h.view(B, N, 3 * D), H, 1.0)
+    assert torch.equal(o_h, o_f.view(B * N, D)) and torch.equal(stats_h, stats_f)
 
 
 # K15, the flash attention of `Attention(use_flash=True)`, through

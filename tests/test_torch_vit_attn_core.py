@@ -75,7 +75,7 @@ def compose_bwd(dout, x, s, p, H, saved):
     dn = d.to(cdt)
     dbp, dwp = d.sum(0), mm(o.t(), dn)
     dob = mm(dn, wp.t()).to(cdt)
-    dqkv32, dqkvn, _ = va.attn_core_bwd(qkv, dob, stats, B, N, H)
+    dqkv32, dqkvn, _ = va.attn_core_bwd(qkv, dob, o, stats, B, N, H)
     dwqkv, dbqkv = mm(y.t(), dqkvn), dqkv32.sum(0)
     dy = mm(dqkvn, wqkv.t()).reshape(B, N, D)
     dx, dg, db = ln_backward(dy, xn, rstd, g, dout_raw, x.dtype)
@@ -157,7 +157,7 @@ def test_core_wrappers_take_the_plain_versions_on_the_cpu():
     assert torch.equal(o2, o) and torch.equal(stats2, stats)
     assert stats.shape == (B, H, N, 2)
     dob = torch.from_numpy(ct).reshape(B * N, D)
-    dqkv32, dqkvn, delta = va.attn_core_bwd(qkv, dob, stats, B, N, H)
+    dqkv32, dqkvn, delta = va.attn_core_bwd(qkv, dob, o, stats, B, N, H)
     want = va.attn_core_bwd_ref(qkv, dob, stats, B, N, H)
     for a, b in zip((dqkv32, dqkvn, delta), want):
         assert torch.equal(a, b)
